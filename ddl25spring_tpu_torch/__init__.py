@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of ``ddl25spring_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package beside this one is the reference: every module here keeps
+the JAX function names and parameter-tree layout so each counterpart is
+easy to find and the two can be held against each other on the same
+weights and inputs (``tests/test_torch_*.py``). This package imports
+neither ``jax`` nor ``ddl25spring_tpu``; what it needs of the reference's
+host-side code it carries as its own copy.
+
+Slice covered so far: inference. ``models.llama.forward`` (with the
+hand-written CUDA flash-attention forward, ``ops/csrc/flash_fwd.cu``),
+``models.generate.generate``, and the paged serving engine, scheduler and
+front end (``serving/``). Entry points take ``device=None``, meaning CUDA;
+pass ``device="cpu"`` to run the plain PyTorch paths on the CPU.
+"""

@@ -1,0 +1,60 @@
+"""Parameter bridge between the JAX package's ``init_llama`` tree and the
+port's ``Llama``: a name-for-name copy of numpy arrays, with no transposes
+(both sides store weights ``[in, out]`` with blocks stacked on ``[L]``)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import LlamaConfig
+from .device import resolve_device
+from .models.llama import Llama, as_tree, tree_map
+
+
+def _expected_shapes(cfg: LlamaConfig) -> dict:
+    d, f, n, v = cfg.dmodel, cfg.ffn_dim, cfg.n_layers, cfg.vocab_size
+    blocks = {k: (n, d, d) for k in ("wq", "wk", "wv", "wo")}
+    blocks.update(attn_norm={"scale": (n, d)}, mlp_norm={"scale": (n, d)},
+                  w_gate=(n, d, f), w_up=(n, d, f), w_down=(n, f, d))
+    return {"embed": (v, d), "blocks": blocks, "final_norm": {"scale": (d,)},
+            "lm_head": (d, v)}
+
+
+def _check_tree(tree, want, path="") -> None:
+    if isinstance(want, dict):
+        if not isinstance(tree, dict) or set(tree) != set(want):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"params{path}: keys {got} != {sorted(want)}")
+        for k in want:
+            _check_tree(tree[k], want[k], f"{path}.{k}")
+    elif tuple(np.shape(tree)) != want:
+        raise ValueError(f"params{path}: shape {tuple(np.shape(tree))} != "
+                         f"{want} for this config")
+
+
+def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Llama:
+    """JAX ``init_llama`` tree (numpy arrays, or anything ``np.asarray``
+    takes) → ``Llama`` on ``device``, dtypes kept. Raises on a tree that
+    does not fit ``cfg``."""
+    dev = resolve_device(device)
+    _check_tree(tree, _expected_shapes(cfg))
+    return Llama(cfg, tree_map(lambda x: _to_torch(x).to(dev), tree))
+
+
+def _to_torch(x) -> torch.Tensor:
+    x = np.array(x, copy=True)
+    if x.dtype.name == "bfloat16":          # ml_dtypes' bf16, unknown to torch
+        return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+def params_to_numpy(params) -> dict:
+    """``Llama`` (or its tree) → nested dict of numpy arrays in the JAX
+    tree's layout (bf16 leaves come back as fp32, which numpy lacks)."""
+    def to_np(x: torch.Tensor) -> np.ndarray:
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.numpy().copy()
+    return tree_map(to_np, as_tree(params))

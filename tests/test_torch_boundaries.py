@@ -1,0 +1,88 @@
+"""Boundaries of the PyTorch port: it imports neither JAX nor the JAX
+package (checked on the source, since this environment may import jax at
+interpreter start), and its entry points run on CUDA unless told
+otherwise, raising when no card is present."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from ddl25spring_tpu_torch import convert
+from ddl25spring_tpu_torch.config import LlamaConfig
+from ddl25spring_tpu_torch.models import generate, llama
+from ddl25spring_tpu_torch.serving import (Engine, PagedKVConfig, Request,
+                                           init_pool, reference_stream,
+                                           run_serving)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "ddl25spring_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "ddl25spring_tpu")
+
+CFG = LlamaConfig(vocab_size=32, dmodel=32, num_heads=2, n_layers=1,
+                  ctx_size=16)
+PAGED = PagedKVConfig(num_blocks=4, block_len=4, max_blocks_per_seq=4)
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_scan_sees_every_port_module():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for want in ("ddl25spring_tpu_torch/models/llama.py",
+                 "ddl25spring_tpu_torch/ops/flash_attention.py",
+                 "ddl25spring_tpu_torch/serving/engine.py", "chip_smoke.py"):
+        assert want in names
+
+
+def _model():
+    return llama.init_llama(CFG, torch.Generator().manual_seed(0),
+                            device="cpu")
+
+
+ENTRY_POINTS = {
+    "init_llama": lambda: llama.init_llama(CFG, torch.Generator()),
+    "params_from_jax": lambda: convert.params_from_jax(
+        convert.params_to_numpy(_model()), CFG),
+    "generate": lambda: generate.generate(_model(), np.zeros((1, 2)), CFG, 2),
+    "init_pool": lambda: init_pool(CFG, PAGED),
+    "Engine": lambda: Engine(_model(), CFG, PAGED, 1),
+    "run_serving": lambda: run_serving(_model(), CFG, PAGED, [], num_slots=1),
+    "reference_stream": lambda: reference_stream(
+        _model(), CFG, PAGED, Request(rid="r", prompt=(1,), max_new=2)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_cuda_and_raise_without_it(name,
+                                                           monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ENTRY_POINTS[name]()
+
+
+def test_explicit_cpu_device_runs(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = generate.generate(_model(), np.zeros((1, 2)), CFG, 2, device="cpu")
+    assert out.shape == (1, 2)
