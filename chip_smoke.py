@@ -10,11 +10,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
              line below carries them.
 2. build   — compile the CUDA kernels from the sources in the checkout
              (nvcc, into the git-ignored build/kernels/).
-3. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes the model gives it, with per-call times (CUDA
-             events, median of 100) beside the plain version, one PyTorch
-             library call for the same function, and the least time the
-             card could take (bytes over HBM rate vs operations over peak).
+3. kernels — the flash forward against its plain PyTorch version on the
+             card, at the shapes the model gives it, with per-call times
+             (CUDA events, median of 100) beside the plain version, one
+             PyTorch library call for the same function, and the least time
+             the card could take (bytes over HBM rate vs operations over
+             peak).
+3b. backward — the flash dQ and dK/dV kernels against their plain version
+             (``flash_attention_bwd_reference``) at the training shape
+             (B=64, T=256, H=6, Dh=48, bf16, dh-major), at B=8 fp32 in both
+             layouts and at ragged T=200 (causal and not), timed likewise;
+             the library call is SDPA's backward.
+3c. adam   — the fused Adam kernel against the plain rule on the 9 leaves
+             that take it at vocab 32000 and on ``smoke_check``'s 972 × 512
+             leaf, with step-3 bias corrections; per-step time of the 9
+             launches beside ``torch._fused_adam_`` on the same leaves.
 4. forward — the canonical tiny-Llama (vocab 32000, dmodel 288, 6 heads of
              48, 6 layers, ctx 256) at B=8, T=256, seeded random weights:
              logits through the kernel ("auto") vs the plain path ("xla"),
@@ -23,6 +33,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
              every request completes with max_new tokens, and every greedy
              stream equals the port's ``generate()`` for it alone, or
              differs first at a near-tie of the reference's logits.
+6. train   — the training step at full width through ``time_train_step``
+             (bf16 compute, flash kernels in the dh-major layout, the fused
+             Adam kernel, batch 64 × 256): launches per step of each kernel
+             (flash forward 6, dQ 6, dK/dV 6, Adam 9), a finite loss,
+             tokens/s (wall), the kernels' ms per step by category
+             (``profile_step``) and MFU. Then, at fp32 and
+             batch 8, the kernel path against the plain path: one step's
+             loss and every gradient leaf, and a 5-step loss trajectory.
+7. trainer — ``train_llm_dp(device=None)`` for 20 steps on the synthetic
+             corpus (byte tokenizer, vocab 259) with ``optimizer="pallas"``:
+             finite losses, and 6 + 6 + 6 flash launches and 7 Adam
+             launches per step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -33,6 +55,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -49,6 +72,13 @@ TOL_OUT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TOL_LSE = 1e-4
 TOL_LOGITS = 1e-3
 NEAR_TIE = 1e-4
+# Backward kernels vs their plain version: fp32 absolute; bf16 relative to
+# the largest reference gradient (one output rounding, 2^-8 relative).
+TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL_ADAM = 1e-6           # p, m, v: the same operations in the same order
+TOL_TRAIN_LOSS = 1e-4     # kernel path vs plain path, one step, fp32
+TOL_TRAIN_GRAD = 1e-4     # ... every gradient leaf, relative to its max
+TOL_TRAJECTORY = 1e-3     # ... 5-step loss trajectory
 
 
 def check(ok: bool, what: str) -> None:
@@ -111,14 +141,44 @@ def attention_bound_us(b, t, h, dh, dtype) -> tuple:
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def attention_bwd_bound_us(b, t, h, dh, dtype, causal, which) -> tuple:
+    """Least time for the backward kernel ``which`` ("dq" or "dkv"): q, k,
+    v, dO read once, lse and delta read once (fp32), the gradients written
+    once (input dtype); 6·Dh (dQ) or 8·Dh (dK/dV) operations per visible
+    (query, key) pair."""
+    item = torch.empty((), dtype=dtype).element_size()
+    n = b * t * h * dh
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    n_out = 1 if which == "dq" else 2
+    nbytes = (4 + n_out) * n * item + 2 * b * h * t * 4
+    flops = (6 if which == "dq" else 8) * dh * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e6
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_flops_per_token(cfg, seq: int) -> float:
+    """bench.py's analytic FLOPs per token of one train step (fwd + bwd =
+    3x the forward's matmuls; attention 4·T·d per layer)."""
+    d, f, n, v = cfg.dmodel, cfg.ffn_dim, cfg.n_layers, cfg.vocab_size
+    per_layer = 8 * d * d + 6 * d * f + 4 * seq * d
+    return 3.0 * (n * per_layer + 2 * d * v)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from ddl25spring_tpu_torch.config import LlamaConfig
+    from ddl25spring_tpu_torch import bench_utils, profile_step
+    from ddl25spring_tpu_torch.config import LlamaConfig, TrainConfig
     from ddl25spring_tpu_torch.models import llama
     from ddl25spring_tpu_torch.ops import _ext
     from ddl25spring_tpu_torch.ops import flash_attention as fa
+    from ddl25spring_tpu_torch.ops import pallas_adam as padam
+    from ddl25spring_tpu_torch.ops.adam import bias_corrections
+    from ddl25spring_tpu_torch.parallel import dp
+    from ddl25spring_tpu_torch.train.llm import train_llm_dp
+    from ddl25spring_tpu_torch.tree import tree_leaves
     from ddl25spring_tpu_torch.serving import (PagedKVConfig, reference_stream,
                                                run_serving, synthetic_workload)
 
@@ -145,14 +205,22 @@ def main() -> int:
     for name in _ext.KERNELS:
         log = _ext.library_path(name).with_suffix(".so.log")
         if log.exists():
+            fn = ""
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+                if "Compiling entry function" in line:
+                    # kernel<type, head dim> out of the mangled name
+                    m = re.search(r"([a-z_]+_kernel)(?:I(\w+?)Li(\d+)E)?",
+                                  line)
+                    fn = m.group(1) + (f"<{m.group(2)}, {m.group(3)}>"
+                                       if m.group(2) else "")
+                elif "registers" in line or "spill" in line:
+                    print(f"  ptxas {fn}: {line.strip()}")
 
     # 3. kernels vs plain -------------------------------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    cases = [(8, 256, 6, 48, torch.float32, False),
+    cases = [(64, 256, 6, 48, torch.bfloat16, True),   # the training step's
+             (8, 256, 6, 48, torch.float32, False),
              (8, 256, 6, 48, torch.float32, True),
              (8, 256, 6, 48, torch.bfloat16, False),
              (8, 256, 6, 48, torch.bfloat16, True),
@@ -199,6 +267,120 @@ def main() -> int:
               f"kernel {kernel_us:.1f} us, wrapper {wrapper_us:.1f} us, "
               f"plain {plain_us:.1f} us, sdpa {sdpa_us:.1f} us, "
               f"bound {bound_us:.2f} us ({bound_by}) {card}")
+
+
+    # 3b. backward kernels vs plain --------------------------------------
+    bwd = []
+    for b, t, h, dh, dtype, dh_major, causal in [
+            (64, 256, 6, 48, torch.bfloat16, True, True),   # training step
+            (8, 256, 6, 48, torch.float32, False, True),
+            (8, 256, 6, 48, torch.float32, True, True),
+            (2, 200, 6, 48, torch.float32, False, True),
+            (2, 200, 6, 48, torch.float32, True, True),
+            (2, 200, 6, 48, torch.float32, True, False)]:
+        q, k, v, do = (torch.randn(b, t, h, dh, generator=gen, device=dev
+                                   ).to(dtype) for _ in range(4))
+        q4, k4, v4, out, lse = fa._fwd(q, k, v, causal=causal,
+                                       dh_major=dh_major)
+        got = fa.flash_attention_bwd(q4, k4, v4, out, lse, do,
+                                     causal=causal)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                               causal=causal)
+        errs = [(g.float() - r.float()).abs().max().item()
+                for g, r in zip(got, ref)]
+        scale = (1.0 if dtype == torch.float32 else
+                 max(r.float().abs().max().item() for r in ref))
+        tag = (f"B={b} T={t} H={h} Dh={dh} {str(dtype)[6:]} "
+               f"dh_major={dh_major} causal={causal}")
+        for name, err in zip(("dq", "dk", "dv"), errs):
+            check(math.isfinite(err) and err <= TOL_BWD[dtype] * scale,
+                  f"flash backward {name} {tag}: max|d|={err:.3g} > "
+                  f"{TOL_BWD[dtype] * scale:.3g}")
+        # Each kernel alone, on the operands the backward gives it.
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+            b * h, t)
+        ops = (q4, k4, v4, do.permute(0, 2, 1, 3))
+        g4 = [x.permute(0, 2, 1, 3) for x in got]
+        dq_us = time_us(lambda: fa._launch_bwd(
+            "ddl_flash_bwd_dq", ops, g4[:1], lse, delta, causal=causal))
+        dkv_us = time_us(lambda: fa._launch_bwd(
+            "ddl_flash_bwd_dkv", ops, g4[1:], lse, delta, causal=causal))
+        plain_us = time_us(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal=causal), reps=20, burst=2)
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal)
+        do_s = do.transpose(1, 2)
+        sdpa_bwd_us = time_us(lambda: torch.autograd.grad(
+            lib_out, (qs, ks, vs), do_s, retain_graph=True))
+        dq_bound = attention_bwd_bound_us(b, t, h, dh, dtype, causal, "dq")
+        dkv_bound = attention_bwd_bound_us(b, t, h, dh, dtype, causal, "dkv")
+        bwd.append({
+            "shape": [b, t, h, dh], "dtype": str(dtype)[6:],
+            "dh_major": dh_major, "causal": causal,
+            "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]},
+            "dq_us": dq_us, "dkv_us": dkv_us, "plain_us": plain_us,
+            "sdpa_bwd_us": sdpa_bwd_us, "dq_bound_us": dq_bound[0],
+            "dq_bound_by": dq_bound[1], "dkv_bound_us": dkv_bound[0],
+            "dkv_bound_by": dkv_bound[1]})
+        print(f"flash_bwd {tag}: max|d| dq {errs[0]:.3g} dk {errs[1]:.3g} "
+              f"dv {errs[2]:.3g}; dq kernel {dq_us:.1f} us (bound "
+              f"{dq_bound[0]:.2f} us, {dq_bound[1]}), dkv kernel "
+              f"{dkv_us:.1f} us (bound {dkv_bound[0]:.2f} us, "
+              f"{dkv_bound[1]}), plain dq+dk+dv {plain_us:.1f} us, sdpa "
+              f"backward {sdpa_bwd_us:.1f} us {card}")
+        del q, k, v, do, q4, k4, v4, out, lse, got, ref, lib_out
+
+    # 3c. Adam kernel vs plain -------------------------------------------
+    shapes = [tuple(x.shape) for x in tree_leaves(llama.init_llama(
+        LlamaConfig(), torch.Generator().manual_seed(0), device="cpu").tree())]
+    meta = [torch.empty(s, device="meta") for s in shapes]
+    leaves = [tuple(x.shape) for x in meta if padam._pallas_eligible(x, x)]
+    check(len(leaves) == 9, f"{len(leaves)} Adam kernel leaves at vocab "
+          f"32000, expected 9")
+    hyper = dict(lr=8e-4, b1=0.9, b2=0.999, eps=1e-8)
+    c1, c2 = bias_corrections(torch.tensor(3, device=dev), 0.9, 0.999)
+    corr = torch.stack([c1, c2])
+    state = []
+    for shape in leaves:
+        p, m, g = (torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(3))
+        vv = torch.randn(shape, generator=gen, device=dev).abs() * 0.01
+        state.append((p, 0.1 * m, vv, g))
+    adam_err = padam.smoke_check(atol=TOL_ADAM)
+    for p, m, vv, g in state:
+        want = [x.clone() for x in (p, m, vv)]
+        padam._leaf_plain(*want, g, c1, c2, **hyper)
+        got = [x.clone() for x in (p, m, vv)]
+        padam._adam_leaf_pallas(*got, g, corr, **hyper)
+        torch.cuda.synchronize()
+        for name, a, bb in zip("pmv", got, want):
+            err = (a - bb).abs().max().item()
+            check(err <= TOL_ADAM, f"adam {name} {tuple(p.shape)}: "
+                  f"max|d|={err:.3g} > {TOL_ADAM}")
+            adam_err = max(adam_err, err)
+    n_adam = sum(p.numel() for p, *_ in state)
+    adam_us = time_us(lambda: [padam._adam_leaf_pallas(
+        p, m, vv, g, corr, **hyper) for p, m, vv, g in state], reps=50,
+        burst=5)
+    adam_plain_us = time_us(lambda: [padam._leaf_plain(
+        p, m, vv, g, c1, c2, **hyper) for p, m, vv, g in state], reps=20,
+        burst=2)
+    cols = [list(x) for x in zip(*state)]
+    steps = [torch.tensor(3.0, device=dev) for _ in state]
+    fused_us = time_us(lambda: torch._fused_adam_(
+        cols[0], cols[3], cols[1], cols[2], [], steps, lr=8e-4, beta1=0.9,
+        beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+        maximize=False), reps=50, burst=5)
+    adam_bound_us = 28 * n_adam / HBM_BYTES_PER_S * 1e6
+    print(f"adam: {len(state)} leaves, {n_adam} elements, max|d| p/m/v "
+          f"{adam_err:.3g} (smoke_check 972x512 included); kernel "
+          f"{adam_us:.1f} us per step ({len(state)} launches), plain "
+          f"{adam_plain_us:.1f} us, torch._fused_adam_ {fused_us:.1f} us, "
+          f"bound {adam_bound_us:.1f} us (bytes) {card}")
+    del state, cols
 
     # 4. forward at full width (the main path of the kernel) -------------
     cfg = LlamaConfig()
@@ -284,18 +466,179 @@ def main() -> int:
           f"dispatch {rep.tokens_per_dispatch:.2f}, flash_fwd launches "
           f"{serve_launches} (paged attention is plain PyTorch) {card}")
 
-    main = next(x for x in layouts if x["shape"] == [8, 256, 6, 48]
-                and x["dtype"] == "float32" and x["dh_major"]
-                == cfg.flash_dh_major)
-    print(json.dumps({"kernels": [{
+    # 6. training step at full width (the training main path) ------------
+    tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                       flash_dh_major=True, flash_block=512)
+    tb, tseq, warm, timed = 64, tcfg.ctx_size, 2, 5
+
+    def zero_counts():
+        fa.launches = fa.dq_launches = fa.dkv_launches = padam.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                "flash_bwd_dkv": fa.dkv_launches, "adam": padam.launches}
+
+    zero_counts()
+    tok_s = bench_utils.time_train_step(tcfg, tb, seq=tseq, opt_name="pallas",
+                                        warmup=warm, timed_steps=timed,
+                                        device=dev)
+    counts = read_counts()
+    per_step = {k: n / (warm + timed) for k, n in counts.items()}
+    want = {"flash_fwd": tcfg.n_layers, "flash_bwd_dq": tcfg.n_layers,
+            "flash_bwd_dkv": tcfg.n_layers, "adam": 9}
+    check(per_step == want, f"train step launches per step {per_step}, "
+          f"expected {want}")
+    # Device time: the kernels' summed durations in a profiled window. A
+    # step launches ~2,300 kernels, more than the launch queue holds, so
+    # steps cannot be queued behind a GPU sleep as time_us does: the host
+    # would block and pace the device.
+    prof = profile_step.profile(tb, steps=3, device=dev)
+    step_loss = prof["loss"]
+    check(math.isfinite(step_loss), f"train step loss {step_loss}")
+    step_kernel_ms = prof["kernel_ms_per_step"]
+    flops_tok = train_flops_per_token(tcfg, tseq)
+    n_tok = tb * tseq
+    step_wall_ms = n_tok / tok_s * 1e3
+    mfu_wall = flops_tok * tok_s / PEAK_FLOPS[torch.bfloat16]
+    mfu_dev = flops_tok * n_tok / (step_kernel_ms * 1e-3) / \
+        PEAK_FLOPS[torch.bfloat16]
+    print(f"train step B={tb} T={tseq} bf16 flash dh-major + fused Adam: "
+          f"launches per step {per_step}; loss {step_loss:.4f}; "
+          f"{tok_s:.0f} tok/s wall ({step_wall_ms:.2f} ms per step); kernels "
+          f"{step_kernel_ms:.2f} ms per step ({prof['kernels_per_step']:.0f} "
+          f"launches), device busy {step_kernel_ms / step_wall_ms:.3f} of the "
+          f"wall step; {flops_tok / 1e6:.1f} MFLOP/token, MFU "
+          f"{mfu_wall:.4f} wall / {mfu_dev:.4f} at kernel time vs 989 "
+          f"TFLOP/s bf16 {card}")
+    print(f"train step kernel ms per step by category: "
+          f"{json.dumps(prof['ms_per_step_by_category'])} {card}")
+
+    # The kernel path against the plain path, fp32, B=8.
+    kcfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    pcfg = kcfg.replace(attention_impl="xla")
+    tgen.manual_seed(3)
+    toks8 = torch.randint(0, kcfg.vocab_size, (8, tseq), generator=tgen,
+                          device=dev)
+    m32 = llama.init_llama(kcfg, torch.Generator().manual_seed(0),
+                           device=dev)
+    leaves32 = tree_leaves(m32.tree())
+    lk = llama.forward_loss(m32, toks8, kcfg)
+    gk = torch.autograd.grad(lk, leaves32)
+    lp = llama.forward_loss(m32, toks8, pcfg)
+    gp = torch.autograd.grad(lp, leaves32)
+    loss_err = abs(lk.item() - lp.item())
+    grad_err = max(((a - r).abs().max() / r.abs().max()).item()
+                   for a, r in zip(gk, gp))
+    check(loss_err <= TOL_TRAIN_LOSS, f"train loss kernel vs plain "
+          f"|d|={loss_err:.3g} > {TOL_TRAIN_LOSS}")
+    check(grad_err <= TOL_TRAIN_GRAD, f"train grads kernel vs plain "
+          f"max|d|/max|ref|={grad_err:.3g} > {TOL_TRAIN_GRAD}")
+    n_leaves = len(leaves32)
+    del m32, leaves32, gk, gp
+
+    def trajectory(c, opt_name):
+        model_t = llama.init_llama(c, torch.Generator().manual_seed(0),
+                                   device=dev)
+        opt = bench_utils.make_optimizer(opt_name)
+        st = dp.init_state(model_t.tree(), opt)
+        fn = dp.make_grad_aggregation_step(
+            lambda p, batch: llama.forward_loss(p, batch, c), opt)
+        g = torch.Generator(device=dev)
+        g.manual_seed(4)
+        out = []
+        for _ in range(5):
+            batch = torch.randint(0, c.vocab_size, (8, tseq), generator=g,
+                                  device=dev)
+            st, loss = fn(st, batch)
+            out.append(float(loss))
+        return out
+
+    traj_k = trajectory(kcfg, "pallas")
+    traj_p = trajectory(pcfg, "fused")
+    traj_err = max(abs(a - b) for a, b in zip(traj_k, traj_p))
+    check(traj_err <= TOL_TRAJECTORY, f"5-step loss trajectory kernel vs "
+          f"plain max|d|={traj_err:.3g} > {TOL_TRAJECTORY}")
+    print(f"train step fp32 B=8, kernel path vs plain path: loss |d| "
+          f"{loss_err:.3g}, grads max|d|/max|ref| {grad_err:.3g} over "
+          f"{n_leaves} leaves; 5-step losses kernel "
+          f"{[round(x, 5) for x in traj_k]} vs "
+          f"plain {[round(x, 5) for x in traj_p]}, max|d| {traj_err:.3g} "
+          f"{card}")
+
+    # 7. the trainer entry point ------------------------------------------
+    iters = 20
+    zero_counts()
+    t0 = time.perf_counter()
+    rep = train_llm_dp(None, TrainConfig(optimizer="pallas", iters=iters),
+                       log_every=10, device=None)
+    trainer_s = time.perf_counter() - t0
+    tcounts = read_counts()
+    tper = {k: n / iters for k, n in tcounts.items()}
+    twant = {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+             "adam": 7}
+    check(len(rep.losses) == iters and all(math.isfinite(x)
+                                           for x in rep.losses),
+          f"train_llm_dp losses {rep.losses}")
+    check(tper == twant, f"train_llm_dp launches per step {tper}, expected "
+          f"{twant}")
+    print(f"train_llm_dp (byte tokenizer, vocab 259, batch 3 x 256, "
+          f"optimizer pallas): {iters} steps in {trainer_s:.1f} s, loss "
+          f"{rep.losses[0]:.4f} -> {rep.losses[-1]:.4f}, "
+          f"{rep.tokens_per_sec:.0f} tok/s after warmup; launches per step "
+          f"{tper} {card}")
+
+    fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
+    bwd_main = bwd[0]
+    path_counts = {"forward (phase 4)": {"flash_fwd": main_launches},
+                   "train step (phase 6), per step": per_step,
+                   "train_llm_dp (phase 7), per step": tper}
+    kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": main["replaces"], "launches": main_launches,
-        "max_abs_err": main["max_abs_err"],
-        "ms": main["kernel_us"] / 1e3, "plain_ms": main["plain_us"] / 1e3,
-        "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
-        "library_ms": main["sdpa_us"] / 1e3,
-        "layouts": layouts, "card": smi, "ok": True}]}))
+        "replaces": fwd_main["replaces"],
+        "launches": per_step["flash_fwd"],
+        "max_abs_err": fwd_main["max_abs_err"],
+        "ms": fwd_main["kernel_us"] / 1e3,
+        "plain_ms": fwd_main["plain_us"] / 1e3,
+        "bound_ms": fwd_main["bound_us"] / 1e3,
+        "bound_by": fwd_main["bound_by"],
+        "library_ms": fwd_main["sdpa_us"] / 1e3, "layouts": layouts}]
+    for name, key, src_line in (("flash_bwd_dq", "dq", 450),
+                                ("flash_bwd_dkv", "dkv", 480)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ddl25spring_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": f"ddl25spring_tpu/ops/flash_attention.py:{src_line}",
+            "launches": per_step[name],
+            "max_abs_err": (bwd_main["max_abs_err"]["dq"] if key == "dq"
+                            else max(bwd_main["max_abs_err"]["dk"],
+                                     bwd_main["max_abs_err"]["dv"])),
+            "ms": bwd_main[f"{key}_us"] / 1e3,
+            "plain_ms": bwd_main["plain_us"] / 1e3,
+            "bound_ms": bwd_main[f"{key}_bound_us"] / 1e3,
+            "bound_by": bwd_main[f"{key}_bound_by"],
+            "library_ms": bwd_main["sdpa_bwd_us"] / 1e3,
+            "plain_and_library_compute": "dq, dk and dv together",
+            "cases": bwd})
+    kernels.append({
+        "name": "adam", "route": "cuda",
+        "source": "ddl25spring_tpu_torch/ops/csrc/adam.cu",
+        "replaces": "ddl25spring_tpu/ops/pallas_adam.py:50",
+        "launches": per_step["adam"], "max_abs_err": adam_err,
+        "ms": adam_us / 1e3, "plain_ms": adam_plain_us / 1e3,
+        "bound_ms": adam_bound_us / 1e3, "bound_by": "bytes",
+        "library_ms": fused_us / 1e3,
+        "times_cover": f"one train step: {len(leaves)} leaves, "
+                       f"{n_adam} elements"})
+    print(json.dumps({"kernels": kernels, "launches_by_path": path_counts,
+                      "train_step": {
+                          "tokens_per_sec_wall": tok_s,
+                          "wall_ms_per_step": step_wall_ms,
+                          "kernel_ms_per_step": step_kernel_ms,
+                          "mfu_wall": mfu_wall, "mfu_kernel_time": mfu_dev,
+                          "loss": step_loss, "profile": prof},
+                      "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

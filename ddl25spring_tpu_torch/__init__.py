@@ -7,9 +7,14 @@ weights and inputs (``tests/test_torch_*.py``). This package imports
 neither ``jax`` nor ``ddl25spring_tpu``; what it needs of the reference's
 host-side code it carries as its own copy.
 
-Slice covered so far: inference. ``models.llama.forward`` (with the
+Slices covered so far: inference — ``models.llama.forward`` (with the
 hand-written CUDA flash-attention forward, ``ops/csrc/flash_fwd.cu``),
 ``models.generate.generate``, and the paged serving engine, scheduler and
-front end (``serving/``). Entry points take ``device=None``, meaning CUDA;
-pass ``device="cpu"`` to run the plain PyTorch paths on the CPU.
+front end (``serving/``); and training at a world of one process —
+``llama.forward_loss`` (flash backward kernels ``ops/csrc/flash_bwd.cu``,
+the fused loss head ``ops/losses.py``), Adam with the fused CUDA apply
+(``ops/csrc/adam.cu``), ``parallel.dp``, ``bench_utils.time_train_step``
+and ``train.llm.train_llm_dp``. Entry points take ``device=None``,
+meaning CUDA; pass ``device="cpu"`` to run the plain PyTorch paths on the
+CPU.
 """

@@ -1,9 +1,12 @@
-"""Model configuration: the port's own copy of ``LlamaConfig``.
+"""Configuration: the port's own copies of ``LlamaConfig`` and
+``TrainConfig``.
 
 Same fields and defaults as the JAX package's ``config.LlamaConfig`` (the
 canonical tiny-Llama: vocab 32000, dmodel 288, 6 heads of dim 48, 6
-layers, ctx 256), so a config built for one package means the same model
-in the other.
+layers, ctx 256) and ``config.TrainConfig``, so a config built for one
+package means the same model and run in the other. The port's trainer
+raises ``NotImplementedError`` for the ``TrainConfig`` fields it does not
+run yet at a non-default value (``train.llm.unsupported_train_fields``).
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ class LlamaConfig:
     flash_block: int = 512
     # Dtype of the materialized [B·H, T, T] score tensor on the plain path.
     softmax_dtype: str = "float32"
-    # Activation rematerialization in the backward: a training option,
-    # carried for parity (the inference slice has no backward).
+    # Activation rematerialization in the backward: carried for parity; the
+    # port's trainer raises for True (ROADMAP.md, queue A).
     remat: bool = False
 
     @property
@@ -60,6 +63,42 @@ class LlamaConfig:
         return self.ffn_hidden if self.ffn_hidden is not None else 4 * self.dmodel
 
     def replace(self, **kw) -> "LlamaConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """LLM training loop configuration (Adam lr 8e-4, 5000 iterations,
+    batch 3 per data shard, seq 256), field for field the JAX package's.
+    Parallelism, wire formats and dispatch fields are kept so configs carry
+    over; the port runs a world of one process (``data=1``) and raises for
+    the rest (``train.llm.unsupported_train_fields``)."""
+
+    batch_size: int = 3            # per-data-shard batch
+    seq_len: int = 256
+    lr: float = 8e-4
+    iters: int = 5000
+    seed: int = 0
+    data: int = 1                  # data-parallel world
+    dcn: int = 1                   # hierarchical DP islands
+    stage: int = 1                 # pipeline stages
+    model: int = 1                 # tensor parallel degree
+    seq: int = 1                   # sequence/context parallel degree
+    microbatches: int = 1          # pipeline microbatches per step
+    remat: bool = False            # rematerialize blocks in the backward
+    # "adam" (the reference's optimizer), "fused" (ops/adam.py), "pallas"
+    # (ops/pallas_adam.py, the CUDA kernel), "master" (fp32 master weights).
+    optimizer: str = "adam"
+    wire: str = "fp32"             # gradient all-reduce wire format
+    wire_dcn: str = ""             # DCN-tier wire format
+    accum_steps: int = 1           # gradient accumulation microbatches
+    steps_per_dispatch: int = 1    # training steps per fused dispatch
+    overlap_microbatches: int = 0  # overlapped ring gradient sync
+    comm_buckets: int = 1          # bucketed backward ring sync
+    numerics_every: int = 0        # in-step numerics summaries
+    psa: str = ""                  # TP partially-synchronized activations
+
+    def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
 
 

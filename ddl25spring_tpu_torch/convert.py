@@ -1,6 +1,9 @@
-"""Parameter bridge between the JAX package's ``init_llama`` tree and the
-port's ``Llama``: a name-for-name copy of numpy arrays, with no transposes
-(both sides store weights ``[in, out]`` with blocks stacked on ``[L]``)."""
+"""Bridge between the JAX package's trees and the port's: the
+``init_llama`` parameter tree and the port's ``Llama`` (a name-for-name
+copy of numpy arrays, with no transposes: both sides store weights
+``[in, out]`` with blocks stacked on ``[L]``), and the Adam optimizer state
+(``count``, ``mu``, ``nu``) of JAX's ``FusedAdamState`` or optax's
+``adam`` and the port's ``FusedAdamState``."""
 
 from __future__ import annotations
 
@@ -9,7 +12,9 @@ import torch
 
 from .config import LlamaConfig
 from .device import resolve_device
-from .models.llama import Llama, as_tree, tree_map
+from .models.llama import Llama, as_tree
+from .ops.adam import FusedAdamState
+from .tree import tree_map
 
 
 def _expected_shapes(cfg: LlamaConfig) -> dict:
@@ -49,12 +54,52 @@ def _to_torch(x) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    return x.numpy().copy()
+
+
 def params_to_numpy(params) -> dict:
     """``Llama`` (or its tree) → nested dict of numpy arrays in the JAX
     tree's layout (bf16 leaves come back as fp32, which numpy lacks)."""
-    def to_np(x: torch.Tensor) -> np.ndarray:
-        x = x.detach().cpu()
-        if x.dtype == torch.bfloat16:
-            x = x.float()
-        return x.numpy().copy()
-    return tree_map(to_np, as_tree(params))
+    return tree_map(_to_numpy, as_tree(params))
+
+
+def _adam_fields(state):
+    """The ``(count, mu, nu)`` of a JAX ``FusedAdamState``, an optax
+    ``ScaleByAdamState``, optax ``adam``'s ``(ScaleByAdamState,
+    EmptyState)`` chain, or the port's ``FusedAdamState`` (any leaves)."""
+    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        return state.count, state.mu, state.nu
+    if isinstance(state, tuple):
+        found = [s for s in state
+                 if all(hasattr(s, f) for f in ("count", "mu", "nu"))]
+        if len(found) == 1:
+            return found[0].count, found[0].mu, found[0].nu
+    raise ValueError(f"not an Adam state with count, mu and nu: "
+                     f"{type(state).__name__}")
+
+
+def opt_state_from_jax(state, device=None) -> FusedAdamState:
+    """A JAX Adam state (``FusedAdamState``, or optax ``adam``'s) → the
+    port's ``FusedAdamState`` on ``device``: ``count`` an int32 scalar,
+    ``mu`` and ``nu`` trees name for name, dtypes kept."""
+    dev = resolve_device(device)
+    count, mu, nu = _adam_fields(state)
+    return FusedAdamState(
+        torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=dev),
+        tree_map(lambda x: _to_torch(x).to(dev), mu),
+        tree_map(lambda x: _to_torch(x).to(dev), nu))
+
+
+def opt_state_to_numpy(state) -> FusedAdamState:
+    """The port's ``FusedAdamState`` → the same NamedTuple with numpy
+    leaves (``count`` an int32 scalar array), the fields JAX's
+    ``FusedAdamState`` and optax's ``ScaleByAdamState`` hold."""
+    count, mu, nu = _adam_fields(state)
+    to_np = lambda x: _to_numpy(x) if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+    return FusedAdamState(np.asarray(int(count), dtype=np.int32),
+                          tree_map(to_np, mu), tree_map(to_np, nu))

@@ -18,7 +18,7 @@ PyTorch attention (``_xla_attention``, named after its JAX twin).
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -28,14 +28,10 @@ from .. import nn
 from ..config import LlamaConfig, torch_dtype
 from ..device import check_on_device, resolve_device
 from ..ops.flash_attention import flash_attention
+from ..ops.losses import fused_linear_cross_entropy
+from ..tree import tree_leaves, tree_map
 
 # ------------------------------------------------------------ parameter tree
-
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def layer(blocks: dict, i: int) -> dict:
@@ -276,3 +272,32 @@ def forward(params, tokens: torch.Tensor, cfg: LlamaConfig,
     h = embed(params, tokens, cfg)
     h = blocks_apply(params["blocks"], h, cfg, positions)
     return head(params, h, cfg)
+
+
+def head_loss(params: dict, h: torch.Tensor, tokens: torch.Tensor,
+              cfg: LlamaConfig, chunk_size: int = 512) -> torch.Tensor:
+    """Fused final-norm + lm_head + next-token cross-entropy: the value of
+    ``causal_lm_loss(head(params, h, cfg), tokens)`` without the
+    ``[B, T, V]`` logits (``ops.losses.fused_linear_cross_entropy``)."""
+    h = nn.rmsnorm(params["final_norm"], h, eps=cfg.norm_eps)
+    shift_h = h[:, :-1, :].reshape(-1, h.shape[-1])
+    labels = tokens[:, 1:].reshape(-1)
+    return fused_linear_cross_entropy(shift_h, params["lm_head"], labels,
+                                      chunk_size=chunk_size)
+
+
+def forward_loss(params, tokens: torch.Tensor, cfg: LlamaConfig,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The training loss: tokens ``[B, T]`` → mean next-token cross-entropy
+    (fp32 scalar) through the fused head. Differentiable: call it with
+    autograd on (outside ``inference_mode``); on CUDA the attention's
+    backward is the flash dQ and dK/dV kernels."""
+    params = as_tree(params)
+    check_on_device(tokens, params["embed"].device, "tokens")
+    h = embed(params, tokens, cfg)
+    h = blocks_apply(params["blocks"], h, cfg, positions)
+    return head_loss(params, h, tokens, cfg)
+
+
+def param_count(params) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(as_tree(params)))

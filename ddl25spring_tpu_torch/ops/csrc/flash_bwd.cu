@@ -1,0 +1,449 @@
+// Causal flash-attention backward for Hopper (sm_90a), fp32 and bf16 inputs:
+// one dQ kernel and one dK/dV kernel.
+//
+// Replaces the JAX package's Pallas TPU kernels in
+// ddl25spring_tpu/ops/flash_attention.py: _dq_kernel (:190) and _dkv_kernel
+// (:218) on row-major [B*H, T, Dh] operands, and _dq_kernel_t (:450) and
+// _dkv_kernel_t (:480) on dh-major [B*H, Dh, T] operands. As in flash_fwd.cu,
+// each kernel reads every operand through (batch, head, seq, dim) strides, so
+// one kernel serves both layouts, and the gradients are written through
+// strides too (the wrapper hands the model's [B, T, H, Dh] layout).
+//
+// What they compute, per (batch, head), with s_ij = q_i . k_j / sqrt(Dh):
+//   P_ij  = exp(s_ij - lse_i)                 (lse saved by the forward)
+//   dS_ij = P_ij (dO_i . v_j - delta_i) / sqrt(Dh),  delta_i = dO_i . o_i
+//   dQ_i  = sum_j dS_ij k_j       (dQ kernel: one CTA per query tile)
+//   dK_j  = sum_i dS_ij q_i       (dK/dV kernel: one CTA per key tile)
+//   dV_j  = sum_i P_ij dO_i
+// over the visible pairs: j <= i (causal) or j < T, and i < T. A query row at
+// or past T gets P = 0, so no non-finite lse of a padded row can reach dK or
+// dV (the reason for _bwd_mask in the JAX package). All arithmetic is fp32
+// (no TF32); gradients are cast to the input type on the way out. delta is
+// computed by the caller (a plain reduction, as in the JAX package).
+//
+// Design. The TPU kernels carry dQ (or dK, dV) in VMEM scratch across a
+// sequential grid axis; here that axis is a loop inside the CTA, and the two
+// kernels keep the TPU's split so no atomics are needed. CTAs of 256 threads
+// on 64 x 64 tiles, the heaviest first (dQ: the last query tiles; dK/dV: the
+// first key tiles). Every product is register-tiled as in flash_fwd.cu: a
+// 16 x 16 thread grid where each thread owns 4 rows x 4 columns of S, dP and
+// dS (then 4 rows x Dh/16 dims of the accumulated gradient), so each
+// shared-memory load feeds 4 FMAs. Tiles are staged transposed (dim-major) in
+// shared memory as fp32; an operand read 4 rows at a time as a float4 gets a
+// row stride of 68 floats, one read one column per lane a stride of 65, so
+// both reads and the transposed stores are free of bank conflicts. P and dS
+// go through shared memory into the gradient products.
+//
+// What bounds them on this card: at the training shape (B=64, H=6, T=256,
+// Dh=48, bf16) the dQ kernel does 6*Dh and the dK/dV kernel 8*Dh operations
+// per visible pair (12.6 M pairs) on CUDA cores (fp32 FMA, no tensor cores),
+// against ~48 / ~57 MB of operand traffic: the fp32 FMA rate, not memory,
+// bounds this design; the bytes bound the function (PERF.md).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace {
+
+constexpr int kBlock = 64;                   // queries and keys per tile
+constexpr int kTX = 16;                      // threads along columns / dims
+constexpr int kTY = kBlock / 4;              // threads along rows (4 rows each)
+constexpr int kThreads = kTX * kTY;
+constexpr int kPer = kBlock / kTX;           // columns per thread
+constexpr int kVecPad = kBlock + 4;          // row stride of float4-read tiles
+constexpr int kOddPad = kBlock + 1;          // row stride of column-read tiles
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Strides {
+  long long b, h, t, d;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Element (t, d) of rows [t0, t0 + kBlock) of one head, read in the operand's
+// own contiguous order and stored transposed: dst[d * pad + t] (zero past seq
+// and dh).
+template <typename T, int DP>
+__device__ __forceinline__ void load_t(const T* __restrict__ src, const Strides& s, int t0, int seq,
+                                       int dh, float* dst, int pad) {
+  const bool dim_fastest = (s.d == 1);
+  for (int idx = threadIdx.x; idx < kBlock * DP; idx += kThreads) {
+    int t, d;
+    if (dim_fastest) {
+      t = idx / DP;
+      d = idx % DP;
+    } else {
+      d = idx / kBlock;
+      t = idx % kBlock;
+    }
+    const int pos = t0 + t;
+    float x = 0.f;
+    if (pos < seq && d < dh) x = to_float(src[pos * s.t + d * s.d]);
+    dst[d * pad + t] = x;
+  }
+}
+
+// Rows r0..r0+3 of a [4 x DP] register accumulator to rows t0 + r0 + i of a
+// [seq, dh] gradient through strides (dims tx + 16 c).
+template <typename T, int NC>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, const Strides& s, int t0, int r0,
+                                           int tx, int seq, int dh, const float (&acc)[4][NC]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int pos = t0 + r0 + i;
+    if (pos >= seq) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = tx + 16 * c;
+      if (d < dh) dst[pos * s.t + d * s.d] = from_float<T>(acc[i][c]);
+    }
+  }
+}
+
+template <int DP>
+constexpr int dq_smem_floats() {
+  return 2 * DP * kVecPad + 2 * DP * kOddPad + kBlock * kVecPad;
+}
+
+template <int DP>
+constexpr int dkv_smem_floats() {
+  return 2 * DP * kVecPad + 2 * DP * kOddPad + 2 * kBlock * kVecPad + 2 * kBlock;
+}
+
+// dQ: one CTA per (batch*head, 64-query tile); walks the key tiles up to the
+// diagonal (causal) or to T.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, int heads, int seq,
+                    int dh, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq,
+                    float scale, int causal) {
+  constexpr int NC = DP / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;                         // [DP][kVecPad]  Q transposed
+  float* dot = qt + DP * kVecPad;           // [DP][kVecPad]  dO transposed
+  float* kt = dot + DP * kVecPad;           // [DP][kOddPad]  K transposed
+  float* vt = kt + DP * kOddPad;            // [DP][kOddPad]  V transposed
+  float* dst = vt + DP * kOddPad;           // [kBlock][kVecPad]  dS transposed (key, query)
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;
+  const int tx = threadIdx.x % kTX;
+  const int ty = threadIdx.x / kTX;
+  const int r0 = ty * 4;
+  const float sl2 = scale * kLog2e;
+
+  load_t<T, DP>(q + b * sq.b + h * sq.h, sq, q0, seq, dh, qt, kVecPad);
+  load_t<T, DP>(dout + b * sdo.b + h * sdo.h, sdo, q0, seq, dh, dot, kVecPad);
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+
+  float lse2[4], dlt[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + r0 + i;
+    const long long row = static_cast<long long>(bh) * seq + qpos;
+    lse2[i] = qpos < seq ? lse[row] * kLog2e : 0.f;
+    dlt[i] = qpos < seq ? delta[row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int q_last = min(q0 + kBlock, seq) - 1;
+  const int k_end = causal ? q_last + 1 : seq;
+  for (int k0 = 0; k0 < k_end; k0 += kBlock) {
+    __syncthreads();
+    load_t<T, DP>(kb, sk, k0, seq, dh, kt, kOddPad);
+    load_t<T, DP>(vb, sv, k0, seq, dh, vt, kOddPad);
+    __syncthreads();
+
+    // S and dP micro-tiles: rows r0..r0+3, keys tx + 16 j.
+    float s[4][kPer], dp[4][kPer];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DP; ++d) {
+      const float4 a = *reinterpret_cast<const float4*>(&qt[d * kVecPad + r0]);
+      const float4 g = *reinterpret_cast<const float4*>(&dot[d * kVecPad + r0]);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const float bk = kt[d * kOddPad + tx + kTX * j];
+        const float bv = vt[d * kOddPad + tx + kTX * j];
+        s[0][j] = fmaf(a.x, bk, s[0][j]);
+        s[1][j] = fmaf(a.y, bk, s[1][j]);
+        s[2][j] = fmaf(a.z, bk, s[2][j]);
+        s[3][j] = fmaf(a.w, bk, s[3][j]);
+        dp[0][j] = fmaf(g.x, bv, dp[0][j]);
+        dp[1][j] = fmaf(g.y, bv, dp[1][j]);
+        dp[2][j] = fmaf(g.z, bv, dp[2][j]);
+        dp[3][j] = fmaf(g.w, bv, dp[3][j]);
+      }
+    }
+    // dS = P (dP - delta) scale, P recomputed from the saved lse.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + r0 + i;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int kp = k0 + tx + kTX * j;
+        const bool visible = qpos < seq && (causal ? kp <= qpos : kp < seq);
+        const float p = visible ? exp2f(s[i][j] * sl2 - lse2[i]) : 0.f;
+        s[i][j] = p * (dp[i][j] - dlt[i]) * scale;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      *reinterpret_cast<float4*>(&dst[(tx + kTX * j) * kVecPad + r0]) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    }
+    __syncthreads();
+
+    // dQ micro-tile: rows r0..r0+3, dims tx + 16 c.
+#pragma unroll 4
+    for (int kk = 0; kk < kBlock; ++kk) {
+      const float4 ds = *reinterpret_cast<const float4*>(&dst[kk * kVecPad + r0]);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float kv = kt[(tx + 16 * c) * kOddPad + kk];
+        acc[0][c] = fmaf(ds.x, kv, acc[0][c]);
+        acc[1][c] = fmaf(ds.y, kv, acc[1][c]);
+        acc[2][c] = fmaf(ds.z, kv, acc[2][c]);
+        acc[3][c] = fmaf(ds.w, kv, acc[3][c]);
+      }
+    }
+  }
+  store_rows<T, NC>(dq + b * sdq.b + h * sdq.h, sdq, q0, r0, tx, seq, dh, acc);
+}
+
+// dK/dV: one CTA per (batch*head, 64-key tile); walks the query tiles from
+// the diagonal (causal) or from 0 to T.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     int heads, int seq, int dh, Strides sq, Strides sk, Strides sv, Strides sdo,
+                     Strides sdk, Strides sdv, float scale, int causal) {
+  constexpr int NC = DP / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* kt = smem;                         // [DP][kVecPad]  K transposed
+  float* vt = kt + DP * kVecPad;            // [DP][kVecPad]  V transposed
+  float* qt = vt + DP * kVecPad;            // [DP][kOddPad]  Q transposed
+  float* dot = qt + DP * kOddPad;           // [DP][kOddPad]  dO transposed
+  float* ps = dot + DP * kOddPad;           // [kBlock][kVecPad]  P (query, key)
+  float* dss = ps + kBlock * kVecPad;       // [kBlock][kVecPad]  dS (query, key)
+  float* lse2 = dss + kBlock * kVecPad;     // [kBlock]  lse * log2(e) of the query tile
+  float* dlt = lse2 + kBlock;               // [kBlock]  delta of the query tile
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int k0 = blockIdx.y * kBlock;
+  const int tx = threadIdx.x % kTX;
+  const int ty = threadIdx.x / kTX;
+  const int r0 = ty * 4;
+  const float sl2 = scale * kLog2e;
+
+  load_t<T, DP>(k + b * sk.b + h * sk.h, sk, k0, seq, dh, kt, kVecPad);
+  load_t<T, DP>(v + b * sv.b + h * sv.h, sv, k0, seq, dh, vt, kVecPad);
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
+
+  float acc_k[4][NC], acc_v[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  for (int q0 = causal ? k0 : 0; q0 < seq; q0 += kBlock) {
+    __syncthreads();
+    load_t<T, DP>(qb, sq, q0, seq, dh, qt, kOddPad);
+    load_t<T, DP>(dob, sdo, q0, seq, dh, dot, kOddPad);
+    if (threadIdx.x < kBlock) {
+      const int qpos = q0 + threadIdx.x;
+      const long long row = static_cast<long long>(bh) * seq + qpos;
+      lse2[threadIdx.x] = qpos < seq ? lse[row] * kLog2e : 0.f;
+      dlt[threadIdx.x] = qpos < seq ? delta[row] : 0.f;
+    }
+    __syncthreads();
+
+    // S and dP transposed: rows = keys r0..r0+3, columns = queries tx + 16 j.
+    float s[4][kPer], dp[4][kPer];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DP; ++d) {
+      const float4 a = *reinterpret_cast<const float4*>(&kt[d * kVecPad + r0]);
+      const float4 w = *reinterpret_cast<const float4*>(&vt[d * kVecPad + r0]);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const float bq = qt[d * kOddPad + tx + kTX * j];
+        const float bo = dot[d * kOddPad + tx + kTX * j];
+        s[0][j] = fmaf(a.x, bq, s[0][j]);
+        s[1][j] = fmaf(a.y, bq, s[1][j]);
+        s[2][j] = fmaf(a.z, bq, s[2][j]);
+        s[3][j] = fmaf(a.w, bq, s[3][j]);
+        dp[0][j] = fmaf(w.x, bo, dp[0][j]);
+        dp[1][j] = fmaf(w.y, bo, dp[1][j]);
+        dp[2][j] = fmaf(w.z, bo, dp[2][j]);
+        dp[3][j] = fmaf(w.w, bo, dp[3][j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int qc = tx + kTX * j;
+      const int qpos = q0 + qc;
+      float p[4], ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kp = k0 + r0 + i;
+        const bool visible = qpos < seq && (causal ? kp <= qpos : kp < seq);
+        p[i] = visible ? exp2f(s[i][j] * sl2 - lse2[qc]) : 0.f;
+        ds[i] = p[i] * (dp[i][j] - dlt[qc]) * scale;
+      }
+      *reinterpret_cast<float4*>(&ps[qc * kVecPad + r0]) = make_float4(p[0], p[1], p[2], p[3]);
+      *reinterpret_cast<float4*>(&dss[qc * kVecPad + r0]) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();
+
+    // dV and dK micro-tiles: rows = keys r0..r0+3, dims tx + 16 c.
+#pragma unroll 4
+    for (int qq = 0; qq < kBlock; ++qq) {
+      const float4 p = *reinterpret_cast<const float4*>(&ps[qq * kVecPad + r0]);
+      const float4 ds = *reinterpret_cast<const float4*>(&dss[qq * kVecPad + r0]);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float o = dot[(tx + 16 * c) * kOddPad + qq];
+        const float x = qt[(tx + 16 * c) * kOddPad + qq];
+        acc_v[0][c] = fmaf(p.x, o, acc_v[0][c]);
+        acc_v[1][c] = fmaf(p.y, o, acc_v[1][c]);
+        acc_v[2][c] = fmaf(p.z, o, acc_v[2][c]);
+        acc_v[3][c] = fmaf(p.w, o, acc_v[3][c]);
+        acc_k[0][c] = fmaf(ds.x, x, acc_k[0][c]);
+        acc_k[1][c] = fmaf(ds.y, x, acc_k[1][c]);
+        acc_k[2][c] = fmaf(ds.z, x, acc_k[2][c]);
+        acc_k[3][c] = fmaf(ds.w, x, acc_k[3][c]);
+      }
+    }
+  }
+  store_rows<T, NC>(dk + b * sdk.b + h * sdk.h, sdk, k0, r0, tx, seq, dh, acc_k);
+  store_rows<T, NC>(dv + b * sdv.b + h * sdv.h, sdv, k0, r0, tx, seq, dh, acc_v);
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *g0, *g1;                 // dq, or dk and dv
+  int batch, heads, seq, dh, causal;
+  float scale;
+  Strides s[6];                  // q, k, v, dO, then the gradients
+};
+
+template <typename T, int DP>
+cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
+  constexpr int smem = 4 * dq_smem_floats<DP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.batch * a.heads, (a.seq + kBlock - 1) / kBlock);
+  flash_bwd_dq_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.g0), a.heads, a.seq,
+      a.dh, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
+  constexpr int smem = 4 * dkv_smem_floats<DP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.batch * a.heads, (a.seq + kBlock - 1) / kBlock);
+  flash_bwd_dkv_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.g0),
+      static_cast<T*>(a.g1), a.heads, a.seq, a.dh, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4],
+      a.s[5], a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, bool DQ>
+cudaError_t dispatch(const Args& a, cudaStream_t st) {
+#define DDL_CASE(n)                                                      \
+  case n:                                                                \
+    return DQ ? launch_dq<T, 16 * n>(a, st) : launch_dkv<T, 16 * n>(a, st);
+  switch ((a.dh + 15) / 16) {
+    DDL_CASE(1)
+    DDL_CASE(2)
+    DDL_CASE(3)
+    DDL_CASE(4)
+    DDL_CASE(5)
+    DDL_CASE(6)
+    DDL_CASE(7)
+    DDL_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef DDL_CASE
+}
+
+int run(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+        const float* delta, void* g0, void* g1, int is_bf16, int batch, int heads, int seq,
+        int dh, const long long* strides, int n_ops, float scale, int causal, void* stream,
+        bool is_dq) {
+  if (batch < 1 || heads < 1 || seq < 1 || dh < 1 || dh > 128 ||
+      (seq + kBlock - 1) / kBlock > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a{q, k, v, dout, lse, delta, g0, g1, batch, heads, seq, dh, causal, scale, {}};
+  for (int i = 0; i < n_ops; ++i) {
+    a.s[i] = Strides{strides[4 * i], strides[4 * i + 1], strides[4 * i + 2], strides[4 * i + 3]};
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (is_dq) {
+    err = is_bf16 ? dispatch<__nv_bfloat16, true>(a, st) : dispatch<float, true>(a, st);
+  } else {
+    err = is_bf16 ? dispatch<__nv_bfloat16, false>(a, st) : dispatch<float, false>(a, st);
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). q, k, v, dout and the gradients
+// are indexed [b, h, t, d] through `strides`: four (b, h, t, d) element
+// strides per operand, in the order q, k, v, dout, then dq (5 operands) or
+// dk, dv (6 operands). lse and delta are dense fp32 [batch*heads, seq].
+// Each launches one kernel on `stream` and returns the launch's cudaError_t
+// (0 = success); neither synchronises.
+extern "C" int ddl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* delta, void* dq, int is_bf16,
+                                int batch, int heads, int seq, int dh, const long long* strides,
+                                float scale, int causal, void* stream) {
+  return run(q, k, v, dout, lse, delta, dq, nullptr, is_bf16, batch, heads, seq, dh, strides, 5,
+             scale, causal, stream, true);
+}
+
+extern "C" int ddl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* lse, const float* delta, void* dk, void* dv,
+                                 int is_bf16, int batch, int heads, int seq, int dh,
+                                 const long long* strides, float scale, int causal,
+                                 void* stream) {
+  return run(q, k, v, dout, lse, delta, dk, dv, is_bf16, batch, heads, seq, dh, strides, 6,
+             scale, causal, stream, false);
+}

@@ -10,12 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from ddl25spring_tpu_torch import convert
-from ddl25spring_tpu_torch.config import LlamaConfig
+from ddl25spring_tpu_torch import bench_utils, convert
+from ddl25spring_tpu_torch.config import LlamaConfig, TrainConfig
 from ddl25spring_tpu_torch.models import generate, llama
+from ddl25spring_tpu_torch.ops import pallas_adam
 from ddl25spring_tpu_torch.serving import (Engine, PagedKVConfig, Request,
                                            init_pool, reference_stream,
                                            run_serving)
+from ddl25spring_tpu_torch.tokenizers import ByteTokenizer
+from ddl25spring_tpu_torch.train import llm
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ddl25spring_tpu_torch").rglob("*.py")) + [
@@ -52,7 +55,9 @@ def test_the_scan_sees_every_port_module():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("ddl25spring_tpu_torch/models/llama.py",
                  "ddl25spring_tpu_torch/ops/flash_attention.py",
-                 "ddl25spring_tpu_torch/serving/engine.py", "chip_smoke.py"):
+                 "ddl25spring_tpu_torch/serving/engine.py",
+                 "ddl25spring_tpu_torch/train/llm.py",
+                 "ddl25spring_tpu_torch/ops/pallas_adam.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -71,6 +76,10 @@ ENTRY_POINTS = {
     "run_serving": lambda: run_serving(_model(), CFG, PAGED, [], num_slots=1),
     "reference_stream": lambda: reference_stream(
         _model(), CFG, PAGED, Request(rid="r", prompt=(1,), max_new=2)),
+    "train_llm_dp": lambda: llm.train_llm_dp(
+        CFG, TrainConfig(iters=1), tokenizer=ByteTokenizer()),
+    "time_train_step": lambda: bench_utils.time_train_step(CFG, 1),
+    "pallas_adam.smoke_check": lambda: pallas_adam.smoke_check(),
 }
 
 

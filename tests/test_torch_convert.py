@@ -1,5 +1,7 @@
-"""The port's parameter bridge: the JAX ``init_llama`` tree crosses into
-``ddl25spring_tpu_torch`` name for name and comes back bitwise."""
+"""The port's bridge: the JAX ``init_llama`` tree crosses into
+``ddl25spring_tpu_torch`` name for name and comes back bitwise, and so do
+the Adam optimizer states (JAX's ``FusedAdamState`` and optax's), from
+which both packages resume to the same next step."""
 
 import jax
 import numpy as np
@@ -82,3 +84,63 @@ def test_init_llama_has_the_jax_layout_and_is_seeded():
     assert float(sd["embed"][3].abs().max()) == 0.0      # padding row
     assert abs(float(sd["blocks.wq"].std()) - 0.02) < 2e-3
     assert float(sd["final_norm.scale"].min()) == 1.0
+
+
+def _adam_states(steps=2):
+    """JAX Adam states after ``steps`` updates on seeded gradients: the
+    fused rule's ``FusedAdamState`` and optax adam's chain state."""
+    import optax
+    from ddl25spring_tpu.ops.adam import fused_adam
+    rng = np.random.default_rng(0)
+    params = {"a": rng.standard_normal((4, 6)).astype(np.float32),
+              "b": {"c": rng.standard_normal(5).astype(np.float32)}}
+    out = {}
+    for name, opt in (("fused", fused_adam(1e-3)), ("optax", optax.adam(1e-3))):
+        p, s = params, opt.init(params)
+        for i in range(steps):
+            g = jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(
+                np.float32), params)
+            u, s = opt.update(g, s, p)
+            p = optax.apply_updates(p, u)
+        out[name] = (jax.tree.map(np.asarray, p), s)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["fused", "optax"])
+def test_adam_state_round_trips_name_for_name(kind):
+    from ddl25spring_tpu_torch.convert import (opt_state_from_jax,
+                                               opt_state_to_numpy)
+    _, jstate = _adam_states()[kind]
+    fields = jstate if kind == "fused" else jstate[0]
+    state = opt_state_from_jax(jstate, device="cpu")
+    assert state.count.dtype == torch.int32 and int(state.count) == 2
+    back = opt_state_to_numpy(state)
+    assert back.count.dtype == np.int32 and int(back.count) == 2
+    for name in ("mu", "nu"):
+        want, got = _paths(getattr(fields, name)), _paths(getattr(back, name))
+        assert want.keys() == got.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]))
+
+
+def test_resume_from_the_same_jax_state_gives_the_same_next_step():
+    """Both packages continue from one JAX (params, FusedAdamState) on the
+    same gradient: the third update agrees to float re-association."""
+    from ddl25spring_tpu.ops.adam import fused_adam as jfused_adam
+    from ddl25spring_tpu_torch.convert import opt_state_from_jax
+    from ddl25spring_tpu_torch.ops.adam import apply_optimizer, fused_adam
+    import optax
+    params, jstate = _adam_states()["fused"]
+    g = jax.tree.map(lambda x: np.full(x.shape, 0.3, np.float32), params)
+    u, jnext = jfused_adam(1e-3).update(g, jstate, params)
+    want = optax.apply_updates(params, u)
+    tparams = {"a": torch.from_numpy(params["a"].copy()),
+               "b": {"c": torch.from_numpy(params["b"]["c"].copy())}}
+    tg = {"a": torch.from_numpy(g["a"]), "b": {"c": torch.from_numpy(g["b"]["c"])}}
+    got, state = apply_optimizer(fused_adam(1e-3), tg,
+                                 opt_state_from_jax(jstate, device="cpu"),
+                                 tparams)
+    assert int(state.count) == int(jnext.count) == 3
+    for k, x in _paths(want).items():
+        np.testing.assert_allclose(_paths(got)[k].numpy(), np.asarray(x),
+                                   atol=1e-7, rtol=1e-6)

@@ -1,9 +1,11 @@
 """The port's flash attention on the CPU (its plain version) against the JAX
 package's Pallas flash attention in interpret mode: outputs and the per-row
-log-sum-exp the forward keeps, in both operand layouts, at ragged lengths
-and two head dims. The CUDA kernel itself is held against the plain
-version on the card by ``chip_smoke.py``."""
+log-sum-exp the forward keeps, and the gradients of q, k and v, in both
+operand layouts, at ragged lengths, causal or not. The plain version of
+the backward kernels is held against autograd. The CUDA kernels themselves
+are held against their plain versions on the card by ``chip_smoke.py``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,9 +77,66 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         fa.flash_attention_fwd(q, k, v)
 
 
-def test_backward_is_not_ported_and_says_where_it_is_queued():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa._FlashAttnFwd.backward(None, torch.zeros(1))
+# Gradients: the JAX side runs the Pallas dQ and dK/dV kernels in interpret
+# mode (blocked, padded to 128) and the port autograd through one dense
+# softmax, both fp32; the sums differ in order.
+GRAD_TOL = dict(atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [64, 100])
+@pytest.mark.parametrize("dh_major", [False, True])
+def test_grads_match_jax_pallas_backward(dh_major, t, causal):
+    q, k, v = _qkv(t, 48, seed=3 * t + causal)
+    cot = np.random.default_rng(t).standard_normal(q.shape).astype(
+        np.float32)
+
+    def jloss(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal=causal, interpret=True,
+                                  dh_major=dh_major)
+        return jnp.sum(out * cot)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal=causal, dh_major=dh_major)
+    (out * torch.from_numpy(cot)).sum().backward()
+    for name, g, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_reference_matches_autograd(causal, dtype):
+    """The backward kernels' plain version (P from the saved lse, Δ, dS)
+    equals autograd through the plain forward: 1e-5 in fp32; in bf16 both
+    round the same fp32 gradients once, so one bf16 step (2^-8 relative)."""
+    q, k, v = (torch.from_numpy(x).to(dtype).requires_grad_()
+               for x in _qkv(100, 48, seed=11))
+    out, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    do = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        out.shape).astype(np.float32)).to(dtype)
+    want = torch.autograd.grad(out, (q, k, v), do)
+    got = fa.flash_attention_bwd_reference(q.detach(), k.detach(),
+                                           v.detach(), out.detach(), lse,
+                                           do, causal=causal)
+    tol = (dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=1e-2))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+def test_backward_kernel_wrapper_refuses_cpu_tensors():
+    """No silent fallback: the dQ and dK/dV launch raises off CUDA."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(64, 48, seed=4))
+    out, lse = fa.flash_attention_reference(q, k, v)
+    q4, k4, v4, _ = fa.kernel_operands(q, k, v, dh_major=True)
+    before = (fa.dq_launches, fa.dkv_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd(q4, k4, v4, out, lse, torch.ones_like(out))
+    assert (fa.dq_launches, fa.dkv_launches) == before
 
 
 def test_rejects_mismatched_operands():
