@@ -15,12 +15,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
              (CUDA events, median of 100) beside the plain version, one
              PyTorch library call for the same function, and the least time
              the card could take (bytes over HBM rate vs operations over
-             peak).
+             peak). bf16 runs the tensor-core kernel: the training shape,
+             B=8 in both layouts, ragged T=200 (causal and not) and
+             dh-major T=100 (rows of 200 bytes: element staging).
 3b. backward — the flash dQ and dK/dV kernels against their plain version
              (``flash_attention_bwd_reference``) at the training shape
-             (B=64, T=256, H=6, Dh=48, bf16, dh-major), at B=8 fp32 in both
-             layouts and at ragged T=200 (causal and not), timed likewise;
-             the library call is SDPA's backward.
+             (B=64, T=256, H=6, Dh=48, bf16, dh-major), at B=8 in both
+             layouts and both types, at ragged T=200 and at T=100 (causal
+             and not), timed likewise; the library call is SDPA's backward.
 3c. adam   — the fused Adam kernel against the plain rule on the 9 leaves
              that take it at vocab 32000 and on ``smoke_check``'s 972 × 512
              leaf, with step-3 bias corrections; per-step time of the 9
@@ -40,7 +42,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
              tokens/s (wall), the kernels' ms per step by category
              (``profile_step``) and MFU. Then, at fp32 and
              batch 8, the kernel path against the plain path: one step's
-             loss and every gradient leaf, and a 5-step loss trajectory.
+             loss and every gradient leaf, and a 5-step loss trajectory;
+             and at bf16 and batch 8, one step's loss and every leaf.
 7. trainer — ``train_llm_dp(device=None)`` for 20 steps on the synthetic
              corpus (byte tokenizer, vocab 259) with ``optimizer="pallas"``:
              finite losses, and 6 + 6 + 6 flash launches and 7 Adam
@@ -79,39 +82,40 @@ TOL_ADAM = 1e-6           # p, m, v: the same operations in the same order
 TOL_TRAIN_LOSS = 1e-4     # kernel path vs plain path, one step, fp32
 TOL_TRAIN_GRAD = 1e-4     # ... every gradient leaf, relative to its max
 TOL_TRAJECTORY = 1e-3     # ... 5-step loss trajectory
+# The same at bf16 compute: both paths round every product and activation
+# to bf16 (2^-8 relative), at places that differ (the kernels round P and
+# dS before their products, the plain path P and dP), through 6 layers:
+# the limits the port holds two bf16 paths to (tests/test_torch_train.py).
+TOL_TRAIN_LOSS_BF16 = 2e-2
+TOL_TRAIN_GRAD_BF16 = 1e-1
+# What each flash kernel runs on, by input type.
+DESIGN = {
+    "flash_fwd": {
+        "bfloat16": "tensor cores: mma.sync m16n8k16 bf16 -> fp32, ldmatrix "
+                    "(.trans by layout), cp.async double-buffered K/V tiles, "
+                    "4 warps x 16 query rows, P rounded to bf16 in registers "
+                    "(csrc/mma_bf16.cuh)",
+        "float32": "register-tiled fp32 FMA, 256 threads, 4 x 4 micro-tiles, "
+                   "P through shared memory"},
+    "flash_bwd_dq": {
+        "bfloat16": "register-tiled fp32 FMA on bf16 operands widened to "
+                    "fp32, 256 threads (not yet on the tensor cores)",
+        "float32": "register-tiled fp32 FMA, 256 threads"},
+    "flash_bwd_dkv": {
+        "bfloat16": "tensor cores: mma.sync m16n8k16 bf16 -> fp32, ldmatrix "
+                    "(.trans by layout), cp.async double-buffered Q/dO tiles, "
+                    "4 warps x 16 keys, K and V fragments and dK, dV in "
+                    "registers, P and dS rounded to bf16 in registers "
+                    "(csrc/mma_bf16.cuh)",
+        "float32": "register-tiled fp32 FMA, 256 threads, P and dS through "
+                   "shared memory"},
+}
+PTXAS_TYPES = {"f": "float", "13__nv_bfloat16": "bf16"}
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
-
-
-def time_us(fn, reps: int = 100, burst: int = 10) -> float:
-    """Median device time of one call, in microseconds: CUDA events around
-    each call. Every burst of calls is queued behind a GPU sleep longer
-    than the host needs to enqueue the burst, so the calls run back to
-    back on the device and host dispatch time does not count."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    # At most 2e9 cycles/s, so this sleeps at least the time it asks for.
-    sleep_cycles = int(2e9 * (2 * burst * enqueue_s + 2e-3))
-    times = []
-    for _ in range(reps // burst):
-        pairs = [(torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True)) for _ in range(burst)]
-        torch.cuda._sleep(sleep_cycles)
-        for start, end in pairs:
-            start.record()
-            fn()
-            end.record()
-        torch.cuda.synchronize()
-        times += [start.elapsed_time(end) * 1e3 for start, end in pairs]
-    return statistics.median(times)
 
 
 def wall_us(fn, reps: int = 20) -> float:
@@ -129,13 +133,13 @@ def wall_us(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def attention_bound_us(b, t, h, dh, dtype) -> tuple:
-    """Least time for causal attention forward over [B, T, H, Dh]: q, k, v
-    read once, out written once (input dtype), lse written once (fp32);
-    4·Dh operations per visible (query, key) pair (two multiply-adds)."""
+def attention_bound_us(b, t, h, dh, dtype, causal=True) -> tuple:
+    """Least time for attention forward over [B, T, H, Dh]: q, k, v read
+    once, out written once (input dtype), lse written once (fp32); 4·Dh
+    operations per visible (query, key) pair (two multiply-adds)."""
     item = torch.empty((), dtype=dtype).element_size()
     nbytes = 4 * b * t * h * dh * item + b * h * t * 4
-    flops = 4 * dh * b * h * (t * (t + 1) // 2)
+    flops = 4 * dh * b * h * (t * (t + 1) // 2 if causal else t * t)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
     t_ops = flops / PEAK_FLOPS[dtype] * 1e6
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -170,6 +174,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from ddl25spring_tpu_torch import bench_utils, profile_step
+    time_us = bench_utils.kernel_time_us
     from ddl25spring_tpu_torch.config import LlamaConfig, TrainConfig
     from ddl25spring_tpu_torch.models import llama
     from ddl25spring_tpu_torch.ops import _ext
@@ -202,6 +207,7 @@ def main() -> int:
     # 2. build ------------------------------------------------------------
     build_s = _ext.build()
     print(f"build: {build_s:.1f} s {card}")
+    ptxas = {}
     for name in _ext.KERNELS:
         log = _ext.library_path(name).with_suffix(".so.log")
         if log.exists():
@@ -209,34 +215,44 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "Compiling entry function" in line:
                     # kernel<type, head dim> out of the mangled name
-                    m = re.search(r"([a-z_]+_kernel)(?:I(\w+?)Li(\d+)E)?",
-                                  line)
-                    fn = m.group(1) + (f"<{m.group(2)}, {m.group(3)}>"
-                                       if m.group(2) else "")
+                    # (the mma kernels' second parameter is the layout)
+                    m = re.search(r"([a-z_]+_kernel)(?:I(\w*?)Li(\d+)E"
+                                  r"(?:Li(\d+)E)?)?", line)
+                    args = [a for a in (PTXAS_TYPES.get(m.group(2),
+                                                        m.group(2)),
+                                        m.group(3), m.group(4)) if a]
+                    fn = m.group(1) + (f"<{', '.join(args)}>" if args
+                                       else "")
                 elif "registers" in line or "spill" in line:
                     print(f"  ptxas {fn}: {line.strip()}")
+                    ptxas.setdefault(fn, []).append(line.strip())
 
     # 3. kernels vs plain -------------------------------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    cases = [(64, 256, 6, 48, torch.bfloat16, True),   # the training step's
-             (8, 256, 6, 48, torch.float32, False),
-             (8, 256, 6, 48, torch.float32, True),
-             (8, 256, 6, 48, torch.bfloat16, False),
-             (8, 256, 6, 48, torch.bfloat16, True),
-             (2, 200, 6, 48, torch.float32, False),
-             (2, 200, 6, 48, torch.float32, True)]
+    cases = [(64, 256, 6, 48, torch.bfloat16, True, True),   # training step
+             (8, 256, 6, 48, torch.float32, False, True),
+             (8, 256, 6, 48, torch.float32, True, True),
+             (8, 256, 6, 48, torch.bfloat16, False, True),
+             (8, 256, 6, 48, torch.bfloat16, True, True),
+             (2, 200, 6, 48, torch.float32, False, True),
+             (2, 200, 6, 48, torch.float32, True, True),
+             (2, 200, 6, 48, torch.bfloat16, False, True),
+             (2, 200, 6, 48, torch.bfloat16, True, False),
+             (2, 100, 6, 48, torch.bfloat16, True, True)]
     layouts = []
-    for b, t, h, dh, dtype, dh_major in cases:
+    for b, t, h, dh, dtype, dh_major, causal in cases:
         q, k, v = (torch.randn(b, t, h, dh, generator=gen, device=dev
                                ).to(dtype) for _ in range(3))
-        out, lse = fa.flash_attention_fwd(q, k, v, dh_major=dh_major)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          dh_major=dh_major)
         torch.cuda.synchronize()
-        ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v,
+                                                        causal=causal)
         err = (out.float() - ref_out.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         tag = (f"B={b} T={t} H={h} Dh={dh} {str(dtype)[6:]} "
-               f"dh_major={dh_major}")
+               f"dh_major={dh_major} causal={causal}")
         check(math.isfinite(err) and err <= TOL_OUT[dtype],
               f"flash_fwd out {tag}: max|d|={err:.3g} > {TOL_OUT[dtype]}")
         check(math.isfinite(lse_err) and lse_err <= TOL_LSE,
@@ -244,18 +260,20 @@ def main() -> int:
         # The kernel alone, on operands already in the layout it reads.
         ops = fa.kernel_operands(q, k, v, dh_major)
         lse_buf = torch.empty(b * h, t, dtype=torch.float32, device=dev)
-        kernel_us = time_us(lambda: fa._launch(*ops, lse_buf, causal=True))
+        kernel_us = time_us(lambda: fa._launch(*ops, lse_buf,
+                                               causal=causal))
         wrapper_us = time_us(lambda: fa.flash_attention(
-            q, k, v, dh_major=dh_major))
-        plain_us = time_us(lambda: fa.flash_attention_reference(q, k, v))
+            q, k, v, causal=causal, dh_major=dh_major))
+        plain_us = time_us(lambda: fa.flash_attention_reference(
+            q, k, v, causal=causal))
         qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
         sdpa_us = time_us(lambda: torch.nn.functional.
                           scaled_dot_product_attention(qs, ks, vs,
-                                                       is_causal=True))
-        bound_us, bound_by = attention_bound_us(b, t, h, dh, dtype)
+                                                       is_causal=causal))
+        bound_us, bound_by = attention_bound_us(b, t, h, dh, dtype, causal)
         layouts.append({
             "shape": [b, t, h, dh], "dtype": str(dtype)[6:],
-            "dh_major": dh_major,
+            "dh_major": dh_major, "causal": causal,
             "replaces": ("ddl25spring_tpu/ops/flash_attention.py:321"
                          if dh_major else
                          "ddl25spring_tpu/ops/flash_attention.py:49"),
@@ -275,9 +293,15 @@ def main() -> int:
             (64, 256, 6, 48, torch.bfloat16, True, True),   # training step
             (8, 256, 6, 48, torch.float32, False, True),
             (8, 256, 6, 48, torch.float32, True, True),
+            (8, 256, 6, 48, torch.bfloat16, False, True),
+            (8, 256, 6, 48, torch.bfloat16, True, True),
             (2, 200, 6, 48, torch.float32, False, True),
             (2, 200, 6, 48, torch.float32, True, True),
-            (2, 200, 6, 48, torch.float32, True, False)]:
+            (2, 200, 6, 48, torch.float32, True, False),
+            (2, 200, 6, 48, torch.bfloat16, False, True),
+            (2, 200, 6, 48, torch.bfloat16, True, False),
+            (2, 100, 6, 48, torch.bfloat16, True, True),
+            (2, 100, 6, 48, torch.bfloat16, False, False)]:
         q, k, v, do = (torch.randn(b, t, h, dh, generator=gen, device=dev
                                    ).to(dtype) for _ in range(4))
         q4, k4, v4, out, lse = fa._fwd(q, k, v, causal=causal,
@@ -566,6 +590,34 @@ def main() -> int:
           f"plain {[round(x, 5) for x in traj_p]}, max|d| {traj_err:.3g} "
           f"{card}")
 
+    # The kernel path against the plain path, bf16 compute, B=8: the
+    # tensor-core forward and dK/dV kernels inside the model.
+    bkcfg = kcfg.replace(dtype="bfloat16")
+    bpcfg = bkcfg.replace(attention_impl="xla")
+    mb = llama.init_llama(bkcfg, torch.Generator().manual_seed(0),
+                          device=dev)
+    leaves_b = tree_leaves(mb.tree())
+    lk = llama.forward_loss(mb, toks8, bkcfg)
+    gk = torch.autograd.grad(lk, leaves_b)
+    lp = llama.forward_loss(mb, toks8, bpcfg)
+    gp = torch.autograd.grad(lp, leaves_b)
+    loss_err_bf16 = abs(lk.item() - lp.item())
+    grad_err_bf16 = max(((a.float() - r.float()).abs().max()
+                         / r.float().abs().max()).item()
+                        for a, r in zip(gk, gp))
+    check(math.isfinite(loss_err_bf16) and
+          loss_err_bf16 <= TOL_TRAIN_LOSS_BF16, f"bf16 train loss kernel vs "
+          f"plain |d|={loss_err_bf16:.3g} > {TOL_TRAIN_LOSS_BF16}")
+    check(math.isfinite(grad_err_bf16) and
+          grad_err_bf16 <= TOL_TRAIN_GRAD_BF16, f"bf16 train grads kernel "
+          f"vs plain max|d|/max|ref|={grad_err_bf16:.3g} > "
+          f"{TOL_TRAIN_GRAD_BF16}")
+    print(f"train step bf16 B=8, kernel path vs plain path: loss "
+          f"{lk.item():.5f} vs {lp.item():.5f} |d| {loss_err_bf16:.3g}, "
+          f"grads max|d|/max|ref| {grad_err_bf16:.3g} over {len(leaves_b)} "
+          f"leaves {card}")
+    del mb, leaves_b, gk, gp
+
     # 7. the trainer entry point ------------------------------------------
     iters = 20
     zero_counts()
@@ -603,7 +655,11 @@ def main() -> int:
         "plain_ms": fwd_main["plain_us"] / 1e3,
         "bound_ms": fwd_main["bound_us"] / 1e3,
         "bound_by": fwd_main["bound_by"],
-        "library_ms": fwd_main["sdpa_us"] / 1e3, "layouts": layouts}]
+        "library_ms": fwd_main["sdpa_us"] / 1e3,
+        "design": DESIGN["flash_fwd"],
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if "flash_fwd" in k and re.search(r"\b48\b", k)},
+        "layouts": layouts}]
     for name, key, src_line in (("flash_bwd_dq", "dq", 450),
                                 ("flash_bwd_dkv", "dkv", 480)):
         kernels.append({
@@ -620,6 +676,9 @@ def main() -> int:
             "bound_by": bwd_main[f"{key}_bound_by"],
             "library_ms": bwd_main["sdpa_bwd_us"] / 1e3,
             "plain_and_library_compute": "dq, dk and dv together",
+            "design": DESIGN[name],
+            "ptxas": {k: v for k, v in ptxas.items()
+                      if f"{name}_" in k and re.search(r"\b48\b", k)},
             "cases": bwd})
     kernels.append({
         "name": "adam", "route": "cuda",
@@ -637,7 +696,10 @@ def main() -> int:
                           "wall_ms_per_step": step_wall_ms,
                           "kernel_ms_per_step": step_kernel_ms,
                           "mfu_wall": mfu_wall, "mfu_kernel_time": mfu_dev,
-                          "loss": step_loss, "profile": prof},
+                          "loss": step_loss, "profile": prof,
+                          "bf16_b8_kernel_vs_plain": {
+                              "loss_abs_err": loss_err_bf16,
+                              "grad_rel_err": grad_err_bf16}},
                       "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

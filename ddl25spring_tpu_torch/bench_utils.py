@@ -5,11 +5,13 @@ The port times the data-parallel step at a world of one process, with
 per-step gradient aggregation and no compressed wire; the other levers of
 the JAX function raise ``NotImplementedError`` naming ROADMAP.md. Timing
 is sync-honest: the timed chain ends in a host read of the last loss,
-which waits for the device.
+which waits for the device. ``kernel_time_us`` times one kernel call on
+the device alone (``chip_smoke.py``, ``flash_ab``).
 """
 
 from __future__ import annotations
 
+import statistics
 import time
 from typing import Optional
 
@@ -103,3 +105,31 @@ def time_train_step(cfg: LlamaConfig, batch_size: int, *,
     float(loss)                                  # waits for the timed chain
     dt = time.perf_counter() - t0
     return batch_size * seq * timed_steps / dt
+
+
+def kernel_time_us(fn, reps: int = 100, burst: int = 10) -> float:
+    """Median device time of one call, in microseconds: CUDA events around
+    each call. Every burst of calls is queued behind a GPU sleep longer
+    than the host needs to enqueue the burst, so the calls run back to
+    back on the device and host dispatch time does not count."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # At most 2e9 cycles/s, so this sleeps at least the time it asks for.
+    sleep_cycles = int(2e9 * (2 * burst * enqueue_s + 2e-3))
+    times = []
+    for _ in range(reps // burst):
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(burst)]
+        torch.cuda._sleep(sleep_cycles)
+        for start, end in pairs:
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        times += [start.elapsed_time(end) * 1e3 for start, end in pairs]
+    return statistics.median(times)

@@ -8,8 +8,9 @@ the minutes a ``torch.utils.cpp_extension`` build takes; the wrappers pass
 
 Builds happen at first use, never at import. Libraries go to
 ``build/kernels/`` at the root of the checkout (git-ignored), named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. ``build()`` starts one ``nvcc`` per
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt and an unchanged one is loaded as
+it is. ``build()`` starts one ``nvcc`` per
 stale source, all at once, and waits for them together.
 """
 
@@ -68,8 +69,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = _CSRC / KERNELS[name][0]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where kernel ``name``'s library lives: keyed by its source, every
+    header in ``csrc/`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((_CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -17,31 +17,54 @@
 //   dV_j  = sum_i P_ij dO_i
 // over the visible pairs: j <= i (causal) or j < T, and i < T. A query row at
 // or past T gets P = 0, so no non-finite lse of a padded row can reach dK or
-// dV (the reason for _bwd_mask in the JAX package). All arithmetic is fp32
-// (no TF32); gradients are cast to the input type on the way out. delta is
-// computed by the caller (a plain reduction, as in the JAX package).
+// dV (the reason for _bwd_mask in the JAX package). Scores, P and dS are
+// fp32; gradients are cast to the input type on the way out. delta is
+// computed by the caller (a plain reduction, as in the JAX package). The
+// TPU kernels carry dQ (or dK, dV) in VMEM scratch across a sequential grid
+// axis; here that axis is a loop inside the CTA, and the two kernels keep
+// the TPU's split so no atomics are needed.
 //
-// Design. The TPU kernels carry dQ (or dK, dV) in VMEM scratch across a
-// sequential grid axis; here that axis is a loop inside the CTA, and the two
-// kernels keep the TPU's split so no atomics are needed. CTAs of 256 threads
-// on 64 x 64 tiles, the heaviest first (dQ: the last query tiles; dK/dV: the
-// first key tiles). Every product is register-tiled as in flash_fwd.cu: a
-// 16 x 16 thread grid where each thread owns 4 rows x 4 columns of S, dP and
-// dS (then 4 rows x Dh/16 dims of the accumulated gradient), so each
-// shared-memory load feeds 4 FMAs. Tiles are staged transposed (dim-major) in
-// shared memory as fp32; an operand read 4 rows at a time as a float4 gets a
-// row stride of 68 floats, one read one column per lane a stride of 65, so
-// both reads and the transposed stores are free of bank conflicts. P and dS
-// go through shared memory into the gradient products.
+// dK/dV, bf16: flash_bwd_dkv_mma_kernel, on the tensor cores
+// (mma_bf16.cuh). One CTA of 4 warps per (batch*head, 64-key tile), key
+// tile 0 (the heaviest when causal) first. Each warp owns 16 keys and keeps
+// K's and V's A fragments in registers. Q and dO tiles, from the diagonal
+// tile to the end (causal) or over all of T, are double-buffered in shared
+// memory with cp.async, with the 64 queries' lse and delta beside them.
+// Per 32 queries: S^T = K.Q^T and dP^T = V.dO^T on mma; P^T =
+// exp2(S^T log2(e)/sqrt(Dh) - lse log2(e)), masked; dS^T = P^T (dP^T -
+// delta) / sqrt(Dh); then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T
+// rounded to bf16 in registers as A fragments (FlashAttention-2's rounding
+// point; accumulation stays fp32). dK and dV stay in fp32 registers until
+// the epilogue, which stages them through shared memory in the outputs'
+// layout and writes 16-byte rows. As in the forward, the layout of q, k and
+// v is a template parameter (dO row-major, or every operand read at run
+// time), the exponentials run on the SFU, and the registers are capped for
+// 3 CTAs per SM at Dh <= 64.
+//
+// dQ (fp32 and bf16) and dK/dV (fp32): register-tiled FMA code, no tensor
+// cores (no TF32: the fp32 limits are 1e-4). CTAs of 256 threads on 64 x 64
+// tiles, the heaviest first (dQ: the last query tiles; dK/dV: the first key
+// tiles). Every product is register-tiled: a 16 x 16 thread grid where each
+// thread owns 4 rows x 4 columns of S, dP and dS (then 4 rows x Dh/16 dims
+// of the accumulated gradient), so each shared-memory load feeds 4 FMAs.
+// Tiles are staged transposed (dim-major) in shared memory as fp32; an
+// operand read 4 rows at a time as a float4 gets a row stride of 68 floats,
+// one read one column per lane a stride of 65, so both reads and the
+// transposed stores are free of bank conflicts. P and dS go through shared
+// memory into the gradient products.
 //
 // What bounds them on this card: at the training shape (B=64, H=6, T=256,
 // Dh=48, bf16) the dQ kernel does 6*Dh and the dK/dV kernel 8*Dh operations
-// per visible pair (12.6 M pairs) on CUDA cores (fp32 FMA, no tensor cores),
-// against ~48 / ~57 MB of operand traffic: the fp32 FMA rate, not memory,
-// bounds this design; the bytes bound the function (PERF.md).
+// per visible pair (12.6 M pairs) against ~48 / ~57 MB of operand traffic:
+// the bytes bound both functions (14.3 / 17.1 us, PERF.md). The FMA dQ
+// design is held back by the fp32 FMA rate; the tensor-core dK/dV by
+// latency: its first loads and its epilogue are a large share of a CTA's
+// time, and the double buffer hides later loads only in part.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -53,10 +76,6 @@ constexpr int kPer = kBlock / kTX;           // columns per thread
 constexpr int kVecPad = kBlock + 4;          // row stride of float4-read tiles
 constexpr int kOddPad = kBlock + 1;          // row stride of column-read tiles
 constexpr float kLog2e = 1.4426950408889634f;
-
-struct Strides {
-  long long b, h, t, d;
-};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -226,13 +245,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   store_rows<T, NC>(dq + b * sdq.b + h * sdq.h, sdq, q0, r0, tx, seq, dh, acc);
 }
 
-// dK/dV: one CTA per (batch*head, 64-key tile); walks the query tiles from
-// the diagonal (causal) or from 0 to T.
-template <typename T, int DP>
+// dK/dV, fp32: one CTA per (batch*head, 64-key tile); walks the query tiles
+// from the diagonal (causal) or from 0 to T.
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv,
                      int heads, int seq, int dh, Strides sq, Strides sk, Strides sv, Strides sdo,
                      Strides sdk, Strides sdv, float scale, int causal) {
   constexpr int NC = DP / 16;
@@ -255,10 +275,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int r0 = ty * 4;
   const float sl2 = scale * kLog2e;
 
-  load_t<T, DP>(k + b * sk.b + h * sk.h, sk, k0, seq, dh, kt, kVecPad);
-  load_t<T, DP>(v + b * sv.b + h * sv.h, sv, k0, seq, dh, vt, kVecPad);
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* dob = dout + b * sdo.b + h * sdo.h;
+  load_t<float, DP>(k + b * sk.b + h * sk.h, sk, k0, seq, dh, kt, kVecPad);
+  load_t<float, DP>(v + b * sv.b + h * sv.h, sv, k0, seq, dh, vt, kVecPad);
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
 
   float acc_k[4][NC], acc_v[4][NC];
 #pragma unroll
@@ -268,8 +288,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   for (int q0 = causal ? k0 : 0; q0 < seq; q0 += kBlock) {
     __syncthreads();
-    load_t<T, DP>(qb, sq, q0, seq, dh, qt, kOddPad);
-    load_t<T, DP>(dob, sdo, q0, seq, dh, dot, kOddPad);
+    load_t<float, DP>(qb, sq, q0, seq, dh, qt, kOddPad);
+    load_t<float, DP>(dob, sdo, q0, seq, dh, dot, kOddPad);
     if (threadIdx.x < kBlock) {
       const int qpos = q0 + threadIdx.x;
       const long long row = static_cast<long long>(bh) * seq + qpos;
@@ -340,9 +360,181 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       }
     }
   }
-  store_rows<T, NC>(dk + b * sdk.b + h * sdk.h, sdk, k0, r0, tx, seq, dh, acc_k);
-  store_rows<T, NC>(dv + b * sdv.b + h * sdv.h, sdv, k0, r0, tx, seq, dh, acc_v);
+  store_rows<float, NC>(dk + b * sdk.b + h * sdk.h, sdk, k0, r0, tx, seq, dh, acc_k);
+  store_rows<float, NC>(dv + b * sdv.b + h * sdv.h, sdv, k0, r0, tx, seq, dh, acc_v);
 }
+
+// ------------------------------------------------------ bf16 tensor cores
+
+constexpr int kMmaThreads = 128;   // 4 warps x 16 keys
+constexpr int kQSub = 32;          // queries per step of the products
+
+struct Modes {
+  int q, k, v, dout, dk, dv;
+};
+
+// K and V tiles, double-buffered Q and dO tiles, and the query tiles' lse
+// and delta ([2 buffers][lse, delta][kBlock] floats).
+template <int DP>
+constexpr int dkv_mma_smem_bytes() {
+  return 6 * 2 * tile_elems<DP>() + 2 * 2 * kBlock * 4;
+}
+
+// L: the layout of q, k and v (mma_bf16.cuh); dO is row-major unless L is
+// kAnyLayout; dk and dv may lie either way.
+template <int DP, int L>
+__global__ void __launch_bounds__(kMmaThreads, DP <= 64 ? 3 : 1)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int seq, int dh,
+                         Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+                         Strides sdv, Modes md, float scale, int causal) {
+  constexpr int NK = DP / 16;       // 16-wide k-steps over the head dim
+  constexpr int ND = DP / 8;        // 8-wide n-tiles over the head dim
+  constexpr int NQ = kQSub / 8;     // 8-wide n-tiles over a step's queries
+  constexpr int TE = tile_elems<DP>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // K, then dK on the way out
+  bf16* vs = ks + TE;                             // V, then dV
+  bf16* qs = vs + TE;                             // [2] Q tiles
+  bf16* dos = qs + 2 * TE;                        // [2] dO tiles
+  float* rows = reinterpret_cast<float*>(dos + 2 * TE);
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int k0 = blockIdx.y * kBlock;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int key0 = k0 + 16 * warp + (lane >> 2);   // this thread's keys: key0, key0 + 8
+  const int col0 = 2 * (lane & 3);                 // and query columns col0, col0 + 1
+  const float c = scale * kLog2e;
+
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* dob = dout + b * sdo.b + h * sdo.h;
+  const long long row_base = static_cast<long long>(bh) * seq;
+  const int n_q = (seq + kBlock - 1) / kBlock;
+  const int first = causal ? blockIdx.y : 0;
+
+  // Query tile qt's Q, dO, lse and delta into buffer `buf`.
+  auto stage_queries = [&](int qt, int buf) {
+    const int q0 = qt * kBlock;
+    stage_tile<DP, kMmaThreads>(qs + buf * TE, qb, sq, md.q, q0, seq, dh);
+    stage_tile<DP, kMmaThreads>(dos + buf * TE, dob, sdo, md.dout, q0, seq, dh);
+    for (int i = threadIdx.x; i < 2 * kBlock; i += kMmaThreads) {
+      const int pos = q0 + i % kBlock;
+      const float* src = (i < kBlock ? lse : delta) + row_base + pos;
+      cp_async_4(smem_u32(rows + buf * 2 * kBlock + i), pos < seq ? src : lse,
+                 pos < seq ? 4 : 0);
+    }
+  };
+
+  stage_tile<DP, kMmaThreads>(ks, k + b * sk.b + h * sk.h, sk, md.k, k0, seq, dh);
+  stage_tile<DP, kMmaThreads>(vs, v + b * sv.b + h * sv.h, sv, md.v, k0, seq, dh);
+  stage_queries(first, 0);
+  cp_async_commit();
+  const TileView<DP> kv(ks, view_mode<L>(md.k)), vv(vs, view_mode<L>(md.v)),
+      qv(qs, view_mode<L>(md.q)), dov(dos, L == kAnyLayout ? md.dout : 0);
+
+  uint32_t ka[NK][4], va[NK][4];
+  float acc_k[ND][4], acc_v[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  }
+
+  for (int qt = first; qt < n_q; ++qt) {
+    const int buf = (qt - first) & 1;
+    if (qt + 1 < n_q) stage_queries(qt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // everything but the tile just requested
+    __syncthreads();
+    if (qt == first) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        kv.load(ka[kk], 0, 16 * warp, 16 * kk, true);
+        vv.load(va[kk], 0, 16 * warp, 16 * kk, true);
+      }
+    }
+    const int q0 = qt * kBlock;
+    const float* lse_t = rows + buf * 2 * kBlock;
+    const float* delta_t = lse_t + kBlock;
+
+#pragma unroll
+    for (int sub = 0; sub < kBlock; sub += kQSub) {
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 queries.
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int jj = 0; jj < NQ / 2; ++jj) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          uint32_t r[4];
+          qv.load(r, buf, sub + 16 * jj, 16 * kk, true);
+          mma_bf16(st[2 * jj], ka[kk], r[0], r[2]);
+          mma_bf16(st[2 * jj + 1], ka[kk], r[1], r[3]);
+          dov.load(r, buf, sub + 16 * jj, 16 * kk, true);
+          mma_bf16(dpt[2 * jj], va[kk], r[0], r[2]);
+          mma_bf16(dpt[2 * jj + 1], va[kk], r[1], r[3]);
+        }
+      }
+
+      // P^T from the saved lse, masked; dS^T = P^T (dP^T - delta) scale.
+      const bool edge = q0 + sub + kQSub > seq ||
+                        (causal ? k0 + 16 * warp + 15 > q0 + sub : k0 + kBlock > seq);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const int qc = sub + 8 * j + col0;
+        const float2 ls = *reinterpret_cast<const float2*>(lse_t + qc);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_t + qc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = q0 + qc + (e & 1);
+          const int kpos = key0 + 8 * (e >> 1);
+          const bool visible = !edge || (qpos < seq && (causal ? kpos <= qpos : kpos < seq));
+          const float p =
+              visible ? fast_exp2(fmaf(st[j][e], c, -((e & 1) ? ls.y : ls.x) * kLog2e)) : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - ((e & 1) ? dl.y : dl.x)) * scale;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q, P^T and dS^T as bf16 A fragments.
+#pragma unroll
+      for (int j = 0; j < NQ / 2; ++j) {
+        uint32_t pa[4], da[4];
+        acc_to_a(pa, st[2 * j], st[2 * j + 1]);
+        acc_to_a(da, dpt[2 * j], dpt[2 * j + 1]);
+#pragma unroll
+        for (int dd = 0; dd < NK; ++dd) {
+          uint32_t r[4];
+          dov.load(r, buf, sub + 16 * j, 16 * dd, false);
+          mma_bf16(acc_v[2 * dd], pa, r[0], r[1]);
+          mma_bf16(acc_v[2 * dd + 1], pa, r[2], r[3]);
+          qv.load(r, buf, sub + 16 * j, 16 * dd, false);
+          mma_bf16(acc_k[2 * dd], da, r[0], r[1]);
+          mma_bf16(acc_k[2 * dd + 1], da, r[2], r[3]);
+        }
+      }
+    }
+    __syncthreads();   // buffer `buf` is refilled at the next iteration
+  }
+
+  // Epilogue: K and V are in registers, so their tiles take dK and dV.
+  acc_to_tile<DP>(ks, md.dk, 16 * warp, acc_k);
+  acc_to_tile<DP>(vs, md.dv, 16 * warp, acc_v);
+  __syncthreads();
+  store_tile<DP, kMmaThreads>(dk + b * sdk.b + h * sdk.h, sdk, md.dk, ks, k0, seq, dh);
+  store_tile<DP, kMmaThreads>(dv + b * sdv.b + h * sdv.h, sdv, md.dv, vs, k0, seq, dh);
+}
+
+// ---------------------------------------------------------------- launch
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -367,38 +559,56 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   constexpr int smem = 4 * dkv_smem_floats<DP>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.batch * a.heads, (a.seq + kBlock - 1) / kBlock);
-  flash_bwd_dkv_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.g0),
-      static_cast<T*>(a.g1), a.heads, a.seq, a.dh, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4],
-      a.s[5], a.scale, a.causal);
+  flash_bwd_dkv_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.g0), static_cast<float*>(a.g1), a.heads, a.seq, a.dh, a.s[0],
+      a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, bool DQ>
-cudaError_t dispatch(const Args& a, cudaStream_t st) {
-#define DDL_CASE(n)                                                      \
-  case n:                                                                \
-    return DQ ? launch_dq<T, 16 * n>(a, st) : launch_dkv<T, 16 * n>(a, st);
-  switch ((a.dh + 15) / 16) {
-    DDL_CASE(1)
-    DDL_CASE(2)
-    DDL_CASE(3)
-    DDL_CASE(4)
-    DDL_CASE(5)
-    DDL_CASE(6)
-    DDL_CASE(7)
-    DDL_CASE(8)
-    default: return cudaErrorInvalidValue;
+template <int DP, int L>
+cudaError_t launch_dkv_mma_l(const Args& a, const Modes& md, cudaStream_t stream) {
+  constexpr int smem = dkv_mma_smem_bytes<DP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_mma_kernel<DP, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.batch * a.heads, (a.seq + kBlock - 1) / kBlock);
+  flash_bwd_dkv_mma_kernel<DP, L><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.g0), static_cast<bf16*>(a.g1), a.heads, a.seq, a.dh, a.s[0], a.s[1],
+      a.s[2], a.s[3], a.s[4], a.s[5], md, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dkv_mma(const Args& a, cudaStream_t stream) {
+  const Modes md{operand_mode(a.q, a.s[0], a.seq, a.dh), operand_mode(a.k, a.s[1], a.seq, a.dh),
+                 operand_mode(a.v, a.s[2], a.seq, a.dh), operand_mode(a.dout, a.s[3], a.seq, a.dh),
+                 operand_mode(a.g0, a.s[4], a.seq, a.dh), operand_mode(a.g1, a.s[5], a.seq, a.dh)};
+  if (md.q < 0 || md.k < 0 || md.v < 0 || md.dout < 0 || md.dk < 0 || md.dv < 0) {
+    return cudaErrorInvalidValue;
   }
-#undef DDL_CASE
+  const int lq = md.q & kDhMajor;
+  const bool fixed = (md.k & kDhMajor) == lq && (md.v & kDhMajor) == lq && !(md.dout & kDhMajor);
+  if (!fixed) return launch_dkv_mma_l<DP, kAnyLayout>(a, md, stream);
+  return lq ? launch_dkv_mma_l<DP, kDhMajor>(a, md, stream)
+            : launch_dkv_mma_l<DP, 0>(a, md, stream);
+}
+
+// dQ: FMA in both types; dK/dV: tensor cores for bf16, FMA for fp32.
+template <int DP>
+cudaError_t launch(const Args& a, bool bf, bool is_dq, cudaStream_t st) {
+  if (is_dq) return bf ? launch_dq<bf16, DP>(a, st) : launch_dq<float, DP>(a, st);
+  return bf ? launch_dkv_mma<DP>(a, st) : launch_dkv<DP>(a, st);
 }
 
 int run(const void* q, const void* k, const void* v, const void* dout, const float* lse,
@@ -413,14 +623,18 @@ int run(const void* q, const void* k, const void* v, const void* dout, const flo
   for (int i = 0; i < n_ops; ++i) {
     a.s[i] = Strides{strides[4 * i], strides[4 * i + 1], strides[4 * i + 2], strides[4 * i + 3]};
   }
+  const bool bf = is_bf16 != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_dq) {
-    err = is_bf16 ? dispatch<__nv_bfloat16, true>(a, st) : dispatch<float, true>(a, st);
-  } else {
-    err = is_bf16 ? dispatch<__nv_bfloat16, false>(a, st) : dispatch<float, false>(a, st);
+  switch ((dh + 15) / 16) {
+    case 1: return static_cast<int>(launch<16>(a, bf, is_dq, st));
+    case 2: return static_cast<int>(launch<32>(a, bf, is_dq, st));
+    case 3: return static_cast<int>(launch<48>(a, bf, is_dq, st));
+    case 4: return static_cast<int>(launch<64>(a, bf, is_dq, st));
+    case 5: return static_cast<int>(launch<80>(a, bf, is_dq, st));
+    case 6: return static_cast<int>(launch<96>(a, bf, is_dq, st));
+    case 7: return static_cast<int>(launch<112>(a, bf, is_dq, st));
+    default: return static_cast<int>(launch<128>(a, bf, is_dq, st));
   }
-  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -430,7 +644,8 @@ int run(const void* q, const void* k, const void* v, const void* dout, const flo
 // strides per operand, in the order q, k, v, dout, then dq (5 operands) or
 // dk, dv (6 operands). lse and delta are dense fp32 [batch*heads, seq].
 // Each launches one kernel on `stream` and returns the launch's cudaError_t
-// (0 = success); neither synchronises.
+// (0 = success); neither synchronises. The bf16 dK/dV kernel needs positions
+// or dims at stride 1 in each operand (either layout).
 extern "C" int ddl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq, int is_bf16,
                                 int batch, int heads, int seq, int dh, const long long* strides,

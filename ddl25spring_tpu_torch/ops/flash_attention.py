@@ -6,7 +6,10 @@ kernels are replaced by three CUDA kernels that each read either operand
 layout through strides: the forward ``csrc/flash_fwd.cu`` (``_fwd_kernel``
 and ``_fwd_kernel_t``), and the backward ``csrc/flash_bwd.cu``, one dQ
 kernel (``_dq_kernel``, ``_dq_kernel_t``) and one dK/dV kernel
-(``_dkv_kernel``, ``_dkv_kernel_t``). The public function keeps the JAX
+(``_dkv_kernel``, ``_dkv_kernel_t``). In bf16 the forward and dK/dV kernels
+run on the tensor cores (``mma.sync`` through ``csrc/mma_bf16.cuh``, P and
+dS rounded to bf16 before their products, fp32 accumulation); dQ and every
+fp32 kernel are FMA code in full fp32. The public function keeps the JAX
 API: ``[B, T, H, Dh]`` in and out, differentiable.
 
 - ``flash_attention`` runs the kernels for CUDA tensors (forward, and on
@@ -230,6 +233,10 @@ def flash_attention_bwd(q4: torch.Tensor, k4: torch.Tensor,
     package. Returns dense ``[B, T, H, Dh]`` gradients in q's dtype."""
     global dq_launches, dkv_launches
     b, h, t, dh = q4.shape
+    if do.stride(-1) != 1:
+        # The bf16 kernels read each operand with its dims or its positions
+        # at stride 1; a cotangent broadcast from a sum has neither.
+        do = do.contiguous()
     delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2)
     delta = delta.reshape(b * h, t)                 # [B·H, T], dense
     dq, dk, dv = (torch.empty(b, t, h, dh, dtype=q4.dtype, device=q4.device)

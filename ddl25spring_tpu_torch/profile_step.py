@@ -29,9 +29,9 @@ from .config import LlamaConfig
 # Name fragments of the port's own kernels, of cuBLAS/cutlass products, and
 # of reductions/copies, in the order they are tried.
 _CATEGORIES = (
-    ("flash_fwd (port)", ("flash_fwd_kernel",)),
-    ("flash_bwd dq (port)", ("flash_bwd_dq_kernel",)),
-    ("flash_bwd dkv (port)", ("flash_bwd_dkv_kernel",)),
+    ("flash_fwd (port)", ("flash_fwd_",)),
+    ("flash_bwd dq (port)", ("flash_bwd_dq_",)),
+    ("flash_bwd dkv (port)", ("flash_bwd_dkv_",)),
     ("adam (port)", ("adam_kernel",)),
     ("matmul", ("gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),
     ("reduction", ("reduce", "softmax", "logsumexp")),

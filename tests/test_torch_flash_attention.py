@@ -2,8 +2,12 @@
 package's Pallas flash attention in interpret mode: outputs and the per-row
 log-sum-exp the forward keeps, and the gradients of q, k and v, in both
 operand layouts, at ragged lengths, causal or not. The plain version of
-the backward kernels is held against autograd. The CUDA kernels themselves
-are held against their plain versions on the card by ``chip_smoke.py``."""
+the backward kernels is held against autograd, and an emulation of the
+bf16 tensor-core kernels' rounding against the Pallas kernels on bf16
+inputs. The CUDA kernels themselves are held against their plain versions
+on the card by ``chip_smoke.py``."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -154,3 +158,87 @@ def test_pallas_attention_impl_raises_on_cpu_tensors():
                              device="cpu")
     with torch.inference_mode(), pytest.raises(RuntimeError, match="CUDA"):
         llama.forward(model, torch.zeros(1, 8, dtype=torch.long), cfg)
+
+
+# The bf16 forward and dK/dV kernels round P (and dS) to bf16 before the
+# tensor-core products that take them, accumulating in fp32; the plain
+# versions stay fp32. The card holds the kernels to 2e-2 (out, and dk, dv
+# relative to the largest reference gradient) and lse to 1e-4.
+BF16_TOL_OUT, BF16_TOL_LSE, BF16_TOL_GRAD = 2e-2, 1e-4, 2e-2
+
+
+def _bf16_kernels_emulation(q, k, v, do, causal):
+    """The bf16 kernels' arithmetic in plain PyTorch on [B, T, H, Dh] bf16
+    tensors: the forward's online softmax over 64-key tiles in the log2
+    domain with P rounded to bf16 before P·V, and the dK/dV kernel's P
+    (from lse) and dS rounded to bf16 before dV = Pᵀ·dO and dK = dSᵀ·Q; fp32
+    scores, statistics and accumulators. Returns out (bf16), lse, dk, dv
+    (bf16)."""
+    b, t, h, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
+    c = scale * math.log2(math.e)
+    qf, kf, vf, dof = (x.float().permute(0, 2, 1, 3) for x in (q, k, v, do))
+    pos = torch.arange(t)
+    m = torch.full((b, h, t), -1e30)
+    l = torch.zeros(b, h, t)
+    acc = torch.zeros(b, h, t, dh)
+    for k0 in range(0, t, 64):
+        kpos = pos[k0:k0 + 64]
+        vis = (kpos[None, :] <= pos[:, None]) if causal else \
+            torch.ones(t, len(kpos), dtype=torch.bool)
+        s = torch.where(vis, qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2) * c,
+                        torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(vis, torch.exp2(s - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + \
+            p.bfloat16().float() @ vf[:, :, k0:k0 + 64]
+        m = m_new
+    out = (acc / l[..., None]).bfloat16()                   # [B, H, T, Dh]
+    lse = m * math.log(2.0) + torch.log(l)                  # [B, H, T]
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    vis = (pos[None, :] <= pos[:, None]) if causal else \
+        torch.ones(t, t, dtype=torch.bool)
+    p = torch.where(vis, torch.exp2(qf @ kf.transpose(-1, -2) * c
+                                    - lse[..., None] * math.log2(math.e)),
+                    0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta) * scale
+    dv = p.bfloat16().float().transpose(-1, -2) @ dof
+    dk = ds.bfloat16().float().transpose(-1, -2) @ qf
+    back = lambda x: x.bfloat16().permute(0, 2, 1, 3)
+    return back(out), lse.reshape(b * h, t), back(dk), back(dv)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh_major", [False, True])
+def test_bf16_kernel_rounding_fits_the_card_limits(dh_major, causal):
+    """The tensor-core kernels' one new rounding point (P, and dS, to bf16
+    before their products) against the Pallas kernels in interpret mode on
+    the same bf16 inputs: out, lse, dk and dv within the limits the card
+    enforces."""
+    rng = np.random.default_rng(17 + dh_major + 2 * causal)
+    q, k, v, do = (rng.standard_normal((2, 100, 3, 48)).astype(np.float32)
+                   for _ in range(4))
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16)
+                       for x in (q, k, v, do))
+    out, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, causal=causal, interpret=True, dh_major=dh_major),
+        jq, jk, jv)
+    want_grads = [np.asarray(x.astype(jnp.float32)) for x in vjp(jdo)]
+    fwd = jfa._flash_t_fwd if dh_major else jfa._flash_fwd
+    lse_res = np.asarray(fwd(jq, jk, jv, causal, 128, 128, True)[1][4])
+    want_lse = lse_res[:, 0, :100] if dh_major else lse_res[:, :100, 0]
+    tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+    got_out, got_lse, dk, dv = _bf16_kernels_emulation(tq, tk, tv, tdo,
+                                                       causal)
+    out_err = np.abs(got_out.float().numpy()
+                     - np.asarray(out.astype(jnp.float32))).max()
+    assert out_err <= BF16_TOL_OUT
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=0,
+                               atol=BF16_TOL_LSE)
+    limit = BF16_TOL_GRAD * max(np.abs(g).max() for g in want_grads)
+    for name, got, want in (("dk", dk, want_grads[1]),
+                            ("dv", dv, want_grads[2])):
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= limit, f"{name}: max|d|={err:.3g} > {limit:.3g}"
