@@ -98,9 +98,13 @@ DESIGN = {
         "float32": "register-tiled fp32 FMA, 256 threads, 4 x 4 micro-tiles, "
                    "P through shared memory"},
     "flash_bwd_dq": {
-        "bfloat16": "register-tiled fp32 FMA on bf16 operands widened to "
-                    "fp32, 256 threads (not yet on the tensor cores)",
-        "float32": "register-tiled fp32 FMA, 256 threads"},
+        "bfloat16": "tensor cores: mma.sync m16n8k16 bf16 -> fp32, ldmatrix "
+                    "(.trans by layout), cp.async double-buffered K/V tiles "
+                    "in separate copy groups, 4 warps x 16 query rows, Q and "
+                    "dO fragments and dQ in registers, dS rounded to bf16 in "
+                    "registers (csrc/mma_bf16.cuh)",
+        "float32": "register-tiled fp32 FMA, 256 threads, dS through shared "
+                   "memory"},
     "flash_bwd_dkv": {
         "bfloat16": "tensor cores: mma.sync m16n8k16 bf16 -> fp32, ldmatrix "
                     "(.trans by layout), cp.async double-buffered Q/dO tiles, "
@@ -345,12 +349,14 @@ def main() -> int:
             "shape": [b, t, h, dh], "dtype": str(dtype)[6:],
             "dh_major": dh_major, "causal": causal,
             "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]},
+            "max_abs_ref": max(r.float().abs().max().item() for r in ref),
             "dq_us": dq_us, "dkv_us": dkv_us, "plain_us": plain_us,
             "sdpa_bwd_us": sdpa_bwd_us, "dq_bound_us": dq_bound[0],
             "dq_bound_by": dq_bound[1], "dkv_bound_us": dkv_bound[0],
             "dkv_bound_by": dkv_bound[1]})
         print(f"flash_bwd {tag}: max|d| dq {errs[0]:.3g} dk {errs[1]:.3g} "
-              f"dv {errs[2]:.3g}; dq kernel {dq_us:.1f} us (bound "
+              f"dv {errs[2]:.3g} (largest reference gradient "
+              f"{bwd[-1]['max_abs_ref']:.3g}); dq kernel {dq_us:.1f} us (bound "
               f"{dq_bound[0]:.2f} us, {dq_bound[1]}), dkv kernel "
               f"{dkv_us:.1f} us (bound {dkv_bound[0]:.2f} us, "
               f"{dkv_bound[1]}), plain dq+dk+dv {plain_us:.1f} us, sdpa "
@@ -591,7 +597,7 @@ def main() -> int:
           f"{card}")
 
     # The kernel path against the plain path, bf16 compute, B=8: the
-    # tensor-core forward and dK/dV kernels inside the model.
+    # tensor-core forward, dQ and dK/dV kernels inside the model.
     bkcfg = kcfg.replace(dtype="bfloat16")
     bpcfg = bkcfg.replace(attention_impl="xla")
     mb = llama.init_llama(bkcfg, torch.Generator().manual_seed(0),

@@ -1,5 +1,5 @@
 """What holds the bf16 flash kernels back, on one CUDA card: variants of
-the forward and dK/dV kernels timed against the kernels as they are.
+the forward, dQ and dK/dV kernels timed against the kernels as they are.
 
     python -m ddl25spring_tpu_torch.flash_ab [--variants a,b,...] [--dh 48]
 
@@ -14,10 +14,10 @@ bitwise against the kernels as they are; the diagnostics, which skip work,
 are not. Prints one line per variant and shape, then one JSON line.
 
 The variants (``VARIANTS``): each design choice undone (each kernel's
-layout read at run time, the forward's K and V in one copy group, the libm
-``exp2f``, no register cap), two diagnostics that time part of the work
-(no tile loads after the first, one tile per CTA), and two changes that
-were tried and measured slower.
+layout read at run time, the forward's and dQ's K and V in one copy group,
+the libm ``exp2f``, no register cap), two diagnostics that time part of the work
+(no tile loads after the first, one tile per CTA), and changes that were
+tried and measured slower.
 """
 
 from __future__ import annotations
@@ -47,9 +47,12 @@ VARIANTS = {
     "forward: layout at run time": [
         (FWD, "const int layout = (md.k & kDhMajor) == lq && (md.v & kDhMajor) == lq ? lq "
               ": kAnyLayout;", "const int layout = kAnyLayout;")],
+    "dQ: layout at run time": [
+        (BWD, "switch (layout_of(md)) {\n    case 0: return launch_dq_mma_l",
+         "switch (kAnyLayout) {\n    case 0: return launch_dq_mma_l")],
     "dK/dV: layout at run time": [
-        (BWD, "const bool fixed = (md.k & kDhMajor) == lq && (md.v & kDhMajor) == lq && "
-              "!(md.dout & kDhMajor);", "const bool fixed = false;")],
+        (BWD, "switch (layout_of(md)) {\n    case 0: return launch_dkv_mma_l",
+         "switch (kAnyLayout) {\n    case 0: return launch_dkv_mma_l")],
     "forward: K and V in one copy group": [
         (FWD, """  cp_async_commit();
   stage_tile<DP, kMmaThreads>(vs, vb, sv, md.v, 0, seq, dh);""", """
@@ -60,9 +63,24 @@ VARIANTS = {
       stage_tile<DP, kMmaThreads>(vs""", """      stage_tile<DP, kMmaThreads>(vs"""),
         (FWD, "    cp_async_wait<3>();", "    cp_async_wait<1>();"),
         (FWD, "    cp_async_wait<2>();   // V of this tile\n    __syncthreads();\n", "")],
+    "dQ: K and V in one copy group": [
+        (BWD, """  stage_tile<DP, kMmaThreads>(ks, kb, sk, md.k, 0, seq, dh);
+  cp_async_commit();""", """  stage_tile<DP, kMmaThreads>(ks, kb, sk, md.k, 0, seq, dh);"""),
+        (BWD, """    }
+    cp_async_commit();
+    if (kt + 1 < n_k) {
+      stage_tile<DP, kMmaThreads>(vs""", """      stage_tile<DP, kMmaThreads>(vs"""),
+        (BWD, "    cp_async_wait<3>();", "    cp_async_wait<1>();"),
+        (BWD, """      if (sub == 0) {
+        cp_async_wait<2>();   // V of this tile
+        __syncthreads();
+      }
+""", "")],
     "libm exp2f": [(FWD, "fast_exp2(", "exp2f("), (BWD, "fast_exp2(", "exp2f(")],
     "no register cap": [
         (FWD, "__launch_bounds__(kMmaThreads, DP <= 64 ? 4 : 1)",
+         "__launch_bounds__(kMmaThreads)"),
+        (BWD, "__launch_bounds__(kMmaThreads, DP <= 64 ? 4 : 1)",
          "__launch_bounds__(kMmaThreads)"),
         (BWD, "__launch_bounds__(kMmaThreads, DP <= 64 ? 3 : 1)",
          "__launch_bounds__(kMmaThreads)")],
@@ -70,14 +88,18 @@ VARIANTS = {
     # after the first, and each CTA's first tile only.
     "no later loads": [
         (FWD, "if (kt + 1 < n_k) {\n      stage_tile", "if (false) {\n      stage_tile"),
+        (BWD, "if (kt + 1 < n_k) {\n      stage_tile", "if (false) {\n      stage_tile"),
         (BWD, "if (qt + 1 < n_q) stage_queries", "if (false) stage_queries")],
     "first tile only": [
         (FWD, "const int n_k = ((causal ? q_last + 1 : seq) + kBlockK - 1) / kBlockK;",
          "const int n_k = 1;"),
+        (BWD, "const int n_k = ((causal ? q_last + 1 : seq) + kBlock - 1) / kBlock;",
+         "const int n_k = 1;"),
         (BWD, "for (int qt = first; qt < n_q; ++qt) {",
          "for (int qt = first; qt < first + 1; ++qt) {")],
     # Tried and slower: CTAs of one head adjacent in launch order; dK/dV
-    # capped at 128 registers (4 CTAs per SM).
+    # capped at 128 registers (4 CTAs per SM); dQ capped at 168 (3 CTAs per
+    # SM); dQ's products over 16 or 64 keys per step instead of 32.
     "head-major grid": [
         (FWD, "  const int bh = blockIdx.x;\n  const int b = bh / heads;\n"
               "  const int h = bh % heads;\n"
@@ -104,6 +126,11 @@ VARIANTS = {
     "dK/dV at 4 CTAs per SM": [
         (BWD, "__launch_bounds__(kMmaThreads, DP <= 64 ? 3 : 1)",
          "__launch_bounds__(kMmaThreads, DP <= 64 ? 4 : 1)")],
+    "dQ at 3 CTAs per SM": [
+        (BWD, "__launch_bounds__(kMmaThreads, DP <= 64 ? 4 : 1)",
+         "__launch_bounds__(kMmaThreads, DP <= 64 ? 3 : 1)")],
+    "dQ: 16-key steps": [(BWD, "constexpr int kKSub = 32;", "constexpr int kKSub = 16;")],
+    "dQ: 64-key steps": [(BWD, "constexpr int kKSub = 32;", "constexpr int kKSub = 64;")],
 }
 DIAGNOSTICS = ("no later loads", "first tile only")
 SHAPES = ((64, 256, 6, 48), (8, 256, 6, 48))
@@ -204,7 +231,7 @@ def main() -> int:
             raise RuntimeError(f"the kernel as built is off its plain version: {err}")
         o4 = torch.empty_like(q4)
         grads = [torch.empty(b, t, h, dh, device=dev, dtype=torch.bfloat16
-                             ).permute(0, 2, 1, 3) for _ in range(2)]
+                             ).permute(0, 2, 1, 3) for _ in range(3)]
         cases[(b, t, h, dh)] = ((q4, k4, v4, o4), torch.empty_like(lse),
                                 (q4, k4, v4, do.permute(0, 2, 1, 3)), grads, lse, delta)
 
@@ -216,10 +243,12 @@ def main() -> int:
         try:
             for shape, (fops, flse, bops, grads, lse, delta) in cases.items():
                 fwd = lambda: fa._launch(*fops, flse, causal=True)
-                dkv = lambda: fa._launch_bwd("ddl_flash_bwd_dkv", bops, grads, lse, delta,
+                dq = lambda: fa._launch_bwd("ddl_flash_bwd_dq", bops, grads[:1], lse, delta,
+                                            causal=True)
+                dkv = lambda: fa._launch_bwd("ddl_flash_bwd_dkv", bops, grads[1:], lse, delta,
                                              causal=True)
                 if check:
-                    fwd(), dkv()
+                    fwd(), dq(), dkv()
                     torch.cuda.synchronize()
                     got = [x.clone() for x in (fops[3], flse, *grads)]
                     if v == "as built":
@@ -231,9 +260,10 @@ def main() -> int:
                         if not same:
                             print(f"{v}: results differ from the kernels as built at {shape}")
                     continue
-                results[v].setdefault(str(shape), {"fwd_us": [], "dkv_us": []})
-                results[v][str(shape)]["fwd_us"].append(kernel_time_us(fwd))
-                results[v][str(shape)]["dkv_us"].append(kernel_time_us(dkv))
+                r = results[v].setdefault(str(shape), {"fwd_us": [], "dq_us": [], "dkv_us": []})
+                r["fwd_us"].append(kernel_time_us(fwd))
+                r["dq_us"].append(kernel_time_us(dq))
+                r["dkv_us"].append(kernel_time_us(dkv))
         finally:
             _ext.library = real
 
@@ -243,22 +273,28 @@ def main() -> int:
     for order in (names, names[::-1]):
         for v in order:
             run(v, False)
-    sdpa = {}
+    sdpa, sdpa_bwd = {}, {}
     for b, t, h, dh in cases:
         qs, ks, vs = (torch.randn(b, h, t, dh, generator=gen, device=dev).bfloat16()
-                      for _ in range(3))
+                      .requires_grad_() for _ in range(3))
         sdpa[str((b, t, h, dh))] = kernel_time_us(
             lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
                                                                      is_causal=True))
+        out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        do_s = torch.randn_like(out)
+        sdpa_bwd[str((b, t, h, dh))] = kernel_time_us(
+            lambda: torch.autograd.grad(out, (qs, ks, vs), do_s, retain_graph=True))
     for shape in cases:
-        print(f"{shape}: SDPA forward {sdpa[str(shape)]:.1f} us [{card}]")
+        print(f"{shape}: SDPA forward {sdpa[str(shape)]:.1f} us, backward (dq, dk, dv) "
+              f"{sdpa_bwd[str(shape)]:.1f} us [{card}]")
         for v in names:
             r = results[v][str(shape)]
             print(f"{shape} {v:>24}: forward {r['fwd_us'][0]:.1f} / {r['fwd_us'][1]:.1f} us, "
+                  f"dQ {r['dq_us'][0]:.1f} / {r['dq_us'][1]:.1f} us, "
                   f"dK/dV {r['dkv_us'][0]:.1f} / {r['dkv_us'][1]:.1f} us [{card}]")
     print(json.dumps({"card": card, "dh": args.dh, "variants": results,
                       "bitwise_as_built": bitwise, "ptxas": ptxas,
-                      "sdpa_fwd_us": sdpa}))
+                      "sdpa_fwd_us": sdpa, "sdpa_bwd_us": sdpa_bwd}))
     return 0
 
 

@@ -1,5 +1,5 @@
 // Causal flash-attention backward for Hopper (sm_90a), fp32 and bf16 inputs:
-// one dQ kernel and one dK/dV kernel.
+// one dQ kernel and one dK/dV kernel per type.
 //
 // Replaces the JAX package's Pallas TPU kernels in
 // ddl25spring_tpu/ops/flash_attention.py: _dq_kernel (:190) and _dkv_kernel
@@ -22,44 +22,60 @@
 // computed by the caller (a plain reduction, as in the JAX package). The
 // TPU kernels carry dQ (or dK, dV) in VMEM scratch across a sequential grid
 // axis; here that axis is a loop inside the CTA, and the two kernels keep
-// the TPU's split so no atomics are needed.
+// the TPU's split so no atomics are needed and the results are
+// deterministic.
 //
-// dK/dV, bf16: flash_bwd_dkv_mma_kernel, on the tensor cores
-// (mma_bf16.cuh). One CTA of 4 warps per (batch*head, 64-key tile), key
-// tile 0 (the heaviest when causal) first. Each warp owns 16 keys and keeps
-// K's and V's A fragments in registers. Q and dO tiles, from the diagonal
-// tile to the end (causal) or over all of T, are double-buffered in shared
-// memory with cp.async, with the 64 queries' lse and delta beside them.
-// Per 32 queries: S^T = K.Q^T and dP^T = V.dO^T on mma; P^T =
-// exp2(S^T log2(e)/sqrt(Dh) - lse log2(e)), masked; dS^T = P^T (dP^T -
-// delta) / sqrt(Dh); then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T
-// rounded to bf16 in registers as A fragments (FlashAttention-2's rounding
-// point; accumulation stays fp32). dK and dV stay in fp32 registers until
-// the epilogue, which stages them through shared memory in the outputs'
-// layout and writes 16-byte rows. As in the forward, the layout of q, k and
-// v is a template parameter (dO row-major, or every operand read at run
-// time), the exponentials run on the SFU, and the registers are capped for
-// 3 CTAs per SM at Dh <= 64.
+// bf16: both kernels on the tensor cores (mma_bf16.cuh), CTAs of 4 warps,
+// each warp owning 16 rows of a 64-row tile and keeping that tile's operands
+// as A fragments in registers while the other side's tiles stream through a
+// shared-memory double buffer filled with cp.async. Scores, P and dS stay in
+// fp32 registers; P and dS are rounded to bf16 in registers as the A
+// operands of the gradient products (FlashAttention-2's rounding point;
+// accumulation stays fp32), the exponentials run on the SFU (fast_exp2), and
+// the epilogue stages the fp32 accumulators through shared memory in the
+// gradient's layout and writes 16-byte rows. The layout of q, k and v is a
+// template parameter (each in one layout with dO row-major, as the training
+// step calls them, or every operand read at run time for a mixed call).
+//  - dQ, flash_bwd_dq_mma_kernel: one CTA per (batch*head, 64-query tile),
+//    the last query tiles (the heaviest when causal) first. Q's and dO's A
+//    fragments, and each row's lse and delta, stay in registers. K and V
+//    tiles from tile 0 up to the diagonal (causal) or to T are
+//    double-buffered, K and V in separate copy groups, so S and P wait for
+//    K only and V's load overlaps them. Per 32 keys: S = Q.K^T and dP =
+//    dO.V^T on mma; P = exp2(S log2(e)/sqrt(Dh) - lse log2(e)), masked only
+//    on edge tiles; dS = P (dP - delta) / sqrt(Dh); dQ += dS.K. Registers
+//    capped for 4 CTAs per SM at Dh <= 64.
+//  - dK/dV, flash_bwd_dkv_mma_kernel: one CTA per (batch*head, 64-key
+//    tile), key tile 0 (the heaviest when causal) first. K's and V's A
+//    fragments stay in registers; Q and dO tiles from the diagonal tile to
+//    the end (causal) or over all of T are double-buffered with the 64
+//    queries' lse and delta beside them. Per 32 queries: S^T = K.Q^T and
+//    dP^T = V.dO^T; P^T and dS^T as above; dV += P^T.dO and dK += dS^T.Q.
+//    Registers capped for 3 CTAs per SM at Dh <= 64.
 //
-// dQ (fp32 and bf16) and dK/dV (fp32): register-tiled FMA code, no tensor
-// cores (no TF32: the fp32 limits are 1e-4). CTAs of 256 threads on 64 x 64
-// tiles, the heaviest first (dQ: the last query tiles; dK/dV: the first key
-// tiles). Every product is register-tiled: a 16 x 16 thread grid where each
-// thread owns 4 rows x 4 columns of S, dP and dS (then 4 rows x Dh/16 dims
-// of the accumulated gradient), so each shared-memory load feeds 4 FMAs.
-// Tiles are staged transposed (dim-major) in shared memory as fp32; an
-// operand read 4 rows at a time as a float4 gets a row stride of 68 floats,
-// one read one column per lane a stride of 65, so both reads and the
-// transposed stores are free of bank conflicts. P and dS go through shared
-// memory into the gradient products.
+// fp32: register-tiled FMA code, no tensor cores (no TF32: the fp32 limits
+// are 1e-4). CTAs of 256 threads on 64 x 64 tiles, the heaviest first (dQ:
+// the last query tiles; dK/dV: the first key tiles). Every product is
+// register-tiled: a 16 x 16 thread grid where each thread owns 4 rows x 4
+// columns of S, dP and dS (then 4 rows x Dh/16 dims of the accumulated
+// gradient), so each shared-memory load feeds 4 FMAs. Tiles are staged
+// transposed (dim-major) in shared memory as fp32; an operand read 4 rows at
+// a time as a float4 gets a row stride of 68 floats, one read one column per
+// lane a stride of 65, so both reads and the transposed stores are free of
+// bank conflicts. P and dS go through shared memory into the gradient
+// products.
 //
 // What bounds them on this card: at the training shape (B=64, H=6, T=256,
 // Dh=48, bf16) the dQ kernel does 6*Dh and the dK/dV kernel 8*Dh operations
 // per visible pair (12.6 M pairs) against ~48 / ~57 MB of operand traffic:
-// the bytes bound both functions (14.3 / 17.1 us, PERF.md). The FMA dQ
-// design is held back by the fp32 FMA rate; the tensor-core dK/dV by
-// latency: its first loads and its epilogue are a large share of a CTA's
-// time, and the double buffer hides later loads only in part.
+// the bytes bound both functions (14.3 / 17.1 us, PERF.md). The tensor-core
+// kernels are held back by latency instead: a CTA walks 1-4 tiles, so its
+// first loads (four tiles before its first product) and its epilogue are a
+// large share of its time, and registers decide how many CTAs per SM hide
+// one another's waits. The designs answer with the heaviest CTAs first,
+// later tiles loaded during the current tile's products, operands that stay
+// in registers, and the register caps above. The fp32 FMA kernels are held
+// back by the fp32 FMA rate.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -77,20 +93,12 @@ constexpr int kVecPad = kBlock + 4;          // row stride of float4-read tiles
 constexpr int kOddPad = kBlock + 1;          // row stride of column-read tiles
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Element (t, d) of rows [t0, t0 + kBlock) of one head, read in the operand's
 // own contiguous order and stored transposed: dst[d * pad + t] (zero past seq
 // and dh).
-template <typename T, int DP>
-__device__ __forceinline__ void load_t(const T* __restrict__ src, const Strides& s, int t0, int seq,
-                                       int dh, float* dst, int pad) {
+template <int DP>
+__device__ __forceinline__ void load_t(const float* __restrict__ src, const Strides& s, int t0,
+                                       int seq, int dh, float* dst, int pad) {
   const bool dim_fastest = (s.d == 1);
   for (int idx = threadIdx.x; idx < kBlock * DP; idx += kThreads) {
     int t, d;
@@ -103,16 +111,17 @@ __device__ __forceinline__ void load_t(const T* __restrict__ src, const Strides&
     }
     const int pos = t0 + t;
     float x = 0.f;
-    if (pos < seq && d < dh) x = to_float(src[pos * s.t + d * s.d]);
+    if (pos < seq && d < dh) x = src[pos * s.t + d * s.d];
     dst[d * pad + t] = x;
   }
 }
 
 // Rows r0..r0+3 of a [4 x DP] register accumulator to rows t0 + r0 + i of a
 // [seq, dh] gradient through strides (dims tx + 16 c).
-template <typename T, int NC>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, const Strides& s, int t0, int r0,
-                                           int tx, int seq, int dh, const float (&acc)[4][NC]) {
+template <int NC>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const Strides& s, int t0,
+                                           int r0, int tx, int seq, int dh,
+                                           const float (&acc)[4][NC]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int pos = t0 + r0 + i;
@@ -120,7 +129,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, const Strides& s
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < dh) dst[pos * s.t + d * s.d] = from_float<T>(acc[i][c]);
+      if (d < dh) dst[pos * s.t + d * s.d] = acc[i][c];
     }
   }
 }
@@ -135,15 +144,15 @@ constexpr int dkv_smem_floats() {
   return 2 * DP * kVecPad + 2 * DP * kOddPad + 2 * kBlock * kVecPad + 2 * kBlock;
 }
 
-// dQ: one CTA per (batch*head, 64-query tile); walks the key tiles up to the
-// diagonal (causal) or to T.
-template <typename T, int DP>
+// dQ, fp32: one CTA per (batch*head, 64-query tile); walks the key tiles up
+// to the diagonal (causal) or to T.
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int heads, int seq,
-                    int dh, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq,
-                    float scale, int causal) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int heads, int seq, int dh, Strides sq, Strides sk,
+                    Strides sv, Strides sdo, Strides sdq, float scale, int causal) {
   constexpr int NC = DP / 16;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                         // [DP][kVecPad]  Q transposed
@@ -161,10 +170,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int r0 = ty * 4;
   const float sl2 = scale * kLog2e;
 
-  load_t<T, DP>(q + b * sq.b + h * sq.h, sq, q0, seq, dh, qt, kVecPad);
-  load_t<T, DP>(dout + b * sdo.b + h * sdo.h, sdo, q0, seq, dh, dot, kVecPad);
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  load_t<DP>(q + b * sq.b + h * sq.h, sq, q0, seq, dh, qt, kVecPad);
+  load_t<DP>(dout + b * sdo.b + h * sdo.h, sdo, q0, seq, dh, dot, kVecPad);
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
   float lse2[4], dlt[4], acc[4][NC];
 #pragma unroll
@@ -181,8 +190,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int k_end = causal ? q_last + 1 : seq;
   for (int k0 = 0; k0 < k_end; k0 += kBlock) {
     __syncthreads();
-    load_t<T, DP>(kb, sk, k0, seq, dh, kt, kOddPad);
-    load_t<T, DP>(vb, sv, k0, seq, dh, vt, kOddPad);
+    load_t<DP>(kb, sk, k0, seq, dh, kt, kOddPad);
+    load_t<DP>(vb, sv, k0, seq, dh, vt, kOddPad);
     __syncthreads();
 
     // S and dP micro-tiles: rows r0..r0+3, keys tx + 16 j.
@@ -242,7 +251,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       }
     }
   }
-  store_rows<T, NC>(dq + b * sdq.b + h * sdq.h, sdq, q0, r0, tx, seq, dh, acc);
+  store_rows<NC>(dq + b * sdq.b + h * sdq.h, sdq, q0, r0, tx, seq, dh, acc);
 }
 
 // dK/dV, fp32: one CTA per (batch*head, 64-key tile); walks the query tiles
@@ -275,8 +284,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int r0 = ty * 4;
   const float sl2 = scale * kLog2e;
 
-  load_t<float, DP>(k + b * sk.b + h * sk.h, sk, k0, seq, dh, kt, kVecPad);
-  load_t<float, DP>(v + b * sv.b + h * sv.h, sv, k0, seq, dh, vt, kVecPad);
+  load_t<DP>(k + b * sk.b + h * sk.h, sk, k0, seq, dh, kt, kVecPad);
+  load_t<DP>(v + b * sv.b + h * sv.h, sv, k0, seq, dh, vt, kVecPad);
   const float* qb = q + b * sq.b + h * sq.h;
   const float* dob = dout + b * sdo.b + h * sdo.h;
 
@@ -288,8 +297,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int q0 = causal ? k0 : 0; q0 < seq; q0 += kBlock) {
     __syncthreads();
-    load_t<float, DP>(qb, sq, q0, seq, dh, qt, kOddPad);
-    load_t<float, DP>(dob, sdo, q0, seq, dh, dot, kOddPad);
+    load_t<DP>(qb, sq, q0, seq, dh, qt, kOddPad);
+    load_t<DP>(dob, sdo, q0, seq, dh, dot, kOddPad);
     if (threadIdx.x < kBlock) {
       const int qpos = q0 + threadIdx.x;
       const long long row = static_cast<long long>(bh) * seq + qpos;
@@ -360,18 +369,26 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   }
-  store_rows<float, NC>(dk + b * sdk.b + h * sdk.h, sdk, k0, r0, tx, seq, dh, acc_k);
-  store_rows<float, NC>(dv + b * sdv.b + h * sdv.h, sdv, k0, r0, tx, seq, dh, acc_v);
+  store_rows<NC>(dk + b * sdk.b + h * sdk.h, sdk, k0, r0, tx, seq, dh, acc_k);
+  store_rows<NC>(dv + b * sdv.b + h * sdv.h, sdv, k0, r0, tx, seq, dh, acc_v);
 }
 
 // ------------------------------------------------------ bf16 tensor cores
 
-constexpr int kMmaThreads = 128;   // 4 warps x 16 keys
-constexpr int kQSub = 32;          // queries per step of the products
+constexpr int kMmaThreads = 128;   // 4 warps x 16 rows
+constexpr int kKSub = 32;          // dQ: keys per step of the products
+constexpr int kQSub = 32;          // dK/dV: queries per step of the products
 
+// Each operand's mode (mma_bf16.cuh); the gradients are dq, or dk and dv.
 struct Modes {
-  int q, k, v, dout, dk, dv;
+  int q, k, v, dout, g0, g1;
 };
+
+// Q and dO tiles, then double-buffered K and V tiles.
+template <int DP>
+constexpr int dq_mma_smem_bytes() {
+  return 6 * 2 * tile_elems<DP>();
+}
 
 // K and V tiles, double-buffered Q and dO tiles, and the query tiles' lse
 // and delta ([2 buffers][lse, delta][kBlock] floats).
@@ -381,7 +398,167 @@ constexpr int dkv_mma_smem_bytes() {
 }
 
 // L: the layout of q, k and v (mma_bf16.cuh); dO is row-major unless L is
-// kAnyLayout; dk and dv may lie either way.
+// kAnyLayout; dq (md.g0) may lie either way.
+template <int DP, int L>
+__global__ void __launch_bounds__(kMmaThreads, DP <= 64 ? 4 : 1)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int heads, int seq, int dh, Strides sq,
+                        Strides sk, Strides sv, Strides sdo, Strides sdq, Modes md, float scale,
+                        int causal) {
+  constexpr int NK = DP / 16;       // 16-wide k-steps over the head dim
+  constexpr int ND = DP / 8;        // 8-wide n-tiles over the head dim
+  constexpr int NS = kKSub / 8;     // 8-wide n-tiles over a step's keys
+  constexpr int TE = tile_elems<DP>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // Q, then dQ on the way out
+  bf16* dos = qs + TE;                            // dO
+  bf16* ks = dos + TE;                            // [2] K tiles
+  bf16* vs = ks + 2 * TE;                         // [2] V tiles
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = q0 + 16 * warp + (lane >> 2);   // this thread's queries: row0, row0 + 8
+  const int col0 = 2 * (lane & 3);                 // and key columns col0, col0 + 1
+  const float c = scale * kLog2e;
+
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int q_last = min(q0 + kBlock, seq) - 1;
+  const int n_k = ((causal ? q_last + 1 : seq) + kBlock - 1) / kBlock;
+
+  // Q, dO and K in one copy group, V in the next: S and P wait for K only.
+  stage_tile<DP, kMmaThreads>(qs, q + b * sq.b + h * sq.h, sq, md.q, q0, seq, dh);
+  stage_tile<DP, kMmaThreads>(dos, dout + b * sdo.b + h * sdo.h, sdo, md.dout, q0, seq, dh);
+  stage_tile<DP, kMmaThreads>(ks, kb, sk, md.k, 0, seq, dh);
+  cp_async_commit();
+  stage_tile<DP, kMmaThreads>(vs, vb, sv, md.v, 0, seq, dh);
+  cp_async_commit();
+  const TileView<DP> qv(qs, view_mode<L>(md.q)), dov(dos, L == kAnyLayout ? md.dout : 0),
+      kv(ks, view_mode<L>(md.k)), vv(vs, view_mode<L>(md.v));
+
+  // The two rows' lse (log2 domain) and delta; a row past seq reads neither.
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const long long at = static_cast<long long>(bh) * seq + row;
+    lse2[i] = row < seq ? lse[at] * kLog2e : 0.f;
+    dlt[i] = row < seq ? delta[at] : 0.f;
+  }
+
+  uint32_t qa[NK][4], doa[NK][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_k) {
+      stage_tile<DP, kMmaThreads>(ks + (buf ^ 1) * TE, kb, sk, md.k, (kt + 1) * kBlock, seq, dh);
+    }
+    cp_async_commit();
+    if (kt + 1 < n_k) {
+      stage_tile<DP, kMmaThreads>(vs + (buf ^ 1) * TE, vb, sv, md.v, (kt + 1) * kBlock, seq, dh);
+    }
+    cp_async_commit();
+    cp_async_wait<3>();   // K of this tile (V of this tile, K and V of the next in flight)
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        qv.load(qa[kk], 0, 16 * warp, 16 * kk, true);
+        dov.load(doa[kk], 0, 16 * warp, 16 * kk, true);
+      }
+    }
+
+#pragma unroll
+    for (int sub = 0; sub < kBlock; sub += kKSub) {
+      // S = Q K^T: this warp's 16 queries x kKSub keys.
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int jj = 0; jj < NS / 2; ++jj) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          uint32_t r[4];
+          kv.load(r, buf, sub + 16 * jj, 16 * kk, true);
+          mma_bf16(s[2 * jj], qa[kk], r[0], r[2]);
+          mma_bf16(s[2 * jj + 1], qa[kk], r[1], r[3]);
+        }
+      }
+
+      // P from the saved lse; masked only where the step meets the causal
+      // diagonal or the ragged edge of the keys or of this warp's rows.
+      const int key_base = kt * kBlock + sub;
+      const bool edge = q0 + 16 * warp + 16 > seq ||
+                        (causal ? key_base + kKSub - 1 > q0 + 16 * warp : key_base + kKSub > seq);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key_base + 8 * j + col0 + (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          const bool visible = !edge || (row < seq && (causal ? key <= row : key < seq));
+          s[j][e] = visible ? fast_exp2(fmaf(s[j][e], c, -lse2[e >> 1])) : 0.f;
+        }
+      }
+      if (sub == 0) {
+        cp_async_wait<2>();   // V of this tile
+        __syncthreads();
+      }
+
+      // dP = dO V^T, then dS = P (dP - delta) scale.
+#pragma unroll
+      for (int jj = 0; jj < NS / 2; ++jj) {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          uint32_t r[4];
+          vv.load(r, buf, sub + 16 * jj, 16 * kk, true);
+          mma_bf16(dp[2 * jj], doa[kk], r[0], r[2]);
+          mma_bf16(dp[2 * jj + 1], doa[kk], r[1], r[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - dlt[e >> 1]) * scale;
+      }
+
+      // dQ += dS K, dS as bf16 A fragments.
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        uint32_t da[4];
+        acc_to_a(da, dp[2 * j], dp[2 * j + 1]);
+#pragma unroll
+        for (int dd = 0; dd < NK; ++dd) {
+          uint32_t r[4];
+          kv.load(r, buf, sub + 16 * j, 16 * dd, false);
+          mma_bf16(acc[2 * dd], da, r[0], r[1]);
+          mma_bf16(acc[2 * dd + 1], da, r[2], r[3]);
+        }
+      }
+    }
+    __syncthreads();   // buffer `buf` is refilled at the next iteration
+  }
+
+  // Epilogue: Q and dO are in registers, so Q's tile takes dQ.
+  acc_to_tile<DP>(qs, md.g0, 16 * warp, acc);
+  __syncthreads();
+  store_tile<DP, kMmaThreads>(dq + b * sdq.b + h * sdq.h, sdq, md.g0, qs, q0, seq, dh);
+}
+
+// L: the layout of q, k and v (mma_bf16.cuh); dO is row-major unless L is
+// kAnyLayout; dk and dv (md.g0, md.g1) may lie either way.
 template <int DP, int L>
 __global__ void __launch_bounds__(kMmaThreads, DP <= 64 ? 3 : 1)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -527,11 +704,11 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // Epilogue: K and V are in registers, so their tiles take dK and dV.
-  acc_to_tile<DP>(ks, md.dk, 16 * warp, acc_k);
-  acc_to_tile<DP>(vs, md.dv, 16 * warp, acc_v);
+  acc_to_tile<DP>(ks, md.g0, 16 * warp, acc_k);
+  acc_to_tile<DP>(vs, md.g1, 16 * warp, acc_v);
   __syncthreads();
-  store_tile<DP, kMmaThreads>(dk + b * sdk.b + h * sdk.h, sdk, md.dk, ks, k0, seq, dh);
-  store_tile<DP, kMmaThreads>(dv + b * sdv.b + h * sdv.h, sdv, md.dv, vs, k0, seq, dh);
+  store_tile<DP, kMmaThreads>(dk + b * sdk.b + h * sdk.h, sdk, md.g0, ks, k0, seq, dh);
+  store_tile<DP, kMmaThreads>(dv + b * sdv.b + h * sdv.h, sdv, md.g1, vs, k0, seq, dh);
 }
 
 // ---------------------------------------------------------------- launch
@@ -545,17 +722,18 @@ struct Args {
   Strides s[6];                  // q, k, v, dO, then the gradients
 };
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   constexpr int smem = 4 * dq_smem_floats<DP>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.batch * a.heads, (a.seq + kBlock - 1) / kBlock);
-  flash_bwd_dq_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.g0), a.heads, a.seq,
-      a.dh, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.scale, a.causal);
+  flash_bwd_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.g0), a.heads, a.seq, a.dh, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4],
+      a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -571,6 +749,40 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
       static_cast<float*>(a.g0), static_cast<float*>(a.g1), a.heads, a.seq, a.dh, a.s[0],
       a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// The operands' modes for the bf16 kernels; false where one has neither its
+// positions nor its dims at stride 1.
+bool modes_of(const Args& a, int n_grads, Modes& md) {
+  md = Modes{operand_mode(a.q, a.s[0], a.seq, a.dh), operand_mode(a.k, a.s[1], a.seq, a.dh),
+             operand_mode(a.v, a.s[2], a.seq, a.dh), operand_mode(a.dout, a.s[3], a.seq, a.dh),
+             operand_mode(a.g0, a.s[4], a.seq, a.dh),
+             n_grads > 1 ? operand_mode(a.g1, a.s[5], a.seq, a.dh) : 0};
+  return md.q >= 0 && md.k >= 0 && md.v >= 0 && md.dout >= 0 && md.g0 >= 0 && md.g1 >= 0;
+}
+
+// The bf16 kernels' layout parameter: q, k and v in one layout with dO
+// row-major (the training step's call) fix it; anything else is read at run
+// time.
+int layout_of(const Modes& md) {
+  const int lq = md.q & kDhMajor;
+  const bool fixed = (md.k & kDhMajor) == lq && (md.v & kDhMajor) == lq && !(md.dout & kDhMajor);
+  return fixed ? lq : kAnyLayout;
+}
+
+template <int DP, int L>
+cudaError_t launch_dq_mma_l(const Args& a, const Modes& md, cudaStream_t stream) {
+  constexpr int smem = dq_mma_smem_bytes<DP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<DP, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.batch * a.heads, (a.seq + kBlock - 1) / kBlock);
+  flash_bwd_dq_mma_kernel<DP, L><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.g0), a.heads, a.seq, a.dh, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], md,
+      a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -590,24 +802,31 @@ cudaError_t launch_dkv_mma_l(const Args& a, const Modes& md, cudaStream_t stream
 }
 
 template <int DP>
-cudaError_t launch_dkv_mma(const Args& a, cudaStream_t stream) {
-  const Modes md{operand_mode(a.q, a.s[0], a.seq, a.dh), operand_mode(a.k, a.s[1], a.seq, a.dh),
-                 operand_mode(a.v, a.s[2], a.seq, a.dh), operand_mode(a.dout, a.s[3], a.seq, a.dh),
-                 operand_mode(a.g0, a.s[4], a.seq, a.dh), operand_mode(a.g1, a.s[5], a.seq, a.dh)};
-  if (md.q < 0 || md.k < 0 || md.v < 0 || md.dout < 0 || md.dk < 0 || md.dv < 0) {
-    return cudaErrorInvalidValue;
+cudaError_t launch_dq_mma(const Args& a, cudaStream_t stream) {
+  Modes md;
+  if (!modes_of(a, 1, md)) return cudaErrorInvalidValue;
+  switch (layout_of(md)) {
+    case 0: return launch_dq_mma_l<DP, 0>(a, md, stream);
+    case kDhMajor: return launch_dq_mma_l<DP, kDhMajor>(a, md, stream);
+    default: return launch_dq_mma_l<DP, kAnyLayout>(a, md, stream);
   }
-  const int lq = md.q & kDhMajor;
-  const bool fixed = (md.k & kDhMajor) == lq && (md.v & kDhMajor) == lq && !(md.dout & kDhMajor);
-  if (!fixed) return launch_dkv_mma_l<DP, kAnyLayout>(a, md, stream);
-  return lq ? launch_dkv_mma_l<DP, kDhMajor>(a, md, stream)
-            : launch_dkv_mma_l<DP, 0>(a, md, stream);
 }
 
-// dQ: FMA in both types; dK/dV: tensor cores for bf16, FMA for fp32.
+template <int DP>
+cudaError_t launch_dkv_mma(const Args& a, cudaStream_t stream) {
+  Modes md;
+  if (!modes_of(a, 2, md)) return cudaErrorInvalidValue;
+  switch (layout_of(md)) {
+    case 0: return launch_dkv_mma_l<DP, 0>(a, md, stream);
+    case kDhMajor: return launch_dkv_mma_l<DP, kDhMajor>(a, md, stream);
+    default: return launch_dkv_mma_l<DP, kAnyLayout>(a, md, stream);
+  }
+}
+
+// bf16: the tensor-core kernels; fp32: the FMA kernels.
 template <int DP>
 cudaError_t launch(const Args& a, bool bf, bool is_dq, cudaStream_t st) {
-  if (is_dq) return bf ? launch_dq<bf16, DP>(a, st) : launch_dq<float, DP>(a, st);
+  if (is_dq) return bf ? launch_dq_mma<DP>(a, st) : launch_dq<DP>(a, st);
   return bf ? launch_dkv_mma<DP>(a, st) : launch_dkv<DP>(a, st);
 }
 
@@ -644,8 +863,8 @@ int run(const void* q, const void* k, const void* v, const void* dout, const flo
 // strides per operand, in the order q, k, v, dout, then dq (5 operands) or
 // dk, dv (6 operands). lse and delta are dense fp32 [batch*heads, seq].
 // Each launches one kernel on `stream` and returns the launch's cudaError_t
-// (0 = success); neither synchronises. The bf16 dK/dV kernel needs positions
-// or dims at stride 1 in each operand (either layout).
+// (0 = success); neither synchronises. The bf16 kernels need positions or
+// dims at stride 1 in each operand (either layout).
 extern "C" int ddl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq, int is_bf16,
                                 int batch, int heads, int seq, int dh, const long long* strides,

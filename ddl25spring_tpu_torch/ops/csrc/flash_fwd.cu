@@ -46,7 +46,7 @@
 //
 // What bounds them on this card: at the training shape (B=64, H=6, T=256,
 // Dh=48, bf16) the function moves ~38 MB (q, k, v, out, lse) against
-// 0.6 GFLOP of tensor-core work, so bytes bound it (11.4 us at 3.35 TB/s).
+// 2.4 GFLOP of tensor-core work, so bytes bound it (11.4 us at 3.35 TB/s).
 // The kernel is held back by latency instead: each CTA walks at most 4 key
 // tiles, so its first loads and its epilogue are a large share of its time,
 // and the double buffer hides later loads only in part. The fp32 FMA kernel

@@ -6,11 +6,11 @@ kernels are replaced by three CUDA kernels that each read either operand
 layout through strides: the forward ``csrc/flash_fwd.cu`` (``_fwd_kernel``
 and ``_fwd_kernel_t``), and the backward ``csrc/flash_bwd.cu``, one dQ
 kernel (``_dq_kernel``, ``_dq_kernel_t``) and one dK/dV kernel
-(``_dkv_kernel``, ``_dkv_kernel_t``). In bf16 the forward and dK/dV kernels
-run on the tensor cores (``mma.sync`` through ``csrc/mma_bf16.cuh``, P and
-dS rounded to bf16 before their products, fp32 accumulation); dQ and every
-fp32 kernel are FMA code in full fp32. The public function keeps the JAX
-API: ``[B, T, H, Dh]`` in and out, differentiable.
+(``_dkv_kernel``, ``_dkv_kernel_t``). In bf16 all three run on the tensor
+cores (``mma.sync`` through ``csrc/mma_bf16.cuh``, P and dS rounded to bf16
+before their products, fp32 accumulation); in fp32 they are FMA code in
+full fp32. The public function keeps the JAX API: ``[B, T, H, Dh]`` in and
+out, differentiable.
 
 - ``flash_attention`` runs the kernels for CUDA tensors (forward, and on
   the backward pass dQ and dK/dV) and the plain version,

@@ -2,13 +2,14 @@
 // float64 reference of the same function on the same bf16 or fp32 inputs.
 //
 //   emu_fwd T DH BF16 LQ LK LV LO OFFSET CAUSAL        (built with -DEMU_FWD)
-//   emu_bwd T DH BF16 LQ LK LV LDK OFFSET CAUSAL LDO
+//   emu_bwd T DH BF16 LQ LK LV LDK OFFSET CAUSAL LDO LDQ DQOFFSET
 //
 // B=1, H=2. L* is each operand's layout: 0 row-major [B, T, H, Dh], 1
 // dh-major [B*H, Dh, T]. OFFSET shifts q and v by that many elements off
-// their 16-byte alignment (the kernels' element-staging path). The forward
-// checks out (2e-2 bf16, 1e-4 fp32) and lse (1e-4); the backward checks
-// dq, dk, dv (2e-2 of the largest reference gradient in bf16, 1e-4 fp32),
+// their 16-byte alignment (the kernels' element-staging path), DQOFFSET
+// shifts dq (the epilogue's element stores). The forward checks out (2e-2
+// bf16, 1e-4 fp32) and lse (1e-4); the backward checks dq, dk, dv (2e-2 of
+// the largest reference gradient in bf16, 1e-4 fp32),
 // with lse from the reference and delta from the rounded output, as the
 // wrapper hands them. Prints one line per output; exits 1 on any miss.
 #include "emu.h"
@@ -103,13 +104,13 @@ int main(int argc, char** argv) {
 #ifdef EMU_FWD
   const int n_args = 9;
 #else
-  const int n_args = 10;
+  const int n_args = 12;
 #endif
   if (argc != n_args + 1) {
     fprintf(stderr, "expected %d arguments\n", n_args);
     return 2;
   }
-  int a[10] = {0};
+  int a[12] = {0};
   for (int i = 0; i < n_args; ++i) a[i] = atoi(argv[i + 1]);
   const int T = a[0], D = a[1], off = a[7];
   const bool bf = a[2], causal = a[8];
@@ -149,7 +150,7 @@ int main(int argc, char** argv) {
     for (int d = 0; d < D; ++d) s += static_cast<double>(dout.get(b, t, h, d)) * o.get(b, t, h, d);
     delta[(static_cast<size_t>(b) * H + h) * T + t] = s;
   }
-  Ten dq(B, T, H, D, bf, 0, 0), dk(B, T, H, D, bf, a[6], 0), dv(B, T, H, D, bf, 0, 0);
+  Ten dq(B, T, H, D, bf, a[10], a[11]), dk(B, T, H, D, bf, a[6], 0), dv(B, T, H, D, bf, 0, 0);
   strides_of({&q, &k, &v, &dout, &dk, &dv}, st);
   if (ddl_flash_bwd_dkv(q.ptr(), k.ptr(), v.ptr(), dout.ptr(), lse.data(), delta.data(), dk.ptr(),
                         dv.ptr(), bf, B, H, T, D, st, scale, causal, nullptr)) {

@@ -92,17 +92,24 @@ def test_flash_fwd_kernel_under_emulation(binaries, case):
     _run(binaries["fwd"], *case)
 
 
-# (T, Dh, bf16, layout q, k, v, dk, offset, causal, layout dO).
+# (T, Dh, bf16, layout q, k, v, dk, offset, causal, layout dO, layout dq,
+# dq offset). The dq offset misaligns dq (the epilogue's element stores);
+# a dh-major dO, or q, k, v in different layouts, take the kernels'
+# instantiation that reads every layout at run time.
 BWD_CASES = [
-    (100, 48, 1, 0, 0, 0, 0, 0, 1, 0),
-    (100, 48, 1, 1, 1, 1, 0, 0, 1, 0),
-    (200, 48, 1, 1, 1, 1, 1, 0, 0, 0),
-    (200, 48, 1, 0, 1, 0, 1, 0, 1, 1),
-    (64, 48, 1, 1, 0, 1, 0, 1, 1, 0),
-    (100, 40, 1, 0, 0, 0, 0, 0, 0, 0),
-    (100, 44, 1, 1, 1, 1, 0, 0, 1, 1),
-    (130, 128, 1, 1, 1, 1, 1, 0, 1, 0),
-    (100, 48, 0, 1, 1, 1, 1, 0, 1, 0),
+    (100, 48, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0),
+    (100, 48, 1, 1, 1, 1, 0, 0, 1, 0, 0, 0),
+    (200, 48, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0),
+    (200, 48, 1, 0, 1, 0, 1, 0, 1, 1, 0, 0),
+    (64, 48, 1, 1, 0, 1, 0, 1, 1, 0, 0, 0),
+    (100, 40, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+    (100, 44, 1, 1, 1, 1, 0, 0, 1, 1, 0, 0),
+    (130, 128, 1, 1, 1, 1, 1, 0, 1, 0, 0, 0),
+    (100, 48, 0, 1, 1, 1, 1, 0, 1, 0, 0, 0),
+    (128, 48, 1, 1, 1, 1, 0, 0, 1, 0, 1, 0),
+    (100, 48, 1, 0, 0, 0, 0, 0, 1, 0, 0, 1),
+    (100, 16, 1, 0, 0, 0, 0, 0, 0, 0, 1, 0),
+    (200, 48, 1, 1, 0, 1, 0, 1, 1, 1, 1, 1),
 ]
 
 

@@ -160,20 +160,20 @@ def test_pallas_attention_impl_raises_on_cpu_tensors():
         llama.forward(model, torch.zeros(1, 8, dtype=torch.long), cfg)
 
 
-# The bf16 forward and dK/dV kernels round P (and dS) to bf16 before the
-# tensor-core products that take them, accumulating in fp32; the plain
-# versions stay fp32. The card holds the kernels to 2e-2 (out, and dk, dv
-# relative to the largest reference gradient) and lse to 1e-4.
+# The bf16 forward, dQ and dK/dV kernels round P (and dS) to bf16 before
+# the tensor-core products that take them, accumulating in fp32; the plain
+# versions stay fp32. The card holds the kernels to 2e-2 (out, and dq, dk,
+# dv relative to the largest reference gradient) and lse to 1e-4.
 BF16_TOL_OUT, BF16_TOL_LSE, BF16_TOL_GRAD = 2e-2, 1e-4, 2e-2
 
 
 def _bf16_kernels_emulation(q, k, v, do, causal):
     """The bf16 kernels' arithmetic in plain PyTorch on [B, T, H, Dh] bf16
     tensors: the forward's online softmax over 64-key tiles in the log2
-    domain with P rounded to bf16 before P·V, and the dK/dV kernel's P
-    (from lse) and dS rounded to bf16 before dV = Pᵀ·dO and dK = dSᵀ·Q; fp32
-    scores, statistics and accumulators. Returns out (bf16), lse, dk, dv
-    (bf16)."""
+    domain with P rounded to bf16 before P·V, and the backward kernels' P
+    (from lse) and dS rounded to bf16 before dQ = dS·K, dK = dSᵀ·Q and
+    dV = Pᵀ·dO; fp32 scores, statistics and accumulators. Returns out
+    (bf16), lse, dq, dk, dv (bf16)."""
     b, t, h, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
     c = scale * math.log2(math.e)
@@ -204,10 +204,11 @@ def _bf16_kernels_emulation(q, k, v, do, causal):
                                     - lse[..., None] * math.log2(math.e)),
                     0.0)
     ds = p * (dof @ vf.transpose(-1, -2) - delta) * scale
-    dv = p.bfloat16().float().transpose(-1, -2) @ dof
+    dq = ds.bfloat16().float() @ kf
     dk = ds.bfloat16().float().transpose(-1, -2) @ qf
+    dv = p.bfloat16().float().transpose(-1, -2) @ dof
     back = lambda x: x.bfloat16().permute(0, 2, 1, 3)
-    return back(out), lse.reshape(b * h, t), back(dk), back(dv)
+    return back(out), lse.reshape(b * h, t), back(dq), back(dk), back(dv)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -215,8 +216,8 @@ def _bf16_kernels_emulation(q, k, v, do, causal):
 def test_bf16_kernel_rounding_fits_the_card_limits(dh_major, causal):
     """The tensor-core kernels' one new rounding point (P, and dS, to bf16
     before their products) against the Pallas kernels in interpret mode on
-    the same bf16 inputs: out, lse, dk and dv within the limits the card
-    enforces."""
+    the same bf16 inputs: out, lse, dq, dk and dv within the limits the
+    card enforces."""
     rng = np.random.default_rng(17 + dh_major + 2 * causal)
     q, k, v, do = (rng.standard_normal((2, 100, 3, 48)).astype(np.float32)
                    for _ in range(4))
@@ -230,15 +231,16 @@ def test_bf16_kernel_rounding_fits_the_card_limits(dh_major, causal):
     lse_res = np.asarray(fwd(jq, jk, jv, causal, 128, 128, True)[1][4])
     want_lse = lse_res[:, 0, :100] if dh_major else lse_res[:, :100, 0]
     tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
-    got_out, got_lse, dk, dv = _bf16_kernels_emulation(tq, tk, tv, tdo,
-                                                       causal)
+    got_out, got_lse, dq, dk, dv = _bf16_kernels_emulation(tq, tk, tv, tdo,
+                                                           causal)
     out_err = np.abs(got_out.float().numpy()
                      - np.asarray(out.astype(jnp.float32))).max()
     assert out_err <= BF16_TOL_OUT
     np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=0,
                                atol=BF16_TOL_LSE)
     limit = BF16_TOL_GRAD * max(np.abs(g).max() for g in want_grads)
-    for name, got, want in (("dk", dk, want_grads[1]),
+    for name, got, want in (("dq", dq, want_grads[0]),
+                            ("dk", dk, want_grads[1]),
                             ("dv", dv, want_grads[2])):
         err = np.abs(got.float().numpy() - want).max()
         assert err <= limit, f"{name}: max|d|={err:.3g} > {limit:.3g}"
