@@ -48,6 +48,23 @@ Phases, each of which raises on failure (exit code 1, no result line):
              corpus (byte tokenizer, vocab 259) with ``optimizer="pallas"``:
              finite losses, and 6 + 6 + 6 flash launches and 7 Adam
              launches per step.
+8. fl      — horizontal federated learning at homework 1's defaults (N=100,
+             C=0.1, B=100, E=1, lr 0.01) on ``synthetic_mnist(60000, 10000,
+             seed=0)``, the MNIST CNN on the card, no port kernel launched:
+             one FedAvg round with fixed clients and dropout off on the card
+             and on the CPU (every leaf within 1e-4 of its largest entry);
+             FedSGD's gradient and weight uploads for 2 rounds (rtol 2e-4,
+             atol 1e-6, accuracies within 2e-4); FedAvg IID for 10 rounds
+             with dropout live (accuracy per round, wall ms per round,
+             client samples/s; the final accuracy at least the JAX
+             package's on the CPU from the same initial parameters less
+             0.03, ``fl_reference_bar.py``) and non-IID (finite, above the
+             untrained model), and 3 more IID rounds under the profiler
+             (kernel ms, launches and busy share per round);
+             ``FedAvgGradServer`` for 5 rounds with 20%
+             gradient-reversion attackers undefended, under the coordinate
+             median (which must beat undefended) and under Krum, and a
+             pattern backdoor's clean accuracy and attack success rate.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -88,6 +105,23 @@ TOL_TRAJECTORY = 1e-3     # ... 5-step loss trajectory
 # the limits the port holds two bf16 paths to (tests/test_torch_train.py).
 TOL_TRAIN_LOSS_BF16 = 2e-2
 TOL_TRAIN_GRAD_BF16 = 1e-1
+# Phase 8 (FL). FedAvg starts from the port's init drawn with a CPU
+# generator seeded FL_INIT_SEED (its L1 norm in float64 is FL_INIT_L1, so
+# a change of the draw shows). The bar for its final accuracy: the JAX
+# package's FedAvg on the CPU at the same configuration, data and initial
+# parameters (``fl_reference_bar.py``; PERF.md), less 0.03: the two draw
+# clients and dropout from different generators. FL_JAX_OWN_INIT_ACC is
+# the JAX package's from its own init (``python examples/hfl.py --algo
+# fedavg --rounds 10``), printed beside it: the final accuracy depends on
+# the init by more than the margin.
+FL_INIT_SEED = 0
+FL_INIT_L1 = 6796.943127758335
+FL_JAX_FEDAVG_ACC = 0.7335
+FL_JAX_OWN_INIT_ACC = 0.8134
+FL_ACC_MARGIN = 0.03
+TOL_FL_DEVICE = 1e-4          # card vs CPU, every leaf, of its largest entry
+TOL_FL_SGD = dict(rtol=2e-4, atol=1e-6)   # FedSGD gradient vs weight upload
+TOL_FL_SGD_ACC = 2e-4
 # What each flash kernel runs on, by input type.
 DESIGN = {
     "flash_fwd": {
@@ -171,6 +205,211 @@ def train_flops_per_token(cfg, seq: int) -> float:
     d, f, n, v = cfg.dmodel, cfg.ffn_dim, cfg.n_layers, cfg.vocab_size
     per_layer = 8 * d * d + 6 * d * f + 4 * seq * d
     return 3.0 * (n * per_layer + 2 * d * v)
+
+
+def fl_phase(dev: torch.device, card: str) -> dict:
+    """Phase 8: horizontal FL on the card at homework 1's defaults. Raises
+    on a failed check; returns the numbers for the JSON record."""
+
+    from ddl25spring_tpu_torch import fl, profile_step, rng
+    from ddl25spring_tpu_torch.config import FLConfig
+    from ddl25spring_tpu_torch.device import fp32_products
+    from ddl25spring_tpu_torch.data import mnist
+    from ddl25spring_tpu_torch.fl import attacks, defenses
+    from ddl25spring_tpu_torch.metrics import backdoor_metrics
+    from ddl25spring_tpu_torch.models import mnist_cnn
+    from ddl25spring_tpu_torch.tree import tree_leaves
+
+    cfg = FLConfig()
+    t0 = time.perf_counter()
+    x_raw, y, xt_raw, yt = mnist.synthetic_mnist(60000, 10000, seed=0)
+    x, xt = mnist.normalize(x_raw), mnist.normalize(xt_raw)
+
+    def federate(iid):
+        return fl.federate(x, y, mnist.split(y, cfg.nr_clients, iid=iid,
+                                             seed=cfg.seed), device=dev)
+
+    iid = federate(True)
+    data_s = time.perf_counter() - t0
+    params = mnist_cnn.init(torch.Generator().manual_seed(FL_INIT_SEED),
+                            device=dev)
+    l1 = sum(float(p.cpu().double().abs().sum()) for p in tree_leaves(params))
+    check(abs(l1 - FL_INIT_L1) <= 1e-6, f"the FL init's L1 norm {l1!r} is "
+          f"not {FL_INIT_L1!r}: not the draw the accuracy bar was run from")
+    check(iid.x.device.type == "cuda" and all(
+        p.device.type == "cuda" for p in tree_leaves(params)),
+        "FL data or parameters are not on the card")
+    out = {"config": {"nr_clients": cfg.nr_clients,
+                      "client_fraction": cfg.client_fraction,
+                      "batch_size": cfg.batch_size, "epochs": cfg.epochs,
+                      "lr": cfg.lr, "seed": cfg.seed, "n_train": 60000,
+                      "n_test": 10000},
+           "data_s": data_s}
+
+    def on_card(server):
+        check(server.device.type == "cuda" and all(
+            p.device.type == "cuda" for p in tree_leaves(server.params)),
+            f"{type(server).__name__} left the card")
+        return server
+
+    # 8.1 the card against the CPU: one FedAvg round, fixed clients,
+    # dropout off (an apply_fn without dropout masks).
+    def no_dropout(p, xb):
+        return mnist_cnn.apply(p, xb)
+
+    fixed = rng.sample_clients(cfg.seed, 0, cfg.nr_clients,
+                               cfg.clients_per_round).numpy()
+    runs = {}
+    for where, data in (("cuda", iid), ("cpu", iid.to("cpu"))):
+        server = fl.FedAvgServer(params, no_dropout, data, xt, yt, cfg,
+                                 device=dev if where == "cuda" else "cpu")
+        server._sample = lambda r: fixed
+        t0 = time.perf_counter()
+        server.run(1)
+        runs[where] = (server, time.perf_counter() - t0)
+    on_card(runs["cuda"][0])
+    dev_err = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(tree_leaves(runs["cuda"][0].params),
+                                  tree_leaves(runs["cpu"][0].params)))
+    check(math.isfinite(dev_err) and dev_err <= TOL_FL_DEVICE,
+          f"FedAvg round card vs CPU max|d|/max|ref|={dev_err:.3g} > "
+          f"{TOL_FL_DEVICE}")
+    accs = [runs[w][0].result.test_accuracy[0] for w in ("cuda", "cpu")]
+    out["card_vs_cpu"] = {"max_rel_err": dev_err, "accuracy_card": accs[0],
+                          "accuracy_cpu": accs[1],
+                          "wall_s_card": runs["cuda"][1],
+                          "wall_s_cpu": runs["cpu"][1]}
+    print(f"fl card vs CPU: one FedAvg round (clients {fixed.tolist()}, "
+          f"dropout off) max|d|/max|ref| {dev_err:.3g} over the leaves; "
+          f"accuracy {accs[0]:.4f} card / {accs[1]:.4f} CPU {card}")
+    del runs
+
+    # 8.2 FedSGD, gradient upload against weight upload (dropout live).
+    sgd = [on_card(cls(params, mnist_cnn.apply, iid, xt, yt, cfg,
+                       device=dev)) for cls in (fl.FedSgdGradientServer,
+                                                fl.FedSgdWeightServer)]
+    res = [s.run(2) for s in sgd]
+    for a, b in zip(tree_leaves(sgd[0].params), tree_leaves(sgd[1].params)):
+        bad = (a - b).abs() > TOL_FL_SGD["atol"] + TOL_FL_SGD["rtol"] * \
+            b.abs()
+        check(not bool(bad.any()), f"FedSGD gradient vs weight upload: "
+              f"{int(bad.sum())} entries of a {tuple(a.shape)} leaf apart")
+    acc_gap = abs(res[0].test_accuracy[-1] - res[1].test_accuracy[-1])
+    check(acc_gap < TOL_FL_SGD_ACC, f"FedSGD gradient vs weight accuracy "
+          f"|d|={acc_gap:.3g} >= {TOL_FL_SGD_ACC}")
+    out["fedsgd"] = {"accuracy_gradient": res[0].test_accuracy,
+                     "accuracy_weight": res[1].test_accuracy,
+                     "wall_s_gradient": res[0].wall_time,
+                     "wall_s_weight": res[1].wall_time}
+    print(f"fl FedSGD gradient vs weight upload, 2 rounds: parameters within "
+          f"rtol 2e-4 atol 1e-6, accuracy {res[0].test_accuracy} vs "
+          f"{res[1].test_accuracy} {card}")
+    del sgd
+
+    # 8.3 / 8.4 FedAvg for 10 rounds with dropout live, IID and non-IID.
+    samples = cfg.clients_per_round * int(iid.sample_counts[0]) * cfg.epochs
+    for name, data in (("iid", iid), ("non_iid", federate(False))):
+        server = on_card(fl.FedAvgServer(params, mnist_cnn.apply, data, xt,
+                                         yt, cfg, device=dev))
+        before = server.test()
+        r = server.run(cfg.rounds)
+        steady = statistics.median(r.wall_time[1:])
+        out[f"fedavg_{name}"] = {
+            "accuracy_before": before, "accuracy": r.test_accuracy,
+            "wall_ms": [t * 1e3 for t in r.wall_time],
+            "wall_ms_median_after_first": steady * 1e3,
+            "client_samples_per_round": samples,
+            "client_samples_per_s": samples / steady,
+            "message_count": r.message_count}
+        print(f"fl FedAvg {name}, 10 rounds: accuracy "
+              f"{[round(a, 4) for a in r.test_accuracy]} (untrained "
+              f"{before:.4f}); wall ms per round "
+              f"{[round(t * 1e3, 1) for t in r.wall_time]}, median after the "
+              f"first {steady * 1e3:.1f} ms, {samples / steady:.0f} client "
+              f"samples/s {card}")
+        final = r.test_accuracy[-1]
+        check(math.isfinite(final), f"FedAvg {name} final accuracy {final}")
+        if name == "non_iid":
+            check(final > before, f"FedAvg non-IID final accuracy "
+                  f"{final:.4f} not above the untrained {before:.4f}")
+        else:
+            bar = FL_JAX_FEDAVG_ACC - FL_ACC_MARGIN
+            print(f"fl FedAvg iid final accuracy {final:.4f}; bar {bar:.4f}: "
+                  f"the JAX package's on the CPU from the same init "
+                  f"{FL_JAX_FEDAVG_ACC} less {FL_ACC_MARGIN} (from its own "
+                  f"init it reaches {FL_JAX_OWN_INIT_ACC}) {card}")
+            check(final >= bar, f"FedAvg IID final accuracy {final:.4f} < "
+                  f"{bar:.4f} (the JAX package's on the CPU from the same "
+                  f"init less {FL_ACC_MARGIN})")
+            # Device time of a round: 3 more rounds under the profiler
+            # (the test evaluation left out, as in the wall time above).
+            later = iter(range(cfg.rounds, cfg.rounds + 3))
+
+            def one_round():
+                with torch.no_grad(), fp32_products():
+                    server.params = server._round(server.params, next(later))
+
+            prof = profile_step.trace(one_round, 3)
+            out["fedavg_iid"]["profile"] = prof
+            print(f"fl FedAvg iid round under the profiler: kernels "
+                  f"{prof['kernel_ms_per_step']:.2f} ms per round "
+                  f"({prof['kernels_per_step']:.0f} launches), profiled wall "
+                  f"{prof['profiled_wall_ms_per_step']:.1f} ms, busy share "
+                  f"{prof['profiled_busy_share']:.3f}; by category "
+                  f"{json.dumps(prof['ms_per_step_by_category'])} {card}")
+        del server, data
+
+    # 8.5 attacks and defenses on the Δ-upload server, 5 rounds.
+    mask = attacks.injection_mask(cfg.nr_clients, 0.2, cfg.seed)
+    reversion = attacks.GradientReversion(scale=5.0)
+    runs = {}
+    for name, kw in (
+            ("reversion_undefended", {"adversary": (mask, reversion)}),
+            ("reversion_median", {"adversary": (mask, reversion),
+                                  "defense": defenses.coordinate_defense(
+                                      defenses.coordinate_median)}),
+            ("reversion_krum", {"adversary": (mask, reversion),
+                                "defense": defenses.selection_defense(
+                                    defenses.krum, n_malicious=2)})):
+        server = on_card(fl.FedAvgGradServer(params, mnist_cnn.apply, iid,
+                                             xt, yt, cfg, device=dev, **kw))
+        r = server.run(5)
+        runs[name] = {"accuracy": r.test_accuracy,
+                      "wall_ms": [t * 1e3 for t in r.wall_time],
+                      "attackers_sampled": [int(mask[server._sample(i)].sum())
+                                            for i in range(5)]}
+        check(all(math.isfinite(a) for a in r.test_accuracy),
+              f"{name}: accuracy {r.test_accuracy}")
+    acc = {k: v["accuracy"][-1] for k, v in runs.items()}
+    check(acc["reversion_median"] > acc["reversion_undefended"],
+          f"the coordinate median ({acc['reversion_median']:.4f}) does not "
+          f"beat the undefended server ({acc['reversion_undefended']:.4f}) "
+          f"under gradient reversion")
+    backdoor = attacks.PatternBackdoor(proportion=0.5, backdoor_label=0,
+                                       scale=2.0)
+    server = on_card(fl.FedAvgGradServer(params, mnist_cnn.apply, iid, xt,
+                                         yt, cfg, device=dev,
+                                         adversary=(mask, backdoor)))
+    r = server.run(5)
+    with torch.no_grad():
+        clean = server.apply_fn(server.params, server.test_x).argmax(-1)
+        trig = server.apply_fn(server.params, backdoor.trigger_test_set(
+            server.test_x)).argmax(-1)
+    clean_acc, asr = backdoor_metrics(clean, yt, trig, 0)
+    check(0.0 <= asr <= 1.0 and math.isfinite(clean_acc),
+          f"backdoor metrics {clean_acc}, {asr}")
+    runs["backdoor"] = {"accuracy": r.test_accuracy, "clean_accuracy":
+                        clean_acc, "attack_success_rate": asr,
+                        "wall_ms": [t * 1e3 for t in r.wall_time]}
+    out["attacks"] = runs
+    print(f"fl FedAvgGradServer 5 rounds, 20% gradient reversion (x5): "
+          f"final accuracy undefended {acc['reversion_undefended']:.4f}, "
+          f"coordinate median {acc['reversion_median']:.4f}, Krum "
+          f"{acc['reversion_krum']:.4f}; attackers sampled per round "
+          f"{runs['reversion_undefended']['attackers_sampled']}; pattern "
+          f"backdoor clean accuracy {clean_acc:.4f}, attack success rate "
+          f"{asr:.4f} {card}")
+    return out
 
 
 def main() -> int:
@@ -646,11 +885,23 @@ def main() -> int:
           f"{rep.tokens_per_sec:.0f} tok/s after warmup; launches per step "
           f"{tper} {card}")
 
+    # 8. horizontal FL (no port kernel on this path) ---------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    fl_report = fl_phase(dev, card)
+    fl_report["phase_s"] = time.perf_counter() - t0
+    fl_counts = read_counts()
+    check(not any(fl_counts.values()), f"the FL phase launched port kernels: "
+          f"{fl_counts}")
+    print(f"fl phase: {fl_report['phase_s']:.1f} s, port kernel launches "
+          f"{fl_counts} {card}")
+
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
     path_counts = {"forward (phase 4)": {"flash_fwd": main_launches},
                    "train step (phase 6), per step": per_step,
-                   "train_llm_dp (phase 7), per step": tper}
+                   "train_llm_dp (phase 7), per step": tper,
+                   "fl (phase 8), whole phase": fl_counts}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -706,7 +957,7 @@ def main() -> int:
                           "bf16_b8_kernel_vs_plain": {
                               "loss_abs_err": loss_err_bf16,
                               "grad_rel_err": grad_err_bf16}},
-                      "card": smi, "ok": True}))
+                      "fl": fl_report, "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,11 @@ front end (``serving/``); and training at a world of one process —
 ``llama.forward_loss`` (flash backward kernels ``ops/csrc/flash_bwd.cu``,
 the fused loss head ``ops/losses.py``), Adam with the fused CUDA apply
 (``ops/csrc/adam.cu``), ``parallel.dp``, ``bench_utils.time_train_step``
-and ``train.llm.train_llm_dp``. Entry points take ``device=None``,
+and ``train.llm.train_llm_dp``; and horizontal federated learning on the
+MNIST CNN (``models.mnist_cnn``, ``data.mnist``, ``fl``: FedSGD, FedAvg,
+FedProx and the centralized baseline, the Byzantine attacks and
+defenses), which runs no hand-written kernel: its convolutions and
+products are cuDNN and cuBLAS calls in fp32. Entry points take ``device=None``,
 meaning CUDA; pass ``device="cpu"`` to run the plain PyTorch paths on the
 CPU.
 """

@@ -1,10 +1,12 @@
-"""Configuration: the port's own copies of ``LlamaConfig`` and
-``TrainConfig``.
+"""Configuration: the port's own copies of ``FLConfig``, ``LlamaConfig``
+and ``TrainConfig``.
 
-Same fields and defaults as the JAX package's ``config.LlamaConfig`` (the
-canonical tiny-Llama: vocab 32000, dmodel 288, 6 heads of dim 48, 6
-layers, ctx 256) and ``config.TrainConfig``, so a config built for one
-package means the same model and run in the other. The port's trainer
+Same fields and defaults as the JAX package's ``config.FLConfig`` (the
+homework-1 federated setting: N=100, C=0.1, B=100, E=1, lr 0.01, 10
+rounds), ``config.LlamaConfig`` (the canonical tiny-Llama: vocab 32000,
+dmodel 288, 6 heads of dim 48, 6 layers, ctx 256) and
+``config.TrainConfig``, so a config built for one package means the same
+model and run in the other. The port's trainer
 raises ``NotImplementedError`` for the ``TrainConfig`` fields it does not
 run yet at a non-default value (``train.llm.unsupported_train_fields``).
 """
@@ -16,6 +18,24 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+
+@dataclass(frozen=True)
+class FLConfig:
+    """Horizontal federated learning (FedSGD / FedAvg) configuration."""
+
+    nr_clients: int = 100          # N
+    client_fraction: float = 0.1   # C — fraction of clients sampled per round
+    batch_size: int = 100          # B — -1 means full local dataset (∞)
+    epochs: int = 1                # E — local epochs per round (FedAvg)
+    lr: float = 0.01               # η
+    rounds: int = 10
+    iid: bool = True
+    seed: int = 10
+
+    @property
+    def clients_per_round(self) -> int:
+        return max(1, int(self.client_fraction * self.nr_clients))
 
 
 @dataclass(frozen=True)

@@ -1,9 +1,11 @@
 """Bridge between the JAX package's trees and the port's: the
 ``init_llama`` parameter tree and the port's ``Llama`` (a name-for-name
 copy of numpy arrays, with no transposes: both sides store weights
-``[in, out]`` with blocks stacked on ``[L]``), and the Adam optimizer state
-(``count``, ``mu``, ``nu``) of JAX's ``FusedAdamState`` or optax's
-``adam`` and the port's ``FusedAdamState``."""
+``[in, out]`` with blocks stacked on ``[L]``), the MNIST CNN's tree (both
+sides store conv weights OIHW and dense weights ``[in, out]``), and the
+Adam optimizer state (``count``, ``mu``, ``nu``) of JAX's
+``FusedAdamState`` or optax's ``adam`` and the port's
+``FusedAdamState``."""
 
 from __future__ import annotations
 
@@ -26,6 +28,14 @@ def _expected_shapes(cfg: LlamaConfig) -> dict:
             "lm_head": (d, v)}
 
 
+_MNIST_SHAPES = {
+    "conv1": {"w": (32, 1, 3, 3), "b": (32,)},
+    "conv2": {"w": (64, 32, 3, 3), "b": (64,)},
+    "fc1": {"w": (9216, 128), "b": (128,)},
+    "fc2": {"w": (128, 10), "b": (10,)},
+}
+
+
 def _check_tree(tree, want, path="") -> None:
     if isinstance(want, dict):
         if not isinstance(tree, dict) or set(tree) != set(want):
@@ -45,6 +55,21 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Llama:
     dev = resolve_device(device)
     _check_tree(tree, _expected_shapes(cfg))
     return Llama(cfg, tree_map(lambda x: _to_torch(x).to(dev), tree))
+
+
+def mnist_params_from_jax(tree: dict, device=None) -> dict:
+    """JAX ``mnist_cnn.init`` tree (numpy arrays, or anything
+    ``np.asarray`` takes) → the port's tree on ``device``, dtypes kept.
+    Raises on a tree of other names or shapes."""
+    dev = resolve_device(device)
+    _check_tree(tree, _MNIST_SHAPES)
+    return tree_map(lambda x: _to_torch(x).to(dev), tree)
+
+
+def mnist_params_to_numpy(params: dict) -> dict:
+    """The port's MNIST CNN tree → nested dict of numpy arrays."""
+    _check_tree(params, _MNIST_SHAPES)
+    return tree_map(_to_numpy, params)
 
 
 def _to_torch(x) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Training data: token streams (``tokens``)."""
+"""Training data: token streams (``tokens``) and MNIST (``mnist``)."""

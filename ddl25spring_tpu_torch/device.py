@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -30,3 +31,25 @@ def check_on_device(tensor: torch.Tensor, device: torch.device,
         raise ValueError(f"{what} is on {d} but the call runs on {device}: "
                          f"move it first (e.g. params_from_jax(..., "
                          f"device={str(device)!r}))")
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def fp32_products() -> Iterator[None]:
+    """Full fp32 matrix products and convolutions inside the block:
+    TF32 off for cuBLAS and cuDNN (PyTorch lets cuDNN use TF32 by
+    default), the previous settings restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

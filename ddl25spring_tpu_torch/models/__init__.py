@@ -1,1 +1,2 @@
-"""tiny-Llama (``llama``) and its autoregressive decoding (``generate``)."""
+"""tiny-Llama (``llama``), its autoregressive decoding (``generate``), and
+the MNIST CNN of horizontal FL (``mnist_cnn``)."""

@@ -1,12 +1,72 @@
-"""Functional NN primitives the Llama needs (counterparts of the JAX
-package's ``nn``): init/apply pairs over plain dicts of tensors."""
+"""Functional NN primitives (counterparts of the JAX package's ``nn``):
+init/apply pairs over plain dicts of tensors.
+
+Conventions kept from the JAX package: dense weights are ``[in, out]`` and
+applied as ``x @ w``; convolutions are NCHW with OIHW weights (torch's own
+layout) and ``VALID`` padding; stochastic layers take their randomness
+explicitly, as a ``torch.Generator`` or a precomputed keep-mask.
+"""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+
+def _uniform(shape, bound: float, generator: torch.Generator,
+             device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """U(-bound, bound) drawn on the generator's device, then moved."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return (u * (2 * bound) - bound).to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------- dense
+
+def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, *,
+               device: torch.device, dtype: torch.dtype = torch.float32
+               ) -> dict:
+    """Kaiming-uniform, bound 1/sqrt(in_dim), as the JAX init."""
+    bound = 1.0 / math.sqrt(in_dim)
+    return {"w": _uniform((in_dim, out_dim), bound, generator, device, dtype),
+            "b": _uniform((out_dim,), bound, generator, device, dtype)}
+
+
+def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ params["w"]
+    if "b" in params:
+        y = y + params["b"]
+    return y
+
+
+# ---------------------------------------------------------------- conv2d
+
+def conv2d_init(generator: torch.Generator, in_ch: int, out_ch: int,
+                kernel: int, *, device: torch.device,
+                dtype: torch.dtype = torch.float32) -> dict:
+    bound = 1.0 / math.sqrt(in_ch * kernel * kernel)
+    return {"w": _uniform((out_ch, in_ch, kernel, kernel), bound, generator,
+                          device, dtype),
+            "b": _uniform((out_ch,), bound, generator, device, dtype)}
+
+
+def conv2d(params: dict, x: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
+    """x: [N, C, H, W], weight [O, I, kh, kw], ``VALID`` padding."""
+    return F.conv2d(x, params["w"], params["b"], stride=stride)
+
+
+def max_pool2d(x: torch.Tensor, window: int = 2,
+               stride: Optional[int] = None) -> torch.Tensor:
+    return F.max_pool2d(x, window, stride or window)
+
+
+relu = torch.relu
+
+
+# ---------------------------------------------------------------- rmsnorm
 
 def rmsnorm_init(dim: int, dtype: torch.dtype = torch.float32,
                  device: Optional[torch.device] = None) -> dict:
@@ -19,3 +79,27 @@ def rmsnorm(params: dict, x: torch.Tensor, *, eps: float = 1e-5
     x32 = x.float()
     rms = torch.sqrt(torch.mean(torch.square(x32), dim=-1, keepdim=True) + eps)
     return (x32 / rms).to(x.dtype) * params["scale"].to(x.dtype)
+
+
+# ---------------------------------------------------------------- dropout
+
+def dropout_keep(generator: torch.Generator, shape, rate: float
+                 ) -> torch.Tensor:
+    """A bool keep-mask: each entry kept with probability 1 − rate (a
+    uniform draw below 1 − rate, as ``jax.random.bernoulli``), drawn on the
+    generator's device."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device) < (1.0 - rate)
+
+
+def dropout(x: torch.Tensor, rate: float, *,
+            generator: Optional[torch.Generator] = None,
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout: kept entries scaled by 1/(1 − rate), the others
+    zero. The keep-mask is ``keep`` when given, else drawn from
+    ``generator``; with neither (or ``rate == 0``) ``x`` passes through."""
+    if rate == 0.0 or (keep is None and generator is None):
+        return x
+    if keep is None:
+        keep = dropout_keep(generator, x.shape, rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

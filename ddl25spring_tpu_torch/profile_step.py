@@ -13,6 +13,8 @@ reductions, copies, other elementwise) and the heaviest kernels by name.
 The wall time and busy share it reports are those of the profiled window,
 whose host is slowed by the profiler; time the wall step without it
 (``bench_utils.time_train_step``). Needs a card; raises without one.
+``trace`` profiles any warmed-up callable the same way (``chip_smoke.py``
+traces FedAvg rounds with it).
 """
 
 from __future__ import annotations
@@ -26,13 +28,15 @@ import torch
 from .bench_utils import build_train_step
 from .config import LlamaConfig
 
-# Name fragments of the port's own kernels, of cuBLAS/cutlass products, and
-# of reductions/copies, in the order they are tried.
+# Name fragments of the port's own kernels, of cuDNN convolutions (the FL
+# path's), of cuBLAS/cutlass products, and of reductions/copies, in the
+# order they are tried.
 _CATEGORIES = (
     ("flash_fwd (port)", ("flash_fwd_",)),
     ("flash_bwd dq (port)", ("flash_bwd_dq_",)),
     ("flash_bwd dkv (port)", ("flash_bwd_dkv_",)),
     ("adam (port)", ("adam_kernel",)),
+    ("convolution", ("fprop", "dgrad", "wgrad", "conv2d", "cudnn")),
     ("matmul", ("gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),
     ("reduction", ("reduce", "softmax", "logsumexp")),
     ("copy/cast", ("copy", "cat", "fill", "index", "scatter", "gather")),
@@ -47,20 +51,17 @@ def _category(name: str) -> str:
     return "other elementwise"
 
 
-def profile(batch: int = 64, steps: int = 3, device=None) -> dict:
-    cfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
-                      flash_dh_major=True, flash_block=512)
-    state, step, tokens = build_train_step(cfg, batch, opt_name="pallas",
-                                           device=device)
-    for _ in range(3):
-        state, loss = step(state, tokens)
-    torch.cuda.synchronize()
+def trace(fn, steps: int) -> dict:
+    """Trace ``steps`` calls of ``fn`` (warmed up by the caller) with
+    ``torch.profiler``: kernel ms per call, by category and by name,
+    launches per call, and the busy share of the profiled window."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, loss = step(state, tokens)
+            fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -85,8 +86,7 @@ def profile(batch: int = 64, steps: int = 3, device=None) -> dict:
         by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     return {
-        "batch": batch, "seq": cfg.ctx_size, "steps": steps,
-        "loss": float(loss),
+        "steps": steps,
         "profiled_wall_ms_per_step": wall_s * 1e3 / steps,
         "kernel_ms_per_step": sum(by_name.values()) / 1e3 / steps,
         "profiled_busy_share": busy / wall_s / 1e6,
@@ -97,6 +97,23 @@ def profile(batch: int = 64, steps: int = 3, device=None) -> dict:
         "top_kernels_ms_per_step": [(n[:120], us / 1e3 / steps)
                                     for n, us in top],
     }
+
+
+def profile(batch: int = 64, steps: int = 3, device=None) -> dict:
+    cfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                      flash_dh_major=True, flash_block=512)
+    state, step, tokens = build_train_step(cfg, batch, opt_name="pallas",
+                                           device=device)
+    for _ in range(3):
+        state, loss = step(state, tokens)
+    carry = [state, loss]
+
+    def one():
+        carry[0], carry[1] = step(carry[0], tokens)
+
+    out = trace(one, steps)
+    return {"batch": batch, "seq": cfg.ctx_size, "loss": float(carry[1]),
+            **out}
 
 
 def main() -> None:

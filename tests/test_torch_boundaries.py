@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from ddl25spring_tpu_torch import bench_utils, convert
-from ddl25spring_tpu_torch.config import LlamaConfig, TrainConfig
-from ddl25spring_tpu_torch.models import generate, llama
+from ddl25spring_tpu_torch import bench_utils, convert, fl
+from ddl25spring_tpu_torch.config import FLConfig, LlamaConfig, TrainConfig
+from ddl25spring_tpu_torch.models import generate, llama, mnist_cnn
 from ddl25spring_tpu_torch.ops import pallas_adam
 from ddl25spring_tpu_torch.serving import (Engine, PagedKVConfig, Request,
                                            init_pool, reference_stream,
@@ -57,13 +57,41 @@ def test_the_scan_sees_every_port_module():
                  "ddl25spring_tpu_torch/ops/flash_attention.py",
                  "ddl25spring_tpu_torch/serving/engine.py",
                  "ddl25spring_tpu_torch/train/llm.py",
-                 "ddl25spring_tpu_torch/ops/pallas_adam.py", "chip_smoke.py"):
+                 "ddl25spring_tpu_torch/ops/pallas_adam.py",
+                 "ddl25spring_tpu_torch/models/mnist_cnn.py",
+                 "ddl25spring_tpu_torch/data/mnist.py",
+                 "ddl25spring_tpu_torch/metrics.py",
+                 "ddl25spring_tpu_torch/rng.py",
+                 "ddl25spring_tpu_torch/fl/servers.py",
+                 "ddl25spring_tpu_torch/fl/fedprox.py",
+                 "ddl25spring_tpu_torch/fl/local.py",
+                 "ddl25spring_tpu_torch/fl/attacks.py",
+                 "ddl25spring_tpu_torch/fl/defenses.py",
+                 "ddl25spring_tpu_torch/fl/federated_data.py",
+                 "chip_smoke.py"):
         assert want in names
 
 
 def _model():
     return llama.init_llama(CFG, torch.Generator().manual_seed(0),
                             device="cpu")
+
+
+FL_CFG = FLConfig(nr_clients=2, client_fraction=0.5, batch_size=2, rounds=1)
+
+
+def _fl_inputs():
+    """(params, apply_fn, data, test x, test y) on the CPU, for the FL
+    servers."""
+    x = np.zeros((4, 1, 28, 28), np.float32)
+    y = np.arange(4)
+    params = mnist_cnn.init(torch.Generator().manual_seed(0), device="cpu")
+    data = fl.federate(x, y, [np.arange(2), np.arange(2, 4)], device="cpu")
+    return params, mnist_cnn.apply, data, x, y
+
+
+def _fl_server(cls, **kw):
+    return lambda: cls(*_fl_inputs(), FL_CFG, **kw)
 
 
 ENTRY_POINTS = {
@@ -80,6 +108,18 @@ ENTRY_POINTS = {
         CFG, TrainConfig(iters=1), tokenizer=ByteTokenizer()),
     "time_train_step": lambda: bench_utils.time_train_step(CFG, 1),
     "pallas_adam.smoke_check": lambda: pallas_adam.smoke_check(),
+    "mnist_cnn.init": lambda: mnist_cnn.init(torch.Generator()),
+    "mnist_params_from_jax": lambda: convert.mnist_params_from_jax(
+        convert.mnist_params_to_numpy(_fl_inputs()[0])),
+    "federate": lambda: fl.federate(np.zeros((2, 1, 28, 28), np.float32),
+                                    np.arange(2), [np.arange(2)]),
+    "FedSgdGradientServer": _fl_server(fl.FedSgdGradientServer),
+    "FedSgdWeightServer": _fl_server(fl.FedSgdWeightServer),
+    "FedAvgServer": _fl_server(fl.FedAvgServer),
+    "FedAvgGradServer": _fl_server(fl.FedAvgGradServer),
+    "FedProxServer": _fl_server(fl.FedProxServer, mu=0.1),
+    "CentralizedServer": lambda: fl.CentralizedServer(
+        *_fl_inputs()[:2], *_fl_inputs()[3:] * 2, FL_CFG),
 }
 
 
@@ -95,3 +135,5 @@ def test_explicit_cpu_device_runs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = generate.generate(_model(), np.zeros((1, 2)), CFG, 2, device="cpu")
     assert out.shape == (1, 2)
+    server = fl.FedAvgServer(*_fl_inputs(), FL_CFG, device="cpu")
+    assert server.run().rounds == 1
