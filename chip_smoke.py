@@ -26,7 +26,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
 3c. adam   — the fused Adam kernel against the plain rule on the 9 leaves
              that take it at vocab 32000 and on ``smoke_check``'s 972 × 512
              leaf, with step-3 bias corrections; per-step time of the 9
-             launches beside ``torch._fused_adam_`` on the same leaves.
+             launches beside ``torch._fused_adam_`` on the same leaves, and
+             the two timed in turns (7 pairs of 100 calls each): both
+             medians and their spread.
 4. forward — the canonical tiny-Llama (vocab 32000, dmodel 288, 6 heads of
              48, 6 layers, ctx 256) at B=8, T=256, seeded random weights:
              logits through the kernel ("auto") vs the plain path ("xla"),
@@ -65,6 +67,29 @@ Phases, each of which raises on failure (exit code 1, no result line):
              gradient-reversion attackers undefended, under the coordinate
              median (which must beat undefended) and under Krum, and a
              pattern backdoor's clean accuracy and attack success rate.
+9. tabular — homework 2 and the privacy half of FL at the reference's
+             sizes, no port kernel launched: on ``preprocess(
+             synthetic_heart())`` (27 features, 820 train and 205 test
+             rows, 9.3% positive) split over 4 parties, the VFL forward
+             logits and gradients on the card against the CPU (1e-5 of
+             each leaf's largest entry); ``train_classifier`` at its
+             defaults; ``train_vfl`` at ``VFLConfig()`` in both modes;
+             ``train_vfl_vae`` for 1,000 epochs (total = recon + kl);
+             ``train_vae`` and ``synthetic_data_eval`` at
+             ``VAEConfig(input_dim=27)``: every loss falls, and the
+             accuracies (beside the majority-class rate) stand at least at
+             the JAX package's on the CPU from the same initial parameters
+             less 0.03, the final VAE and VFL-VAE losses within 10% of it
+             (``fl_reference_bar.py --tabular``). Then on phase 8's MNIST
+             at homework 1's defaults: DP-FedAvg (clip 1.0) one round at
+             z = 0 on the card against the CPU (1e-4), 5 rounds at z = 0
+             (above the untrained CNN), one round at z = 1.0 whose noise
+             has an empirical std within 1% of σ = 0.1, and
+             ``privacy_spend(1.0, 5, 0.1)``; secure aggregation (clip
+             5.0, 20 bits) one round on the card against the CPU (one
+             quantum per coordinate), the masked sum equal to the unmasked
+             quantized sum bitwise on the card, and 5 rounds (above the
+             untrained CNN). Wall per epoch and per round.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -122,6 +147,33 @@ FL_ACC_MARGIN = 0.03
 TOL_FL_DEVICE = 1e-4          # card vs CPU, every leaf, of its largest entry
 TOL_FL_SGD = dict(rtol=2e-4, atol=1e-6)   # FedSGD gradient vs weight upload
 TOL_FL_SGD_ACC = 2e-4
+# Phase 9 (tabular, VFL, DP-FedAvg, secure aggregation). Bars: the JAX
+# package's trainers on the CPU from the port's initial parameters for the
+# same seeds (``fl_reference_bar.py --tabular``; PERF.md), less 0.03 for an
+# accuracy, and never below one test row above the majority class (9.3% of
+# the labels are positive, so predicting the majority scores 0.907); within
+# 10% for a final VAE loss, and within 10% plus 0.01 nats for a final
+# classifier loss, which ends near 0 (a majority predictor's is the label
+# entropy, ~0.3): the packages draw dropout and the VAE noise from
+# different generators. TAB_INIT_L1 is the float64 L1 norm
+# of the port's seed-0 inits at these shapes (classifier, VFL, VFL-VAE,
+# VAE), so a change of the draw shows.
+TAB_INIT_L1 = 5274.557427991182
+TAB_JAX = {"classifier_best_accuracy": 0.9317073225975037,
+           "classifier_final_loss": 3.8657913137285504e-06,
+           "evaluator_final_losses": [3.8657913137285504e-06,
+                                      1.055717007147905e-06],
+           "vfl_default": 0.9512194991111755,
+           "vfl_vae_final_total": 0.7075749039649963,
+           "vae_final_total": 308.9256591796875,
+           "synthetic_real": 0.9317073225975037,
+           "synthetic_synthetic": 0.9219512343406677}
+TAB_ACC_MARGIN = 0.03
+TAB_LOSS_REL = 0.10
+TAB_CE_ABS = 0.01
+TOL_VFL_DEVICE = 1e-5         # card vs CPU: VFL logits and gradients, VFL-VAE terms
+TOL_DP_DEVICE = 1e-4          # card vs CPU, one DP-FedAvg round, every leaf
+TOL_NOISE_STD = 0.01          # z = 1 round: empirical std vs σ, relative
 # What each flash kernel runs on, by input type.
 DESIGN = {
     "flash_fwd": {
@@ -207,9 +259,10 @@ def train_flops_per_token(cfg, seq: int) -> float:
     return 3.0 * (n * per_layer + 2 * d * v)
 
 
-def fl_phase(dev: torch.device, card: str) -> dict:
+def fl_phase(dev: torch.device, card: str) -> tuple:
     """Phase 8: horizontal FL on the card at homework 1's defaults. Raises
-    on a failed check; returns the numbers for the JSON record."""
+    on a failed check; returns the numbers for the JSON record and the
+    MNIST arrays ``(x, y, xt, yt)`` for phase 9."""
 
     from ddl25spring_tpu_torch import fl, profile_step, rng
     from ddl25spring_tpu_torch.config import FLConfig
@@ -409,6 +462,388 @@ def fl_phase(dev: torch.device, card: str) -> dict:
           f"{runs['reversion_undefended']['attackers_sampled']}; pattern "
           f"backdoor clean accuracy {clean_acc:.4f}, attack success rate "
           f"{asr:.4f} {card}")
+    return out, (x, y, xt, yt)
+
+
+def tabular_phase(dev: torch.device, card: str) -> dict:
+    """Phase 9, first half: the tabular classifier, VFL, the VFL-VAE, the
+    VAE and the synthetic-data protocol on the card. Raises on a failed
+    check; returns the numbers for the JSON record."""
+
+    import numpy as np
+
+    from ddl25spring_tpu_torch import profile_step, rng
+    from ddl25spring_tpu_torch.config import VAEConfig, VFLConfig
+    from ddl25spring_tpu_torch.data import tabular
+    from ddl25spring_tpu_torch.models import tabular as tab_model
+    from ddl25spring_tpu_torch.models import vae, vfl_nets
+    from ddl25spring_tpu_torch.ops.losses import cross_entropy_loss
+    from ddl25spring_tpu_torch.train import (synthetic_data_eval,
+                                             train_classifier, train_vae,
+                                             train_vfl, train_vfl_vae)
+    from ddl25spring_tpu_torch.tree import tree_leaves, tree_map
+
+    X, y = tabular.load_heart()
+    feats, names = tabular.preprocess(X)
+    xtr, ytr, xte, yte = tabular.train_test_split(feats, y, seed=0)
+    parts = tabular.split_features_evenly(names, 4)
+    split = lambda a: [np.ascontiguousarray(a[:, q]) for q in parts]
+    dims = [len(q) for q in parts]
+    majority = float(max(yte.mean(), 1 - yte.mean()))
+    maj = f"(majority class {majority:.4f})"
+    vcfg, acfg = VFLConfig(), VAEConfig(input_dim=feats.shape[1])
+    out = {"rows": [len(ytr), len(yte)], "features": feats.shape[1],
+           "parties": [len(q) for q in parts],
+           "positive_rate": float(y.mean()), "majority_test_rate": majority}
+
+    inits = [tab_model.init(rng.generator(0), feats.shape[1], device="cpu"),
+             vfl_nets.init_vfl(rng.generator(0), dims, device="cpu"),
+             {k: v for k, v in vfl_nets.init_vfl_vae(
+                 rng.generator(0), dims, device="cpu").items()
+              if k != "client_latent"},
+             list(vae.init(rng.generator(0), acfg, device="cpu"))]
+    l1 = sum(float(t.double().abs().sum()) for t in tree_leaves(inits))
+    check(abs(l1 - TAB_INIT_L1) <= 1e-6, f"the tabular inits' L1 norm {l1!r} "
+          f"is not {TAB_INIT_L1!r}: not the draw the bars were run from")
+
+    # 9.1 VFL forward and gradients, card against CPU, same parameters.
+    got = {}
+    for where in ("cpu", dev):
+        params = tree_map(lambda t: t.to(where).requires_grad_(), inits[1])
+        xs = [torch.as_tensor(a, device=where) for a in split(xtr)]
+        logits = vfl_nets.vfl_forward(params, xs)
+        loss = cross_entropy_loss(logits, torch.as_tensor(ytr, device=where))
+        got[str(where)] = [logits.detach().cpu()] + [
+            g.cpu() for g in torch.autograd.grad(loss, tree_leaves(params))]
+    vfl_err = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(got[str(dev)], got["cpu"]))
+    check(math.isfinite(vfl_err) and vfl_err <= TOL_VFL_DEVICE,
+          f"VFL logits and gradients card vs CPU max|d|/max|ref|="
+          f"{vfl_err:.3g} > {TOL_VFL_DEVICE}")
+    out["vfl_card_vs_cpu"] = vfl_err
+    print(f"tabular VFL forward + gradients, 4 parties {dims}, 820 rows: "
+          f"card vs CPU max|d|/max|ref| {vfl_err:.3g} over the logits and "
+          f"{len(got['cpu']) - 1} gradient leaves {card}")
+
+    # VFL-VAE reconstruction and KL terms, card against CPU, same
+    # parameters and a fixed reparameterization noise.
+    eps = torch.randn(len(ytr), 8, generator=rng.generator(7))
+    terms = {}
+    for where in ("cpu", dev):
+        params = tree_map(lambda t: t.to(where), inits[2])
+        xs = [torch.as_tensor(a, device=where) for a in split(xtr)]
+        recons, mu, logvar = vfl_nets.vfl_vae_forward(
+            {**params, "client_latent": 4}, xs, eps=eps.to(where))
+        terms[str(where)] = [float(t) for t in vfl_nets.vfl_vae_loss(
+            recons, xs, mu, logvar)[1:]]
+    vae_err = max(abs(a - b) / abs(b) for a, b in zip(terms[str(dev)],
+                                                       terms["cpu"]))
+    check(math.isfinite(vae_err) and vae_err <= TOL_VFL_DEVICE,
+          f"VFL-VAE recon and KL card vs CPU max rel {vae_err:.3g} > "
+          f"{TOL_VFL_DEVICE}")
+    out["vfl_vae_card_vs_cpu"] = vae_err
+    print(f"tabular VFL-VAE recon {terms['cpu'][0]:.6f} and KL "
+          f"{terms['cpu'][1]:.6f} (fixed eps): card vs CPU max rel "
+          f"{vae_err:.3g} {card}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def falls(losses, what):
+        check(all(math.isfinite(v) for v in losses) and
+              losses[-1] < losses[0], f"{what}: loss {losses[0]} -> "
+              f"{losses[-1]} does not fall")
+
+    n_test = len(yte)
+    majority_rows = round(majority * n_test)
+
+    def at_least(value, key, what):
+        """Counted in test rows: at least the JAX value less the margin,
+        and more rows than the majority class."""
+        rows = max(math.ceil((TAB_JAX[key] - TAB_ACC_MARGIN) * n_test - 1e-6),
+                   majority_rows + 1)
+        bar = rows / n_test
+        check(round(value * n_test) >= rows, f"{what} {value:.4f} < "
+              f"{bar:.4f} (the JAX package's {TAB_JAX[key]:.4f} less "
+              f"{TAB_ACC_MARGIN}, and above the majority {majority:.4f})")
+        return bar
+
+    # Cross-entropy of a predictor of the training labels' class rates.
+    p1 = float(ytr.mean())
+    collapsed = -(p1 * math.log(p1) + (1 - p1) * math.log(1 - p1))
+
+    def near_ce(value, ref, what):
+        check(abs(value - ref) <= TAB_LOSS_REL * abs(ref) + TAB_CE_ABS,
+              f"{what} final loss {value:.6f} not within {TAB_LOSS_REL:.0%} "
+              f"+ {TAB_CE_ABS} of the JAX package's {ref:.6f} (a majority "
+              f"predictor's {collapsed:.4f})")
+
+    def near(value, key, what):
+        ref = TAB_JAX[key]
+        check(abs(value - ref) <= TAB_LOSS_REL * abs(ref), f"{what} "
+              f"{value:.4f} not within {TAB_LOSS_REL:.0%} of the JAX "
+              f"package's {ref:.4f}")
+
+    # 9.2 the centralized classifier at its defaults.
+    (_, rep), wall = timed(lambda: train_classifier(xtr, ytr, xte, yte,
+                                                    device=dev))
+    falls(rep.train_losses, "train_classifier")
+    near_ce(rep.train_losses[-1], TAB_JAX["classifier_final_loss"],
+            "train_classifier")
+    bar = at_least(rep.best_accuracy, "classifier_best_accuracy",
+                   "train_classifier best accuracy")
+    out["classifier"] = {"best_accuracy": rep.best_accuracy,
+                         "best_epoch": rep.best_epoch,
+                         "losses_first_last": [rep.train_losses[0],
+                                               rep.train_losses[-1]],
+                         "wall_ms_per_epoch": wall / 200 * 1e3}
+    print(f"tabular train_classifier 200 epochs: loss "
+          f"{rep.train_losses[0]:.4f} -> {rep.train_losses[-1]:.6f} (JAX "
+          f"{TAB_JAX['classifier_final_loss']:.6f}, majority predictor "
+          f"{collapsed:.4f}), best "
+          f"accuracy {rep.best_accuracy:.4f} at epoch {rep.best_epoch} "
+          f"{maj}, bar {bar:.4f}; {wall / 200 * 1e3:.2f} ms per epoch "
+          f"(13 minibatches) {card}")
+
+    # 9.3 VFL at VFLConfig(), both modes; 2 epochs in the middle of the
+    # default run (26 minibatch steps) under the profiler.
+    window = profile_step.Window(vcfg.epochs // 2, 2)
+    for faithful in (False, True):
+        name = "vfl_faithful" if faithful else "vfl_default"
+        log = {} if faithful else dict(log_every=1, log_fn=window.tick)
+        (_, rep), wall = timed(lambda: train_vfl(
+            split(xtr), ytr, split(xte), yte, vcfg, faithful=faithful,
+            device=dev, **log))
+        falls(rep.train_losses, f"train_vfl faithful={faithful}")
+        line = (f"clean accuracy {rep.test_accuracy_clean:.4f}, reported "
+                f"{rep.test_accuracy:.4f} {maj}")
+        if not faithful:
+            bar = at_least(rep.test_accuracy_clean, "vfl_default",
+                           "train_vfl clean test accuracy")
+            line += f", bar {bar:.4f}"
+        out[name] = {"test_accuracy_clean": rep.test_accuracy_clean,
+                     "test_accuracy": rep.test_accuracy,
+                     "losses_first_last": [rep.train_losses[0],
+                                           rep.train_losses[-1]],
+                     "wall_ms_per_epoch": wall / vcfg.epochs * 1e3}
+        print(f"tabular train_vfl faithful={faithful} {vcfg.epochs} epochs: "
+              f"loss {rep.train_losses[0]:.4f} -> {rep.train_losses[-1]:.4f}, "
+              f"{line}; {wall / vcfg.epochs * 1e3:.2f} ms per epoch "
+              f"(13 minibatches) {card}")
+
+    prof = window.result
+    check(prof is not None, "the VFL profiler window did not close")
+    # The window's steps are epochs of 13 minibatch steps each.
+    out["vfl_profile"] = {**prof, "minibatch_steps": 2 * 13}
+    print(f"tabular train_vfl under the profiler (epochs "
+          f"{vcfg.epochs // 2 + 1}-{vcfg.epochs // 2 + 2} of the default "
+          f"run, 26 minibatch steps): kernels "
+          f"{prof['kernel_ms_per_step'] / 13 * 1e3:.1f} us per step "
+          f"({prof['kernels_per_step'] / 13:.0f} launches), profiled wall "
+          f"{prof['profiled_wall_ms_per_step'] / 13:.2f} ms per step, "
+          f"busy share {prof['profiled_busy_share']:.3f}; by category "
+          f"{json.dumps(prof['ms_per_step_by_category'])} (ms per epoch) "
+          f"{card}")
+
+    # 9.4 the VFL-VAE, 1,000 full-batch epochs, 4 clients x latent 4.
+    (_, rep), wall = timed(lambda: train_vfl_vae(split(xtr), vcfg,
+                                                 epochs=1000, device=dev))
+    falls(rep.total_losses, "train_vfl_vae")
+    near(rep.total_losses[-1], "vfl_vae_final_total", "train_vfl_vae final "
+         "total")
+    out["vfl_vae"] = {"total_first_last": [rep.total_losses[0],
+                                           rep.total_losses[-1]],
+                      "recon_last": rep.recon_losses[-1],
+                      "kl_last": rep.kl_losses[-1],
+                      "wall_ms_per_epoch": wall / 1000 * 1e3}
+    print(f"tabular train_vfl_vae 1000 epochs: total "
+          f"{rep.total_losses[0]:.4f} -> {rep.total_losses[-1]:.4f} (recon "
+          f"{rep.recon_losses[-1]:.4f} + kl {rep.kl_losses[-1]:.4f}; JAX "
+          f"{TAB_JAX['vfl_vae_final_total']:.4f}); {wall:.2f} s, "
+          f"{wall / 1000 * 1e3:.3f} ms per epoch {card}")
+
+    # 9.5 the VAE and the synthetic-data protocol.
+    (_, _, rep), wall = timed(lambda: train_vae(xtr, acfg, device=dev))
+    falls(rep.total_losses, "train_vae")
+    near(rep.total_losses[-1], "vae_final_total", "train_vae final total")
+    out["vae"] = {"total_first_last": [rep.total_losses[0],
+                                       rep.total_losses[-1]],
+                  "wall_ms_per_epoch": wall / acfg.epochs * 1e3}
+    print(f"tabular train_vae {acfg.epochs} epochs: total "
+          f"{rep.total_losses[0]:.2f} -> {rep.total_losses[-1]:.2f} (JAX "
+          f"{TAB_JAX['vae_final_total']:.2f}); "
+          f"{wall / acfg.epochs * 1e3:.2f} ms per epoch (12 minibatches) "
+          f"{card}")
+    res, wall = timed(lambda: synthetic_data_eval(xtr, ytr, xte, yte, acfg,
+                                                  evaluator_epochs=200,
+                                                  device=dev))
+    for r in res.vae_reports:
+        falls(r.total_losses, "synthetic_data_eval's per-class VAE")
+    ev_losses = [r.train_losses[-1] for r in res.evaluator_reports]
+    for value, ref, what in zip(ev_losses, TAB_JAX["evaluator_final_losses"],
+                                ("real", "synthetic")):
+        near_ce(value, ref, f"synthetic_data_eval {what}-trained evaluator")
+    bars = [at_least(res.real_accuracy, "synthetic_real",
+                     "synthetic_data_eval real-trained accuracy"),
+            at_least(res.synthetic_accuracy, "synthetic_synthetic",
+                     "synthetic_data_eval synthetic-trained accuracy")]
+    out["synthetic_eval"] = {"real_accuracy": res.real_accuracy,
+                             "synthetic_accuracy": res.synthetic_accuracy,
+                             "evaluator_final_losses": ev_losses,
+                             "wall_s": wall}
+    print(f"tabular synthetic_data_eval (2 per-class VAEs, 2 evaluators of "
+          f"200 epochs): real {res.real_accuracy:.4f} (bar {bars[0]:.4f}), "
+          f"synthetic {res.synthetic_accuracy:.4f} (bar {bars[1]:.4f}) {maj}; "
+          f"evaluators' final losses {ev_losses[0]:.6f} / {ev_losses[1]:.6f} "
+          f"(JAX {TAB_JAX['evaluator_final_losses'][0]:.6f} / "
+          f"{TAB_JAX['evaluator_final_losses'][1]:.6f}, majority predictor "
+          f"{collapsed:.4f}); "
+          f"{wall:.2f} s {card}")
+    return out
+
+
+def private_fl_phase(dev: torch.device, card: str, mnist_arrays) -> dict:
+    """Phase 9, second half: DP-FedAvg and secure aggregation at homework
+    1's defaults on phase 8's MNIST. Raises on a failed check; returns the
+    numbers for the JSON record."""
+
+    from ddl25spring_tpu_torch import fl, profile_step, rng
+    from ddl25spring_tpu_torch.config import FLConfig
+    from ddl25spring_tpu_torch.data import mnist
+    from ddl25spring_tpu_torch.device import fp32_products
+    from ddl25spring_tpu_torch.fl import privacy, secure_agg
+    from ddl25spring_tpu_torch.models import mnist_cnn
+    from ddl25spring_tpu_torch.tree import tree_leaves
+
+    cfg = FLConfig()
+    x, y, xt, yt = mnist_arrays
+    data = fl.federate(x, y, mnist.split(y, cfg.nr_clients, iid=True,
+                                         seed=cfg.seed), device=dev)
+    cpu_data = data.to("cpu")
+    params = mnist_cnn.init(torch.Generator().manual_seed(FL_INIT_SEED),
+                            device=dev)
+    fixed = rng.sample_clients(cfg.seed, 0, cfg.nr_clients,
+                               cfg.clients_per_round).numpy()
+    m = cfg.clients_per_round
+
+    def no_dropout(p, xb):
+        return mnist_cnn.apply(p, xb)
+
+    def pair(cls, **kw):
+        """One round of ``cls`` with fixed clients and dropout off, on the
+        card and on the CPU."""
+        got = {}
+        for where, d in (("cuda", data), ("cpu", cpu_data)):
+            server = cls(params, no_dropout, d, xt, yt, cfg,
+                         device=dev if where == "cuda" else "cpu", **kw)
+            server._sample = lambda r: fixed
+            with torch.no_grad():
+                got[where] = [t.cpu() for t in tree_leaves(
+                    server._round(server.params, 0))]
+        return got
+
+    out = {}
+    # 9.6 DP-FedAvg, clip 1.0: card vs CPU at z = 0.
+    got = pair(privacy.DPFedAvgServer, clip_norm=1.0, noise_multiplier=0.0)
+    dp_err = max(((a - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(got["cuda"], got["cpu"]))
+    check(math.isfinite(dp_err) and dp_err <= TOL_DP_DEVICE,
+          f"DP-FedAvg round card vs CPU max|d|/max|ref|={dp_err:.3g} > "
+          f"{TOL_DP_DEVICE}")
+    # 5 rounds at z = 0 with dropout live.
+    dp = privacy.DPFedAvgServer(params, mnist_cnn.apply, data, xt, yt, cfg,
+                                clip_norm=1.0, noise_multiplier=0.0,
+                                device=dev)
+    before = dp.test()
+    r = dp.run(5)
+    check(all(math.isfinite(a) for a in r.test_accuracy) and
+          r.test_accuracy[-1] > before, f"DP-FedAvg z=0 accuracy "
+          f"{r.test_accuracy} not above the untrained {before:.4f}")
+    # One round at z = 1.0 against the same round at z = 0, same clients.
+    noisy = privacy.DPFedAvgServer(dp.params, mnist_cnn.apply, data, xt, yt,
+                                   cfg, clip_norm=1.0, noise_multiplier=1.0,
+                                   device=dev)
+    with torch.no_grad():
+        quiet_p = dp._round(dp.params, 5)
+        noisy_p = noisy._round(noisy.params, 5)
+    noise = torch.cat([(q - n).reshape(-1) for q, n in
+                       zip(tree_leaves(quiet_p), tree_leaves(noisy_p))])
+    sigma = 1.0 * 1.0 / m
+    std = noise.double().std().item()
+    check(abs(std - sigma) <= TOL_NOISE_STD * sigma, f"DP-FedAvg z=1 round "
+          f"noise std {std:.6g} not within {TOL_NOISE_STD:.0%} of "
+          f"sigma {sigma}")
+    spend = privacy.privacy_spend(1.0, 5, 0.1)
+    out["dp_fedavg"] = {"card_vs_cpu": dp_err, "accuracy_before": before,
+                        "accuracy": r.test_accuracy,
+                        "wall_ms": [t * 1e3 for t in r.wall_time],
+                        "noise_std": std, "sigma": sigma,
+                        "noise_coordinates": noise.numel(),
+                        "privacy_spend": spend}
+    print(f"dp-fedavg clip 1.0: one round card vs CPU (clients "
+          f"{fixed.tolist()}, dropout off) max|d|/max|ref| {dp_err:.3g}; "
+          f"5 rounds at z=0: accuracy {[round(a, 4) for a in r.test_accuracy]}"
+          f" (untrained {before:.4f}), wall ms per round "
+          f"{[round(t * 1e3, 1) for t in r.wall_time]}; z=1.0 round: noise "
+          f"std {std:.6f} over {noise.numel()} coordinates (sigma "
+          f"{sigma}) {card}")
+    print(f"dp-fedavg privacy_spend(1.0, 5, 0.1): {json.dumps(spend)}")
+
+    # 9.7 secure aggregation, clip 5.0, 20 bits.
+    quantum = secure_agg.secagg_scale(5.0, 20)
+    got = pair(secure_agg.SecureAggFedAvgServer, clip_norm=5.0, bits=20)
+    sec_err = max((a - b).abs().max().item()
+                  for a, b in zip(got["cuda"], got["cpu"]))
+    check(sec_err <= quantum * (1 + 1e-6), f"secure round card vs CPU "
+          f"max|d|={sec_err:.3g} > one quantum {quantum:.3g}")
+    sec = secure_agg.SecureAggFedAvgServer(params, mnist_cnn.apply, data, xt,
+                                           yt, cfg, clip_norm=5.0, bits=20,
+                                           device=dev)
+    agg = {}
+
+    def masked_round_0():
+        """Round 0's clients, quantization, pair masks and ring sum: the
+        whole of a secure round but its one host multiply."""
+        with torch.no_grad(), fp32_products():
+            agg["idx"], agg["q"] = sec.quantized_deltas(sec.params, 0)
+            agg["masked"] = sec.masked_sum(agg["idx"], agg["q"], 0)
+
+    prof = profile_step.trace(masked_round_0, 1)
+    q, masked = agg["q"], agg["masked"]
+    with torch.no_grad():
+        plain = secure_agg.ring_sum(q)
+    check(all(a.device.type == dev.type and torch.equal(a, b) for a, b in
+              zip(tree_leaves(masked), tree_leaves(plain))),
+          "secure aggregation: the masked sum differs from the unmasked "
+          "quantized sum on the card")
+    before = sec.test()
+    r = sec.run(5)
+    check(all(math.isfinite(a) for a in r.test_accuracy) and
+          r.test_accuracy[-1] > before, f"secure aggregation accuracy "
+          f"{r.test_accuracy} not above the untrained {before:.4f}")
+    print(f"secagg round 0's masked aggregation (the check above) under "
+          f"the profiler: kernels "
+          f"{prof['kernel_ms_per_step']:.2f} ms per round "
+          f"({prof['kernels_per_step']:.0f} launches), profiled wall "
+          f"{prof['profiled_wall_ms_per_step']:.1f} ms, busy share "
+          f"{prof['profiled_busy_share']:.3f}; by category "
+          f"{json.dumps(prof['ms_per_step_by_category'])} {card}")
+    out["secagg"] = {"card_vs_cpu_max_abs": sec_err, "quantum": quantum,
+                     "profile": prof,
+                     "masked_equals_unmasked": True,
+                     "accuracy_before": before, "accuracy": r.test_accuracy,
+                     "wall_ms": [t * 1e3 for t in r.wall_time]}
+    print(f"secagg clip 5.0, 20 bits: one round card vs CPU max|d| "
+          f"{sec_err:.3g} (one quantum {quantum:.3g}); masked sum == "
+          f"unmasked quantized sum bitwise on the card over "
+          f"{sum(t.numel() for t in tree_leaves(q)) // m} coordinates; 5 "
+          f"rounds: accuracy {[round(a, 4) for a in r.test_accuracy]} "
+          f"(untrained {before:.4f}), wall ms per round "
+          f"{[round(t * 1e3, 1) for t in r.wall_time]} {card}")
     return out
 
 
@@ -649,6 +1084,37 @@ def main() -> int:
           f"{adam_us:.1f} us per step ({len(state)} launches), plain "
           f"{adam_plain_us:.1f} us, torch._fused_adam_ {fused_us:.1f} us, "
           f"bound {adam_bound_us:.1f} us (bytes) {card}")
+    # The kernel and the library call in turns, each time 100 calls: the
+    # order alternates between pairs, so drift between the two sets of
+    # calls shows in both.
+    kernel_step = lambda: [padam._adam_leaf_pallas(
+        p, m, vv, g, corr, **hyper) for p, m, vv, g in state]
+    fused_step = lambda: torch._fused_adam_(
+        cols[0], cols[3], cols[1], cols[2], [], steps, lr=8e-4, beta1=0.9,
+        beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+        maximize=False)
+    pairs_k, pairs_f = [], []
+    for i in range(7):
+        order = ((kernel_step, pairs_k), (fused_step, pairs_f))
+        for fn, dst in (order if i % 2 == 0 else order[::-1]):
+            dst.append(time_us(fn, reps=100, burst=5))
+    ratios = [k / f for k, f in zip(pairs_k, pairs_f)]
+    adam_pairs = {
+        "pairs": 7, "calls_per_side": 100,
+        "kernel_us": pairs_k, "fused_adam_us": pairs_f,
+        "kernel_median_us": statistics.median(pairs_k),
+        "fused_adam_median_us": statistics.median(pairs_f),
+        "kernel_spread_us": [min(pairs_k), max(pairs_k)],
+        "fused_adam_spread_us": [min(pairs_f), max(pairs_f)],
+        "ratio_median": statistics.median(ratios),
+        "ratio_spread": [min(ratios), max(ratios)]}
+    print(f"adam paired, 7 pairs of 100 calls in turns: kernel median "
+          f"{adam_pairs['kernel_median_us']:.1f} us (spread "
+          f"{min(pairs_k):.1f}-{max(pairs_k):.1f}), torch._fused_adam_ "
+          f"median {adam_pairs['fused_adam_median_us']:.1f} us (spread "
+          f"{min(pairs_f):.1f}-{max(pairs_f):.1f}); kernel / library per "
+          f"pair median {adam_pairs['ratio_median']:.4f} (spread "
+          f"{min(ratios):.4f}-{max(ratios):.4f}) {card}")
     del state, cols
 
     # 4. forward at full width (the main path of the kernel) -------------
@@ -888,7 +1354,7 @@ def main() -> int:
     # 8. horizontal FL (no port kernel on this path) ---------------------
     zero_counts()
     t0 = time.perf_counter()
-    fl_report = fl_phase(dev, card)
+    fl_report, mnist_arrays = fl_phase(dev, card)
     fl_report["phase_s"] = time.perf_counter() - t0
     fl_counts = read_counts()
     check(not any(fl_counts.values()), f"the FL phase launched port kernels: "
@@ -896,12 +1362,25 @@ def main() -> int:
     print(f"fl phase: {fl_report['phase_s']:.1f} s, port kernel launches "
           f"{fl_counts} {card}")
 
+    # 9. tabular, VFL, DP-FedAvg, secure aggregation (no port kernel) ---
+    zero_counts()
+    t0 = time.perf_counter()
+    tab_report = tabular_phase(dev, card)
+    tab_report.update(private_fl_phase(dev, card, mnist_arrays))
+    tab_report["phase_s"] = time.perf_counter() - t0
+    tab_counts = read_counts()
+    check(not any(tab_counts.values()), f"phase 9 launched port kernels: "
+          f"{tab_counts}")
+    print(f"tabular/vfl/dp/secagg phase: {tab_report['phase_s']:.1f} s, port "
+          f"kernel launches {tab_counts} {card}")
+
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
     path_counts = {"forward (phase 4)": {"flash_fwd": main_launches},
                    "train step (phase 6), per step": per_step,
                    "train_llm_dp (phase 7), per step": tper,
-                   "fl (phase 8), whole phase": fl_counts}
+                   "fl (phase 8), whole phase": fl_counts,
+                   "tabular/vfl/dp/secagg (phase 9)": tab_counts}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -957,7 +1436,8 @@ def main() -> int:
                           "bf16_b8_kernel_vs_plain": {
                               "loss_abs_err": loss_err_bf16,
                               "grad_rel_err": grad_err_bf16}},
-                      "fl": fl_report, "card": smi, "ok": True}))
+                      "fl": fl_report, "tabular": tab_report,
+                      "adam_paired": adam_pairs, "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

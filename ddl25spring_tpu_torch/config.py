@@ -1,12 +1,14 @@
-"""Configuration: the port's own copies of ``FLConfig``, ``LlamaConfig``
-and ``TrainConfig``.
+"""Configuration: the port's own copies of ``FLConfig``, ``LlamaConfig``,
+``TrainConfig``, ``VFLConfig`` and ``VAEConfig``.
 
 Same fields and defaults as the JAX package's ``config.FLConfig`` (the
 homework-1 federated setting: N=100, C=0.1, B=100, E=1, lr 0.01, 10
 rounds), ``config.LlamaConfig`` (the canonical tiny-Llama: vocab 32000,
 dmodel 288, 6 heads of dim 48, 6 layers, ctx 256) and
-``config.TrainConfig``, so a config built for one package means the same
-model and run in the other. The port's trainer
+``config.TrainConfig``, ``config.VFLConfig`` (homework 2's split learning:
+4 parties, 300 epochs, batch 64, lr 1e-3) and ``config.VAEConfig`` (the
+tabular VAE: hidden 50-12, latent 3, 200 epochs), so a config built for
+one package means the same model and run in the other. The port's trainer
 raises ``NotImplementedError`` for the ``TrainConfig`` fields it does not
 run yet at a non-default value (``train.llm.unsupported_train_fields``).
 """
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -120,6 +122,32 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class VFLConfig:
+    """Vertical FL / split learning configuration."""
+
+    nr_clients: int = 4
+    epochs: int = 300
+    batch_size: int = 64
+    lr: float = 1e-3
+    # Party i sends bottom_out_mult · d_i activations up the cut.
+    bottom_out_mult: int = 2
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    """Tabular VAE configuration (BatchNorm-MLP encoder and decoder)."""
+
+    input_dim: int = 13
+    hidden_dims: Tuple[int, ...] = (50, 12)
+    latent_dim: int = 3
+    lr: float = 1e-3
+    epochs: int = 200
+    batch_size: int = 64
+    seed: int = 0
 
 
 def torch_dtype(name: str) -> torch.dtype:

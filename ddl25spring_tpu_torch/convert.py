@@ -2,10 +2,13 @@
 ``init_llama`` parameter tree and the port's ``Llama`` (a name-for-name
 copy of numpy arrays, with no transposes: both sides store weights
 ``[in, out]`` with blocks stacked on ``[L]``), the MNIST CNN's tree (both
-sides store conv weights OIHW and dense weights ``[in, out]``), and the
-Adam optimizer state (``count``, ``mu``, ``nu``) of JAX's
-``FusedAdamState`` or optax's ``adam`` and the port's
-``FusedAdamState``."""
+sides store conv weights OIHW and dense weights ``[in, out]``), the
+tabular trees (the classifier, the VAE's parameters and BatchNorm state,
+VFL and VFL-VAE: the same lists and dicts of ``{"w" [in, out], "b" [out]}``
+layers on both sides, checked against a tree of the same model; the
+VFL-VAE's ``client_latent`` stays a plain int), and the Adam
+optimizer state (``count``, ``mu``, ``nu``) of JAX's ``FusedAdamState`` or
+optax's ``adam`` and the port's ``FusedAdamState``."""
 
 from __future__ import annotations
 
@@ -36,16 +39,30 @@ _MNIST_SHAPES = {
 }
 
 
-def _check_tree(tree, want, path="") -> None:
-    if isinstance(want, dict):
-        if not isinstance(tree, dict) or set(tree) != set(want):
+def _check_tree(tree, like, path="") -> None:
+    """Raise unless ``tree`` has ``like``'s dicts (same keys), lists (same
+    lengths) and leaf shapes. A leaf of ``like`` is an array, a tensor or a
+    shape tuple; an int leaf (the VFL-VAE's ``client_latent``) must be
+    equal."""
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or set(tree) != set(like):
             got = sorted(tree) if isinstance(tree, dict) else type(tree)
-            raise ValueError(f"params{path}: keys {got} != {sorted(want)}")
-        for k in want:
-            _check_tree(tree[k], want[k], f"{path}.{k}")
-    elif tuple(np.shape(tree)) != want:
-        raise ValueError(f"params{path}: shape {tuple(np.shape(tree))} != "
-                         f"{want} for this config")
+            raise ValueError(f"params{path}: keys {got} != {sorted(like)}")
+        for k in like:
+            _check_tree(tree[k], like[k], f"{path}.{k}")
+    elif isinstance(like, list):
+        if not isinstance(tree, list) or len(tree) != len(like):
+            raise ValueError(f"params{path}: not a list of {len(like)}")
+        for i, (t, l) in enumerate(zip(tree, like)):
+            _check_tree(t, l, f"{path}[{i}]")
+    elif isinstance(like, (int, np.integer)):
+        if tree != like:
+            raise ValueError(f"params{path}: {tree!r} != {like}")
+    else:
+        want = like if isinstance(like, tuple) else tuple(np.shape(like))
+        if tuple(np.shape(tree)) != want:
+            raise ValueError(f"params{path}: shape {tuple(np.shape(tree))} "
+                             f"!= {want}")
 
 
 def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Llama:
@@ -70,6 +87,23 @@ def mnist_params_to_numpy(params: dict) -> dict:
     """The port's MNIST CNN tree → nested dict of numpy arrays."""
     _check_tree(params, _MNIST_SHAPES)
     return tree_map(_to_numpy, params)
+
+
+def tree_from_numpy(tree, like, device=None):
+    """A JAX tree of the tabular models (numpy arrays, or anything
+    ``np.asarray`` takes) → the port's tree on ``device``, dtypes kept;
+    int leaves stay ints. Raises unless ``tree`` has ``like``'s layout:
+    ``like`` is a tree of the same model, such as the port's own init."""
+    _check_tree(tree, like)
+    dev = resolve_device(device)
+    return tree_map(lambda x: int(x) if isinstance(x, (int, np.integer))
+                    else _to_torch(x).to(dev), tree)
+
+
+def tree_to_numpy(tree):
+    """The port's tree → the same tree of numpy arrays (ints stay)."""
+    return tree_map(lambda x: int(x) if isinstance(x, (int, np.integer))
+                    else _to_numpy(x), tree)
 
 
 def _to_torch(x) -> torch.Tensor:

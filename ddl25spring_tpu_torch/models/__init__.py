@@ -1,2 +1,6 @@
-"""tiny-Llama (``llama``), its autoregressive decoding (``generate``), and
-the MNIST CNN of horizontal FL (``mnist_cnn``)."""
+"""tiny-Llama (``llama``), its autoregressive decoding (``generate``), the
+MNIST CNN of horizontal FL (``mnist_cnn``), the tabular classifier
+(``tabular``), the tabular VAE (``vae``) and the vertical-FL stack
+(``vfl_nets``)."""
+
+from . import generate, llama, mnist_cnn, tabular, vae, vfl_nets  # noqa: F401

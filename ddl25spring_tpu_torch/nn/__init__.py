@@ -2,15 +2,17 @@
 init/apply pairs over plain dicts of tensors.
 
 Conventions kept from the JAX package: dense weights are ``[in, out]`` and
-applied as ``x @ w``; convolutions are NCHW with OIHW weights (torch's own
-layout) and ``VALID`` padding; stochastic layers take their randomness
-explicitly, as a ``torch.Generator`` or a precomputed keep-mask.
+applied as ``x @ w``; an MLP is a list of dense layers; convolutions are
+NCHW with OIHW weights (torch's own layout) and ``VALID`` padding;
+BatchNorm takes and returns its running statistics as an explicit state
+tree; stochastic layers take their randomness explicitly, as a
+``torch.Generator`` or a precomputed keep-mask.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +66,70 @@ def max_pool2d(x: torch.Tensor, window: int = 2,
 
 
 relu = torch.relu
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """Slope 0.01 below zero, as ``jax.nn.leaky_relu``'s default."""
+    return F.leaky_relu(x, 0.01)
+
+
+# ---------------------------------------------------------------- mlp
+
+def mlp_init(generator: torch.Generator, dims: Sequence[int], *,
+             device: torch.device, dtype: torch.dtype = torch.float32
+             ) -> list:
+    """Stack of dense layers, dims = [in, h1, ..., out], drawn in order."""
+    return [dense_init(generator, dims[i], dims[i + 1], device=device,
+                       dtype=dtype) for i in range(len(dims) - 1)]
+
+
+def mlp(params: list, x: torch.Tensor, *, activation: Callable = relu,
+        final_activation: Optional[Callable] = None) -> torch.Tensor:
+    """``activation`` between layers, ``final_activation`` (if any) after
+    the last."""
+    for i, layer in enumerate(params):
+        x = dense(layer, x)
+        if i < len(params) - 1:
+            x = activation(x)
+        elif final_activation is not None:
+            x = final_activation(x)
+    return x
+
+
+# ---------------------------------------------------------------- batchnorm
+
+def batchnorm_init(dim: int, dtype: torch.dtype = torch.float32,
+                   device: Optional[torch.device] = None
+                   ) -> Tuple[dict, dict]:
+    """``(params, state)``: scale 1 and bias 0; running mean 0 and
+    variance 1."""
+    ones = lambda: torch.ones(dim, dtype=dtype, device=device)
+    zeros = lambda: torch.zeros(dim, dtype=dtype, device=device)
+    return ({"scale": ones(), "bias": zeros()},
+            {"mean": zeros(), "var": ones()})
+
+
+def batchnorm(params: dict, state: dict, x: torch.Tensor, *, train: bool,
+              momentum: float = 0.1, eps: float = 1e-5
+              ) -> Tuple[torch.Tensor, dict]:
+    """BatchNorm over the batch axis of ``x [N, D]``. In training it
+    normalizes with the batch's biased variance and moves the running
+    variance toward the unbiased one (× n/(n−1)); the new state carries
+    no gradient. In evaluation it normalizes with the running state."""
+    if train:
+        mean = x.mean(0)
+        var = x.var(0, unbiased=False)
+        n = x.shape[0]
+        unbiased = var.detach() * (n / max(n - 1, 1))
+        new_state = {
+            "mean": (1 - momentum) * state["mean"] + momentum * mean.detach(),
+            "var": (1 - momentum) * state["var"] + momentum * unbiased,
+        }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (x - mean) / torch.sqrt(var + eps)
+    return y * params["scale"] + params["bias"], new_state
 
 
 # ---------------------------------------------------------------- rmsnorm

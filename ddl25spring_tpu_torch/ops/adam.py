@@ -1,6 +1,6 @@
 """Adam in plain PyTorch: counterpart of the JAX package's ``ops/adam.py``.
 
-``fused_adam`` is the single-expression Adam rule per leaf,
+``fused_adam`` is the single-expression Adam rule,
 
     m ← β1·m + (1−β1)·g
     v ← β2·v + (1−β2)·g²
@@ -8,12 +8,17 @@
 
 with the optax surface the JAX package gives it: ``init(params)`` and a pure
 ``update(grads, state, params) -> (updates, state)`` over trees of tensors
-(nested dicts, ``tree.py``). ``optax.adam``, the trainer's default, is the
-same recurrence up to float re-association, so the port serves both with
-this one rule. ``apply_optimizer`` applies an optimizer's step to the
-parameters, in place (the JAX program returns new arrays; on the card its
-kernel aliases them in place too), through ``apply_gradients`` where the
-optimizer has it (``ops.pallas_adam.FusedApplyAdam``).
+(nested dicts and lists, ``tree.py``). ``optax.adam``, the trainer's
+default, is the same recurrence up to float re-association, so the port
+serves both with this one rule. ``adamw`` is the same rule with optax's
+decoupled weight decay, ``u = −lr·(m̂/(√v̂ + ε) + wd·p)``. ``adam_math``
+is the rule's one body, over lists of leaves (one ``torch._foreach_*``
+call per operation); the CUDA kernel's plain version
+(``ops.pallas_adam``) runs it on one leaf. ``apply_optimizer`` applies an
+optimizer's step to the parameters, in place (the JAX program returns new
+arrays; on the card its kernel aliases them in place too), through
+``apply_gradients`` where the optimizer has it
+(``ops.pallas_adam.FusedApplyAdam``).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_leaves, tree_map, tree_unflatten
 
 
 class GradientTransformation(NamedTuple):
@@ -45,15 +50,30 @@ def bias_corrections(count: torch.Tensor, b1: float, b2: float):
     return 1.0 - b1 ** cf, 1.0 - b2 ** cf
 
 
-def adam_leaf_math(g, m, v, c1, c2, *, lr: float, b1: float, b2: float,
-                   eps: float):
-    """The per-leaf Adam recurrence, in the JAX package's operation order
-    (``csrc/adam.cu`` mirrors it operation for operation). Returns
-    ``(update, m, v)``; the update is the signed step before it is added
-    to the parameters."""
-    m = b1 * m + (1.0 - b1) * g
-    v = b2 * v + (1.0 - b2) * torch.square(g)
-    u = (-lr) * (m / c1) / (torch.sqrt(v / c2) + eps)
+def adam_math(gs, ms, vs, c1, c2, ps=None, *, lr: float, b1: float,
+              b2: float, eps: float, weight_decay: float = 0.0):
+    """The Adam recurrence over lists of leaves, in the JAX package's
+    operation order (``csrc/adam.cu`` mirrors it operation for operation).
+    Returns the lists ``(updates, m, v)``; an update is the signed step
+    before it is added to the parameters. With ``weight_decay`` the update
+    is optax's ``adamw``, ``(-lr) · ((m/c1) / (√(v/c2) + ε) + wd·p)``, and
+    needs the parameters ``ps``."""
+    m = torch._foreach_mul(ms, b1)
+    torch._foreach_add_(m, torch._foreach_mul(gs, 1.0 - b1))
+    v = torch._foreach_mul(vs, b2)
+    torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(gs, gs),
+                                              1.0 - b2))
+    denom = torch._foreach_div(v, c2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    u = torch._foreach_div(m, c1)
+    if weight_decay:
+        torch._foreach_div_(u, denom)
+        torch._foreach_add_(u, torch._foreach_mul(ps, weight_decay))
+        torch._foreach_mul_(u, -lr)
+    else:
+        torch._foreach_mul_(u, -lr)
+        torch._foreach_div_(u, denom)
     return u, m, v
 
 
@@ -66,20 +86,37 @@ def _init(params) -> FusedAdamState:
 
 
 def fused_adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-               eps: float = 1e-8) -> GradientTransformation:
+               eps: float = 1e-8, weight_decay: float = 0.0
+               ) -> GradientTransformation:
     def update_fn(grads, state: FusedAdamState, params=None):
-        del params
         count = state.count + 1
         c1, c2 = bias_corrections(count, b1, b2)
-        triples = tree_map(
-            lambda g, m, v: adam_leaf_math(g, m, v, c1, c2, lr=learning_rate,
-                                           b1=b1, b2=b2, eps=eps),
-            grads, state.mu, state.nu)
-        pick = lambda i: tree_map(lambda _, t: t[i], grads, triples)
-        updates = tree_map(lambda g, u: u.to(g.dtype), grads, pick(0))
-        return updates, FusedAdamState(count, pick(1), pick(2))
+        gs = tree_leaves(grads)
+        u, m, v = adam_math(
+            gs, tree_leaves(state.mu), tree_leaves(state.nu), c1, c2,
+            tree_leaves(params) if weight_decay else None, lr=learning_rate,
+            b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+        like = lambda leaves: tree_unflatten(grads, leaves)
+        updates = like([x.to(g.dtype) for x, g in zip(u, gs)])
+        return updates, FusedAdamState(count, like(m), like(v))
 
     return GradientTransformation(_init, update_fn)
+
+
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 1e-4
+          ) -> GradientTransformation:
+    """optax's ``adamw``: the Adam rule plus decoupled weight decay on every
+    leaf (``update`` needs ``params``)."""
+    return fused_adam(learning_rate, b1, b2, eps, weight_decay)
+
+
+def apply_updates(params, updates) -> None:
+    """``p += u`` on every leaf, in place, in ``p``'s dtype."""
+    ps = tree_leaves(params)
+    with torch.no_grad():
+        torch._foreach_add_(ps, [u.to(p.dtype) for p, u in
+                                 zip(ps, tree_leaves(updates))])
 
 
 def apply_optimizer(optimizer, grads, opt_state, params):
@@ -90,7 +127,5 @@ def apply_optimizer(optimizer, grads, opt_state, params):
     if hasattr(optimizer, "apply_gradients"):
         return optimizer.apply_gradients(params, grads, opt_state)
     updates, opt_state = optimizer.update(grads, opt_state, params)
-    with torch.no_grad():
-        for p, u in zip(tree_leaves(params), tree_leaves(updates)):
-            p.add_(u.to(p.dtype))
+    apply_updates(params, updates)
     return params, opt_state

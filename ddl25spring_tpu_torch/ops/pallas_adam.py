@@ -11,7 +11,7 @@ device array at run time.
 grads, state)``, the fused path that ``parallel.dp`` takes. Leaf routing is
 the JAX package's (``_pallas_eligible``): fp32 leaves of at least 65,536
 elements whose size is a multiple of 512 take the kernel; the rest (norm
-scales, odd sizes) take ``adam_leaf_math``, so the same leaves take the
+scales, odd sizes) take ``adam_math``, so the same leaves take the
 kernel in both packages.
 
 ``_adam_leaf_pallas`` launches the kernel for CUDA tensors and takes the
@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _ext
-from .adam import FusedAdamState, adam_leaf_math, bias_corrections, fused_adam
+from .adam import FusedAdamState, adam_math, bias_corrections, fused_adam
 from ..device import resolve_device
 from ..tree import tree_leaves
 
@@ -35,9 +35,9 @@ launches = 0
 
 
 def _leaf_plain(p, m, v, g, c1, c2, *, lr, b1, b2, eps) -> None:
-    """The plain rule (``adam_leaf_math``) applied in place."""
-    u, m_new, v_new = adam_leaf_math(g, m, v, c1, c2, lr=lr, b1=b1, b2=b2,
-                                     eps=eps)
+    """The plain rule (``adam_math``) on one leaf, applied in place."""
+    (u,), (m_new,), (v_new,) = adam_math([g], [m], [v], c1, c2, lr=lr, b1=b1,
+                                         b2=b2, eps=eps)
     with torch.no_grad():
         m.copy_(m_new)
         v.copy_(v_new)

@@ -14,7 +14,8 @@ The wall time and busy share it reports are those of the profiled window,
 whose host is slowed by the profiler; time the wall step without it
 (``bench_utils.time_train_step``). Needs a card; raises without one.
 ``trace`` profiles any warmed-up callable the same way (``chip_smoke.py``
-traces FedAvg rounds with it).
+traces FedAvg rounds with it), and ``Window`` a slice of a loop that runs
+anyway (epochs of a trainer, through its ``log_fn``).
 """
 
 from __future__ import annotations
@@ -51,20 +52,49 @@ def _category(name: str) -> str:
     return "other elementwise"
 
 
+_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+               torch.profiler.ProfilerActivity.CUDA]
+
+
 def trace(fn, steps: int) -> dict:
     """Trace ``steps`` calls of ``fn`` (warmed up by the caller) with
     ``torch.profiler``: kernel ms per call, by category and by name,
     launches per call, and the busy share of the profiled window."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=_ACTIVITIES) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
+    return _summary(prof.events(), wall_s, steps)
+
+
+class Window:
+    """Trace a slice of a loop that is running anyway: call ``tick()`` at
+    the end of each step (a trainer's ``log_fn`` at ``log_every=1``); the
+    profiler records steps ``start + 1`` to ``start + steps``, and
+    ``result`` then holds ``trace``'s summary of them."""
+
+    def __init__(self, start: int, steps: int):
+        self.start, self.steps, self.n, self.result = start, steps, 0, None
+
+    def tick(self, *_) -> None:
+        self.n += 1
+        if self.n == self.start:
+            torch.cuda.synchronize()
+            self._prof = torch.profiler.profile(activities=_ACTIVITIES)
+            self._prof.start()
+            self._t0 = time.perf_counter()
+        elif self.n == self.start + self.steps:
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - self._t0
+            self._prof.stop()
+            self.result = _summary(self._prof.events(), wall_s, self.steps)
+
+
+def _summary(events, wall_s: float, steps: int) -> dict:
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")

@@ -1,9 +1,12 @@
-"""Nested-dict trees of tensors: the port's stand-in for JAX pytrees.
+"""Nested dicts and lists of tensors: the port's stand-in for JAX pytrees.
 
-Parameters, gradients and optimizer moments are nested dicts with tensor
-leaves, in the JAX package's tree layout. Leaves are visited in sorted-key
-order, the order ``jax.tree.leaves`` gives for dicts, so a flat list of
-leaves lines up across the packages and across trees of one structure.
+Parameters, gradients and optimizer moments are nested dicts and lists
+with tensor leaves, in the JAX package's tree layout (``nn.mlp_init``
+returns a list of layers; the VFL and VAE trees nest such lists in
+dicts). Leaves are visited in the order ``jax.tree.leaves`` gives: a
+dict's items in sorted-key order, a list's in index order. So a flat list
+of leaves lines up across the packages and across trees of one
+structure. Any other object (a tensor, a tuple, a number) is a leaf.
 """
 
 from __future__ import annotations
@@ -19,13 +22,19 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> List:
-    """The leaves in sorted-key order."""
+    """The leaves: dict items in sorted-key order, list items in index
+    order."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in tree_leaves(t)]
     return [tree]
 
 
@@ -37,6 +46,8 @@ def tree_unflatten(like, leaves) -> dict:
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(t) for t in node]
         return next(it)
 
     return build(like)
@@ -60,10 +71,30 @@ def unflattener(like) -> Callable[[torch.Tensor], dict]:
 
 def flatten(tree) -> Tuple[torch.Tensor, Callable[[torch.Tensor], dict]]:
     """Tree -> (flat vector, unflatten), in ``jax.flatten_util.
-    ravel_pytree``'s order: the leaves in sorted-key order, each raveled
+    ravel_pytree``'s order: the leaves in ``tree_leaves`` order, each raveled
     row-major, concatenated."""
     flat = torch.cat([x.reshape(-1) for x in tree_leaves(tree)])
     return flat, unflattener(tree)
+
+
+def value_and_grad(fn: Callable, params, *, has_aux: bool = False):
+    """``fn(params)`` and its gradient with respect to every leaf of
+    ``params`` (leaf tensors that require grad), as a tree of
+    ``params``' structure: ``(out, grads)``, where ``out`` is the loss,
+    or ``(loss, aux)`` with ``has_aux``. Runs under ``enable_grad``, so
+    callers may hold the rest of a training loop under ``no_grad``."""
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        out = fn(params)
+        loss = out[0] if has_aux else out
+        grads = torch.autograd.grad(loss, leaves)
+    return out, tree_unflatten(params, list(grads))
+
+
+def trainable(tree):
+    """A copy of ``tree`` whose leaves are fresh tensors that require
+    grad (detached from whatever made them)."""
+    return tree_map(lambda x: x.detach().clone().requires_grad_(), tree)
 
 
 def tree_sub(a, b):
