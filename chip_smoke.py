@@ -23,12 +23,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
              (B=64, T=256, H=6, Dh=48, bf16, dh-major), at B=8 in both
              layouts and both types, at ragged T=200 and at T=100 (causal
              and not), timed likewise; the library call is SDPA's backward.
-3c. adam   — the fused Adam kernel against the plain rule on the 9 leaves
-             that take it at vocab 32000 and on ``smoke_check``'s 972 × 512
-             leaf, with step-3 bias corrections; per-step time of the 9
-             launches beside ``torch._fused_adam_`` on the same leaves, and
-             the two timed in turns (7 pairs of 100 calls each): both
-             medians and their spread.
+3c. adam   — the fused Adam kernel (one launch over a table of leaves)
+             against the plain rule, with step-3 bias corrections: on the 9
+             leaves that take it at vocab 32000 (one launch), on
+             ``smoke_check``'s 972 × 512 leaf, and on ragged tables (one
+             leaf; leaves of 4, 512, 65,536 + 512 and the chunk ± 512
+             elements; 50 leaves, more than a launch's table: two
+             launches), max|d| of p, m and v and whether they are bitwise
+             equal; per-step time beside ``torch._fused_adam_`` on the same
+             leaves, and the two timed in turns (7 pairs of 100 calls
+             each): both medians, their spread, the per-pair ratio and the
+             TB/s achieved beside the bound.
 4. forward — the canonical tiny-Llama (vocab 32000, dmodel 288, 6 heads of
              48, 6 layers, ctx 256) at B=8, T=256, seeded random weights:
              logits through the kernel ("auto") vs the plain path ("xla"),
@@ -40,7 +45,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
 6. train   — the training step at full width through ``time_train_step``
              (bf16 compute, flash kernels in the dh-major layout, the fused
              Adam kernel, batch 64 × 256): launches per step of each kernel
-             (flash forward 6, dQ 6, dK/dV 6, Adam 9), a finite loss,
+             (flash forward 6, dQ 6, dK/dV 6, Adam 1), a finite loss,
              tokens/s (wall), the kernels' ms per step by category
              (``profile_step``) and MFU. Then, at fp32 and
              batch 8, the kernel path against the plain path: one step's
@@ -48,8 +53,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
              and at bf16 and batch 8, one step's loss and every leaf.
 7. trainer — ``train_llm_dp(device=None)`` for 20 steps on the synthetic
              corpus (byte tokenizer, vocab 259) with ``optimizer="pallas"``:
-             finite losses, and 6 + 6 + 6 flash launches and 7 Adam
-             launches per step.
+             finite losses, and 6 + 6 + 6 flash launches and 1 Adam
+             launch per step.
 8. fl      — horizontal federated learning at homework 1's defaults (N=100,
              C=0.1, B=100, E=1, lr 0.01) on ``synthetic_mnist(60000, 10000,
              seed=0)``, the MNIST CNN on the card, no port kernel launched:
@@ -174,7 +179,7 @@ TAB_CE_ABS = 0.01
 TOL_VFL_DEVICE = 1e-5         # card vs CPU: VFL logits and gradients, VFL-VAE terms
 TOL_DP_DEVICE = 1e-4          # card vs CPU, one DP-FedAvg round, every leaf
 TOL_NOISE_STD = 0.01          # z = 1 round: empirical std vs σ, relative
-# What each flash kernel runs on, by input type.
+# What each port kernel runs on (each flash kernel by input type).
 DESIGN = {
     "flash_fwd": {
         "bfloat16": "tensor cores: mma.sync m16n8k16 bf16 -> fp32, ldmatrix "
@@ -199,6 +204,11 @@ DESIGN = {
                     "(csrc/mma_bf16.cuh)",
         "float32": "register-tiled fp32 FMA, 256 threads, P and dS through "
                    "shared memory"},
+    "adam": "one launch over a __grid_constant__ table of up to 48 leaves, "
+            "a persistent grid (occupancy x SMs) striding over 1024-element "
+            "chunks; a producer thread moves p, m, v, g with cp.async.bulk "
+            "into 4 shared-memory stages on mbarriers, 256 consumer threads "
+            "run the rule, bulk stores back, L2 evict_first",
 }
 PTXAS_TYPES = {"f": "float", "13__nv_bfloat16": "bf16"}
 
@@ -851,7 +861,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from ddl25spring_tpu_torch import bench_utils, profile_step
+    from ddl25spring_tpu_torch import adam_ab, bench_utils, profile_step
     time_us = bench_utils.kernel_time_us
     from ddl25spring_tpu_torch.config import LlamaConfig, TrainConfig
     from ddl25spring_tpu_torch.models import llama
@@ -1038,67 +1048,89 @@ def main() -> int:
         del q, k, v, do, q4, k4, v4, out, lse, got, ref, lib_out
 
     # 3c. Adam kernel vs plain -------------------------------------------
-    shapes = [tuple(x.shape) for x in tree_leaves(llama.init_llama(
-        LlamaConfig(), torch.Generator().manual_seed(0), device="cpu").tree())]
-    meta = [torch.empty(s, device="meta") for s in shapes]
-    leaves = [tuple(x.shape) for x in meta if padam._pallas_eligible(x, x)]
+    leaves = adam_ab.kernel_leaf_shapes()
     check(len(leaves) == 9, f"{len(leaves)} Adam kernel leaves at vocab "
           f"32000, expected 9")
     hyper = dict(lr=8e-4, b1=0.9, b2=0.999, eps=1e-8)
     c1, c2 = bias_corrections(torch.tensor(3, device=dev), 0.9, 0.999)
     corr = torch.stack([c1, c2])
-    state = []
-    for shape in leaves:
-        p, m, g = (torch.randn(shape, generator=gen, device=dev)
-                   for _ in range(3))
-        vv = torch.randn(shape, generator=gen, device=dev).abs() * 0.01
-        state.append((p, 0.1 * m, vv, g))
-    adam_err = padam.smoke_check(atol=TOL_ADAM)
-    for p, m, vv, g in state:
-        want = [x.clone() for x in (p, m, vv)]
-        padam._leaf_plain(*want, g, c1, c2, **hyper)
-        got = [x.clone() for x in (p, m, vv)]
-        padam._adam_leaf_pallas(*got, g, corr, **hyper)
+
+    def hold_adam(table, what):
+        """One call of the multi-leaf kernel on copies of ``table`` against
+        the plain rule leaf by leaf: launches and max|d| of p, m, v."""
+        want = [[x.clone() for x in leaf[:3]] for leaf in table]
+        got = [[x.clone() for x in leaf[:3]] for leaf in table]
+        for (p, m, vv), (*_, g) in zip(want, table):
+            padam._leaf_plain(p, m, vv, g, c1, c2, **hyper)
+        before = padam.launches
+        padam._adam_leaves_pallas(*map(list, zip(*got)),
+                                  [leaf[3] for leaf in table], corr, **hyper)
         torch.cuda.synchronize()
-        for name, a, bb in zip("pmv", got, want):
-            err = (a - bb).abs().max().item()
-            check(err <= TOL_ADAM, f"adam {name} {tuple(p.shape)}: "
-                  f"max|d|={err:.3g} > {TOL_ADAM}")
-            adam_err = max(adam_err, err)
+        n_launch = padam.launches - before
+        want_launch = -(-len(table) // adam_table)
+        check(n_launch == want_launch, f"adam {what}: {n_launch} launches for "
+              f"{len(table)} leaves, expected {want_launch}")
+        errs = {name: max((a[i] - b[i]).abs().max().item()
+                          for a, b in zip(got, want))
+                for i, name in enumerate("pmv")}
+        bitwise = all(torch.equal(x, y) for a, b in zip(got, want)
+                      for x, y in zip(a, b))
+        for name, err in errs.items():
+            check(err <= TOL_ADAM, f"adam {what} {name}: max|d|={err:.3g} > "
+                  f"{TOL_ADAM}")
+        print(f"adam {what}: {len(table)} leaves, {n_launch} launch(es), "
+              f"max|d| p {errs['p']:.3g} m {errs['m']:.3g} v {errs['v']:.3g}, "
+              f"bitwise {bitwise} {card}")
+        return max(errs.values()), bitwise
+
+    adam_lib = _ext.library("adam")
+    adam_table = adam_lib.ddl_adam_table_size()
+    chunk = adam_lib.ddl_adam_chunk()
+    state = adam_ab.random_leaves(leaves, dev, gen)
+    adam_err = padam.smoke_check(atol=TOL_ADAM)
+    err, adam_bitwise = hold_adam(state, "9 training leaves")
+    adam_err = max(adam_err, err)
+    ragged = {"one leaf": [(65536 + 512,)],
+              "ragged table": [(4,), (512,), (65536 + 512,), (chunk - 512,),
+                               (chunk + 512,)],
+              "more leaves than a table": [(4,), (512,), (chunk + 512,), (8,),
+                                           (chunk - 512,), (1028,)] * 8
+              + [(chunk,), (4,)]}
+    for what, sizes in ragged.items():
+        err, same = hold_adam(adam_ab.random_leaves(sizes, dev, gen),
+                              what)
+        adam_err = max(adam_err, err)
+        adam_bitwise &= same
     n_adam = sum(p.numel() for p, *_ in state)
-    adam_us = time_us(lambda: [padam._adam_leaf_pallas(
-        p, m, vv, g, corr, **hyper) for p, m, vv, g in state], reps=50,
-        burst=5)
+    cols = [list(x) for x in zip(*state)]
+    kernel_step = lambda: padam._adam_leaves_pallas(*cols, corr, **hyper)
+    adam_us = time_us(kernel_step, reps=50, burst=5)
     adam_plain_us = time_us(lambda: [padam._leaf_plain(
         p, m, vv, g, c1, c2, **hyper) for p, m, vv, g in state], reps=20,
         burst=2)
-    cols = [list(x) for x in zip(*state)]
     steps = [torch.tensor(3.0, device=dev) for _ in state]
-    fused_us = time_us(lambda: torch._fused_adam_(
-        cols[0], cols[3], cols[1], cols[2], [], steps, lr=8e-4, beta1=0.9,
-        beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
-        maximize=False), reps=50, burst=5)
-    adam_bound_us = 28 * n_adam / HBM_BYTES_PER_S * 1e6
-    print(f"adam: {len(state)} leaves, {n_adam} elements, max|d| p/m/v "
-          f"{adam_err:.3g} (smoke_check 972x512 included); kernel "
-          f"{adam_us:.1f} us per step ({len(state)} launches), plain "
-          f"{adam_plain_us:.1f} us, torch._fused_adam_ {fused_us:.1f} us, "
-          f"bound {adam_bound_us:.1f} us (bytes) {card}")
-    # The kernel and the library call in turns, each time 100 calls: the
-    # order alternates between pairs, so drift between the two sets of
-    # calls shows in both.
-    kernel_step = lambda: [padam._adam_leaf_pallas(
-        p, m, vv, g, corr, **hyper) for p, m, vv, g in state]
     fused_step = lambda: torch._fused_adam_(
         cols[0], cols[3], cols[1], cols[2], [], steps, lr=8e-4, beta1=0.9,
         beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
         maximize=False)
+    fused_us = time_us(fused_step, reps=50, burst=5)
+    adam_bound_us = 28 * n_adam / HBM_BYTES_PER_S * 1e6
+    print(f"adam: {len(state)} leaves, {n_adam} elements, max|d| p/m/v "
+          f"{adam_err:.3g} over every table (smoke_check 972x512 included), "
+          f"bitwise {adam_bitwise}; kernel {adam_us:.1f} us per step (one "
+          f"launch, chunks of {chunk}), plain {adam_plain_us:.1f} us, "
+          f"torch._fused_adam_ {fused_us:.1f} us, bound {adam_bound_us:.1f} "
+          f"us (bytes) {card}")
+    # The kernel and the library call in turns, each time 100 calls: the
+    # order alternates between pairs, so drift between the two sets of
+    # calls shows in both.
     pairs_k, pairs_f = [], []
     for i in range(7):
         order = ((kernel_step, pairs_k), (fused_step, pairs_f))
         for fn, dst in (order if i % 2 == 0 else order[::-1]):
             dst.append(time_us(fn, reps=100, burst=5))
     ratios = [k / f for k, f in zip(pairs_k, pairs_f)]
+    tb_s = lambda us: 28 * n_adam / (us * 1e-6) / 1e12
     adam_pairs = {
         "pairs": 7, "calls_per_side": 100,
         "kernel_us": pairs_k, "fused_adam_us": pairs_f,
@@ -1107,14 +1139,20 @@ def main() -> int:
         "kernel_spread_us": [min(pairs_k), max(pairs_k)],
         "fused_adam_spread_us": [min(pairs_f), max(pairs_f)],
         "ratio_median": statistics.median(ratios),
-        "ratio_spread": [min(ratios), max(ratios)]}
+        "ratio_spread": [min(ratios), max(ratios)],
+        "kernel_tb_per_s": tb_s(statistics.median(pairs_k)),
+        "fused_adam_tb_per_s": tb_s(statistics.median(pairs_f)),
+        "bound_us": adam_bound_us}
     print(f"adam paired, 7 pairs of 100 calls in turns: kernel median "
           f"{adam_pairs['kernel_median_us']:.1f} us (spread "
           f"{min(pairs_k):.1f}-{max(pairs_k):.1f}), torch._fused_adam_ "
           f"median {adam_pairs['fused_adam_median_us']:.1f} us (spread "
           f"{min(pairs_f):.1f}-{max(pairs_f):.1f}); kernel / library per "
           f"pair median {adam_pairs['ratio_median']:.4f} (spread "
-          f"{min(ratios):.4f}-{max(ratios):.4f}) {card}")
+          f"{min(ratios):.4f}-{max(ratios):.4f}); "
+          f"{adam_pairs['kernel_tb_per_s']:.3f} TB/s against "
+          f"{adam_pairs['fused_adam_tb_per_s']:.3f}, bound "
+          f"{adam_bound_us:.1f} us at 3.35 TB/s {card}")
     del state, cols
 
     # 4. forward at full width (the main path of the kernel) -------------
@@ -1221,7 +1259,7 @@ def main() -> int:
     counts = read_counts()
     per_step = {k: n / (warm + timed) for k, n in counts.items()}
     want = {"flash_fwd": tcfg.n_layers, "flash_bwd_dq": tcfg.n_layers,
-            "flash_bwd_dkv": tcfg.n_layers, "adam": 9}
+            "flash_bwd_dkv": tcfg.n_layers, "adam": 1}
     check(per_step == want, f"train step launches per step {per_step}, "
           f"expected {want}")
     # Device time: the kernels' summed durations in a profiled window. A
@@ -1242,7 +1280,9 @@ def main() -> int:
           f"launches per step {per_step}; loss {step_loss:.4f}; "
           f"{tok_s:.0f} tok/s wall ({step_wall_ms:.2f} ms per step); kernels "
           f"{step_kernel_ms:.2f} ms per step ({prof['kernels_per_step']:.0f} "
-          f"launches), device busy {step_kernel_ms / step_wall_ms:.3f} of the "
+          f"launches; one Adam launch per kernel leaf would make "
+          f"{prof['kernels_per_step'] + 8:.0f}), device busy "
+          f"{step_kernel_ms / step_wall_ms:.3f} of the "
           f"wall step; {flops_tok / 1e6:.1f} MFLOP/token, MFU "
           f"{mfu_wall:.4f} wall / {mfu_dev:.4f} at kernel time vs 989 "
           f"TFLOP/s bf16 {card}")
@@ -1339,7 +1379,7 @@ def main() -> int:
     tcounts = read_counts()
     tper = {k: n / iters for k, n in tcounts.items()}
     twant = {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
-             "adam": 7}
+             "adam": 1}
     check(len(rep.losses) == iters and all(math.isfinite(x)
                                            for x in rep.losses),
           f"train_llm_dp losses {rep.losses}")
@@ -1424,8 +1464,13 @@ def main() -> int:
         "ms": adam_us / 1e3, "plain_ms": adam_plain_us / 1e3,
         "bound_ms": adam_bound_us / 1e3, "bound_by": "bytes",
         "library_ms": fused_us / 1e3,
+        "paired_ms": adam_pairs["kernel_median_us"] / 1e3,
+        "paired_library_ms": adam_pairs["fused_adam_median_us"] / 1e3,
+        "paired_ratio": adam_pairs["ratio_median"],
+        "bitwise_plain": adam_bitwise, "chunk": chunk,
+        "design": DESIGN["adam"],
         "times_cover": f"one train step: {len(leaves)} leaves, "
-                       f"{n_adam} elements"})
+                       f"{n_adam} elements, one launch"})
     print(json.dumps({"kernels": kernels, "launches_by_path": path_counts,
                       "train_step": {
                           "tokens_per_sec_wall": tok_s,

@@ -30,8 +30,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # name -> (source file, C functions with their ctypes signatures)
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)   # a host array of int64
 KERNELS: Dict[str, tuple] = {
     "flash_fwd": ("flash_fwd.cu", {
         "ddl_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F,
@@ -42,7 +42,9 @@ KERNELS: Dict[str, tuple] = {
         "ddl_flash_bwd_dkv": ([_P] * 8 + [_I] * 5 + [_P, _F, _I, _P], _I),
     }),
     "adam": ("adam.cu", {
-        "ddl_adam": ([_P, _P, _P, _P, _L, _P] + [_F] * 6 + [_P], _I),
+        "ddl_adam": ([_LP, _LP, _I, _P] + [_F] * 6 + [_P], _I),
+        "ddl_adam_table_size": ([], _I),
+        "ddl_adam_chunk": ([], _I),
     }),
 }
 

@@ -4,12 +4,18 @@
 // the warp-wide operations (ldmatrix, mma.sync m16n8k16, shuffles) meet at
 // per-warp barriers and compute their results from the PTX ISA's fragment
 // layouts. cp.async copies at once (the kernels' waits and barriers then
-// order nothing extra). Shared-memory accesses are checked against the
-// launch's dynamic size and the 16-byte alignment ldmatrix and cp.async
-// need; build with -fsanitize=address to check device-memory accesses too.
-// tests/test_torch_cuda_emulation.py prepares the sources (the header's
-// inline-PTX helpers are replaced by the ones below, launches become
-// emu_launch calls) and runs emu_main.cpp's cases.
+// order nothing extra). Bulk copies and mbarriers (bulk_copy.cuh): a bulk
+// load lands at once and counts its bytes in on its barrier; a bulk store
+// waits in its group and is copied when a wait_group lets its source be
+// overwritten, as late as the card may read it, so a stage reused before
+// its store was waited for shows as wrong results, and a store never waited
+// for aborts at the thread's exit. Shared-memory accesses are checked
+// against the launch's dynamic size and the alignment ldmatrix, cp.async,
+// bulk copies and mbarriers need; build with -fsanitize=address to check
+// device-memory accesses too. tests/test_torch_cuda_emulation.py prepares
+// the sources (the headers' inline-PTX helpers are replaced by the ones
+// below, launches become emu_launch calls) and runs emu_main.cpp's cases;
+// tests/test_torch_adam_emulation.py runs emu_adam.cpp's.
 #pragma once
 #include <cstdint>
 #include <cstddef>
@@ -23,6 +29,11 @@
 #include <thread>
 #include <vector>
 #include <functional>
+#include <chrono>
+#include <condition_variable>
+#include <deque>
+#include <map>
+#include <mutex>
 #define __global__
 #define __device__
 #define __host__
@@ -31,15 +42,31 @@
 #define __restrict__
 #define __shared__
 #define __align__(n)
+#define __grid_constant__
 struct dim3 { unsigned x, y, z; dim3(unsigned a=1, unsigned b=1, unsigned c=1):x(a),y(b),z(c){} };
 thread_local dim3 threadIdx;
 dim3 blockIdx, gridDim, blockDim;
-typedef int cudaError_t; enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef int cudaError_t; enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 typedef struct CUstream_st* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 int g_smem_limit = 0;
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int n) { g_smem_limit = n; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+// What the emulated card reports: its SMs and the blocks of any kernel that
+// fit on one (the persistent grids are their product).
+int g_emu_sms = 1, g_emu_blocks_per_sm = 1;
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = g_emu_sms; return 0; }
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = g_emu_blocks_per_sm; return 0;
+}
+// Correctly rounded fp32 arithmetic (build with -ffp-contract=off).
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 struct __nv_bfloat16 { unsigned short x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 inline __nv_bfloat16 __float2bfloat16(float f) {
@@ -52,6 +79,8 @@ inline float __bfloat162float(__nv_bfloat16 b) { uint32_t u = (uint32_t)b.x << 1
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16(a), __float2bfloat16(b)}; }
 using std::min; using std::max;
 struct float4 {float x,y,z,w;}; inline float4 make_float4(float a,float b,float c,float d){return {a,b,c,d};}
+inline float4 __ldcs(const float4* p) { return *p; }
+inline void __stcs(float4* p, float4 v) { *p = v; }
 struct float2 {float x, y;};
 struct uint4 { unsigned x,y,z,w; };
 
@@ -142,20 +171,92 @@ inline void cp_async_4(uint32_t dst, const void* src, int bytes) {
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
 
+
+// ---- bulk copies and mbarriers (bulk_copy.cuh) ----
+struct EmuMbar { int count, pending; long long tx; unsigned phase; };
+std::mutex g_mb_mu;
+std::condition_variable g_mb_cv;
+std::map<uint32_t, EmuMbar> g_mb;      // by shared address
+struct EmuStore { void* dst; uint32_t src; uint32_t bytes; };
+thread_local std::vector<EmuStore> t_open_group;
+thread_local std::deque<std::vector<EmuStore>> t_groups;
+inline uint64_t evict_first_policy() { return 0; }
+inline EmuMbar& mbar_at(uint32_t bar) {   // with g_mb_mu held
+  auto it = g_mb.find(bar);
+  if (it == g_mb.end()) { fprintf(stderr, "mbarrier %u used before init\n", bar); abort(); }
+  return it->second;
+}
+inline void mbar_settle(EmuMbar& b) {     // with g_mb_mu held
+  if (b.pending < 0 || b.tx < 0) { fprintf(stderr, "mbarrier over-arrived: pending %d tx %lld\n", b.pending, b.tx); abort(); }
+  if (b.pending == 0 && b.tx == 0) { b.phase ^= 1u; b.pending = b.count; g_mb_cv.notify_all(); }
+}
+inline void mbar_init(uint32_t bar, uint32_t count) {
+  if (bar % 8) { fprintf(stderr, "mbarrier misaligned %u\n", bar); abort(); }
+  check_smem(bar, 8);
+  std::lock_guard<std::mutex> lk(g_mb_mu);
+  g_mb[bar] = {static_cast<int>(count), static_cast<int>(count), 0, 0};
+}
+inline void mbar_init_fence() {}
+inline void mbar_arrive(uint32_t bar) {
+  std::lock_guard<std::mutex> lk(g_mb_mu);
+  EmuMbar& b = mbar_at(bar); --b.pending; mbar_settle(b);
+}
+inline void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> lk(g_mb_mu);
+  EmuMbar& b = mbar_at(bar); b.tx += bytes; --b.pending; mbar_settle(b);
+}
+inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  std::unique_lock<std::mutex> lk(g_mb_mu);
+  if (!g_mb_cv.wait_for(lk, std::chrono::seconds(60), [&] { return mbar_at(bar).phase != parity; })) {
+    fprintf(stderr, "mbarrier %u: wait for parity %u timed out\n", bar, parity); abort();
+  }
+}
+inline void bulk_check(uint32_t shared, const void* global, uint32_t bytes) {
+  if (shared % 16 || reinterpret_cast<uintptr_t>(global) % 16 || bytes % 16 || bytes == 0) {
+    fprintf(stderr, "bulk copy misaligned: shared %u global %p bytes %u\n", shared, global, bytes); abort();
+  }
+  check_smem(shared, bytes);
+}
+inline void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar, uint64_t) {
+  bulk_check(dst, src, bytes);
+  memcpy(smem_raw + dst, src, bytes);
+  std::lock_guard<std::mutex> lk(g_mb_mu);
+  EmuMbar& b = mbar_at(bar); b.tx -= bytes; mbar_settle(b);
+}
+inline void bulk_store(void* dst, uint32_t src, uint32_t bytes, uint64_t) {
+  bulk_check(src, dst, bytes);
+  t_open_group.push_back({dst, src, bytes});
+}
+inline void bulk_commit() { t_groups.push_back(std::move(t_open_group)); t_open_group.clear(); }
+inline void bulk_drain(size_t keep) {
+  for (; t_groups.size() > keep; t_groups.pop_front())
+    for (const EmuStore& s : t_groups.front()) memcpy(s.dst, smem_raw + s.src, s.bytes);
+}
+template <int N> inline void bulk_wait_read() { bulk_drain(N); }
+template <int N> inline void bulk_wait() { bulk_drain(N); }
+inline void fence_proxy_async() {}
+int g_emu_launches = 0;
+
 template <class F> void emu_launch(dim3 grid, int nt, int smem, F f) {
   g_smem_bytes = smem;
+  ++g_emu_launches;
   if (smem > 48 * 1024 && g_smem_limit < smem) { fprintf(stderr, "smem attr not set\n"); abort(); }
   if (smem > 232448) { fprintf(stderr, "smem too large %d\n", smem); abort(); }
   gridDim = grid;
+  blockDim = dim3(nt);
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       blockIdx = dim3(bx, by);
       memset(smem_raw, 0xcd, sizeof(smem_raw));   // garbage, as on the card
+      g_mb.clear();                               // no barrier outlives its block
       std::barrier<> bb(nt); g_bbar = &bb;
       std::vector<std::barrier<>*> wb; for (int w = 0; w < nt / 32; ++w) wb.push_back(new std::barrier<>(32));
       g_wbar = wb;
       std::vector<std::thread> th;
-      for (int i = 0; i < nt; ++i) th.emplace_back([&, i] { threadIdx = dim3(i); t_lane = i & 31; t_warp = i >> 5; f(); });
+      for (int i = 0; i < nt; ++i) th.emplace_back([&, i] {
+        threadIdx = dim3(i); t_lane = i & 31; t_warp = i >> 5; f();
+        if (!t_open_group.empty() || !t_groups.empty()) { fprintf(stderr, "bulk stores not waited for at exit\n"); abort(); }
+      });
       for (auto& t : th) t.join();
       for (auto* b : wb) delete b;
     }

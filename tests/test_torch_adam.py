@@ -2,9 +2,12 @@
 against the JAX package's on identical gradients: ``fused_adam`` against an
 ``optax.adam`` trajectory, ``FusedApplyAdam`` on CPU tensors (its plain
 rule) against JAX's ``FusedApplyAdam`` running the Pallas kernel in
-interpret mode, including the ragged 972 × 512 leaf, and the leaf routing
-rule. The CUDA kernel is held against the plain rule on the card by
-``chip_smoke.py``."""
+interpret mode, including the ragged 972 × 512 leaf and a tree of more
+leaves than one kernel launch takes, the multi-leaf wrapper
+``_adam_leaves_pallas`` on CPU tables against the JAX kernel leaf by leaf,
+what the wrapper refuses, and the leaf routing rule. The CUDA kernel is held
+against the plain rule on the card by ``chip_smoke.py`` and, compiled for
+the CPU, by ``test_torch_adam_emulation.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -63,13 +66,20 @@ def test_fused_adam_matches_optax_adam_trajectory():
     _assert_tree_close(ts.nu, js[0].nu, atol=1e-7, rtol=1e-6)
 
 
-def test_fused_apply_adam_on_cpu_matches_jax_pallas_kernel():
+# 49 leaves of 128 × 512 elements: more than one launch's table of 48.
+MANY_LEAVES = {**{f"w{i:02d}": (128, 512) for i in range(49)},
+               "norm": (288,)}
+
+
+@pytest.mark.parametrize("shapes", [
+    {"big": (972 * 512,), "mid": (256, 512), "norm": (288,)}, MANY_LEAVES],
+    ids=["ragged", "many leaves"])
+def test_fused_apply_adam_on_cpu_matches_jax_pallas_kernel(shapes):
     """Three steps of ``apply_gradients`` with a 972 × 512 leaf (the
     kernel's multi-block ragged case in JAX), a 256 × 512 one and a small
-    one that takes the plain rule. p, m and v within 1e-6: the same rule
-    in the same operation order on both sides."""
+    one that takes the plain rule; and with 49 kernel leaves. p, m and v
+    within 1e-6: the same rule in the same operation order on both sides."""
     rng = np.random.default_rng(1)
-    shapes = {"big": (972 * 512,), "mid": (256, 512), "norm": (288,)}
     params = _tree(rng, shapes)
     grads = [_tree(rng, shapes) for _ in range(3)]
     jopt = jpadam.FusedApplyAdam(LR, interpret=True)
@@ -117,3 +127,90 @@ def test_kernel_wrapper_refuses_bad_operands():
         pallas_adam._adam_leaf_pallas(p, p.clone(), p.clone(), p.double(),
                                       torch.ones(2), lr=LR, b1=0.9, b2=0.999,
                                       eps=1e-8)
+
+
+HYPER = dict(lr=LR, b1=0.9, b2=0.999, eps=1e-8)
+CORRECTIONS = np.array([1 - 0.9 ** 3, 1 - 0.999 ** 3], np.float32)
+
+
+@pytest.mark.parametrize("sizes", [
+    [66048], [512, 66048, 1024, 1536, 2048, 512],
+    [512, 1536, 2560] * 17],
+    ids=["one leaf", "ragged table", "more leaves than a table"])
+def test_leaves_wrapper_on_cpu_matches_jax_pallas_kernel(sizes):
+    """``_adam_leaves_pallas`` on CPU tables (the plain rule on every leaf)
+    against the JAX kernel in interpret mode, leaf by leaf, at step-3 bias
+    corrections: p, m and v within 1e-6, and no launch counted."""
+    rng = np.random.default_rng(len(sizes))
+    leaves = [[rng.standard_normal(n).astype(np.float32) for _ in range(4)]
+              for n in sizes]
+    for leaf in leaves:
+        leaf[1] *= 0.1
+        leaf[2] = np.abs(leaf[2]) * 0.01
+    got = [[torch.from_numpy(x.copy()) for x in leaf] for leaf in leaves]
+    before = pallas_adam.launches
+    pallas_adam._adam_leaves_pallas(*map(list, zip(*got)),
+                                    torch.from_numpy(CORRECTIONS), **HYPER)
+    assert pallas_adam.launches == before
+    for (p, m, v, g), mine in zip(leaves, got):
+        want = jpadam._adam_leaf_pallas(
+            *map(jnp.asarray, (p, m, v, g)), jnp.asarray(CORRECTIONS),
+            interpret=True, **HYPER)
+        for a, b in zip(mine[:3], want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6,
+                                       rtol=0)
+
+
+def _leaf(n=512 * 128, **kw):
+    return [torch.zeros(n, **kw) for _ in range(4)]
+
+
+def _bad_tables():
+    ok = _leaf()
+    cases = {
+        "mixed devices": ([ok, _leaf(device="meta")], "one device"),
+        "mixed shapes in a leaf": ([ok[:3] + [torch.zeros(512 * 64)]],
+                                   "one shape"),
+        "an fp64 gradient": ([ok[:3] + [ok[3].double()]], "fp32"),
+        "an fp64 moment": ([[ok[0], ok[1].double(), ok[2], ok[3]]], "fp32"),
+        "a meta table": ([_leaf(device="meta")], "CUDA or CPU"),
+    }
+    return {k: (v[0], v[1], torch.ones(2)) for k, v in cases.items()} | {
+        "fp64 corrections": ([ok], "corrections", torch.ones(2).double()),
+        "corrections of 3": ([ok], "corrections", torch.ones(3)),
+        "corrections elsewhere": ([ok], "corrections",
+                                  torch.ones(2, device="meta")),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_tables()))
+def test_leaves_wrapper_refuses_bad_operands(case):
+    leaves, match, corrections = _bad_tables()[case]
+    before = pallas_adam.launches
+    with pytest.raises(ValueError, match=match):
+        pallas_adam._adam_leaves_pallas(*map(list, zip(*leaves)), corrections,
+                                        **HYPER)
+    assert pallas_adam.launches == before
+
+
+def test_leaves_wrapper_refuses_unequal_leaf_counts():
+    p, m, v, g = _leaf()
+    with pytest.raises(ValueError, match="as many"):
+        pallas_adam._adam_leaves_pallas([p, p], [m], [v], [g], torch.ones(2),
+                                        **HYPER)
+
+
+@pytest.mark.parametrize("case", ["non-contiguous", "misaligned",
+                                  "size not a multiple of 4", "empty"])
+def test_kernel_leaf_checks_refuse_what_the_bulk_copies_cannot_move(case):
+    """The layout checks a CUDA leaf must pass (``_check_kernel_leaf``),
+    here on CPU tensors of each layout the kernel's bulk copies refuse."""
+    p, m, v, g = _leaf()
+    bad = {"non-contiguous": torch.zeros(512, 128).t(),
+           "misaligned": torch.zeros(512 * 128 + 1)[1:],
+           "size not a multiple of 4": torch.zeros(6),
+           "empty": torch.zeros(0)}[case]
+    leaf = [bad] * 4 if bad.numel() < 16 else [p, m, bad, g]
+    with pytest.raises(ValueError, match="dense|divisible"):
+        pallas_adam._check_kernel_leaf(leaf)
+    pallas_adam._check_kernel_leaf([p, m, v, g])   # an aligned leaf passes

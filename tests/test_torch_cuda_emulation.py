@@ -17,9 +17,16 @@ import pytest
 from ddl25spring_tpu_torch.ops import _ext
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
-# The header's inline-PTX helpers, which emu.h defines for the CPU.
-PTX_HELPERS = ("ldsm_x4", "ldsm_x4_trans", "mma_bf16", "fast_exp2",
-               "cp_async_16", "cp_async_4", "cp_async_commit", "cp_async_wait")
+# Each header's inline-PTX helpers, which emu.h defines for the CPU.
+PTX_HELPERS = {
+    "mma_bf16.cuh": ("ldsm_x4", "ldsm_x4_trans", "mma_bf16", "fast_exp2",
+                     "cp_async_16", "cp_async_4", "cp_async_commit",
+                     "cp_async_wait"),
+    "bulk_copy.cuh": ("evict_first_policy", "mbar_init", "mbar_init_fence",
+                      "mbar_arrive", "mbar_arrive_expect_tx", "mbar_wait",
+                      "bulk_load", "bulk_store", "bulk_commit",
+                      "bulk_wait_read", "bulk_wait", "fence_proxy_async"),
+}
 
 
 def _prepare(src_dir: Path, out_dir: Path) -> None:
@@ -29,14 +36,14 @@ def _prepare(src_dir: Path, out_dir: Path) -> None:
     for path in src_dir.glob("*.cu*"):
         text = path.read_text()
         if path.suffix == ".cuh":
-            for name in PTX_HELPERS:
+            for name in PTX_HELPERS[path.name]:
                 text, n = re.subn(
                     r"(template <int N>\n)?__device__ __forceinline__ \w+ "
                     + name + r"\(.*?\n}\n", "", text, flags=re.S)
                 assert n == 1, (path.name, name)
         else:
             text = re.sub(
-                r"(\w+<[^;<>]*>)<<<([^>]*)>>>\((.*?)\);",
+                r"(\w+(?:<[^;<>]*>)?)<<<([^>]*)>>>\((.*?)\);",
                 lambda m: "emu_launch(%s, [&] { %s(%s); });" % (
                     m.group(2).rsplit(",", 1)[0], m.group(1), m.group(3)),
                 text, flags=re.S)
