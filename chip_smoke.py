@@ -95,6 +95,28 @@ Phases, each of which raises on failure (exit code 1, no result line):
              quantum per coordinate), the masked sum equal to the unmasked
              quantized sum bitwise on the card, and 5 rounds (above the
              untrained CNN). Wall per epoch and per round.
+10. dp      — multi-process data parallelism: two ranks on the one card
+             (``distributed.run_ranks``, both on cuda:0), joined by gloo,
+             one launch for the whole phase (``programs.phase10``):
+             a. the gloo probe (int32 scalar and a 26,398,368-element fp32
+             vector all-reduced and broadcast, sums exact; the route);
+             b. the canonical model at fp32, B = 4 per rank x 256, against
+             a world of one at B = 8 on the same tokens and weights: loss
+             within 1e-5, the averaged gradient within 1e-5 of each leaf's
+             largest entry, a 5-step loss trajectory within 1e-3;
+             c. ``time_train_step`` at bf16, B = 32 per rank x 256 (phase
+             6's 64 x 256 tokens per step): launches per rank per step, a
+             finite loss, all ranks' tokens/s beside phase 6's world of
+             one, and the gradient all-reduce's own ms per step (gloo on
+             one card, staged through the host: not NCCL); d. ZeRO-1 on b's
+             batches, within 1e-3 of b's trajectory, half the moment bytes,
+             no Adam launch (its 13,199,184-element slice is not a multiple
+             of 512); e. weight aggregation, 3 steps, the parameters'
+             digests equal across the ranks after each; f. the K-step
+             loop at K = 4 bitwise four per-step calls; g.
+             ``train_llm_dp(data=2)`` at vocab 259 for 20 steps, 10 resumed
+             to 20 from a checkpoint (within 1e-6 of the uninterrupted
+             run), and ``optimizer="master"`` on bf16 parameters.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -109,6 +131,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -179,6 +202,14 @@ TAB_CE_ABS = 0.01
 TOL_VFL_DEVICE = 1e-5         # card vs CPU: VFL logits and gradients, VFL-VAE terms
 TOL_DP_DEVICE = 1e-4          # card vs CPU, one DP-FedAvg round, every leaf
 TOL_NOISE_STD = 0.01          # z = 1 round: empirical std vs σ, relative
+# Phase 10 (two ranks against a world of one, fp32): the loss and every
+# averaged gradient leaf (of its largest entry) to the limits the CPU tests
+# hold the port's ranks to; the trajectories as phase 6's; a resumed run
+# against an uninterrupted one (bitwise expected: no port kernel uses
+# atomics).
+TOL_DP_LOSS = 1e-5
+TOL_DP_GRAD = 1e-5
+TOL_RESUME = 1e-6
 # What each port kernel runs on (each flash kernel by input type).
 DESIGN = {
     "flash_fwd": {
@@ -857,6 +888,169 @@ def private_fl_phase(dev: torch.device, card: str, mnist_arrays) -> dict:
     return out
 
 
+def dp_phase(dev: torch.device, card: str, world_one_tok_s: float,
+             world_one_step_ms: float) -> dict:
+    """Phase 10: two ranks on the card (one ``run_ranks`` launch of
+    ``programs.phase10``) against a world of one computed here, and phase
+    6's world-of-one throughput (``world_one_tok_s``, ms per step) printed
+    beside theirs. Raises on a failed check; returns the numbers for the
+    JSON record."""
+
+    from ddl25spring_tpu_torch import bench_utils
+    from ddl25spring_tpu_torch.config import LlamaConfig
+    from ddl25spring_tpu_torch.models import llama
+    from ddl25spring_tpu_torch.parallel import distributed, dp, programs
+    from ddl25spring_tpu_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    kcfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    tseq = kcfg.ctx_size
+    g10 = torch.Generator()
+    g10.manual_seed(10)
+    toks10 = torch.randint(0, kcfg.vocab_size, (5, 8, tseq), generator=g10)
+    # The world of one at B = 8 on the same tokens and weights.
+    m1 = llama.init_llama(kcfg, torch.Generator().manual_seed(0), device=dev)
+    x10 = toks10.to(dev)
+    l1 = llama.forward_loss(m1, x10[0], kcfg)
+    ref_grads = torch.autograd.grad(l1, tree_leaves(m1.tree()))
+    ref_loss = l1.item()
+    ref_grads = [g.cpu() for g in ref_grads]
+    opt1 = bench_utils.make_optimizer("pallas")
+    st1 = dp.init_state(m1.tree(), opt1)
+    step1 = dp.make_grad_aggregation_step(
+        lambda p, batch: llama.forward_loss(p, batch, kcfg), opt1)
+    ref_traj = []
+    for x in x10:
+        st1, loss = step1(st1, x)
+        ref_traj.append(float(loss))
+    del m1, st1, step1, x10, l1
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = distributed.run_ranks(programs.phase10, 2, toks10.numpy(),
+                                      tmp, timeout=900)
+    dp_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for rk in ranks:
+        pr = rk["probe"]
+        check(pr["scalar_exact"] and pr["vector_exact"]
+              and pr["broadcast_exact"], f"gloo probe rank {rk['rank']}: {pr}")
+        check(pr["device"] == "cuda:0", f"rank {rk['rank']} on {pr['device']}")
+    print(f"dp probe: 2 ranks on {r0['probe']['device']}, int32 scalar and "
+          f"{r0['probe']['elements']} fp32 elements all-reduced and "
+          f"broadcast exactly; route: {distributed.BACKEND}, "
+          f"{distributed.ROUTE}; all-reduce of the vector "
+          f"{r0['probe']['allreduce_ms']:.1f} / "
+          f"{ranks[1]['probe']['allreduce_ms']:.1f} ms (median of 5) {card}")
+    dp_loss_err = abs(r0["loss1"] - ref_loss)
+    dp_grad_err = max(((a - r).abs().max() / r.abs().max()).item()
+                      for a, r in zip(r0["grads"], ref_grads))
+    traj2 = r0["gradient"]["losses"]
+    dp_traj_err = max(abs(a - b) for a, b in zip(traj2, ref_traj))
+    check(dp_loss_err <= TOL_DP_LOSS, f"dp loss 2 ranks vs world of one "
+          f"|d|={dp_loss_err:.3g} > {TOL_DP_LOSS}")
+    check(dp_grad_err <= TOL_DP_GRAD, f"dp averaged gradient vs world of one "
+          f"max|d|/max|ref|={dp_grad_err:.3g} > {TOL_DP_GRAD}")
+    check(dp_traj_err <= TOL_TRAJECTORY, f"dp 5-step trajectory vs world of "
+          f"one max|d|={dp_traj_err:.3g} > {TOL_TRAJECTORY}")
+    want_k = {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+              "adam": 1}
+    want_0 = dict(want_k, adam=0)
+    for rk in ranks:
+        check(rk["gradient"]["losses"] == traj2, "dp ranks' losses differ")
+        for part, want in (("gradient", want_k), ("zero1", want_0),
+                           ("weight", want_0), ("kstep", want_k),
+                           ("throughput", want_k), ("trainer", want_k)):
+            check(rk[part]["launches"] == want, f"dp {part} rank "
+                  f"{rk['rank']}: launches per step {rk[part]['launches']}, "
+                  f"expected {want}")
+    print(f"dp fp32 B=4 per rank x {tseq} vs world of one at B=8: loss "
+          f"{r0['loss1']:.6f} vs {ref_loss:.6f} |d| {dp_loss_err:.3g}, "
+          f"averaged gradient max|d|/max|ref| {dp_grad_err:.3g} over "
+          f"{len(ref_grads)} leaves; 5-step losses "
+          f"{[round(x, 5) for x in traj2]} vs "
+          f"{[round(x, 5) for x in ref_traj]}, max|d| {dp_traj_err:.3g}; "
+          f"launches per rank per step {r0['gradient']['launches']} {card}")
+    thr = [rk["throughput"] for rk in ranks]
+    check(all(math.isfinite(t["loss"]) for t in thr),
+          f"dp bf16 step losses {[t['loss'] for t in thr]}")
+    dp_tok_s = thr[0]["tokens_per_sec"]
+    dp_step_ms = 2 * 32 * tseq / dp_tok_s * 1e3
+    ar_ms = statistics.median(t["allreduce_ms"] for t in thr)
+    print(f"dp bf16 time_train_step, 2 ranks x B=32 x {tseq} (64 x {tseq} "
+          f"tokens per step, as phase 6), optimizer pallas, gradient "
+          f"aggregation: launches per rank per step {thr[0]['launches']}, "
+          f"loss {thr[0]['loss']:.4f}; all ranks {dp_tok_s:.0f} tok/s wall "
+          f"({dp_step_ms:.2f} ms per step) vs phase 6's world of one "
+          f"{world_one_tok_s:.0f} tok/s ({world_one_step_ms:.2f} ms); the "
+          f"gradient all-reduce alone {ar_ms:.2f} ms per step "
+          f"({thr[0]['allreduce_bytes'] / 1e6:.1f} MB fp32; gloo on one "
+          f"card, staged through the host, not NCCL; per rank "
+          f"{[round(t['allreduce_ms'], 2) for t in thr]}) {card}")
+    z = [rk["zero1"] for rk in ranks]
+    z_err = max(abs(a - b) for a, b in zip(z[0]["losses"], traj2))
+    check(z_err <= TOL_TRAJECTORY, f"dp zero1 trajectory vs gradient "
+          f"aggregation max|d|={z_err:.3g} > {TOL_TRAJECTORY}")
+    ratio = z[0]["moment_bytes"] / r0["gradient"]["moment_bytes"]
+    check(ratio == 0.5, f"dp zero1 moment bytes ratio {ratio}")
+    check(not z[0]["kernel_eligible"], "zero1 slice took the Adam kernel")
+    print(f"dp zero1 fp32 B=4 per rank: 5 steps max|d| vs gradient "
+          f"aggregation {z_err:.3g}; moment bytes per rank "
+          f"{z[0]['moment_bytes']} vs {r0['gradient']['moment_bytes']} "
+          f"({ratio}); Adam launches 0: the {z[0]['local']}-element slice "
+          f"is {z[0]['local'] % 512} mod 512, so the fused apply routes it "
+          f"to the plain rule (as the JAX package's _pallas_eligible); "
+          f"launches per step {z[0]['launches']} {card}")
+    for rk in ranks:
+        w = rk["weight"]
+        check(all(math.isfinite(x) for x in w["losses"])
+              and all(w["digests_equal"]), f"dp weight aggregation rank "
+              f"{rk['rank']}: {w}")
+        ks = rk["kstep"]
+        check(ks["losses_equal"] and ks["params_equal"]
+              and ks["moments_equal"], f"dp K-step vs per step rank "
+              f"{rk['rank']}: {ks}")
+    print(f"dp weight aggregation: 3 steps, losses "
+          f"{[round(x, 5) for x in r0['weight']['losses']]}, parameter "
+          f"digests equal across ranks after every step; launches per step "
+          f"{r0['weight']['launches']}. K-step (K=4): losses, parameters "
+          f"and moments bitwise 4 per-step calls {card}")
+    tr = r0["trainer"]
+    check(len(tr["losses"]) == 20 and all(math.isfinite(x)
+                                          for x in tr["losses"]),
+          f"train_llm_dp data=2 losses {tr['losses']}")
+    check(tr["resumed_start"] == 10 and tr["resumed_len"] == 20
+          and tr["resume_max_abs_diff"] <= TOL_RESUME,
+          f"train_llm_dp resume: {tr['resumed_start']} "
+          f"{tr['resume_max_abs_diff']}")
+    check(tr["master_losses"][-1] < tr["master_losses"][0]
+          and tr["master_param_dtypes"] == ["torch.bfloat16"]
+          and tr["master_dtypes"] == ["torch.float32"],
+          f"master-weight run: {tr['master_losses'][::19]} "
+          f"{tr['master_param_dtypes']} {tr['master_dtypes']}")
+    print(f"train_llm_dp data=2 (vocab 259, batch 3 x 256 per rank, "
+          f"optimizer pallas): loss {tr['losses'][0]:.4f} -> "
+          f"{tr['losses'][-1]:.4f}, {tr['tokens_per_sec']:.0f} tok/s all "
+          f"ranks after warmup; launches per rank per step {tr['launches']}; "
+          f"10 steps resumed to 20 from a checkpoint: max|d| vs "
+          f"uninterrupted {tr['resume_max_abs_diff']:.3g}; master weights "
+          f"(bf16 params {tr['master_param_dtypes']}, master "
+          f"{tr['master_dtypes']}): loss {tr['master_losses'][0]:.4f} -> "
+          f"{tr['master_losses'][-1]:.4f} {card}")
+    print(f"dp phase: {dp_s:.1f} s {card}")
+    dp_report = {"seconds": dp_s, "route": distributed.ROUTE,
+                 "probe": [rk["probe"] for rk in ranks],
+                 "fp32_loss_abs_err": dp_loss_err,
+                 "fp32_grad_rel_err": dp_grad_err,
+                 "fp32_traj_max_abs_err": dp_traj_err,
+                 "tokens_per_sec_2_ranks": dp_tok_s,
+                 "tokens_per_sec_world_of_one": world_one_tok_s,
+                 "allreduce_ms": ar_ms, "zero1_traj_err": z_err,
+                 "parts": {k: r0[k] for k in ("gradient", "zero1", "weight",
+                                              "kstep", "throughput",
+                                              "trainer")}}
+    return dp_report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1414,13 +1608,18 @@ def main() -> int:
     print(f"tabular/vfl/dp/secagg phase: {tab_report['phase_s']:.1f} s, port "
           f"kernel launches {tab_counts} {card}")
 
+    # 10. multi-process data parallelism, two ranks on the card ----------
+    dp_report = dp_phase(dev, card, tok_s, step_wall_ms)
+
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
     path_counts = {"forward (phase 4)": {"flash_fwd": main_launches},
                    "train step (phase 6), per step": per_step,
                    "train_llm_dp (phase 7), per step": tper,
                    "fl (phase 8), whole phase": fl_counts,
-                   "tabular/vfl/dp/secagg (phase 9)": tab_counts}
+                   "tabular/vfl/dp/secagg (phase 9)": tab_counts,
+                   "train_llm_dp data=2 (phase 10), per rank per step":
+                       dp_report["parts"]["trainer"]["launches"]}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1482,6 +1681,7 @@ def main() -> int:
                               "loss_abs_err": loss_err_bf16,
                               "grad_rel_err": grad_err_bf16}},
                       "fl": fl_report, "tabular": tab_report,
+                      "dp": dp_report,
                       "adam_paired": adam_pairs, "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,7 +14,11 @@ front end (``serving/``); and training at a world of one process —
 ``llama.forward_loss`` (flash backward kernels ``ops/csrc/flash_bwd.cu``,
 the fused loss head ``ops/losses.py``), Adam with the fused CUDA apply
 (``ops/csrc/adam.cu``), ``parallel.dp``, ``bench_utils.time_train_step``
-and ``train.llm.train_llm_dp``; and horizontal federated learning on the
+and ``train.llm.train_llm_dp``; multi-process data parallelism
+(``parallel.distributed``: ranks as processes joined by gloo;
+``parallel.dp``: gradient and weight aggregation, K-step dispatch,
+ZeRO-1), fp32-master Adam (``ops.mixed_precision``) and checkpoints
+(``checkpoint``), which add no kernel; and horizontal federated learning on the
 MNIST CNN (``models.mnist_cnn``, ``data.mnist``, ``fl``: FedSGD, FedAvg,
 FedProx and the centralized baseline, the Byzantine attacks and
 defenses), which runs no hand-written kernel: its convolutions and

@@ -1,12 +1,14 @@
 """Benchmark timing core for the training step: counterpart of the JAX
 package's ``bench_utils.py`` (``make_optimizer``, ``time_train_step``).
 
-The port times the data-parallel step at a world of one process, with
-per-step gradient aggregation and no compressed wire; the other levers of
-the JAX function raise ``NotImplementedError`` naming ROADMAP.md. Timing
-is sync-honest: the timed chain ends in a host read of the last loss,
-which waits for the device. ``kernel_time_us`` times one kernel call on
-the device alone (``chip_smoke.py``, ``flash_ab``).
+The port times the data-parallel step (gradient aggregation per step or
+K steps per window, weight aggregation, ZeRO-1) in the caller's process
+group, or at a world of one without one; compressed and overlapped
+collectives raise ``NotImplementedError`` naming ROADMAP.md. Timing is
+sync-honest: the timed chain ends in a host read of the last loss, which
+waits for the device, and at a world above one in a barrier after it.
+``kernel_time_us`` times one kernel call on the device alone
+(``chip_smoke.py``, ``flash_ab``).
 """
 
 from __future__ import annotations
@@ -18,24 +20,24 @@ from typing import Optional
 import torch
 
 from .config import LlamaConfig
-from .device import resolve_device
 from .models import llama
 from .ops.adam import fused_adam
+from .parallel import distributed as dist
 from .parallel import dp
 
 
 def make_optimizer(opt_name: str, lr: float = 8e-4):
     """"fused" = the single-expression Adam rule per leaf (ops/adam.py);
     "pallas" = the fused apply whose large leaves run the CUDA kernel
-    (ops/pallas_adam.py). "master" (fp32 master weights for bf16 params)
-    is not ported yet."""
+    (ops/pallas_adam.py); "master" = fp32 master weights for bf16
+    parameters (ops/mixed_precision.py: pair with
+    ``param_dtype="bfloat16"``)."""
     if opt_name == "pallas":
         from .ops.pallas_adam import FusedApplyAdam
         return FusedApplyAdam(lr)
     if opt_name == "master":
-        raise NotImplementedError(
-            "optimizer 'master' (ops/mixed_precision.py) is not ported yet: "
-            "ROADMAP.md, queue A item 3")
+        from .ops.mixed_precision import master_weight_adam
+        return master_weight_adam(lr)
     if opt_name != "fused":
         raise ValueError(f"unknown optimizer {opt_name!r}: expected one of "
                          "'fused', 'pallas', 'master'")
@@ -44,26 +46,44 @@ def make_optimizer(opt_name: str, lr: float = 8e-4):
 
 def build_train_step(cfg: LlamaConfig, batch_size: int, *,
                      seq: Optional[int] = None, opt_name: str = "fused",
-                     device=None):
+                     aggregation: str = "gradient",
+                     steps_per_dispatch: int = 1, device=None):
     """What ``time_train_step`` times: ``(state, step, tokens)`` — a fresh
-    train state from ``init_llama`` seeded 0, the world-of-one gradient
-    aggregation step over ``llama.forward_loss``, and a ``[batch_size,
-    seq]`` batch of tokens drawn from a generator seeded 1 on the device."""
+    train state from ``init_llama`` seeded 0, the step of ``aggregation``
+    over ``llama.forward_loss`` (K = ``steps_per_dispatch`` > 1: the K-step
+    loop, for gradient and zero1), and this rank's rows of a ``[n ·
+    batch_size, seq]`` batch of tokens drawn from a generator seeded 1 on
+    the device (the JAX function's one batch, sharded over the n ranks)."""
     if cfg.remat:
         raise NotImplementedError("LlamaConfig.remat is not ported yet: "
-                                  "ROADMAP.md, queue A")
-    dev = resolve_device(device)
+                                  "ROADMAP.md, queue A item 9")
+    dev = dist.rank_device(device)
     seq = seq or cfg.ctx_size
     model = llama.init_llama(cfg, torch.Generator().manual_seed(0),
                              device=dev)
     opt = make_optimizer(opt_name)
-    step = dp.make_grad_aggregation_step(
-        lambda p, batch: llama.forward_loss(p, batch, cfg), opt)
+    loss_fn = lambda p, batch: llama.forward_loss(p, batch, cfg)
+    multi = steps_per_dispatch > 1
+    if aggregation == "zero1":
+        make = dp.make_zero1_multi_step if multi else dp.make_zero1_step
+        state, step = make(loss_fn, opt, model.tree())
+    elif aggregation == "gradient":
+        make = dp.make_multi_step if multi else dp.make_grad_aggregation_step
+        step = make(loss_fn, opt)
+        state = dp.init_state(model.tree(), opt)
+    elif aggregation == "weight" and not multi:
+        step = dp.make_weight_aggregation_step(loss_fn, opt)
+        state = dp.init_state(model.tree(), opt)
+    else:
+        raise ValueError(f"aggregation {aggregation!r} with "
+                         f"steps_per_dispatch={steps_per_dispatch}: expected "
+                         "'gradient' or 'zero1' (any K), 'weight' (K = 1)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (batch_size, seq),
+    n, r = dist.world_size(), dist.get_rank()
+    tokens = torch.randint(0, cfg.vocab_size, (n * batch_size, seq),
                            generator=gen, device=dev)
-    return dp.init_state(model.tree(), opt), step, tokens
+    return state, step, tokens[r * batch_size:(r + 1) * batch_size]
 
 
 def time_train_step(cfg: LlamaConfig, batch_size: int, *,
@@ -74,17 +94,17 @@ def time_train_step(cfg: LlamaConfig, batch_size: int, *,
                     aggregation: str = "gradient",
                     overlap_microbatches: int = 0,
                     comm_buckets: int = 1, device=None) -> float:
-    """Tokens/sec of the train step at ``batch_size`` on one device (the
-    JAX function's per-chip batch, at a world of one), wall clock: the
-    timer starts after ``warmup`` steps on a host read of the loss and
-    stops on a host read of the last timed loss. ``seq`` defaults to
-    ``cfg.ctx_size``."""
+    """All ranks' tokens/sec of the train step at ``batch_size`` per rank
+    (the JAX function's per-chip batch), wall clock; every rank of the
+    caller's group calls it (a world of one without a group). The timer
+    starts after ``warmup`` steps on a host read of the loss and stops on
+    a host read of the last timed loss followed by a barrier, so it waits
+    for the slowest rank. ``steps_per_dispatch`` = K > 1 runs the K-step
+    loop over a window of K copies of the batch, the step budgets
+    ceil-divided into windows. ``aggregation``: "gradient", "zero1" (any
+    K) or "weight" (K = 1). ``seq`` defaults to ``cfg.ctx_size``."""
     for name, val, default, where in (
             ("wire", wire, None, "queue A item 8 (compressed collectives)"),
-            ("steps_per_dispatch", steps_per_dispatch, 1,
-             "queue A item 2 (multi-step dispatch)"),
-            ("aggregation", aggregation, "gradient",
-             "queue A item 2 (weight aggregation, ZeRO-1)"),
             ("overlap_microbatches", overlap_microbatches, 0,
              "queue A item 8 (overlapped ring sync)"),
             ("comm_buckets", comm_buckets, 1,
@@ -94,17 +114,24 @@ def time_train_step(cfg: LlamaConfig, batch_size: int, *,
                 f"time_train_step({name}={val!r}) is not ported yet: "
                 f"ROADMAP.md, {where}")
     seq = seq or cfg.ctx_size
-    state, step, tokens = build_train_step(cfg, batch_size, seq=seq,
-                                           opt_name=opt_name, device=device)
-    for _ in range(warmup):
-        state, loss = step(state, tokens)
-    float(loss)                                  # hard sync before the timer
+    K = max(1, int(steps_per_dispatch))
+    state, step, tokens = build_train_step(
+        cfg, batch_size, seq=seq, opt_name=opt_name, aggregation=aggregation,
+        steps_per_dispatch=K, device=device)
+    batch = tokens.expand(K, *tokens.shape) if K > 1 else tokens
+    warm, timed = ((max(1, -(-warmup // K)), max(1, -(-timed_steps // K)))
+                   if K > 1 else (warmup, timed_steps))
+    for _ in range(warm):
+        state, loss = step(state, batch)
+    float(loss.reshape(-1)[-1])                  # hard sync before the timer
+    dist.barrier(tokens.device)
     t0 = time.perf_counter()
-    for _ in range(timed_steps):
-        state, loss = step(state, tokens)
-    float(loss)                                  # waits for the timed chain
+    for _ in range(timed):
+        state, loss = step(state, batch)
+    float(loss.reshape(-1)[-1])                  # waits for the timed chain
+    dist.barrier(tokens.device)
     dt = time.perf_counter() - t0
-    return batch_size * seq * timed_steps / dt
+    return dist.world_size() * batch_size * seq * timed * K / dt
 
 
 def kernel_time_us(fn, reps: int = 100, burst: int = 10) -> float:

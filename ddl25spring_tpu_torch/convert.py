@@ -6,9 +6,12 @@ sides store conv weights OIHW and dense weights ``[in, out]``), the
 tabular trees (the classifier, the VAE's parameters and BatchNorm state,
 VFL and VFL-VAE: the same lists and dicts of ``{"w" [in, out], "b" [out]}``
 layers on both sides, checked against a tree of the same model; the
-VFL-VAE's ``client_latent`` stays a plain int), and the Adam
-optimizer state (``count``, ``mu``, ``nu``) of JAX's ``FusedAdamState`` or
-optax's ``adam`` and the port's ``FusedAdamState``."""
+VFL-VAE's ``client_latent`` stays a plain int), and the optimizer states:
+Adam's (``count``, ``mu``, ``nu``) of JAX's ``FusedAdamState`` or optax's
+``adam`` and the port's ``FusedAdamState``, the master-weight Adam's
+``MasterAdamState`` (``count``, ``mu``, ``nu``, ``master``), and a ZeRO-1
+state's moments (JAX's ``[n·local]`` vectors, sharded over the ``data``
+axis, as one slice per rank)."""
 
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from .config import LlamaConfig
 from .device import resolve_device
 from .models.llama import Llama, as_tree
 from .ops.adam import FusedAdamState
+from .ops.mixed_precision import MasterAdamState
 from .tree import tree_map
 
 
@@ -141,24 +145,64 @@ def _adam_fields(state):
                      f"{type(state).__name__}")
 
 
-def opt_state_from_jax(state, device=None) -> FusedAdamState:
-    """A JAX Adam state (``FusedAdamState``, or optax ``adam``'s) → the
-    port's ``FusedAdamState`` on ``device``: ``count`` an int32 scalar,
-    ``mu`` and ``nu`` trees name for name, dtypes kept."""
+def opt_state_from_jax(state, device=None):
+    """A JAX optimizer state → the port's on ``device``: a
+    ``MasterAdamState`` (it has ``master``) → the port's
+    ``MasterAdamState``; an Adam state (``FusedAdamState``, or optax
+    ``adam``'s) → ``FusedAdamState``. ``count`` becomes an int32 scalar,
+    the trees (or a ZeRO-1 slice's bare vector) go leaf for leaf, dtypes
+    kept."""
     dev = resolve_device(device)
     count, mu, nu = _adam_fields(state)
-    return FusedAdamState(
-        torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=dev),
-        tree_map(lambda x: _to_torch(x).to(dev), mu),
-        tree_map(lambda x: _to_torch(x).to(dev), nu))
+    to_t = lambda tree: tree_map(lambda x: _to_torch(x).to(dev), tree)
+    count = torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                         device=dev)
+    if hasattr(state, "master"):
+        return MasterAdamState(count, to_t(mu), to_t(nu), to_t(state.master))
+    return FusedAdamState(count, to_t(mu), to_t(nu))
 
 
-def opt_state_to_numpy(state) -> FusedAdamState:
-    """The port's ``FusedAdamState`` → the same NamedTuple with numpy
-    leaves (``count`` an int32 scalar array), the fields JAX's
-    ``FusedAdamState`` and optax's ``ScaleByAdamState`` hold."""
+def opt_state_to_numpy(state):
+    """The port's ``FusedAdamState`` or ``MasterAdamState`` → the same
+    NamedTuple with numpy leaves (``count`` an int32 scalar array): the
+    fields JAX's ``FusedAdamState`` / ``MasterAdamState`` and optax's
+    ``ScaleByAdamState`` hold."""
     count, mu, nu = _adam_fields(state)
-    to_np = lambda x: _to_numpy(x) if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
-    return FusedAdamState(np.asarray(int(count), dtype=np.int32),
-                          tree_map(to_np, mu), tree_map(to_np, nu))
+    to_np = lambda tree: tree_map(
+        lambda x: _to_numpy(x) if isinstance(x, torch.Tensor)
+        else np.asarray(x), tree)
+    count = np.asarray(int(count), dtype=np.int32)
+    if hasattr(state, "master"):
+        return MasterAdamState(count, to_np(mu), to_np(nu),
+                               to_np(state.master))
+    return FusedAdamState(count, to_np(mu), to_np(nu))
+
+
+def zero1_opt_state_from_jax(state, rank: int, world: int,
+                             device=None) -> FusedAdamState:
+    """Rank ``rank``'s slice of a JAX ZeRO-1 Adam state (``make_zero1_step``'s
+    ``opt_state``: mu and nu ``[world·local]`` vectors sharded over the
+    ``data`` axis, gathered as numpy) → the port's ``FusedAdamState`` of
+    ``[local]`` vectors, the moments ``parallel.dp.make_zero1_step`` holds
+    on that rank."""
+    count, mu, nu = _adam_fields(state)
+    mu, nu = np.asarray(mu), np.asarray(nu)
+    if mu.ndim != 1 or mu.shape != nu.shape or mu.shape[0] % world:
+        raise ValueError(f"not a ZeRO-1 state of world {world}: mu "
+                         f"{mu.shape}, nu {nu.shape}")
+    local = mu.shape[0] // world
+    mine = slice(rank * local, (rank + 1) * local)
+    return opt_state_from_jax(FusedAdamState(count, mu[mine], nu[mine]),
+                              device)
+
+
+def zero1_opt_state_to_numpy(slices) -> FusedAdamState:
+    """Every rank's ZeRO-1 ``FusedAdamState`` (rank order) → one with numpy
+    ``[world·local]`` mu and nu, the arrays JAX's ZeRO-1 state holds."""
+    states = [opt_state_to_numpy(s) for s in slices]
+    counts = {int(s.count) for s in states}
+    if len(counts) != 1:
+        raise ValueError(f"ranks disagree on the step count: {counts}")
+    return FusedAdamState(states[0].count,
+                          np.concatenate([s.mu for s in states]),
+                          np.concatenate([s.nu for s in states]))

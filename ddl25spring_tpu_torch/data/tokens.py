@@ -123,6 +123,17 @@ class TokenStream:
             yield np.stack([self._next_seq() for _ in range(self.batch_size)])
 
 
+def shard_batches(tokenizer, per_shard_batch: int, seq_len: int, shard: int, *,
+                  shard_skip: int = 5000, path: Optional[str] = None,
+                  seed: int = 0):
+    """Shard ``shard``'s ``[per_shard_batch, seq_len]`` batches of
+    ``sharded_batches``: the window the reference's rank ``shard`` reads
+    (skip = shard·shard_skip). A data-parallel rank builds only its own
+    stream."""
+    return iter(TokenStream(tokenizer, per_shard_batch, seq_len,
+                            skip=shard * shard_skip, path=path, seed=seed))
+
+
 def sharded_batches(tokenizer, per_shard_batch: int, seq_len: int, n_shards: int, *,
                     shard_skip: int = 5000, path: Optional[str] = None, seed: int = 0):
     """Yield ``[n_shards, per_shard_batch, seq_len]`` global batches where

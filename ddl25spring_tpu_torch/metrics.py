@@ -1,10 +1,13 @@
-"""Experiment records and metrics of federated learning (numpy).
+"""Experiment records and metrics of federated learning (numpy), and the
+fault-handling counters of the resilience layer.
 
 The port's own copy of the JAX package's ``metrics.py`` (which it may not
 import): ``RunResult`` holds the algorithm, N/C/B/E/η/seed and per-round
 wall time, cumulative message count and test accuracy; the message count
 of a round is ``2·(round+1)·clients_per_round`` (one message down and one
-up per sampled client, cumulative). Arrays may be numpy arrays or tensors
+up per sampled client, cumulative). ``ResilienceStats`` counts retries,
+checkpoint fallbacks and reshards (``checkpoint.py``) and the counters of
+the rest of the resilience layer. Arrays may be numpy arrays or tensors
 on any device.
 """
 
@@ -60,6 +63,44 @@ class RunResult:
             "wall_time": np.asarray(self.wall_time),
             "message_count": np.asarray(self.message_count),
             "test_accuracy": np.asarray(self.test_accuracy)})
+
+
+@dataclass
+class ResilienceStats:
+    """Fault-handling counters shared by the resilience layer: one instance
+    threads through a run (the checkpointer counts ``retries``,
+    ``ckpt_fallbacks`` and ``ckpt_reshards``), and ``as_dict`` shows a
+    fault-free run's zeros."""
+
+    skipped_steps: int = 0       # non-finite loss/params: the step is a no-op
+    anomalies: int = 0           # update-norm outliers
+    rollbacks: int = 0           # consecutive bad steps: restore
+    retries: int = 0             # retry_call invocations that re-tried IO
+    ckpt_fallbacks: int = 0      # Checkpointer.restore skipped corrupt steps
+    dropped_clients: int = 0     # FL: vanished clients excluded from rounds
+    straggler_clients: int = 0   # FL: over-deadline clients excluded
+    skipped_rounds: int = 0      # FL: rounds with zero surviving clients
+    preemptions: int = 0         # SIGTERM force-save exits
+    remeshes: int = 0            # elastic: replica-loss re-mesh recoveries
+    ckpt_reshards: int = 0       # cross-topology checkpoint restores
+
+    def as_dict(self) -> dict:
+        return {k: int(v) for k, v in self.__dict__.items()}
+
+    def merge(self, other: "ResilienceStats") -> "ResilienceStats":
+        for k, v in other.__dict__.items():
+            setattr(self, k, getattr(self, k) + v)
+        return self
+
+    def delta(self, prev: dict) -> dict:
+        """Counters that moved since the ``prev`` snapshot (an ``as_dict``
+        result); empty when nothing changed."""
+        return {k: v - prev.get(k, 0) for k, v in self.as_dict().items()
+                if v != prev.get(k, 0)}
+
+    @property
+    def total_faults_handled(self) -> int:
+        return sum(self.__dict__.values())
 
 
 def message_count(round_idx: int, clients_per_round: int) -> int:

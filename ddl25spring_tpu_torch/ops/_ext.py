@@ -11,12 +11,17 @@ Builds happen at first use, never at import. Libraries go to
 hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
 an edited source or header is rebuilt and an unchanged one is loaded as
 it is. ``build()`` starts one ``nvcc`` per
-stale source, all at once, and waits for them together.
+stale source, all at once, and waits for them together, holding a file
+lock (``build/kernels/build.lock``, ``fcntl.flock``) so that processes
+sharing the checkout, such as data-parallel ranks, build each library
+once; the kernel releases the lock if its holder dies.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -24,7 +29,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -80,15 +85,21 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> float:
-    """Compile every stale kernel library in ``names`` (default: all), one
-    ``nvcc`` per source, all started together. Returns the wall seconds.
-    Raises with the compiler's output if any build fails. ``ptxas``'s
-    register and shared-memory report is kept beside each library as
-    ``<library>.log``."""
-    t0 = time.perf_counter()
-    names = list(KERNELS if names is None else names)
+@contextlib.contextmanager
+def _build_lock() -> Iterator[None]:
+    """Hold ``BUILD_DIR/build.lock`` exclusively across processes."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build_stale(names) -> None:
+    """One ``nvcc`` per stale library of ``names``, all started together;
+    raises with the compiler's output if any fails."""
     procs = []
     for name in names:
         out = library_path(name)
@@ -110,6 +121,17 @@ def build(names: Optional[Iterable[str]] = None) -> float:
         os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+
+
+def build(names: Optional[Iterable[str]] = None) -> float:
+    """Compile every stale kernel library in ``names`` (default: all), one
+    ``nvcc`` per source, all started together. Returns the wall seconds.
+    Raises with the compiler's output if any build fails. ``ptxas``'s
+    register and shared-memory report is kept beside each library as
+    ``<library>.log``."""
+    t0 = time.perf_counter()
+    with _build_lock():
+        _build_stale(list(KERNELS if names is None else names))
     return time.perf_counter() - t0
 
 

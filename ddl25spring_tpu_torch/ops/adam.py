@@ -18,13 +18,16 @@ call per operation); the CUDA kernel's plain version
 optimizer's step to the parameters, in place (the JAX program returns new
 arrays; on the card its kernel aliases them in place too), through
 ``apply_gradients`` where the optimizer has it
-(``ops.pallas_adam.FusedApplyAdam``).
+(``ops.pallas_adam.FusedApplyAdam``). ``resize_zero_padded`` moves a
+ZeRO-1 flat vector between data-parallel world sizes (``parallel.dp``,
+``checkpoint.py``).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ..tree import tree_leaves, tree_map, tree_unflatten
@@ -41,6 +44,32 @@ class FusedAdamState(NamedTuple):
     count: Any   # [] int32 tensor on the parameters' device
     mu: Any
     nu: Any
+
+
+def resize_zero_padded(vec, new_len: int) -> np.ndarray:
+    """Resize a ZeRO-1 padded flat vector (the params, Adam mu or nu slices
+    of every rank, concatenated) from its N-way padded length to an M-way
+    one: truncate or extend the zero tail. The pad region of such a vector
+    is exactly zero forever (the padded gradient tail is zero, so the
+    moments there stay 0 and the parameter steps by 0), so the result is
+    the vector an M-way setup would build from the same content. Raises if
+    a truncated tail is not all zero: that vector is no zero-padded ZeRO-1
+    vector. Numpy in, numpy out (``vec`` itself when the length holds)."""
+    vec = np.asarray(vec)
+    if vec.ndim != 1:
+        raise ValueError(f"resize_zero_padded wants a flat vector, got "
+                         f"shape {vec.shape}")
+    if new_len == vec.shape[0]:
+        return vec
+    if new_len < vec.shape[0]:
+        tail = vec[new_len:]
+        if tail.any():
+            raise ValueError(
+                f"cannot truncate {vec.shape[0]} -> {new_len}: tail is not "
+                f"all-zero (max |tail| = {np.abs(tail).max()}): not a "
+                "zero-padded ZeRO-1 vector")
+        return vec[:new_len]
+    return np.concatenate([vec, np.zeros(new_len - vec.shape[0], vec.dtype)])
 
 
 def bias_corrections(count: torch.Tensor, b1: float, b2: float):

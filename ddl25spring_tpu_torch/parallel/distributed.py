@@ -1,0 +1,300 @@
+"""Process group, rank launcher and collectives for multi-process data
+parallelism: counterpart of the JAX package's ``parallel/distributed.py``
+(``initialize``, ``process_info``) and of the collectives its
+``parallel/dp.py`` calls through ``telemetry/comm.py`` (``pmean``,
+``psum``, ``psum_scatter``, ``all_gather``).
+
+The reference's DP homework runs one OS process per rank, joined by
+``torch.distributed`` over gloo; the JAX package runs one SPMD program over
+a ``data`` mesh axis. The port goes back to processes: ``run_ranks`` starts
+``world`` processes with the ``spawn`` start method (CUDA forbids ``fork``
+once it is initialised), each joins the group through ``initialize`` and
+runs the given function, and the launcher returns each rank's result.
+Rank r drives ``cuda:(r % device_count)``, so on one card every rank
+shares it.
+
+The backend is gloo, on CPU and CUDA tensors alike, and the collectives
+use only the two operations gloo provides for CUDA tensors, ``all_reduce``
+(sum) and ``broadcast``; gloo itself stages a CUDA tensor through pinned
+host memory, so on one card a collective is a host round trip, not NCCL:
+
+- ``psum`` is the all-reduce; ``pmean`` its sum divided by the world size,
+  as ``lax.pmean`` is;
+- ``psum_scatter(flat)`` is the all-reduce followed by this rank's
+  ``1/n`` slice;
+- ``all_gather(piece)`` is an all-reduce of a zero buffer in which this
+  rank has written its slice: adding exact zeros changes no value (a
+  ``-0.0`` comes back as ``+0.0``, which compares equal).
+
+Every rank receives the same sums, so replicated state stays bitwise
+replicated. At a world of one (no group) every collective returns its
+input and starts nothing. The byte accounting of ``telemetry/comm.py`` is
+ROADMAP.md queue A item 9.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from ..device import resolve_device
+from ..tree import tree_leaves, tree_unflatten
+
+BACKEND = "gloo"
+# How a collective reaches the wire: gloo's all_reduce and broadcast on the
+# tensor's own device (the chip_smoke.py probe holds them exact on CUDA).
+ROUTE = "gloo on the tensors' device (gloo stages CUDA tensors through host)"
+# A collective that waits longer than this raises instead of hanging.
+GROUP_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def initialize(rank: int, world: int, init_method: str,
+               device=None) -> torch.device:
+    """Join rank ``rank`` of ``world`` to the default process group (gloo)
+    through ``init_method`` (a ``file://`` path or ``tcp://host:port``
+    shared by every rank) and return the device this rank drives:
+    ``device`` ("cpu", or None for CUDA), with a CUDA device of no index
+    resolved to ``cuda:(rank % device_count)``. gloo binds to the loopback
+    interface unless ``GLOO_SOCKET_IFNAME`` is set: every rank is on one
+    host."""
+    dev = rank_device(device, rank)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(BACKEND, init_method=init_method, rank=rank,
+                            world_size=world, timeout=GROUP_TIMEOUT)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def rank_device(device=None, rank: Optional[int] = None) -> torch.device:
+    """``resolve_device(device)`` (None means CUDA, raising when no card is
+    present), with an index-less CUDA device pinned to ``cuda:(rank %
+    device_count)``; ``rank`` defaults to this process's rank."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        r = get_rank() if rank is None else rank
+        dev = torch.device("cuda", r % torch.cuda.device_count())
+    return dev
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    """The size of the default group; 1 when there is none."""
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def get_rank() -> int:
+    """This process's rank in the default group; 0 when there is none."""
+    return dist.get_rank() if is_initialized() else 0
+
+
+def process_info() -> Dict[str, int]:
+    """This process's identity in the group (the JAX function's keys): one
+    process drives one device."""
+    n = world_size()
+    return {"process_id": get_rank(), "num_processes": n,
+            "local_devices": 1, "global_devices": n}
+
+
+# ------------------------------------------------------------------ launcher
+
+def _rank_main(fn, rank, world, init_method, device, args, results,
+               threads) -> None:
+    """A child's body: join the group, run ``fn(*args, device=...)``, put
+    ``(rank, ok, pickled result or traceback)`` on ``results``."""
+    try:
+        torch.set_num_threads(threads)
+        dev = initialize(rank, world, init_method, device)
+        payload = (rank, True, pickle.dumps(fn(*args, device=dev)))
+    except BaseException:          # reported to the parent, which raises
+        payload = (rank, False, traceback.format_exc())
+    # Report before leaving the group: a failure makes the other ranks'
+    # collectives fail too, and the parent should hear the cause first.
+    results.put(payload)
+    if is_initialized():
+        dist.destroy_process_group()
+
+
+def _more_failures(results, failed: Dict[int, str], world: int, done: int,
+                   grace: float = 5.0) -> Dict[int, str]:
+    """The tracebacks of the ranks that fail within ``grace`` seconds after
+    the first, added to ``failed``; stops early once every rank has
+    answered."""
+    deadline = time.monotonic() + grace
+    while done + len(failed) < world and time.monotonic() < deadline:
+        try:
+            rank, ok, payload = results.get(timeout=0.5)
+        except queue.Empty:
+            continue
+        if ok:
+            done += 1
+        else:
+            failed[rank] = payload
+    return failed
+
+
+def run_ranks(fn: Callable, world: int, *args, device=None,
+              timeout: Optional[float] = None) -> List[Any]:
+    """Run ``fn(*args, device=rank_device)`` in ``world`` processes joined
+    by a gloo group and return the results, rank 0's first.
+
+    Processes start with the ``spawn`` method, so ``fn`` and ``args`` are
+    pickled: ``fn`` must be a module-level function of an importable
+    module (never a test file, whose imports a child would repeat), and it
+    should return host data (numbers, numpy arrays, CPU tensors). Each
+    child runs with the caller's intra-op thread count. The rendezvous is
+    a ``file://`` store in a fresh temporary directory, so concurrent
+    launches cannot collide on a port. ``device`` is "cpu", or None for
+    CUDA, where rank r drives ``cuda:(r % device_count)``; it is checked
+    here first, so a missing card raises before any process starts.
+
+    If a rank raises, this raises with its traceback and those of the
+    ranks that fail within a few seconds after it (a failed rank makes its
+    peers' collectives fail), then terminates the rest; a rank that dies
+    without a result raises too, as does ``timeout`` (seconds) running
+    out."""
+    if world < 1:
+        raise ValueError(f"world must be >= 1 (got {world})")
+    rank_device(device, 0)
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="ddl-rendezvous-")
+    results = ctx.Queue()
+    procs = [ctx.Process(
+        target=_rank_main,
+        args=(fn, r, world, "file://" + os.path.join(tmp, "store"),
+              device, args, results, torch.get_num_threads()))
+        for r in range(world)]
+    out: Dict[int, Any] = {}
+    deadline = None if timeout is None else time.monotonic() + timeout
+    started = []
+    try:
+        for p in procs:
+            p.start()
+            started.append(p)
+        while len(out) < world:
+            try:
+                rank, ok, payload = results.get(timeout=0.5)
+            except queue.Empty:
+                for r, p in enumerate(procs):
+                    if r not in out and p.exitcode not in (None, 0):
+                        raise RuntimeError(f"rank {r} of {world} exited with "
+                                           f"code {p.exitcode} and no result")
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TimeoutError(f"run_ranks: {world - len(out)} of "
+                                       f"{world} ranks still running after "
+                                       f"{timeout} s")
+                continue
+            if not ok:
+                failed = _more_failures(results, {rank: payload}, world,
+                                        len(out))
+                raise RuntimeError("\n".join(
+                    f"rank {r} of {world} raised:\n{tb}"
+                    for r, tb in sorted(failed.items())))
+            out[rank] = pickle.loads(payload)
+    finally:
+        for p in started:
+            if len(out) < world and p.is_alive():
+                p.terminate()
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [out[r] for r in range(world)]
+
+
+# --------------------------------------------------------------- collectives
+
+def psum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ranks, as a new tensor (``x`` itself at a
+    world of one)."""
+    if world_size() == 1:
+        return x
+    y = x.detach().clone()
+    dist.all_reduce(y)
+    return y
+
+
+def pmean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the ranks: the sum divided by the world
+    size (``x`` itself at a world of one)."""
+    n = world_size()
+    return x if n == 1 else psum(x) / n
+
+
+def pmean_tree(tree):
+    """``pmean`` of every leaf of a tree (nested dicts and lists of
+    tensors), one all-reduce per dtype over the leaves' concatenation.
+    Returns a new tree of ``tree``'s structure (``tree`` itself at a world
+    of one)."""
+    n = world_size()
+    if n == 1:
+        return tree
+    leaves = tree_leaves(tree)
+    out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+    for dtype in dict.fromkeys(x.dtype for x in leaves):
+        idx = [i for i, x in enumerate(leaves) if x.dtype == dtype]
+        flat = torch.cat([leaves[i].detach().reshape(-1) for i in idx])
+        dist.all_reduce(flat)
+        flat /= n
+        for i, piece in zip(idx, flat.split([leaves[i].numel()
+                                             for i in idx])):
+            out[i] = piece.view(leaves[i].shape)
+    return tree_unflatten(tree, out)
+
+
+def psum_scatter(flat: torch.Tensor) -> torch.Tensor:
+    """This rank's ``1/n`` slice of the sum of the 1-D ``flat`` over the
+    ranks (its length must divide by the world size): the all-reduce, then
+    the slice."""
+    n, r = world_size(), get_rank()
+    if flat.dim() != 1 or flat.numel() % n:
+        raise ValueError(f"psum_scatter takes a 1-D tensor whose length "
+                         f"divides by {n}, got shape {tuple(flat.shape)}")
+    local = flat.numel() // n
+    return psum(flat)[r * local:(r + 1) * local].clone()
+
+
+def all_gather(piece: torch.Tensor) -> torch.Tensor:
+    """The ranks' 1-D slices concatenated in rank order: an all-reduce of a
+    zero buffer in which this rank has written its own."""
+    n, r = world_size(), get_rank()
+    if n == 1:
+        return piece
+    local = piece.numel()
+    buf = torch.zeros(n * local, dtype=piece.dtype, device=piece.device)
+    buf[r * local:(r + 1) * local] = piece.reshape(-1)
+    dist.all_reduce(buf)
+    return buf
+
+
+def broadcast(x: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank, as a new tensor (``x`` itself at
+    a world of one)."""
+    if world_size() == 1:
+        return x
+    y = x.detach().clone()
+    dist.broadcast(y, src)
+    return y
+
+
+def barrier(device) -> None:
+    """Wait until every rank gets here: an all-reduce of one element on
+    ``device`` and a host read of it."""
+    if world_size() > 1:
+        float(psum(torch.ones((), device=device)))

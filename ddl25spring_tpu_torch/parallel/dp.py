@@ -1,34 +1,84 @@
-"""Data-parallel training step: counterpart of the JAX package's
-``parallel/dp.py`` at a world of one process.
+"""Data-parallel training steps: counterpart of the JAX package's
+``parallel/dp.py``.
 
-The JAX step is an SPMD program over a ``data`` mesh axis: local gradients,
-a ``pmean`` over the axis, one optimizer apply. At a world of one the mean
-over the data axis is the identity, so this step has no collective; the
-multi-process step (``torch.distributed``, NCCL) is ROADMAP.md queue A.
-What the JAX step body does around the collective is kept: gradient
-accumulation over ``accum_steps`` microbatches into an fp32 sum, the
-optimizer apply through ``apply_optimizer`` (``apply_gradients`` where the
-optimizer has it), the ``guard_nonfinite`` skip, and the ``step`` count.
+The JAX steps are SPMD programs over a ``data`` mesh axis; here each rank
+is a process of a ``torch.distributed`` group (``parallel.distributed``)
+that calls the step on its own batch, and the collectives are
+``distributed``'s. Without a group the world is one, every collective is
+the identity, and the steps are the world-of-one steps they were.
+
+- Gradient aggregation (``make_grad_aggregation_step``): local gradients,
+  accumulated in fp32 over ``accum_steps`` microbatches, then ``pmean`` of
+  the gradients and of the loss, then one optimizer apply through
+  ``apply_optimizer`` (``apply_gradients`` where the optimizer has it).
+- K-step dispatch (``make_multi_step``): a loop of K such steps over a
+  ``[K, B, T]`` window; it reads nothing on the host inside the window and
+  returns the ``[K]`` losses on the device, bitwise K per-step calls.
+- Weight aggregation (``make_weight_aggregation_step``): a local step
+  through ``optimizer.update`` and ``p += u`` (the plain rule, as the JAX
+  step's ``optax.apply_updates``), then ``pmean`` of the parameters, of
+  the optimizer state's floating leaves (the JAX package's documented
+  deviation from the reference, which keeps per-rank moments) and of the
+  loss.
+- ZeRO-1 (``make_zero1_step``, ``make_zero1_multi_step``): the gradient is
+  raveled into one fp32 vector padded to a multiple of the world,
+  ``psum_scatter`` gives each rank the mean of its ``1/n`` slice, the
+  optimizer updates that slice of the parameters against moments that
+  exist for that slice only, and ``all_gather`` brings every slice back
+  into the replicated parameters.
+
+``guard_nonfinite`` skips a step whose averaged loss or gradient holds a
+NaN or Inf: the state stays as it was and ``step`` does not advance. Every
+rank reaches the same verdict (it is taken on the averaged values, or on
+ZeRO-1 ranks' verdicts summed in a 4-byte ``psum``), and it is read on the
+host before the in-place update.
 
 The state is updated in place (parameters and moments), where the JAX
-program returns new arrays: ``TrainState.params`` is the model's own
-parameter tree, so the model a caller holds is the trained one.
+programs return new arrays: ``TrainState.params`` is the model's own
+parameter tree, so the model a caller holds is the trained one. Each rank
+holds the full parameters; only ZeRO-1 splits the moments, and its state
+carries the slice geometry (``TrainState.zero1``). ``host_snapshot`` and
+``reshard_state`` move states to the host and back, across world sizes
+for ZeRO-1's flat moment vectors (``checkpoint.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..ops.adam import apply_optimizer
-from ..tree import tree_leaves, tree_unflatten
+from . import distributed as dist
+from ..ops.adam import apply_optimizer, apply_updates, resize_zero_padded
+from ..tree import (nested_leaves, nested_unflatten, tree_leaves,
+                    tree_unflatten)
+
+
+@dataclass(frozen=True)
+class Zero1Geometry:
+    """The padded flat-vector geometry of a ZeRO-1 state
+    (``_flat_geometry``): world ``n``, ``pad`` zeros after the ``total``
+    parameters, ``local`` elements per rank, and the rank whose slice
+    ``[rank·local, (rank+1)·local)`` this state's moments cover."""
+
+    n: int
+    pad: int
+    local: int
+    total: int
+    rank: int
+
+    @property
+    def mine(self) -> slice:
+        return slice(self.rank * self.local, (self.rank + 1) * self.local)
 
 
 class TrainState(NamedTuple):
     params: Any
     opt_state: Any
     step: torch.Tensor
+    zero1: Optional[Zero1Geometry] = None   # set on ZeRO-1 states only
 
 
 def init_state(params, optimizer) -> TrainState:
@@ -38,47 +88,56 @@ def init_state(params, optimizer) -> TrainState:
                       torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _local_loss_and_grads(loss_fn: Callable, params, batch: torch.Tensor,
+                          accum_steps: int):
+    """``loss_fn(params, batch)`` and its gradient leaves by autograd,
+    averaged over ``accum_steps`` microbatches (the batch's leading dim
+    must divide) with an fp32 running sum."""
+    leaves = tree_leaves(params)
+    if accum_steps == 1:
+        loss = loss_fn(params, batch)
+        return loss.detach(), list(torch.autograd.grad(loss, leaves))
+    if batch.shape[0] % accum_steps:
+        raise ValueError(f"batch of {batch.shape[0]} does not split into "
+                         f"accum_steps={accum_steps}")
+    micro = batch.reshape((accum_steps, -1) + tuple(batch.shape[1:]))
+    # Accumulate in fp32 whatever the parameter dtype: a bf16 running sum
+    # would round away small microbatch contributions.
+    gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in leaves]
+    loss = torch.zeros((), dtype=torch.float32, device=batch.device)
+    for mb in micro:
+        l = loss_fn(params, mb)
+        for acc, g in zip(gsum, torch.autograd.grad(l, leaves)):
+            acc += g.float()
+        loss = loss + l.detach().float()
+    return (loss / accum_steps,
+            [(g / accum_steps).to(p.dtype) for g, p in zip(gsum, leaves)])
+
+
+def _all_finite(loss: torch.Tensor, tensors) -> torch.Tensor:
+    ok = torch.isfinite(loss)
+    for x in tensors:
+        ok &= torch.isfinite(x).all()
+    return ok
+
+
 def _make_local_grad_step(loss_fn: Callable, optimizer, accum_steps: int,
                           guard_nonfinite: bool) -> Callable:
-    """The step body: ``loss_fn(params, batch)`` differentiated by autograd,
-    accumulated over ``accum_steps`` microbatches (the batch's leading dim
-    must divide), then one optimizer apply."""
+    """The gradient-aggregation step body shared by
+    ``make_grad_aggregation_step`` and ``make_multi_step``."""
 
     def local_step(state: TrainState, batch: torch.Tensor
                    ) -> Tuple[TrainState, torch.Tensor]:
-        leaves = tree_leaves(state.params)
-        if accum_steps == 1:
-            loss = loss_fn(state.params, batch)
-            grads = list(torch.autograd.grad(loss, leaves))
-            loss = loss.detach()
-        else:
-            if batch.shape[0] % accum_steps:
-                raise ValueError(f"batch of {batch.shape[0]} does not split "
-                                 f"into accum_steps={accum_steps}")
-            micro = batch.reshape((accum_steps, -1) + tuple(batch.shape[1:]))
-            # Accumulate in fp32 whatever the parameter dtype: a bf16
-            # running sum would round away small microbatch contributions.
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in leaves]
-            loss = torch.zeros((), dtype=torch.float32, device=batch.device)
-            for mb in micro:
-                l = loss_fn(state.params, mb)
-                for acc, g in zip(gsum, torch.autograd.grad(l, leaves)):
-                    acc += g.float()
-                loss = loss + l.detach().float()
-            loss = loss / accum_steps
-            grads = [(g / accum_steps).to(p.dtype)
-                     for g, p in zip(gsum, leaves)]
-        if guard_nonfinite:
-            # A non-finite loss or gradient leaves the state as it was and
-            # the step count where it was (the JAX step's select-back). The
-            # state is updated in place, so the check comes first, and it
-            # waits for the device.
-            ok = torch.isfinite(loss)
-            for g in grads:
-                ok &= torch.isfinite(g).all()
-            if not bool(ok):
-                return state, loss
+        loss, grads = _local_loss_and_grads(loss_fn, state.params, batch,
+                                            accum_steps)
+        grads = dist.pmean_tree(grads)
+        loss = dist.pmean(loss)
+        # The averaged values are the same on every rank, and so is the
+        # verdict. The state is updated in place, so the check comes
+        # first, and it waits for the device.
+        if guard_nonfinite and not bool(_all_finite(loss, grads)):
+            return state, loss
         params, opt_state = apply_optimizer(
             optimizer, tree_unflatten(state.params, grads), state.opt_state,
             state.params)
@@ -90,15 +149,245 @@ def _make_local_grad_step(loss_fn: Callable, optimizer, accum_steps: int,
 def make_grad_aggregation_step(loss_fn: Callable, optimizer,
                                accum_steps: int = 1,
                                guard_nonfinite: bool = False) -> Callable:
-    """``step(state, batch) -> (state, loss)`` for a world of one:
+    """``step(state, batch) -> (state, loss)`` on this rank's ``batch``:
     gradients of ``loss_fn(params, batch) -> scalar``, averaged over
-    ``accum_steps`` microbatches, then one optimizer apply. The loss
-    returned is the device scalar, not synced.
+    ``accum_steps`` microbatches, then over the ranks, then one optimizer
+    apply. Parameters and moments stay bitwise replicated, since every rank
+    applies the same averaged gradient. The loss returned is the device
+    scalar averaged over the ranks, not synced.
 
-    ``guard_nonfinite=True``: a step whose loss or gradient holds a NaN/Inf
-    is skipped (state unchanged, ``step`` not advanced) and its loss is
-    returned as it came."""
+    ``guard_nonfinite=True``: a step whose averaged loss or gradient holds a
+    NaN/Inf (one poisoned rank poisons the mean for every rank) is skipped
+    (state unchanged, ``step`` not advanced) and its loss is returned as it
+    came."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1 (got {accum_steps})")
     return _make_local_grad_step(loss_fn, optimizer, accum_steps,
                                  guard_nonfinite)
+
+
+def _loop(local_step: Callable) -> Callable:
+    """K calls of ``local_step`` over a ``[K, B, T]`` window, the losses
+    stacked on the device."""
+
+    def multi(state: TrainState, window: torch.Tensor):
+        losses = []
+        for batch in window:
+            state, loss = local_step(state, batch)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    return multi
+
+
+def make_multi_step(loss_fn: Callable, optimizer, accum_steps: int = 1,
+                    guard_nonfinite: bool = False) -> Callable:
+    """K-step loop: ``step(state, window) -> (state, losses)`` where
+    ``window`` is this rank's ``[K, B, T]`` batches of K consecutive steps
+    and ``losses`` the ``[K]`` per-step losses, on the device. The body is
+    ``make_grad_aggregation_step``'s, so the losses and the final state are
+    bitwise K per-step calls. K is the window's leading dim, so one loop
+    serves every window size."""
+    return _loop(make_grad_aggregation_step(loss_fn, optimizer, accum_steps,
+                                            guard_nonfinite))
+
+
+def _pmean_float_leaves(tree):
+    """``pmean`` of every floating tensor leaf of a tree of dicts, lists
+    and tuples, in place; other leaves (an int32 step count, equal on
+    every rank) stay."""
+    leaves = [x for x in nested_leaves(tree)
+              if isinstance(x, torch.Tensor) and x.is_floating_point()]
+    with torch.no_grad():
+        for x, mean in zip(leaves, dist.pmean_tree(leaves)):
+            if mean is not x:
+                x.copy_(mean)
+    return tree
+
+
+def make_weight_aggregation_step(loss_fn: Callable, optimizer) -> Callable:
+    """``step(state, batch) -> (state, loss)``: one local optimizer step on
+    this rank's gradient (``optimizer.update`` and ``p += u``), then the
+    parameters, the optimizer state's floating leaves and the loss
+    averaged over the ranks: the reference's weight aggregation with the
+    averages written back (its script leaves them unused)."""
+
+    def step(state: TrainState, batch: torch.Tensor):
+        leaves = tree_leaves(state.params)
+        loss = loss_fn(state.params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        updates, opt_state = optimizer.update(
+            tree_unflatten(state.params, list(grads)), state.opt_state,
+            state.params)
+        apply_updates(state.params, updates)
+        _pmean_float_leaves(leaves)
+        _pmean_float_leaves(opt_state)
+        return (TrainState(state.params, opt_state, state.step + 1),
+                dist.pmean(loss.detach()))
+
+    return step
+
+
+# -------------------------------------------------------------------- ZeRO-1
+
+def _flat_geometry(params) -> Tuple[int, int, int, int]:
+    """``(n, pad, local, total)`` of the padded flat parameter vector: n is
+    the world, total the parameter count, pad brings it to a multiple of
+    n, and local = (total + pad) / n is one rank's slice."""
+    n = dist.world_size()
+    total = sum(x.numel() for x in tree_leaves(params))
+    pad = (-total) % n
+    return n, pad, (total + pad) // n, total
+
+
+def _flat_fp32(leaves, pad: int) -> torch.Tensor:
+    """The leaves raveled in order into one fp32 vector, ``pad`` zeros
+    after them (``ravel_pytree``, then ``jnp.pad``)."""
+    parts = [x.detach().reshape(-1).float() for x in leaves]
+    if pad:
+        parts.append(torch.zeros(pad, dtype=torch.float32,
+                                 device=parts[0].device))
+    return torch.cat(parts)
+
+
+def _zero1_setup(optimizer, params) -> TrainState:
+    """The initial ZeRO-1 state: the replicated parameters, and optimizer
+    state for this rank's ``1/n`` slice of the padded fp32 flat vector
+    only."""
+    n, pad, local, total = _flat_geometry(params)
+    geom = Zero1Geometry(n, pad, local, total, dist.get_rank())
+    mine = _flat_fp32(tree_leaves(params), pad)[geom.mine].clone()
+    return TrainState(params, optimizer.init(mine),
+                      torch.zeros((), dtype=torch.int32, device=mine.device),
+                      geom)
+
+
+def _make_zero1_local_step(loss_fn: Callable, optimizer, *,
+                           guard_nonfinite: bool = False) -> Callable:
+    """The ZeRO-1 step body shared by ``make_zero1_step`` and
+    ``make_zero1_multi_step``: local gradients → ``psum_scatter`` (this
+    rank's averaged slice) → the optimizer on the slice → ``all_gather`` of
+    the updated slices, cut to the parameter count and cast back into the
+    parameters. Under ``guard_nonfinite`` a non-finite value lands only in
+    the slice whose owner summed it, so the ranks' verdicts are summed in
+    a 4-byte ``psum`` before anyone applies an update."""
+
+    def local_step(state: TrainState, batch: torch.Tensor):
+        geom = state.zero1
+        leaves = tree_leaves(state.params)
+        loss = loss_fn(state.params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        g_mine = dist.psum_scatter(_flat_fp32(grads, geom.pad)) / geom.n
+        p_mine = _flat_fp32(leaves, geom.pad)[geom.mine].clone()
+        loss = dist.pmean(loss.detach())
+        if guard_nonfinite:
+            ok = _all_finite(loss, [g_mine]).to(torch.int32)
+            if int(dist.psum(ok)) != geom.n:
+                return state, loss
+        p_mine, opt_state = apply_optimizer(optimizer, g_mine,
+                                            state.opt_state, p_mine)
+        flat_new = dist.all_gather(p_mine)[:geom.total]
+        with torch.no_grad():
+            for p, piece in zip(leaves, flat_new.split(
+                    [p.numel() for p in leaves])):
+                p.copy_(piece.view(p.shape))
+        return state._replace(opt_state=opt_state, step=state.step + 1), loss
+
+    return local_step
+
+
+def make_zero1_step(loss_fn: Callable, optimizer, params, *,
+                    guard_nonfinite: bool = False
+                    ) -> Tuple[TrainState, Callable]:
+    """ZeRO-1 data parallelism: ``(state, step)``, the initial state (the
+    parameters ``params``, moments for this rank's slice only) and
+    ``step(state, batch) -> (state, loss)``. Adam is elementwise, so the
+    sliced update equals the replicated one up to float re-association.
+    On this route ``psum_scatter`` and ``all_gather`` are each a full
+    all-reduce of the padded vector."""
+    return (_zero1_setup(optimizer, params),
+            _make_zero1_local_step(loss_fn, optimizer,
+                                   guard_nonfinite=guard_nonfinite))
+
+
+def make_zero1_multi_step(loss_fn: Callable, optimizer, params, *,
+                          guard_nonfinite: bool = False
+                          ) -> Tuple[TrainState, Callable]:
+    """``make_zero1_step`` inside the K-step loop: ``step(state, window)
+    -> (state, losses)`` over a ``[K, B, T]`` window, bitwise K calls of
+    the per-step function."""
+    state, step = make_zero1_step(loss_fn, optimizer, params,
+                                  guard_nonfinite=guard_nonfinite)
+    return state, _loop(step)
+
+
+# ------------------------------------------------------ host snapshots
+
+def _slice_mask(state) -> List[bool]:
+    """Per ``nested_leaves(state)`` leaf: whether it is one rank's ZeRO-1
+    slice (an optimizer-state tensor of ndim >= 1 in a ZeRO-1 state; its
+    count stays replicated)."""
+    if not (isinstance(state, TrainState) and state.zero1 is not None):
+        return [False] * len(nested_leaves(state))
+    opt = [isinstance(x, torch.Tensor) and x.dim() >= 1
+           for x in nested_leaves(state.opt_state)]
+    return ([False] * len(nested_leaves(state.params)) + opt
+            + [False] * (len(nested_leaves(state.step))
+                         + len(nested_leaves(state.zero1))))
+
+
+def global_shapes(state) -> List[Optional[tuple]]:
+    """The shape of every ``nested_leaves`` leaf as the whole world holds
+    it (a ZeRO-1 slice as the ``[n·local]`` vector of every rank's
+    slices), None for a leaf that is no tensor."""
+    geom = getattr(state, "zero1", None)
+    return [None if not isinstance(x, torch.Tensor)
+            else (geom.n * geom.local,) if is_slice else tuple(x.shape)
+            for x, is_slice in zip(nested_leaves(state), _slice_mask(state))]
+
+
+def host_snapshot(state):
+    """A host-RAM copy of a state (any tree of dicts, lists and tuples):
+    every tensor leaf as a CPU tensor, a ZeRO-1 state's moment slices
+    gathered from every rank into the padded flat vector (a collective:
+    every rank calls it). Other leaves stay as they are."""
+    def copy(x, is_slice):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return (dist.all_gather(x) if is_slice else x.detach()).cpu().clone()
+
+    return nested_unflatten(state, [copy(x, s) for x, s in zip(
+        nested_leaves(state), _slice_mask(state))])
+
+
+def reshard_state(host_state, template_state):
+    """Place a host snapshot (``host_snapshot``'s CPU tensors or numpy
+    arrays; a checkpoint's leaves) into ``template_state``'s layout, on its
+    devices and dtypes, possibly at another world size. A ZeRO-1 slice
+    leaf takes its rank's slice of the saved padded vector after
+    ``resize_zero_padded`` to the template's ``n·local`` (a non-zero
+    truncated tail raises); every other leaf must keep its shape. Leaves
+    that are no tensor in the template come from the template. Returns a
+    new state; the template is not changed."""
+    geom = getattr(template_state, "zero1", None)
+
+    def place(h, t, is_slice):
+        if not isinstance(t, torch.Tensor):
+            return t
+        h = (h.detach().cpu() if isinstance(h, torch.Tensor)
+             else torch.from_numpy(np.array(h)))
+        if is_slice:
+            h = torch.from_numpy(resize_zero_padded(
+                h.numpy(), geom.n * geom.local))[geom.mine]
+        if tuple(h.shape) != tuple(t.shape):
+            raise ValueError(f"leaf of shape {tuple(h.shape)} does not fit "
+                             f"the template's {tuple(t.shape)}")
+        return h.to(device=t.device, dtype=t.dtype,
+                    copy=True).requires_grad_(t.requires_grad)
+
+    hs, ts = nested_leaves(host_state), nested_leaves(template_state)
+    if len(hs) != len(ts):
+        raise ValueError(f"snapshot has {len(hs)} leaves, template {len(ts)}")
+    return nested_unflatten(template_state, [
+        place(h, t, s) for h, t, s in zip(hs, ts,
+                                          _slice_mask(template_state))])

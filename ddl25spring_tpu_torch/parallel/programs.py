@@ -1,0 +1,398 @@
+"""Rank programs: what each rank runs in the port's multi-rank checks.
+
+``distributed.run_ranks`` pickles the function a child runs by its import
+path, so the per-rank bodies of the multi-rank tests
+(``tests/test_torch_{dp,zero1,checkpoint}.py``) and of ``chip_smoke.py``
+phase 10 live here, in the port, and a child imports nothing but the port.
+Each takes plain data (numpy trees and batches, config dicts) and its
+``device`` from the launcher, and returns host data: losses, parameters
+and optimizer state as numpy.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import statistics
+import sys
+import time
+
+import torch
+
+from . import distributed as dist
+from . import dp
+from .. import bench_utils, convert
+from ..bench_utils import make_optimizer
+from ..checkpoint import Checkpointer
+from ..config import LlamaConfig, TrainConfig
+from ..device import fp32_products, synchronize
+from ..models import llama
+from ..ops import flash_attention as fa
+from ..ops import pallas_adam as padam
+from ..tokenizers import ByteTokenizer
+from ..train.llm import train_llm_dp
+from ..tree import tree_leaves
+
+
+def gloo_probe(n: int = 26_398_368, *, device) -> dict:
+    """All-reduce and broadcast, on ``device``, an int32 scalar (rank + 1)
+    and an fp32 vector of ``n`` small integers (``i % 7 + rank``), and
+    check every sum exactly; time the vector's all-reduce (median of 5,
+    host clock to a host read). ``n`` defaults to the canonical
+    tiny-Llama's parameter count."""
+    r, w = dist.get_rank(), dist.world_size()
+    scalar = dist.psum(torch.tensor(r + 1, dtype=torch.int32, device=device))
+    base = (torch.arange(n, device=device) % 7).float()
+    summed = dist.psum(base + r)
+    want = base * w + sum(range(w))
+    from_0 = dist.broadcast(base + r, 0)
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        float(dist.psum(base)[-1])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ms.sort()
+    return {"rank": r, "world": w, "device": str(summed.device),
+            "scalar_exact": int(scalar) == w * (w + 1) // 2,
+            "vector_exact": bool(torch.equal(summed, want)),
+            "broadcast_exact": bool(torch.equal(from_0, base)),
+            "elements": n, "allreduce_ms": ms[len(ms) // 2],
+            "route": dist.ROUTE}
+
+
+def _run_case(case: dict, device) -> dict:
+    """One data-parallel run on this rank; see ``dp_cases``."""
+    cfg = LlamaConfig(**case["cfg"])
+    model = convert.params_from_jax(case["params"], cfg, device=device)
+    opt = make_optimizer(case.get("optimizer", "fused"), case.get("lr", 8e-4))
+    r, n = dist.get_rank(), dist.world_size()
+    poison = case.get("poison")        # (rank, call): that loss becomes NaN
+    calls = [0]
+
+    def loss_fn(p, batch):
+        loss = llama.forward_loss(p, batch, cfg)
+        calls[0] += 1
+        if poison is not None and (r, calls[0]) == tuple(poison):
+            loss = loss * float("nan")
+        return loss
+
+    mode, guard = case["mode"], case.get("guard", False)
+    if mode.startswith("zero1"):
+        make = dp.make_zero1_multi_step if mode == "zero1_multi" \
+            else dp.make_zero1_step
+        state, step = make(loss_fn, opt, model.tree(), guard_nonfinite=guard)
+    else:
+        state = dp.init_state(model.tree(), opt)
+        step = {"gradient": lambda: dp.make_grad_aggregation_step(
+                    loss_fn, opt, case.get("accum_steps", 1), guard),
+                "multi": lambda: dp.make_multi_step(
+                    loss_fn, opt, case.get("accum_steps", 1), guard),
+                "weight": lambda: dp.make_weight_aggregation_step(
+                    loss_fn, opt)}[mode]()
+    out = {"rank": r, "losses": [], "grads": None}
+    for batch in case["batches"]:
+        # A global batch [.., n·B, T]: this rank takes its B rows.
+        b = batch.shape[-2] // n
+        local = torch.as_tensor(batch[..., r * b:(r + 1) * b, :],
+                                dtype=torch.long, device=device)
+        if out["grads"] is None and case.get("grads"):
+            loss = loss_fn(state.params, local)
+            g = torch.autograd.grad(loss, tree_leaves(state.params))
+            out["grads"] = [x.cpu().numpy() for x in dist.pmean_tree(list(g))]
+        state, loss = step(state, local)
+        out["losses"] += loss.reshape(-1).tolist()
+    out["params"] = convert.params_to_numpy(state.params)
+    out["opt_state"] = convert.opt_state_to_numpy(state.opt_state)
+    out["step"] = int(state.step)
+    return out
+
+
+def dp_cases(cases, *, device) -> list:
+    """Run each case of ``cases`` on this rank and return one dict per case:
+    ``losses`` (averaged over the ranks), ``params`` and ``opt_state``
+    after the run (numpy; a ZeRO-1 state's moments are this rank's slice),
+    ``step``, and with ``grads`` set, step 1's gradient averaged over the
+    ranks (leaves in ``tree_leaves`` order).
+
+    A case is a dict: ``mode`` ("gradient", "multi", "weight", "zero1" or
+    "zero1_multi"), ``cfg`` (``LlamaConfig`` fields), ``params`` (a JAX
+    ``init_llama`` tree as numpy), ``batches`` (global batches ``[n·B, T]``,
+    or windows ``[K, n·B, T]`` for the K-step modes; rank r takes rows
+    ``[r·B, (r+1)·B)``), and optionally ``optimizer`` (a
+    ``bench_utils.make_optimizer`` name), ``lr``, ``accum_steps``, ``guard``
+    (``guard_nonfinite``), ``poison`` (``(rank, call)``: that rank's loss
+    on that call of the loss function is NaN) and ``grads``."""
+    return [_run_case(case, device) for case in cases]
+
+
+def trainer_calls(calls, *, device) -> list:
+    """``train.llm.train_llm_dp`` inside this rank's group for each
+    ``(model_cfg fields, train_cfg fields, keyword arguments)`` of
+    ``calls``, in order; returns each report's ``losses``, ``steps`` and
+    ``start_step``. ``checkpoint_dir`` in the keywords is shared by the
+    ranks, so one call can resume another's checkpoint."""
+    out = []
+    for mcfg, tcfg, kwargs in calls:
+        rep = train_llm_dp(LlamaConfig(**mcfg), TrainConfig(**tcfg),
+                           tokenizer=ByteTokenizer(), log_every=0,
+                           device=device, **kwargs)
+        out.append({"losses": rep.losses, "steps": rep.steps,
+                    "start_step": rep.start_step,
+                    "resilience": rep.resilience.as_dict()})
+    return out
+
+
+def _zero1_state(cfg: dict, params, device):
+    """A ZeRO-1 state and step of the fused Adam rule at this world, from
+    a JAX-layout numpy tree."""
+    lcfg = LlamaConfig(**cfg)
+    model = convert.params_from_jax(params, lcfg, device=device)
+    return dp.make_zero1_step(
+        lambda p, b: llama.forward_loss(p, b, lcfg), make_optimizer("fused"),
+        model.tree())
+
+
+def _zero1_host(state) -> dict:
+    return {"mu": state.opt_state.mu.cpu().numpy(),
+            "nu": state.opt_state.nu.cpu().numpy(),
+            "count": int(state.opt_state.count), "step": int(state.step),
+            "params": convert.params_to_numpy(state.params)}
+
+
+def zero1_save(directory: str, cfg: dict, params, batches, *,
+               device) -> dict:
+    """ZeRO-1 steps over the global ``batches`` at this world, then a save
+    at the last step's index to ``directory``; returns this rank's moment
+    slices, count, step and parameters."""
+    state, step = _zero1_state(cfg, params, device)
+    n, r = dist.world_size(), dist.get_rank()
+    for batch in batches:
+        b = batch.shape[0] // n
+        state, _ = step(state, torch.as_tensor(batch[r * b:(r + 1) * b],
+                                               dtype=torch.long,
+                                               device=device))
+    Checkpointer(directory).save(len(batches), state)
+    return _zero1_host(state)
+
+
+def zero1_restore(directory: str, cfg: dict, params, *, device) -> dict:
+    """A fresh ZeRO-1 state at this world restored from ``directory``'s
+    newest step; returns ``zero1_save``'s fields, the restored step and the
+    checkpointer's counters."""
+    template, _ = _zero1_state(cfg, params, device)
+    ckpt = Checkpointer(directory)
+    out = _zero1_host(ckpt.restore(template))
+    out.update(restored_step=ckpt.restored_step,
+               stats=ckpt.stats.as_dict(), local=template.zero1.local)
+    return out
+
+
+def collectives(n: int, *, device) -> dict:
+    """``psum``, ``pmean``, ``psum_scatter``, ``all_gather``, ``broadcast``
+    and ``pmean_tree`` on small known inputs (rank r holds ``arange(n) +
+    r``, n divisible by the world), returned as numpy for the caller to
+    hold against the sums it expects."""
+    r = dist.get_rank()
+    x = torch.arange(n, dtype=torch.float32, device=device) + r
+    tree = {"a": x[:2].clone(), "b": [x.to(torch.bfloat16),
+                                      torch.tensor(r, device=device)]}
+    mean_tree = dist.pmean_tree({"a": tree["a"], "b": tree["b"][:1]})
+    to_np = lambda t: t.float().cpu().numpy()
+    return {"psum": to_np(dist.psum(x)), "pmean": to_np(dist.pmean(x)),
+            "psum_scatter": to_np(dist.psum_scatter(x)),
+            "all_gather": to_np(dist.all_gather(x[:2] + 10 * r)),
+            "broadcast": to_np(dist.broadcast(x, 1 % dist.world_size())),
+            "pmean_tree": [to_np(mean_tree["a"]), to_np(mean_tree["b"][0])],
+            "info": dist.process_info()}
+
+
+def loaded_modules(*, device) -> list:
+    """The names in this process's ``sys.modules``."""
+    return sorted(sys.modules)
+
+
+def raise_on(rank: int, *, device) -> None:
+    """Raise on rank ``rank``; the other ranks wait in a collective that the
+    raising rank never joins."""
+    if dist.get_rank() == rank:
+        raise ValueError(f"rank {rank} raises on purpose")
+    dist.barrier(device)
+
+
+def sequence(calls, *, device) -> list:
+    """Several rank programs of this module in one launch: ``calls`` is a
+    list of ``(function name, args)``; returns their results in order."""
+    return [globals()[name](*args, device=device) for name, args in calls]
+
+
+# --------------------------------------------- chip_smoke.py phase 10
+
+def _zero_counts() -> None:
+    fa.launches = fa.dq_launches = fa.dkv_launches = padam.launches = 0
+
+
+def _counts(device, steps: int) -> dict:
+    """Each port kernel's launches in this process since ``_zero_counts``,
+    per step."""
+    synchronize(device)
+    return {"flash_fwd": fa.launches / steps,
+            "flash_bwd_dq": fa.dq_launches / steps,
+            "flash_bwd_dkv": fa.dkv_launches / steps,
+            "adam": padam.launches / steps}
+
+
+def _moment_bytes(opt_state) -> int:
+    return sum(x.numel() * x.element_size()
+               for x in tree_leaves([opt_state.mu, opt_state.nu]))
+
+
+def _digest(params, device) -> torch.Tensor:
+    """The SHA-256 of the parameters' bytes, as 32 int32 values on
+    ``device``."""
+    flat = torch.cat([p.detach().reshape(-1) for p in tree_leaves(params)])
+    h = hashlib.sha256(flat.cpu().numpy().tobytes()).digest()
+    return torch.tensor(list(h), dtype=torch.int32, device=device)
+
+
+def phase10(tokens, directory: str, *, device) -> dict:
+    """``chip_smoke.py`` phase 10 on this rank (every rank of a group of
+    two on one card): a. the gloo probe; b. five gradient-aggregation steps
+    of the canonical model at fp32 on this rank's rows of ``tokens`` ``[5,
+    n·B, T]`` (the first step's averaged loss and gradient, rank 0 returns
+    the gradient); c. ``time_train_step`` at bf16, B = 32 per rank, and the
+    gradient all-reduce alone; d. ZeRO-1 on b's batches; e. three steps of
+    weight aggregation with the parameters' digest broadcast from rank 0;
+    f. the K-step loop at K = 4 against four per-step calls; g.
+    ``train_llm_dp`` at vocab 259 (20 steps; 10 resumed to 20 from a
+    checkpoint in ``directory``; the master-weight optimizer on bf16
+    parameters). Returns the numbers and the per-step launch counts of
+    each part; the caller checks them."""
+    r, n = dist.get_rank(), dist.world_size()
+    out = {"rank": r, "probe": gloo_probe(device=device)}
+    cfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    b = tokens.shape[1] // n
+    local = torch.as_tensor(tokens[:, r * b:(r + 1) * b], dtype=torch.long,
+                            device=device)
+
+    def loss_fn(p, x):
+        return llama.forward_loss(p, x, cfg)
+
+    def fresh():
+        return llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                                device=device).tree()
+
+    def run(step, state, batches, name, **extra):
+        _zero_counts()
+        losses = []
+        for x in batches:
+            state, loss = step(state, x)
+            losses.append(float(loss))
+        out[name] = dict(losses=losses, launches=_counts(device, len(losses)),
+                         moment_bytes=_moment_bytes(state.opt_state), **extra)
+        return state
+
+    with fp32_products():
+        params = fresh()
+        loss = loss_fn(params, local[0])
+        grads = dist.pmean_tree(list(torch.autograd.grad(
+            loss, tree_leaves(params))))
+        out["loss1"] = float(dist.pmean(loss.detach()))
+        if r == 0:
+            out["grads"] = [g.cpu() for g in grads]
+        del grads, loss
+        opt = make_optimizer("pallas")
+        run(dp.make_grad_aggregation_step(loss_fn, opt),
+            dp.init_state(params, opt), local, "gradient")
+        state, step = dp.make_zero1_step(loss_fn, opt, fresh())
+        mine = state.opt_state.mu
+        run(step, state, local, "zero1", local=state.zero1.local,
+            kernel_eligible=padam._pallas_eligible(mine, mine))
+        del state
+        state = dp.init_state(fresh(), opt)
+        step = dp.make_weight_aggregation_step(loss_fn, opt)
+        _zero_counts()
+        losses, same = [], []
+        for x in local[:3]:
+            state, loss = step(state, x)
+            losses.append(float(loss))
+            mine = _digest(state.params, device)
+            same.append(bool(torch.equal(dist.broadcast(mine, 0), mine)))
+        out["weight"] = dict(losses=losses, digests_equal=same,
+                             launches=_counts(device, 3))
+        per = dp.make_grad_aggregation_step(loss_fn, opt)
+        a = dp.init_state(fresh(), opt)
+        la = []
+        for x in local[:4]:
+            a, loss = per(a, x)
+            la.append(loss)
+        k = dp.init_state(fresh(), opt)
+        _zero_counts()
+        k, lk = dp.make_multi_step(loss_fn, opt)(k, local[:4])
+        out["kstep"] = dict(
+            launches=_counts(device, 4),
+            losses_equal=torch.equal(torch.stack(la), lk),
+            params_equal=all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(a.params), tree_leaves(k.params))),
+            moments_equal=all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(a.opt_state.mu), tree_leaves(k.opt_state.mu))))
+        del a, k, state, params
+
+    tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                       flash_dh_major=True, flash_block=512)
+    state, step, batch = bench_utils.build_train_step(
+        tcfg, 32, opt_name="pallas", device=device)
+    bf16_loss = float(step(state, batch)[1])
+    del state, step, batch
+    _zero_counts()
+    tok_s = bench_utils.time_train_step(tcfg, 32, seq=tcfg.ctx_size,
+                                        opt_name="pallas", warmup=2,
+                                        timed_steps=5, device=device)
+    launches = _counts(device, 7)
+    grads = [torch.ones_like(p) for p in tree_leaves(fresh())]
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        float(dist.pmean_tree(grads)[-1].reshape(-1)[-1])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["throughput"] = dict(
+        tokens_per_sec=tok_s, launches=launches, loss=bf16_loss,
+        allreduce_ms=statistics.median(ms), allreduce_ms_all=ms,
+        allreduce_bytes=sum(g.numel() * 4 for g in grads))
+    del grads
+
+    tc = dict(data=n, optimizer="pallas")
+    _zero_counts()
+    full = train_llm_dp(None, TrainConfig(iters=20, **tc), log_every=0,
+                        device=device)
+    launches = _counts(device, 20)
+    ck = os.path.join(directory, "trainer")
+    first = train_llm_dp(None, TrainConfig(iters=10, **tc), log_every=0,
+                         checkpoint_dir=ck, checkpoint_every=10,
+                         device=device)
+    second = train_llm_dp(None, TrainConfig(iters=20, **tc), log_every=0,
+                          checkpoint_dir=ck, checkpoint_every=10,
+                          device=device)
+    resumed = first.losses + second.losses
+    mcfg = LlamaConfig(param_dtype="bfloat16")
+    mdir = os.path.join(directory, "master")
+    master = train_llm_dp(mcfg, TrainConfig(iters=20, data=n,
+                                            optimizer="master"),
+                          log_every=0, checkpoint_dir=mdir,
+                          checkpoint_every=20, device=device)
+    tok = ByteTokenizer()
+    mcfg = mcfg.replace(vocab_size=tok.vocab_size)
+    opt = make_optimizer("master")
+    template = dp.init_state(llama.init_llama(
+        mcfg, torch.Generator().manual_seed(0), device=device).tree(), opt)
+    saved = Checkpointer(mdir).restore(template)
+    out["trainer"] = dict(
+        losses=full.losses, tokens_per_sec=full.tokens_per_sec,
+        launches=launches, resumed_start=second.start_step,
+        resume_max_abs_diff=max(abs(x - y) for x, y in zip(resumed,
+                                                           full.losses)),
+        resumed_len=len(resumed), master_losses=master.losses,
+        master_param_dtypes=sorted({str(x.dtype) for x in
+                                    tree_leaves(saved.params)}),
+        master_dtypes=sorted({str(x.dtype) for x in
+                              tree_leaves(saved.opt_state.master)}))
+    return out

@@ -7,6 +7,11 @@ dicts). Leaves are visited in the order ``jax.tree.leaves`` gives: a
 dict's items in sorted-key order, a list's in index order. So a flat list
 of leaves lines up across the packages and across trees of one
 structure. Any other object (a tensor, a tuple, a number) is a leaf.
+
+``nested_leaves`` / ``nested_unflatten`` also take
+tuples (NamedTuples among them: a ``TrainState``, an optimizer state) as
+nodes, fields in order, as ``jax.tree.leaves`` does: the checkpointer and
+``parallel.dp``'s host snapshots walk whole training states with them.
 """
 
 from __future__ import annotations
@@ -125,3 +130,35 @@ def tree_weighted_fold(trees, weights: torch.Tensor, init: Optional[dict] = None
             lambda a, x: torch.where(w_i != 0, a + w_i.to(a.dtype) * x[i], a),
             acc, trees)
     return acc
+
+
+def nested_leaves(tree) -> List:
+    """``tree_leaves`` with tuples (NamedTuples included) as nodes too."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in nested_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in nested_leaves(t)]
+    return [tree]
+
+
+def nested_unflatten(like, leaves):
+    """A tree of ``like``'s structure (dicts, lists, tuples and
+    NamedTuples) holding ``leaves`` in ``nested_leaves`` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(t) for t in node]
+        if isinstance(node, tuple):
+            items = [build(t) for t in node]
+            return type(node)(*items) if hasattr(node, "_fields") \
+                else tuple(items)
+        return next(it)
+
+    out = build(like)
+    if next(it, it) is not it:
+        raise ValueError("more leaves than the structure holds")
+    return out
+

@@ -14,6 +14,7 @@ from ddl25spring_tpu_torch import bench_utils, convert, fl
 from ddl25spring_tpu_torch.config import FLConfig, LlamaConfig, TrainConfig
 from ddl25spring_tpu_torch.models import generate, llama, mnist_cnn
 from ddl25spring_tpu_torch.ops import pallas_adam
+from ddl25spring_tpu_torch.parallel import distributed, programs
 from ddl25spring_tpu_torch.serving import (Engine, PagedKVConfig, Request,
                                            init_pool, reference_stream,
                                            run_serving)
@@ -68,6 +69,11 @@ def test_the_scan_sees_every_port_module():
                  "ddl25spring_tpu_torch/fl/attacks.py",
                  "ddl25spring_tpu_torch/fl/defenses.py",
                  "ddl25spring_tpu_torch/fl/federated_data.py",
+                 "ddl25spring_tpu_torch/parallel/distributed.py",
+                 "ddl25spring_tpu_torch/parallel/programs.py",
+                 "ddl25spring_tpu_torch/ops/mixed_precision.py",
+                 "ddl25spring_tpu_torch/checkpoint.py",
+                 "ddl25spring_tpu_torch/resilience/retry.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -106,6 +112,9 @@ ENTRY_POINTS = {
         _model(), CFG, PAGED, Request(rid="r", prompt=(1,), max_new=2)),
     "train_llm_dp": lambda: llm.train_llm_dp(
         CFG, TrainConfig(iters=1), tokenizer=ByteTokenizer()),
+    "train_llm_dp data=2": lambda: llm.train_llm_dp(
+        CFG, TrainConfig(iters=1, data=2), tokenizer=ByteTokenizer()),
+    "run_ranks": lambda: distributed.run_ranks(programs.loaded_modules, 2),
     "time_train_step": lambda: bench_utils.time_train_step(CFG, 1),
     "pallas_adam.smoke_check": lambda: pallas_adam.smoke_check(),
     "mnist_cnn.init": lambda: mnist_cnn.init(torch.Generator()),
