@@ -117,6 +117,31 @@ Phases, each of which raises on failure (exit code 1, no result line):
              ``train_llm_dp(data=2)`` at vocab 259 for 20 steps, 10 resumed
              to 20 from a checkpoint (within 1e-6 of the uninterrupted
              run), and ``optimizer="master"`` on bf16 parameters.
+11. serving extensions — at full width on phase 5's pool (129 blocks of
+             16, 8 slots) and workload, no port kernel launched: phase 5's
+             configuration rerun as the baseline, with each dispatch timed
+             between device syncs; a. speculation with a same-weights draft
+             at k = 4 (acceptance, tokens per target dispatch, draft vs
+             verify ms per round, tok/s and TTFT beside the baseline), and
+             5 profiled steps of 8 decoding slots, plain and speculative
+             (kernel ms, busy share); b. an independent 2-layer draft at
+             k = 1 and 4 (acceptance near 0 with random weights); c.
+             ``rejection_accept`` over 4,096 trials on the card (acceptance
+             and emitted distribution within 0.03 of Σ min(p, q) and p); d.
+             copy-on-write over a 128-token prefix: two overlapping
+             requests' peak drops by exactly 8 blocks, 8 requests' peak
+             with and without, and the shared blocks' bytes unchanged
+             across every sharer's prefill; e. gather narrowing (bytes
+             saved, decode ms per dispatch beside the baseline); f. the
+             fleet (``run_serving_fleet``, 1 and 2 engines, both router
+             policies, a two-class workload of 32 requests, per-engine
+             TTFT), a same-weights publish that changes no token, a
+             second-seed publish that changes none before each engine's
+             swap, and the train→deploy conveyor: phase 7's trainer with a
+             ``CheckpointPublisher`` every 5 steps (6/6/6/1 launches per
+             step), a ``WeightPublisher`` rolling step 20 onto a 2-engine
+             vocab-259 fleet, whose parameters then equal the trainer's
+             bitwise. Every greedy stream meets phase 5's bar.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -125,6 +150,7 @@ result when no CUDA device is available or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -1051,6 +1077,506 @@ def dp_phase(dev: torch.device, card: str, world_one_tok_s: float,
     return dp_report
 
 
+# ------------------------------------------------------------- phase 11
+
+# Phase 11 (serving extensions) at phase 5's pool and workload.
+SERVE_PAGED = dict(num_blocks=129, block_len=16, max_blocks_per_seq=16)
+SERVE_WL = dict(seed=0, n_requests=32, rate_rps=50.0,
+                prompt_lens=(16, 64, 192), max_news=(16, 32, 64),
+                temperatures=(0.0, 0.8))
+SERVE_SLOTS = 8
+SPEC_K = 4
+COW_PREFIX_BLOCKS = 8       # a 128-token shared prefix at block_len 16
+TOL_ACCEPT = 0.03           # rejection sampling: rate and distribution
+
+
+@contextlib.contextmanager
+def dispatch_timer(dev: torch.device):
+    """Wall seconds and counts of the engine's dispatches while the block
+    runs, each bracketed by device syncs: prefill chunks (with the draft's
+    mirror), plain decode steps, speculative rounds, and the draft's
+    propose inside them (a round's verify is the round less its
+    propose)."""
+    from ddl25spring_tpu_torch.serving import engine as eng_mod
+    from ddl25spring_tpu_torch.serving import speculate as spec_mod
+
+    acc: dict = {}
+    saved = []
+    for cls, name, key in ((eng_mod.Engine, "_advance_prefill", "prefill"),
+                           (eng_mod.Engine, "_advance_decode", "decode"),
+                           (eng_mod.Engine, "_advance_spec_decode", "round"),
+                           (spec_mod.DraftEngine, "propose", "propose")):
+        fn = getattr(cls, name)
+
+        def timed(self, *a, _fn=fn, _key=key, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = _fn(self, *a, **kw)
+            torch.cuda.synchronize(dev)
+            n, s = acc.get(_key, (0, 0.0))
+            acc[_key] = (n + 1, s + time.perf_counter() - t0)
+            return out
+
+        saved.append((cls, name, fn))
+        setattr(cls, name, timed)
+    try:
+        yield acc
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def _ms_per(acc: dict, key: str) -> float:
+    n, s = acc.get(key, (0, 0.0))
+    return s / n * 1e3 if n else float("nan")
+
+
+def greedy_bar(dev, params, cfg, paged, reqs, tokens_of: dict, refs: dict,
+               what: str) -> tuple:
+    """Phase 5's bar on a served run: every request has ``max_new`` tokens,
+    and every greedy stream equals ``generate()`` for it alone or first
+    differs where the reference's top-2 logit gap is below NEAR_TIE.
+    ``refs`` caches reference streams by (prompt, max_new). Returns
+    (exact, near-tie) counts."""
+    from ddl25spring_tpu_torch.models import llama
+    from ddl25spring_tpu_torch.serving import reference_stream
+
+    plain_cfg = cfg.replace(attention_impl="xla")
+    exact = near = 0
+    for r in reqs:
+        got = tokens_of[r.rid]
+        check(len(got) == r.max_new, f"{what} {r.rid}: {len(got)} tokens, "
+              f"max_new {r.max_new}")
+        if r.temperature > 0:
+            continue
+        key = (tuple(r.prompt), r.max_new)
+        if key not in refs:
+            refs[key] = reference_stream(params, cfg, paged, r, device=dev)
+        ref = refs[key]
+        if got == ref:
+            exact += 1
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
+        seq = torch.tensor([list(r.prompt) + ref[:i]], device=dev)
+        with torch.inference_mode():
+            last = llama.forward(params, seq, plain_cfg)[0, -1]
+        top2 = torch.topk(last, 2).values
+        gap = (top2[0] - top2[1]).item()
+        check(gap < NEAR_TIE, f"{what} {r.rid}: stream differs from "
+              f"generate() at token {i} where the reference's top-2 gap is "
+              f"{gap:.3g}")
+        near += 1
+    return exact, near
+
+
+def serving_ext_phase(dev: torch.device, card: str, model, cfg,
+                      zero_counts, read_counts) -> dict:
+    """Phase 11: speculative decoding (11a same-weights draft, 11b an
+    independent 2-layer draft, 11c rejection sampling), copy-on-write
+    prefix sharing (11d), gather narrowing (11e), the fleet and the
+    train→deploy conveyor (11f), at full width on phase 5's pool, beside a
+    plain rerun of phase 5. Raises on a failed check; returns the numbers
+    for the JSON record."""
+    from ddl25spring_tpu_torch import profile_step
+    from ddl25spring_tpu_torch.config import LlamaConfig, TrainConfig
+    from ddl25spring_tpu_torch.models import llama
+    from ddl25spring_tpu_torch.serving import (
+        CheckpointPublisher, Engine, PagedKVConfig, Request, ServingFleet,
+        SpecConfig, TrafficClass, WeightPublisher, multi_tenant_workload,
+        rejection_accept, run_serving, run_serving_fleet, synthetic_workload)
+    from ddl25spring_tpu_torch.train.llm import train_llm_dp
+    from ddl25spring_tpu_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    paged = PagedKVConfig(**SERVE_PAGED)
+    wl = synthetic_workload(vocab_size=cfg.vocab_size, **SERVE_WL)
+    refs: dict = {}
+    out: dict = {}
+
+    def served(kw, what):
+        zero_counts()
+        with dispatch_timer(dev) as acc:
+            rep = run_serving(model, cfg, paged, wl, num_slots=SERVE_SLOTS,
+                              prefill_chunk=16, device=dev, **kw)
+        counts = read_counts()
+        check(not any(counts.values()), f"{what} launched port kernels: "
+              f"{counts}")
+        check(rep.aggregates["completed"] == len(wl), f"{what}: served "
+              f"{rep.aggregates['completed']} of {len(wl)}")
+        ex, nt = greedy_bar(dev, model, cfg, paged, wl,
+                            {k: r.tokens for k, r in rep.records.items()},
+                            refs, what)
+        agg = rep.aggregates
+        row = {"exact": ex, "near_tie": nt,
+               "tok_s": agg["sustained_tokens_per_sec"],
+               "ttft_p50_ms": agg["ttft_s"]["p50"] * 1e3,
+               "ttft_p99_ms": agg["ttft_s"]["p99"] * 1e3,
+               "tokens_per_dispatch": rep.tokens_per_dispatch,
+               "decode_dispatches": rep.decode_dispatches,
+               "draft_dispatches": rep.draft_dispatches,
+               "acceptance_rate": rep.acceptance_rate,
+               "peak_blocks": rep.peak_blocks_in_use,
+               "gather_bytes": rep.gather_bytes,
+               "gather_bytes_saved": rep.gather_bytes_saved,
+               "ms_per": {k: _ms_per(acc, k) for k in sorted(acc)},
+               "dispatches": {k: acc[k][0] for k in sorted(acc)}}
+        return rep, row
+
+    # Phase 5's configuration again, timed per dispatch: the baseline.
+    _, base = served({}, "plain")
+    print(f"serving ext, plain (phase 5's configuration, rerun): greedy "
+          f"{base['exact']} exact {base['near_tie']} near-tie; "
+          f"{base['tok_s']:.0f} tok/s, TTFT p50 {base['ttft_p50_ms']:.1f} ms "
+          f"p99 {base['ttft_p99_ms']:.1f} ms, tokens per dispatch "
+          f"{base['tokens_per_dispatch']:.2f}, decode "
+          f"{base['ms_per']['decode']:.2f} ms per dispatch, prefill "
+          f"{base['ms_per']['prefill']:.2f} ms per chunk {card}")
+    out["plain"] = base
+
+    # 11a: a same-weights draft, k = 4.
+    _, a = served({"speculate": SpecConfig(k=SPEC_K, draft_params=model)},
+                  "11a")
+    verify_ms = a["ms_per"]["round"] - a["ms_per"]["propose"]
+    print(f"serving ext 11a, same-weights draft k={SPEC_K}: acceptance "
+          f"{a['acceptance_rate']:.4f}; tokens per target dispatch "
+          f"{a['tokens_per_dispatch']:.2f} (plain {base['tokens_per_dispatch']:.2f}); "
+          f"{a['decode_dispatches']} verify and {a['draft_dispatches']} draft "
+          f"dispatches; per round {a['ms_per']['round']:.2f} ms = draft "
+          f"propose ({SPEC_K + 1} dispatches) {a['ms_per']['propose']:.2f} + "
+          f"verify {verify_ms:.2f}; {a['tok_s']:.0f} tok/s (plain "
+          f"{base['tok_s']:.0f}), TTFT p50 {a['ttft_p50_ms']:.1f} ms (plain "
+          f"{base['ttft_p50_ms']:.1f}) p99 {a['ttft_p99_ms']:.1f} ms; greedy "
+          f"{a['exact']} exact {a['near_tie']} near-tie {card}")
+    a["verify_ms"] = verify_ms
+    out["11a"] = a
+
+    # Where a round's time goes: 5 profiled steps of 8 decoding slots.
+    rng = torch.Generator().manual_seed(11)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS, 16),
+                            generator=rng).tolist()
+
+    def profiled(kw):
+        eng = Engine(model, cfg, paged, SERVE_SLOTS, prefill_chunk=16,
+                     device=dev, **kw)
+        for p in prompts:
+            eng.admit(p, paged.max_seq_len - 16)
+        while any(sl.phase == "prefill" for sl in eng.slots):
+            eng.step()
+        eng.step(), eng.step()
+        return profile_step.trace(eng.step, 5)
+
+    prof = {"plain": profiled({}),
+            "narrowed": profiled({"gather_buckets": True}),
+            "spec": profiled({"speculate": SpecConfig(k=SPEC_K,
+                                                      draft_params=model)})}
+    for name, p in prof.items():
+        print(f"serving ext profile, {name} decode of {SERVE_SLOTS} slots: "
+              f"{p['kernel_ms_per_step']:.2f} kernel ms in "
+              f"{p['profiled_wall_ms_per_step']:.2f} ms per step (profiled), "
+              f"busy {p['profiled_busy_share']:.3f}, "
+              f"{p['kernels_per_step']:.0f} kernels per step {card}")
+    out["profile"] = {k: {kk: v[kk] for kk in (
+        "kernel_ms_per_step", "profiled_wall_ms_per_step",
+        "profiled_busy_share", "kernels_per_step", "ms_per_step_by_category")}
+        for k, v in prof.items()}
+
+    # 11b: an independent 2-layer draft of its own seeded weights.
+    dcfg = cfg.replace(n_layers=2)
+    dmodel = llama.init_llama(dcfg, torch.Generator().manual_seed(3),
+                              device=dev)
+    out["11b"] = {}
+    for k in (1, SPEC_K):
+        _, b = served({"speculate": SpecConfig(k=k, draft_params=dmodel,
+                                               draft_cfg=dcfg)}, f"11b k={k}")
+        print(f"serving ext 11b, 2-layer draft k={k}: acceptance "
+              f"{b['acceptance_rate']:.4f}, tokens per target dispatch "
+              f"{b['tokens_per_dispatch']:.2f}, round "
+              f"{b['ms_per']['round']:.2f} ms (propose "
+              f"{b['ms_per']['propose']:.2f}), {b['tok_s']:.0f} tok/s; greedy "
+              f"{b['exact']} exact {b['near_tie']} near-tie {card}")
+        out["11b"][f"k{k}"] = b
+
+    # 11c: rejection sampling on the card, the JAX test's p / q pair.
+    p0 = torch.tensor([0.5, 0.3, 0.15, 0.05], device=dev)
+    q0 = torch.tensor([0.2, 0.5, 0.2, 0.1], device=dev)
+    n = 4096
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    drafts = torch.multinomial(q0, n, replacement=True, generator=g)[:, None]
+    u = torch.rand(n, 4, generator=g, device=dev)
+    acc_n, corr = rejection_accept(u, p0.expand(n, 2, 4), q0.expand(n, 1, 4),
+                                   drafts)
+    rate = acc_n.float().mean().item()
+    analytic = torch.minimum(p0, q0).sum().item()
+    emitted = torch.where(acc_n > 0, drafts[:, 0], corr)
+    emp = (torch.bincount(emitted, minlength=4).float() / n)
+    dist_err = (emp - p0).abs().max().item()
+    check(abs(rate - analytic) < TOL_ACCEPT, f"11c acceptance {rate:.4f} vs "
+          f"analytic {analytic:.4f}")
+    check(dist_err < TOL_ACCEPT, f"11c emitted distribution {emp.tolist()} "
+          f"vs p {p0.tolist()}")
+    print(f"serving ext 11c, rejection sampling on the card ({n} trials): "
+          f"acceptance {rate:.4f} vs sum min(p, q) {analytic:.4f}; emitted "
+          f"distribution {[round(x, 4) for x in emp.tolist()]} vs p "
+          f"{p0.tolist()}, max|d| {dist_err:.4f} (limit {TOL_ACCEPT}) {card}")
+    out["11c"] = {"trials": n, "acceptance": rate, "analytic": analytic,
+                  "dist_max_abs_err": dist_err}
+
+    # 11d: copy-on-write, 8 requests over one 128-token prefix.
+    bl = paged.block_len
+    pre = torch.randint(0, cfg.vocab_size, (COW_PREFIX_BLOCKS * bl,),
+                        generator=rng).tolist()
+    cow = [Request(rid=f"cow-{i}", prompt=tuple(
+        pre + [(7 * i + j) % (cfg.vocab_size - 1) + 1 for j in range(8)]),
+        max_new=16) for i in range(8)]
+
+    def cow_run(share, reqs):
+        """Admit the donor, prefill it, then the rest; returns (tokens,
+        peak, shared blocks' bytes unchanged across every prefill)."""
+        eng = Engine(model, cfg, paged, len(reqs), prefill_chunk=16,
+                     prefix_share=share, device=dev)
+        slot_of = {eng.admit(list(reqs[0].prompt), reqs[0].max_new): reqs[0]}
+        toks = {r.rid: [] for r in reqs}
+
+        def step():
+            for ev in eng.step():
+                toks[slot_of[ev.slot].rid].append(ev.token)
+
+        while eng.slots[0].phase == "prefill":
+            step()
+        blocks = [int(x) for x in eng.tables[0, :COW_PREFIX_BLOCKS]]
+        before = (eng.pool["k"][:, blocks].clone(),
+                  eng.pool["v"][:, blocks].clone())
+        for r in reqs[1:]:
+            slot_of[eng.admit(list(r.prompt), r.max_new)] = r
+        if share:
+            check(all(eng.allocator.refcount(b) == len(reqs) for b in blocks),
+                  f"11d refcounts {[eng.allocator.refcount(b) for b in blocks]}")
+        unchanged = True
+        while any(sl is not None and sl.phase == "prefill"
+                  for sl in eng.slots):
+            step()
+            unchanged &= (torch.equal(before[0], eng.pool["k"][:, blocks])
+                          and torch.equal(before[1], eng.pool["v"][:, blocks]))
+        while eng.busy:
+            step()
+        return toks, eng.allocator.peak_in_use, unchanged
+
+    zero_counts()
+    pair_share = cow_run(True, cow[:2])
+    pair_plain = cow_run(False, cow[:2])
+    all_share = cow_run(True, cow)
+    all_plain = cow_run(False, cow)
+    check(not any(read_counts().values()), "11d launched port kernels")
+    check(pair_share[1] == pair_plain[1] - COW_PREFIX_BLOCKS,
+          f"11d two overlapping requests: peak {pair_share[1]} with sharing, "
+          f"{pair_plain[1]} without (expected {COW_PREFIX_BLOCKS} fewer)")
+    check(pair_share[2] and all_share[2], "11d the shared blocks' bytes "
+          "changed during a sharer's prefill")
+    cow_exact = cow_near = 0
+    for toks, what in ((pair_share[0], "11d pair"), (pair_plain[0],
+                                                     "11d pair plain"),
+                       (all_share[0], "11d eight"), (all_plain[0],
+                                                     "11d eight plain")):
+        reqs = [r for r in cow if r.rid in toks]
+        e, nt = greedy_bar(dev, model, cfg, paged, reqs, toks, refs, what)
+        cow_exact += e
+        cow_near += nt
+    print(f"serving ext 11d, copy-on-write over a {COW_PREFIX_BLOCKS * bl}-"
+          f"token prefix: 2 overlapping requests peak {pair_share[1]} blocks "
+          f"shared vs {pair_plain[1]} ({pair_plain[1] - pair_share[1]} "
+          f"fewer); 8 requests peak {all_share[1]} vs {all_plain[1]}; the "
+          f"shared blocks' bytes unchanged across every sharer's prefill; "
+          f"greedy {cow_exact} exact {cow_near} near-tie {card}")
+    out["11d"] = {"pair_peak": [pair_share[1], pair_plain[1]],
+                  "eight_peak": [all_share[1], all_plain[1]],
+                  "bytes_unchanged": True, "exact": cow_exact,
+                  "near_tie": cow_near}
+
+    # 11e: gather narrowing, in turns with plain runs.
+    turns = {"narrowed": [], "plain": []}
+    for name in ("narrowed", "plain", "plain", "narrowed"):
+        _, r = served({"gather_buckets": name == "narrowed"}, f"11e {name}")
+        turns[name].append(r)
+    e = turns["narrowed"][0]
+    share_saved = e["gather_bytes_saved"] / (e["gather_bytes"]
+                                             + e["gather_bytes_saved"])
+    check(e["gather_bytes_saved"] > 0, "11e saved no gather bytes")
+    dec = {k: [r["ms_per"]["decode"] for r in v] for k, v in turns.items()}
+    tps = {k: [r["tok_s"] for r in v] for k, v in turns.items()}
+    print(f"serving ext 11e, gather narrowing: {e['gather_bytes_saved']} of "
+          f"{e['gather_bytes'] + e['gather_bytes_saved']} KV bytes not "
+          f"gathered ({share_saved:.3f}); in turns (narrowed, plain, plain, "
+          f"narrowed) decode ms per dispatch narrowed "
+          f"{[round(x, 2) for x in dec['narrowed']]} plain "
+          f"{[round(x, 2) for x in dec['plain']]} (phase 5's rerun "
+          f"{base['ms_per']['decode']:.2f}); tok/s narrowed "
+          f"{[round(x) for x in tps['narrowed']]} plain "
+          f"{[round(x) for x in tps['plain']]}; greedy {e['exact']} exact "
+          f"{e['near_tie']} near-tie {card}")
+    out["11e"] = {"share_saved": share_saved,
+                  "gather_bytes": e["gather_bytes"],
+                  "gather_bytes_saved": e["gather_bytes_saved"],
+                  "decode_ms": dec, "tok_s": tps,
+                  "exact": e["exact"], "near_tie": e["near_tie"]}
+
+    # 11f: the fleet over a two-class workload, then the deploy conveyor.
+    classes = (TrafficClass("chat", 40.0, prompt_lens=(16, 64),
+                            max_news=(16, 32), priority=1, ttft_p99_s=1.0),
+               TrafficClass("batch", 10.0, prompt_lens=(64, 192),
+                            max_news=(32, 64), temperatures=(0.0,),
+                            queue_p99_s=5.0))
+    fwl = multi_tenant_workload(seed=5, classes=classes, n_per_class=16,
+                                vocab_size=cfg.vocab_size)
+    out["11f"] = {}
+    zero_counts()
+    for n_eng, policy in ((1, "least_loaded"), (2, "least_loaded"),
+                          (2, "predicted_ttft")):
+        frep = run_serving_fleet(model, cfg, paged, fwl, num_engines=n_eng,
+                                 num_slots=SERVE_SLOTS, prefill_chunk=16,
+                                 policy=policy, device=dev)
+        what = f"11f {n_eng} engines {policy}"
+        check(frep.aggregates["completed"] == len(fwl), f"{what}: served "
+              f"{frep.aggregates['completed']} of {len(fwl)}")
+        ex, nt = greedy_bar(dev, model, cfg, paged, fwl,
+                            {k: r.tokens for k, r in frep.records.items()},
+                            refs, what)
+        per = {eid: {"ttft_p50_ms": agg["ttft_s"]["p50"] * 1e3,
+                     "ttft_p99_ms": agg["ttft_s"]["p99"] * 1e3,
+                     "completed": agg["completed"],
+                     "peak_blocks": agg["peak_blocks_in_use"]}
+               for eid, agg in frep.per_engine.items()}
+        cls = {c: agg["ttft_s"]["p99"] * 1e3
+               for c, agg in frep.per_class.items()}
+        print(f"serving ext {what}: {frep.aggregates['sustained_tokens_per_sec']:.0f} "
+              f"tok/s; per engine TTFT p50/p99 ms "
+              + ", ".join(f"{eid}: {v['ttft_p50_ms']:.1f}/"
+                          f"{v['ttft_p99_ms']:.1f} ({v['completed']} "
+                          f"requests)" for eid, v in per.items())
+              + f"; per class TTFT p99 ms {cls}; greedy {ex} exact {nt} "
+              f"near-tie {card}")
+        out["11f"][f"{n_eng}x{policy}"] = {
+            "tok_s": frep.aggregates["sustained_tokens_per_sec"],
+            "per_engine": per, "per_class_ttft_p99_ms": cls,
+            "exact": ex, "near_tie": nt}
+
+    def drive(params, reqs, tcfg, publish=None, at=6):
+        """Every request submitted at once to 2 engines, ticked to the end;
+        ``publish(fleet)`` fires at tick ``at``. Returns (fleet, tokens
+        each request had when its engine swapped)."""
+        fleet = ServingFleet(params, tcfg, paged, num_engines=2,
+                             num_slots=SERVE_SLOTS, prefill_chunk=16,
+                             device=dev)
+        for r in reqs:
+            fleet.submit(r, now=0.0)
+        prefix, tick = {}, 0
+        while fleet.outstanding or fleet.swap_pending:
+            if publish is not None and tick == at:
+                publish(fleet)
+            eid = fleet.next_swap()
+            if eid is not None:
+                prefix.update({rid: list(rec.tokens) for rid, rec in
+                               fleet.scheds[eid].records.items()})
+            fleet.tick()
+            tick += 1
+        return fleet, prefix
+
+    swl = fwl[:16]
+    base_f, _ = drive(model, swl, cfg)
+    same = tree_map(lambda x: x.detach().clone(), llama.as_tree(model))
+    same_f, same_pre = drive(model, swl, cfg, lambda f: f.publish(
+        same, version="same"))
+    other = llama.init_llama(cfg, torch.Generator().manual_seed(1),
+                             device=dev)
+    new_f, new_pre = drive(model, swl, cfg, lambda f: f.publish(
+        other, version="seed-1"))
+    check(not any(read_counts().values()), "11f fleet launched port kernels")
+    for r in swl:
+        want = base_f.records[r.rid].tokens
+        check(same_f.records[r.rid].tokens == want, f"11f same-weights "
+              f"publish changed {r.rid}")
+        pre = new_pre.get(r.rid, [])
+        check(new_f.records[r.rid].tokens[:len(pre)] == want[:len(pre)]
+              == pre, f"11f second-seed publish changed {r.rid} before its "
+              f"engine's swap")
+    changed = sum(new_f.records[r.rid].tokens != base_f.records[r.rid].tokens
+                  for r in swl)
+    check(changed > 0, "11f second-seed publish changed nothing")
+    n_pre = sum(len(v) for v in new_pre.values())
+    print(f"serving ext 11f publish, 2 engines, {len(swl)} requests: "
+          f"same-weights publish changed 0 tokens; second-seed publish "
+          f"({[d['engine'] for d in new_f.deploys]} swapped in turn) kept "
+          f"all {n_pre} tokens emitted before each engine's swap and changed "
+          f"{changed} streams after it {card}")
+    out["11f"]["publish"] = {"tokens_before_swap": n_pre,
+                             "streams_changed": changed}
+
+    # Deploy: phase 7's trainer publishes every 5 steps; a watcher
+    # publishes its newest step to a 2-engine fleet at vocab 259.
+    final = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pub = CheckpointPublisher(f"{tmp}/publish", log_fn=print)
+
+        def hook(step, state):
+            if step == 20:
+                final["params"] = tree_map(lambda x: x.detach().clone(),
+                                           state.params)
+            pub(step, state)
+
+        zero_counts()
+        t0 = time.perf_counter()
+        trep = train_llm_dp(None, TrainConfig(optimizer="pallas", iters=20),
+                            log_every=0, checkpoint_dir=f"{tmp}/ck",
+                            checkpoint_every=5, on_checkpoint=hook,
+                            device=None)
+        train_s = time.perf_counter() - t0
+        tcounts = {k: v / 20 for k, v in read_counts().items()}
+        check(pub.published == [5, 10, 15, 20], f"deploy: published "
+              f"{pub.published}")
+        check(tcounts == {"flash_fwd": 6, "flash_bwd_dq": 6,
+                          "flash_bwd_dkv": 6, "adam": 1},
+              f"deploy trainer launches per step {tcounts}")
+        tcfg = LlamaConfig().replace(vocab_size=259)
+        boot = llama.init_llama(tcfg, torch.Generator().manual_seed(11),
+                                device=dev)
+        dreq = [Request(rid=f"d{i}", prompt=tuple(
+            torch.randint(0, 259, (24,), generator=rng).tolist()),
+            max_new=24) for i in range(8)]
+        wp = WeightPublisher(f"{tmp}/publish", boot)
+        steps = []
+        zero_counts()
+        dbase, _ = drive(boot, dreq, tcfg)
+        dfleet, dpre = drive(boot, dreq, tcfg,
+                             lambda f: steps.append(wp.publish_to(f)), at=4)
+        check(not any(read_counts().values()), "deploy fleet launched port "
+              "kernels")
+    check(steps == [20], f"deploy: publish_to returned {steps}")
+    flat = tree_leaves(final["params"])
+    bitwise = all(all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(e.params), flat))
+                  for e in dfleet.engines)
+    check(bitwise, "deploy: served parameters differ from the trainer's")
+    for r in dreq:
+        pre = dpre[r.rid]
+        check(dfleet.records[r.rid].tokens[:len(pre)] == pre
+              == dbase.records[r.rid].tokens[:len(pre)], f"deploy: {r.rid} "
+              f"changed before its engine's swap")
+    print(f"serving ext 11f deploy: train_llm_dp (vocab 259, 20 steps, "
+          f"{train_s:.1f} s, loss {trep.losses[0]:.4f} -> "
+          f"{trep.losses[-1]:.4f}, launches per step {tcounts}) published "
+          f"steps {pub.published}; WeightPublisher restored step {steps[0]} "
+          f"and rolled it to 2 engines ({[d['engine'] for d in dfleet.deploys]}); "
+          f"served parameters equal the trainer's bitwise over {len(flat)} "
+          f"leaves; {sum(len(v) for v in dpre.values())} tokens before the "
+          f"swaps unchanged {card}")
+    out["deploy"] = {"published": pub.published, "bitwise": bitwise,
+                     "train_s": train_s, "launches_per_step": tcounts}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"serving ext phase: {out['seconds']:.1f} s, port kernel launches "
+          f"0 outside the deploy trainer {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1611,6 +2137,10 @@ def main() -> int:
     # 10. multi-process data parallelism, two ranks on the card ----------
     dp_report = dp_phase(dev, card, tok_s, step_wall_ms)
 
+    # 11. serving extensions (no port kernel but the deploy trainer's) ---
+    ext_report = serving_ext_phase(dev, card, model, cfg, zero_counts,
+                                   read_counts)
+
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
     path_counts = {"forward (phase 4)": {"flash_fwd": main_launches},
@@ -1619,7 +2149,12 @@ def main() -> int:
                    "fl (phase 8), whole phase": fl_counts,
                    "tabular/vfl/dp/secagg (phase 9)": tab_counts,
                    "train_llm_dp data=2 (phase 10), per rank per step":
-                       dp_report["parts"]["trainer"]["launches"]}
+                       dp_report["parts"]["trainer"]["launches"],
+                   "serving extensions (phase 11), each run":
+                       {"flash_fwd": 0, "flash_bwd_dq": 0,
+                        "flash_bwd_dkv": 0, "adam": 0},
+                   "deploy trainer (phase 11), per step":
+                       ext_report["deploy"]["launches_per_step"]}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1681,7 +2216,7 @@ def main() -> int:
                               "loss_abs_err": loss_err_bf16,
                               "grad_rel_err": grad_err_bf16}},
                       "fl": fl_report, "tabular": tab_report,
-                      "dp": dp_report,
+                      "dp": dp_report, "serving_ext": ext_report,
                       "adam_paired": adam_pairs, "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,9 +4,12 @@ the JAX package's ``serving/frontend.py``.
 ``synthetic_workload`` is a seeded Poisson arrival process over discrete
 prompt/output length and temperature mixtures (the same draws, in the same
 order, as the JAX package's, so one seed gives both packages the same
-requests). ``run_serving`` replays a workload through a fresh engine and
-scheduler in fast-forwarded real time and aggregates per-request latency:
-sustained tok/s and p50/p95/p99 queue wait and TTFT.
+requests). ``multi_tenant_workload`` merges one such stream per
+``TrafficClass`` (its own rate, lengths, admission priority and SLO
+targets), arrival-ordered: the fleet's traffic (``serving/fleet.py``).
+``run_serving`` replays a workload through a fresh engine and scheduler in
+fast-forwarded real time and aggregates per-request latency: sustained
+tok/s and p50/p95/p99 queue wait and TTFT.
 
 The clock is wall time with idle fast-forward: while requests are in
 flight latencies are real; when engine and queue are both empty the clock
@@ -63,6 +66,60 @@ def synthetic_workload(*, seed: int, n_requests: int, rate_rps: float,
     return reqs
 
 
+@dataclass(frozen=True)
+class TrafficClass:
+    """One tenant class of a multi-tenant workload: its Poisson rate,
+    length and temperature mixtures, admission ``priority`` (higher admits
+    first) and optional per-class SLO targets. Counts belong to the
+    ``multi_tenant_workload`` call."""
+    name: str
+    rate_rps: float
+    prompt_lens: Sequence[int] = (8, 16, 48)
+    max_news: Sequence[int] = (8, 16, 32)
+    temperatures: Sequence[float] = (0.0, 0.8)
+    priority: int = 0
+    ttft_p99_s: Optional[float] = None
+    queue_p99_s: Optional[float] = None
+
+
+def multi_tenant_workload(*, seed: int, classes: Sequence[TrafficClass],
+                          n_per_class, vocab_size: int) -> List[Request]:
+    """One seeded Poisson stream per class, merged in arrival order. Class
+    ``i`` draws from seed ``seed + 7919·(i+1)`` (the JAX package's
+    derivation, so both packages give the same requests), so adding a
+    class never changes another's stream; request ids are
+    ``<class>-<i>``, and each request carries its class as ``tenant`` and
+    the class's ``priority``. ``n_per_class`` is an int or a
+    ``{name: count}`` mapping."""
+    reqs: List[Request] = []
+    for idx, cls in enumerate(classes):
+        n = (n_per_class[cls.name] if isinstance(n_per_class, dict)
+             else int(n_per_class))
+        reqs.extend(synthetic_workload(
+            seed=seed + 7919 * (idx + 1), n_requests=n,
+            rate_rps=cls.rate_rps, vocab_size=vocab_size,
+            prompt_lens=cls.prompt_lens, max_news=cls.max_news,
+            temperatures=cls.temperatures, tenant=cls.name,
+            priority=cls.priority, rid_prefix=cls.name))
+    return sorted(reqs, key=lambda r: (r.arrival, r.rid))
+
+
+def class_slos(classes: Sequence[TrafficClass]
+               ) -> Dict[str, Dict[str, float]]:
+    """The per-class SLO table ``{class: {objective: threshold}}``;
+    classes without targets are left out."""
+    out: Dict[str, Dict[str, float]] = {}
+    for cls in classes:
+        limits = {}
+        if cls.ttft_p99_s is not None:
+            limits["ttft_p99_s"] = cls.ttft_p99_s
+        if cls.queue_p99_s is not None:
+            limits["queue_p99_s"] = cls.queue_p99_s
+        if limits:
+            out[cls.name] = limits
+    return out
+
+
 def reference_stream(params, cfg: LlamaConfig, paged: PagedKVConfig,
                      req: Request, *, top_k: Optional[int] = None,
                      top_p: Optional[float] = None, device=None) -> List[int]:
@@ -113,11 +170,26 @@ class ServingReport:
     naive_bytes_at_peak: int = 0
     peak_concurrency: int = 0
     requests: List[Request] = field(default_factory=list)
-    # Decode dispatches, the tokens they emitted, and their ratio (≈ the
-    # average decode batch).
+    # The JAX package counts the compiles and retraces of the engine's
+    # programs here. Eager PyTorch traces and compiles nothing, so both
+    # stay 0; counting CUDA-graph captures belongs to the introspection
+    # port (ROADMAP.md, queue A item 9).
+    compiles: int = 0
+    retraces: int = 0
+    # Target decode dispatches (verify dispatches when speculating), the
+    # tokens they emitted and their ratio (≈ the average decode batch,
+    # times accepted + 1 with speculation), and the draft's dispatches.
     decode_dispatches: int = 0
     decode_tokens: int = 0
+    draft_dispatches: int = 0
     tokens_per_dispatch: Optional[float] = None
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    acceptance_rate: Optional[float] = None
+    # KV bytes the decode and verify gathers walked, and the bytes a
+    # full-width walk would have added (gather_buckets).
+    gather_bytes: int = 0
+    gather_bytes_saved: int = 0
 
 
 def aggregate_latency(records: Dict[str, RequestRecord],
@@ -159,13 +231,17 @@ def run_serving(params, cfg: LlamaConfig, paged: PagedKVConfig,
                 prefill_chunk: int = 16, top_k: Optional[int] = None,
                 top_p: Optional[float] = None,
                 events: Optional[EventLog] = None,
-                token_events: bool = True, speculate=None, prefix_share: bool = False,
-                gather_buckets: bool = False, device=None) -> ServingReport:
+                token_events: bool = True, speculate=None,
+                prefix_share: bool = False, gather_buckets: bool = False,
+                device=None) -> ServingReport:
     """Replay ``workload`` (arrival offsets in seconds) through a fresh
     engine + scheduler on ``device`` (default CUDA); returns per-request
     records and the aggregate row. Every request is retired on return:
-    reservation-based admission cannot deadlock. ``speculate``,
-    ``prefix_share`` and ``gather_buckets`` are not ported yet and raise."""
+    reservation-based admission cannot deadlock. ``speculate`` (a
+    ``SpecConfig``) turns on draft-propose / one-dispatch-verify decoding,
+    ``prefix_share`` maps identical full-block prompt prefixes
+    copy-on-write, ``gather_buckets`` narrows the decode gather to
+    bucketed live-block counts."""
     engine = Engine(params, cfg, paged, num_slots,
                     prefill_chunk=prefill_chunk, top_k=top_k, top_p=top_p,
                     speculate=speculate, prefix_share=prefix_share,
@@ -187,6 +263,8 @@ def run_serving(params, cfg: LlamaConfig, paged: PagedKVConfig,
         sched.tick()
         busy_s += clock.now() - now
     peak_conc = sched.peak_in_flight
+    spec_prop = sum(e["proposed"] for e in sched.spec_rounds)
+    spec_acc = sum(e["accepted"] for e in sched.spec_rounds)
     return ServingReport(
         records=sched.records,
         aggregates=aggregate_latency(sched.records, busy_span_s=busy_s),
@@ -200,5 +278,10 @@ def run_serving(params, cfg: LlamaConfig, paged: PagedKVConfig,
         requests=list(workload),
         decode_dispatches=engine.decode_dispatches,
         decode_tokens=engine.decode_tokens,
+        draft_dispatches=engine.draft_dispatches,
         tokens_per_dispatch=(engine.decode_tokens / engine.decode_dispatches
-                             if engine.decode_dispatches else None))
+                             if engine.decode_dispatches else None),
+        spec_proposed=spec_prop, spec_accepted=spec_acc,
+        acceptance_rate=spec_acc / spec_prop if spec_prop else None,
+        gather_bytes=engine.gather_bytes,
+        gather_bytes_saved=engine.gather_bytes_saved)

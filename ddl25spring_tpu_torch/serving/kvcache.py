@@ -124,6 +124,31 @@ class BlockAllocator:
     def refcount(self, block: int) -> int:
         return self._refs.get(block, 0)
 
+    def fragmentation(self) -> dict:
+        """Free-list census: ``holes`` is the number of maximal runs of
+        consecutive free indices, ``largest_run`` the longest (0 and 0 for
+        an empty free list; one hole of ``capacity`` for an empty pool)."""
+        if not self._free:
+            return {"holes": 0, "largest_run": 0}
+        holes, run, largest = 1, 1, 1
+        ordered = sorted(self._free)
+        for prev, cur in zip(ordered, ordered[1:]):
+            if cur == prev + 1:
+                run += 1
+            else:
+                holes += 1
+                run = 1
+            largest = max(largest, run)
+        return {"holes": holes, "largest_run": largest}
+
+    @property
+    def holes(self) -> int:
+        return self.fragmentation()["holes"]
+
+    @property
+    def largest_run(self) -> int:
+        return self.fragmentation()["largest_run"]
+
     def alloc(self, n: int) -> Optional[List[int]]:
         """``n`` blocks, or None if the pool cannot cover them."""
         if n < 0:

@@ -19,7 +19,9 @@ slot or company.
 Telemetry: each lifecycle edge emits a ``request_*`` event, and each
 request is one trace (``request`` root span with ``queue`` → ``prefill``
 (per-chunk ``prefill_chunk`` children) → ``decode`` → ``retire``), on the
-scheduler's own clock.
+scheduler's own clock. In a fleet every event and span carries the
+``engine`` it ran on; a weight swap emits a ``deploy`` event and span, and
+each speculative round a ``speculate`` event.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ class RequestRecord:
     max_new: int
     blocks: int = 0
     tenant: str = "default"
+    engine: Optional[int] = None   # fleet: the engine that served it
     enqueue_t: Optional[float] = None
     admit_t: Optional[float] = None
     first_token_t: Optional[float] = None
@@ -102,15 +105,30 @@ class Scheduler:
     def __init__(self, engine: Engine, *, events: Optional[EventLog] = None,
                  token_events: bool = True,
                  clock: Callable[[], float] = time.monotonic,
-                 admission: str = "fcfs"):
+                 engine_id: Optional[int] = None,
+                 admission: str = "fcfs", memory_every: int = 0):
         if admission not in ("fcfs", "sjf"):
             raise ValueError(f"admission must be 'fcfs' or 'sjf' "
                              f"(got {admission!r})")
+        if memory_every > 0:
+            raise NotImplementedError(
+                "memory_every: the memory census (telemetry/memory) is not "
+                "ported yet; ROADMAP.md, queue A item 9")
         self.engine = engine
         self.events = events
         self.token_events = token_events
         self.clock = clock
         self.policy = admission
+        # Every event and span is tagged with the engine this scheduler
+        # fronts, so a fleet's stream can be grouped per engine.
+        self.engine_id = (engine_id if engine_id is not None
+                          else getattr(engine, "engine_id", None))
+        self._tag = ({"engine": self.engine_id}
+                     if self.engine_id is not None else {})
+        # (done_t, ttft_s) per completion, drained by the fleet's router.
+        self.recent_done: List[Tuple[float, Optional[float]]] = []
+        # engine.last_spec per speculative round, with or without events.
+        self.spec_rounds: List[dict] = []
         self.tracer = (Tracer(events,
                               clock_ns=lambda: int(self.clock() * 1e9))
                        if events is not None else None)
@@ -141,16 +159,17 @@ class Scheduler:
         self.queue.append(req)
         self.records[req.rid] = RequestRecord(
             rid=req.rid, prompt_len=len(req.prompt), max_new=req.max_new,
-            blocks=need, tenant=req.tenant, enqueue_t=now)
+            blocks=need, tenant=req.tenant, engine=self.engine_id,
+            enqueue_t=now)
         if self.events:
             self.events.request_enqueue(
                 req=req.rid, prompt_len=len(req.prompt), max_new=req.max_new,
                 temperature=req.temperature, queued=len(self.queue),
-                tenant=req.tenant, priority=req.priority)
+                tenant=req.tenant, priority=req.priority, **self._tag)
         if self.tracer:
             root = self.tracer.start("request", trace=req.rid,
                                      prompt_len=len(req.prompt),
-                                     max_new=req.max_new)
+                                     max_new=req.max_new, **self._tag)
             self._spans[req.rid] = {
                 "root": root,
                 "queue": self.tracer.start("queue", parent=root.ctx)}
@@ -183,10 +202,13 @@ class Scheduler:
         for span in chunk_spans:
             span.end()
         eos_retired: set = set()
+        eos_dropped = 0
         for ev in events:
             if ev.slot in eos_retired:
                 # The slot EOS-retired earlier in this tick (a final prefill
-                # token and a decode token in one step): drop what follows.
+                # token and a decode token in one step, or an EOS inside a
+                # verify window): drop what follows.
+                eos_dropped += 1
                 continue
             req = self._by_slot[ev.slot]
             rec = self.records[req.rid]
@@ -200,18 +222,33 @@ class Scheduler:
                         "decode", parent=spans["root"].ctx, slot=ev.slot)
             if self.events and self.token_events:
                 self.events.request_token(req=req.rid, i=len(rec.tokens) - 1,
-                                          tok=ev.token, slot=ev.slot)
+                                          tok=ev.token, slot=ev.slot,
+                                          **self._tag)
             done = ev.done
             early_eos = False
             if not done and req.eos_id is not None and ev.token == req.eos_id:
                 # The request is finished at this boundary: its whole
-                # reservation returns to the pool now.
-                self.engine.retire(ev.slot)
+                # reservation returns to the pool now. A verify window can
+                # emit the EOS and reach max_new in one step, and then the
+                # engine has already retired the slot.
+                if self.engine.slots[ev.slot] is not None:
+                    self.engine.retire(ev.slot)
                 eos_retired.add(ev.slot)
                 done = early_eos = True
             if done:
                 self._finish(req, rec, ev.slot, now, early_eos)
             emitted.append((req.rid, ev.token))
+        if self.engine.last_spec is not None:
+            # One ``speculate`` event per verify dispatch, counting the
+            # tokens delivered: a window's tail after an EOS is dropped.
+            spec = self.engine.last_spec
+            if eos_dropped:
+                spec = {**spec, "emitted": spec["emitted"] - eos_dropped}
+            self.spec_rounds.append(spec)
+            if self.events:
+                self.events.speculate(**spec, **self._tag)
+        if eos_dropped:
+            self.engine.decode_tokens -= eos_dropped
         return emitted
 
     def _finish(self, req: Request, rec: RequestRecord, slot: int,
@@ -219,6 +256,7 @@ class Scheduler:
         rec.done_t = now
         del self._by_slot[slot]
         self.completed += 1
+        self.recent_done.append((now, rec.ttft_s))
         eos = {"eos": True} if early_eos else {}
         if self.tracer:
             spans = self._spans.pop(req.rid)
@@ -233,7 +271,26 @@ class Scheduler:
                 queue_wait_s=rec.queue_wait_s, ttft_s=rec.ttft_s,
                 tokens_per_sec=rec.tokens_per_sec, blocks_freed=rec.blocks,
                 blocks_in_use=self.engine.blocks_in_use(), tenant=req.tenant,
-                **eos)
+                **self._tag, **eos)
+
+    # ---------------------------------------------------------- weight swap
+    def swap_weights(self, params, version, *, fused=None) -> None:
+        """Hot-swap the engine's weights at the current token boundary
+        (between ``tick()`` calls; with speculation, a verify boundary)
+        without touching queued or in-flight requests, and emit a
+        ``deploy`` event and span with the publication ``version`` and how
+        many streams crossed the swap live."""
+        span = (self.tracer.start("deploy", trace=f"deploy-{version}",
+                                  version=version,
+                                  in_flight=len(self._by_slot),
+                                  queued=len(self.queue), **self._tag)
+                if self.tracer else None)
+        self.engine.swap_params(params, fused=fused)
+        if span is not None:
+            span.end()
+        if self.events:
+            self.events.deploy(version=version, in_flight=len(self._by_slot),
+                               queued=len(self.queue), **self._tag)
 
     # -------------------------------------------------------------- admission
     def _pick_admittable(self) -> Optional[int]:
@@ -241,12 +298,14 @@ class Scheduler:
         top = max(r.priority for r in self.queue)
         group = [i for i, r in enumerate(self.queue) if r.priority == top]
         head = self.queue[group[0]]
-        if self.engine.can_admit(len(head.prompt), head.max_new):
+        if self.engine.can_admit(len(head.prompt), head.max_new,
+                                 prompt=head.prompt):
             return group[0]
         if self.policy == "sjf" and self.engine.free_slot() is not None:
             fitting = [i for i in group
                        if self.engine.can_admit(len(self.queue[i].prompt),
-                                                self.queue[i].max_new)]
+                                                self.queue[i].max_new,
+                                                prompt=self.queue[i].prompt)]
             if fitting:
                 return min(fitting,
                            key=lambda i: (self.records[self.queue[i].rid]
@@ -282,4 +341,4 @@ class Scheduler:
                 self.events.request_prefill(
                     req=head.rid, slot=slot, blocks=rec.blocks,
                     queue_wait_s=rec.queue_wait_s,
-                    blocks_in_use=self.engine.blocks_in_use())
+                    blocks_in_use=self.engine.blocks_in_use(), **self._tag)

@@ -1,6 +1,7 @@
 """Append-only JSONL event stream: the port's copy of the JAX package's
-``telemetry/events.py``, trimmed to what the serving scheduler emits
-(``request_*`` lifecycle events and closed trace ``span``s).
+``telemetry/events.py``, trimmed to what the serving layer emits
+(``request_*`` lifecycle events, closed trace ``span``s, and the fleet's
+``route``, ``deploy`` and ``speculate`` events).
 
 The stream format is the reference's, at the same schema version, so the
 JAX package's readers and validators read the port's streams unchanged:
@@ -89,6 +90,20 @@ class EventLog:
             fields["parent_span_id"] = parent_span_id
         return self.emit("span", name=name, trace_id=trace_id,
                          span_id=span_id, start_ns=start_ns, dur_ns=dur_ns,
+                         **fields)
+
+    # Serving fleet (schema v6): one ``route`` per dispatch decision, one
+    # ``deploy`` per engine weight swap.
+    def route(self, *, req: str, engine: int, **fields) -> Dict[str, Any]:
+        return self.emit("route", req=req, engine=engine, **fields)
+
+    def deploy(self, *, version, **fields) -> Dict[str, Any]:
+        return self.emit("deploy", version=version, **fields)
+
+    # Speculative decoding (schema v7): one per verify dispatch.
+    def speculate(self, *, proposed: int, accepted: int,
+                  **fields) -> Dict[str, Any]:
+        return self.emit("speculate", proposed=proposed, accepted=accepted,
                          **fields)
 
     def close(self) -> None:

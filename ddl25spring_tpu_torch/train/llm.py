@@ -12,9 +12,10 @@ and throughput accounting (all ranks' tokens, timed after
 group (``parallel.distributed``): a call from a plain process starts them
 and returns rank 0's report; a call inside a group uses that group. The
 rest of the JAX trainer (hierarchical DP, compressed and overlapped
-collectives, resilience, elastic mode, telemetry, numerics, checkpoint
-publication, remat) raises ``NotImplementedError`` naming its ROADMAP.md
-entry.
+collectives, resilience, elastic mode, telemetry, numerics, remat) raises
+``NotImplementedError`` naming its ROADMAP.md entry. ``on_checkpoint`` is
+the checkpoint publication hook of the train→deploy conveyor
+(``serving/deploy.py``).
 """
 
 from __future__ import annotations
@@ -143,12 +144,25 @@ def _setup_checkpoint(checkpoint_dir: Optional[str], state, iters: int,
     return ckpt, state, start_step, False
 
 
+def _notify_checkpoint(hook, step: int, state, log_fn) -> None:
+    """Call the publication hook after a successful save with the step and
+    the live state, so a serving fleet can take the weights while training
+    goes on. A hook that raises loses that publication, never the run."""
+    if hook is None:
+        return
+    try:
+        hook(step, state)
+    except Exception as e:
+        log_fn(f"checkpoint publication hook at step {step} failed "
+               f"({type(e).__name__}: {e}); continuing")
+
+
 def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
               to_device: Callable, *, n_data: int, start_step: int, ckpt,
               checkpoint_every: int, loss_sink, sink_every: int,
               log_every: int, log_fn, warmup_steps_excluded: int,
-              stats: ResilienceStats,
-              steps_per_dispatch: int = 1) -> LLMTrainReport:
+              stats: ResilienceStats, steps_per_dispatch: int = 1,
+              on_checkpoint=None) -> LLMTrainReport:
     """The training loop. Iterations before ``start_step`` (a resume) only
     consume their batches, so the data order is an uninterrupted run's.
 
@@ -164,7 +178,8 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
     next chunk's is staged on the host while the device runs this one, and
     the step returns the ``[k]`` losses; warmup, sink flushes and
     checkpoints fall on chunk edges (a checkpoint at the first edge at or
-    after each ``checkpoint_every`` boundary)."""
+    after each ``checkpoint_every`` boundary). ``on_checkpoint(step,
+    state)`` follows every save that succeeded."""
     report = LLMTrainReport(start_step=start_step, resilience=stats)
     tokens_per_step = n_data * train_cfg.batch_size * train_cfg.seq_len
     shape = (train_cfg.batch_size, train_cfg.seq_len)
@@ -193,6 +208,8 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
         except OSError as e:
             log_fn(f"periodic checkpoint at {at} failed after retries "
                    f"({type(e).__name__}: {e}); continuing")
+            return
+        _notify_checkpoint(on_checkpoint, at, state, log_fn)
 
     K = steps_per_dispatch
     if K <= 1:
@@ -252,6 +269,7 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
     if ckpt is not None:
         if train_cfg.iters != last_saved:
             ckpt.save(train_cfg.iters, state, overwrite=True)
+            _notify_checkpoint(on_checkpoint, train_cfg.iters, state, log_fn)
         ckpt.close()
     _flush_losses()
     report.steps = train_cfg.iters - start_step
@@ -331,17 +349,19 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
     ``checkpoint_dir``: restore the newest valid step there and skip the
     iterations it covers, save every ``checkpoint_every`` steps and at the
     end. ``loss_sink(it, loss)`` fires every ``sink_every`` iterations
-    (and at the last) with the host loss. ``resilience``, ``fault_plan``,
-    ``telemetry``, ``on_checkpoint``, ``scale_hook`` and the
-    ``TrainConfig`` fields ``unsupported_train_fields`` names raise
-    ``NotImplementedError`` naming ROADMAP.md."""
+    (and at the last) with the host loss. ``on_checkpoint(step, state)``
+    runs after every successful save (periodic and final; on every rank of
+    a group), e.g. ``serving.CheckpointPublisher``; a hook that raises is
+    logged and training goes on. ``resilience``, ``fault_plan``,
+    ``telemetry``, ``scale_hook`` and the ``TrainConfig`` fields
+    ``unsupported_train_fields`` names raise ``NotImplementedError``
+    naming ROADMAP.md."""
     train_cfg = train_cfg or TrainConfig()
     queued = unsupported_train_fields(train_cfg)
     for name, val, where in (
             ("resilience", resilience, "queue A item 9"),
             ("fault_plan", fault_plan, "queue A item 9"),
             ("telemetry", telemetry, "queue A item 9"),
-            ("on_checkpoint", on_checkpoint, "queue A item 7"),
             ("scale_hook", scale_hook, "queue A item 9")):
         if val is not None:
             queued.append(f"{name} ({where})")
@@ -358,7 +378,7 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
                       warmup_steps_excluded=warmup_steps_excluded,
                       checkpoint_dir=checkpoint_dir,
                       checkpoint_every=checkpoint_every, loss_sink=loss_sink,
-                      sink_every=sink_every)
+                      sink_every=sink_every, on_checkpoint=on_checkpoint)
         return dist.run_ranks(_train_rank, train_cfg.data, model_cfg,
                               train_cfg, kwargs, device=device)[0]
     n_data = dist.world_size()
@@ -408,4 +428,4 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
         checkpoint_every=checkpoint_every, loss_sink=loss_sink,
         sink_every=sink_every, log_every=log_every, log_fn=log_fn,
         warmup_steps_excluded=warmup_steps_excluded, stats=stats,
-        steps_per_dispatch=spd)
+        steps_per_dispatch=spd, on_checkpoint=on_checkpoint)

@@ -16,8 +16,9 @@ from ddl25spring_tpu_torch.models import generate, llama, mnist_cnn
 from ddl25spring_tpu_torch.ops import pallas_adam
 from ddl25spring_tpu_torch.parallel import distributed, programs
 from ddl25spring_tpu_torch.serving import (Engine, PagedKVConfig, Request,
+                                           ServingFleet, SpecConfig,
                                            init_pool, reference_stream,
-                                           run_serving)
+                                           run_serving, run_serving_fleet)
 from ddl25spring_tpu_torch.tokenizers import ByteTokenizer
 from ddl25spring_tpu_torch.train import llm
 
@@ -74,6 +75,9 @@ def test_the_scan_sees_every_port_module():
                  "ddl25spring_tpu_torch/ops/mixed_precision.py",
                  "ddl25spring_tpu_torch/checkpoint.py",
                  "ddl25spring_tpu_torch/resilience/retry.py",
+                 "ddl25spring_tpu_torch/serving/speculate.py",
+                 "ddl25spring_tpu_torch/serving/fleet.py",
+                 "ddl25spring_tpu_torch/serving/deploy.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -108,6 +112,13 @@ ENTRY_POINTS = {
     "init_pool": lambda: init_pool(CFG, PAGED),
     "Engine": lambda: Engine(_model(), CFG, PAGED, 1),
     "run_serving": lambda: run_serving(_model(), CFG, PAGED, [], num_slots=1),
+    "Engine speculate": lambda: Engine(
+        _model(), CFG, PAGED, 1,
+        speculate=SpecConfig(k=2, draft_params=_model())),
+    "ServingFleet": lambda: ServingFleet(_model(), CFG, PAGED, num_engines=2,
+                                         num_slots=1),
+    "run_serving_fleet": lambda: run_serving_fleet(
+        _model(), CFG, PAGED, [], num_engines=2, num_slots=1),
     "reference_stream": lambda: reference_stream(
         _model(), CFG, PAGED, Request(rid="r", prompt=(1,), max_new=2)),
     "train_llm_dp": lambda: llm.train_llm_dp(

@@ -144,14 +144,6 @@ def test_engine_rejects_what_it_cannot_serve(pair):
         sched.submit(Request(rid="x", prompt=tuple(range(20)), max_new=60))
 
 
-@pytest.mark.parametrize("option", [dict(speculate=object()),
-                                    dict(prefix_share=True),
-                                    dict(gather_buckets=True)])
-def test_unported_engine_options_raise(pair, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(pair[2], CFG, PAGED, 2, device="cpu", **option)
-
-
 def test_prefill_is_fcfs_by_admission_not_slot_index(pair):
     eng = Engine(pair[2], CFG, PAGED, 2, prefill_chunk=2, device="cpu")
     eng.admit(np.arange(2), 1)                      # slot 0, retires at once
