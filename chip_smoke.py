@@ -142,6 +142,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
              step), a ``WeightPublisher`` rolling step 20 onto a 2-engine
              vocab-259 fleet, whose parameters then equal the trainer's
              bitwise. Every greedy stream meets phase 5's bar.
+12. resilience and telemetry — at full width (phase 7's trainer: the
+             canonical dims, byte tokenizer, vocab 259, batch 3 x 256,
+             optimizer pallas): a. 10 guarded fault-free steps bitwise the
+             unguarded run, 6/6/6/1 launches per step, and
+             ``measure_overhead``'s guard tax at phase 6's shape; b.
+             ``nan_grad@3,nan_grad@7:4,spike_grad@12:100`` under the
+             guard: 2 skipped, 1 anomaly, the rest finite, the step-7 fault
+             event and its flight-recorder bundle naming leaf #4
+             (``blocks/w_gate``); c. three NaN steps roll back to the step-5
+             checkpoint bitwise; d. ``preempt@8`` force-saves, and a second
+             call completes to the uninterrupted losses (1e-6); e. b's run
+             observed (``Telemetry``, ``numerics_every=5``): every event
+             valid, no orphan span, the comm profile (0 wire bytes at world
+             1; phase 10's data=2 step 105.6 MB of fp32 gradient), the
+             preflight's state bytes equal to the live state's beside the
+             measured peak, a numerics grad norm against a recomputation
+             (1e-5); f. ``remat=True`` at vocab 32000, B=64 x 256, bf16:
+             loss and gradients against ``remat=False`` (bitwise, else the
+             bf16 limits), flash forward 12 launches per step (dQ 6, dK/dV
+             6, Adam 1), both peaks and rates; g. phase 5's workload queued
+             at once with ``memory_every=4``: memory events, streams bitwise
+             those without, compiles 2 and retraces 0; 2 FedAvg rounds at
+             phase 8's configuration with ``drop_client@0:2`` and
+             telemetry: 2 ``fl_round`` events, card vs CPU within 1e-4.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -153,7 +177,9 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -316,14 +342,6 @@ def attention_bwd_bound_us(b, t, h, dh, dtype, causal, which) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
     t_ops = flops / PEAK_FLOPS[dtype] * 1e6
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-
-
-def train_flops_per_token(cfg, seq: int) -> float:
-    """bench.py's analytic FLOPs per token of one train step (fwd + bwd =
-    3x the forward's matmuls; attention 4·T·d per layer)."""
-    d, f, n, v = cfg.dmodel, cfg.ffn_dim, cfg.n_layers, cfg.vocab_size
-    per_layer = 8 * d * d + 6 * d * f + 4 * seq * d
-    return 3.0 * (n * per_layer + 2 * d * v)
 
 
 def fl_phase(dev: torch.device, card: str) -> tuple:
@@ -1064,6 +1082,7 @@ def dp_phase(dev: torch.device, card: str, world_one_tok_s: float,
           f"{tr['master_losses'][-1]:.4f} {card}")
     print(f"dp phase: {dp_s:.1f} s {card}")
     dp_report = {"seconds": dp_s, "route": distributed.ROUTE,
+                 "comm": r0["comm"],
                  "probe": [rk["probe"] for rk in ranks],
                  "fp32_loss_abs_err": dp_loss_err,
                  "fp32_grad_rel_err": dp_grad_err,
@@ -1577,6 +1596,418 @@ def serving_ext_phase(dev: torch.device, card: str, model, cfg,
     return out
 
 
+# ------------------------------------------------------------- phase 12
+
+# Phase 12 (resilience and telemetry): the faults b injects, and the limits.
+FAULTS_B = "nan_grad@3,nan_grad@7:4,spike_grad@12:100"
+# ``leaf_paths`` of the trainer's parameter tree at index 3 (1-based leaf
+# #4): the string the JAX package's ``leaf_paths`` gives for that tree
+# (tests/test_torch_telemetry.py holds the two equal).
+LEAF_4 = "blocks/w_gate"
+TOL_NUMERICS = 1e-5       # a numerics event's grad norm vs a recomputation
+
+
+def resilience_phase(dev: torch.device, card: str, zero_counts, read_counts,
+                     model, cfg, dp_report: dict, mnist_arrays) -> dict:
+    """Phase 12: the guarded, fault-injected, preemptible and observed
+    trainer at full width (12a-e), rematerialized blocks (12f), the serving
+    memory census and compile counts and a faulted, observed FL run (12g).
+    Raises on a failed check; returns the numbers for the JSON record."""
+    from ddl25spring_tpu_torch import bench_utils, fl
+    from ddl25spring_tpu_torch.checkpoint import Checkpointer
+    from ddl25spring_tpu_torch.config import (FLConfig, LlamaConfig,
+                                              ResilienceConfig, TrainConfig)
+    from ddl25spring_tpu_torch.data import mnist
+    from ddl25spring_tpu_torch.data.tokens import shard_batches
+    from ddl25spring_tpu_torch.models import llama, mnist_cnn
+    from ddl25spring_tpu_torch.parallel import dp
+    from ddl25spring_tpu_torch.resilience import FaultPlan, measure_overhead
+    from ddl25spring_tpu_torch.serving import (Engine, PagedKVConfig,
+                                               Scheduler, synthetic_workload)
+    from ddl25spring_tpu_torch.telemetry import (EventLog, Telemetry,
+                                                 read_events, trace_trees,
+                                                 tree_check, validate_event)
+    from ddl25spring_tpu_torch.telemetry.introspect import (find_bundles,
+                                                            leaf_paths,
+                                                            load_bundle)
+    from ddl25spring_tpu_torch.telemetry.memory import tree_state_bytes
+    from ddl25spring_tpu_torch.tokenizers import load_tokenizer
+    from ddl25spring_tpu_torch.train.llm import train_llm_dp
+    from ddl25spring_tpu_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-12-")
+    kw = dict(log_every=0, device=None)
+    tc10 = TrainConfig(optimizer="pallas", iters=10)
+    want = {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+            "adam": 1}
+
+    # 12a: a fault-free run is bitwise the unguarded one; the guard tax.
+    plain = train_llm_dp(None, tc10, **kw)
+    zero_counts()
+    guarded = train_llm_dp(None, tc10, resilience=ResilienceConfig(), **kw)
+    gper = {k: n / tc10.iters for k, n in read_counts().items()}
+    check(guarded.losses == plain.losses, f"guarded fault-free losses "
+          f"{guarded.losses} differ from unguarded {plain.losses}")
+    check(not any(guarded.resilience.as_dict().values()),
+          f"guarded fault-free run counted {guarded.resilience}")
+    check(gper == want, f"guarded trainer launches per step {gper}, "
+          f"expected {want}")
+    tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                       flash_dh_major=True, flash_block=512)
+
+    def make_state_and_step():
+        state, step, _ = bench_utils.build_train_step(tcfg, 64,
+                                                      opt_name="pallas",
+                                                      device=dev)
+        return state, step
+
+    g1 = torch.Generator(device=dev)
+    g1.manual_seed(1)
+    tokens = torch.randint(0, tcfg.vocab_size, (64, tcfg.ctx_size),
+                           generator=g1, device=dev)
+    # Three calls, each four runs of fresh states in turns (unguarded,
+    # guarded, guarded, unguarded), so no side always runs first: the
+    # spread between calls says how far one call can be trusted.
+    pairs = []
+    for _ in range(3):
+        times: dict = {}
+        tax, tax_stats = measure_overhead(make_state_and_step, tokens,
+                                          steps=10, warmup=3, device=dev,
+                                          report=times)
+        check(not any(tax_stats.as_dict().values()),
+              f"guard tax run counted {tax_stats}")
+        pairs.append(dict(times, tax_pct=tax))
+    tax = statistics.median(t["tax_pct"] for t in pairs)
+    tax_ms = statistics.median(t["guarded_ms_per_step"]
+                               - t["raw_ms_per_step"] for t in pairs)
+    raw_ms = statistics.median(t["raw_ms_per_step"] for t in pairs)
+    out["guard"] = {"bitwise": True, "launches_per_step": gper,
+                    "tax_pct_median": tax, "tax_ms_median": tax_ms,
+                    "raw_ms_median": raw_ms, "pairs": pairs}
+    print(f"resilience 12a: 10 guarded steps of train_llm_dp (vocab 259, "
+          f"batch 3 x 256, optimizer pallas) bitwise the unguarded run "
+          f"(losses {plain.losses[0]:.4f} -> {plain.losses[-1]:.4f}), no "
+          f"counter moved; launches per step {gper}. Guard tax at phase 6's "
+          f"shape (B=64 x 256, bf16), 3 calls of 4 runs of 10 steps in "
+          f"turns (unguarded, guarded, guarded, unguarded), each side the "
+          f"mean of its two: ms per step (unguarded, guarded) "
+          f"{[(round(t['raw_ms_per_step'], 2), round(t['guarded_ms_per_step'], 2)) for t in pairs]}, "
+          f"median tax {tax_ms:.2f} ms per step ({tax:+.1f}%) on "
+          f"{raw_ms:.2f} {card}")
+
+    # 12b + 12e: injected faults, observed.
+    tel_dir = os.path.join(tmp, "telemetry")
+    tel = Telemetry(tel_dir, step_every=5)
+    captured: dict = {}
+
+    def keep_final(step, state):
+        captured.update(
+            step=step, finite=all(bool(torch.isfinite(p).all())
+                                  for p in tree_leaves(state.params)),
+            state_bytes=(tree_state_bytes(state.params)
+                         + tree_state_bytes(state.opt_state)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    zero_counts()
+    faulted = train_llm_dp(
+        None, TrainConfig(optimizer="pallas", iters=16, numerics_every=5),
+        resilience=ResilienceConfig(ema_warmup=5),
+        fault_plan=FaultPlan.from_spec(FAULTS_B), telemetry=tel,
+        checkpoint_dir=os.path.join(tmp, "ck_b"), checkpoint_every=1000,
+        on_checkpoint=keep_final, **kw)
+    peak = torch.cuda.max_memory_allocated(dev)
+    bcounts = read_counts()
+    tel.close()
+    rs = faulted.resilience
+    check(rs.skipped_steps == 2 and rs.anomalies == 1 and rs.rollbacks == 0,
+          f"12b counters {rs}")
+    check(all(math.isfinite(v) for i, v in enumerate(faulted.losses)
+              if i not in (3, 7)), f"12b losses {faulted.losses}")
+    check(captured.get("step") == 16 and captured["finite"],
+          f"12b final parameters: {captured}")
+    events = read_events(os.path.join(tel_dir, "events.jsonl"))
+    bad = [(e["type"], validate_event(e)) for e in events
+           if validate_event(e)]
+    check(not bad, f"12e events failing validate_event: {bad[:3]}")
+    checks = [tree_check(t) for t in trace_trees(events).values()]
+    check(checks and all(c["orphans"] == 0 for c in checks),
+          f"12e span trees {checks}")
+    tok = load_tokenizer()
+    vcfg = LlamaConfig(vocab_size=tok.vocab_size)
+    m259 = llama.init_llama(vcfg, torch.Generator().manual_seed(0),
+                            device=dev)
+    check(leaf_paths(m259.tree())[3] == LEAF_4, "leaf #4 is "
+          f"{leaf_paths(m259.tree())[3]!r}, not {LEAF_4!r}")
+    faults = {e["it"]: e for e in events if e["type"] == "fault"}
+    check(sorted(faults) == [3, 7, 12], f"12b fault events at "
+          f"{sorted(faults)}")
+    named = faults[7]["attribution"]["nonfinite_params"]
+    check(named == [LEAF_4], f"12b fault at step 7 names {named}")
+    bundles = [load_bundle(p) for p in find_bundles(tel_dir)]
+    b7 = [b for b in bundles if b["trigger"]["it"] == 7]
+    check(len(bundles) == 3 and b7 and b7[0]["attribution"][
+        "nonfinite_params"] == [LEAF_4], f"12b flight-recorder bundles "
+          f"{[b['trigger']['it'] for b in bundles]}")
+    print(f"resilience 12b: faults {FAULTS_B} with ema_warmup 5: skipped "
+          f"{rs.skipped_steps}, anomalies {rs.anomalies}, rollbacks "
+          f"{rs.rollbacks}; every other loss finite, final parameters "
+          f"finite; the step-7 fault event and its postmortem bundle name "
+          f"{named} (leaf #4, the JAX package's path); {len(bundles)} "
+          f"bundles; port kernel launches over 16 steps and the comm probe "
+          f"{bcounts} {card}")
+    manifest = events[0]
+    comm = manifest["comm"]
+    n_params = sum(x.numel() for x in tree_leaves(m259.tree()))
+    check(comm["wire_bytes_per_device_per_step"] == 0.0
+          and comm["payload_bytes_per_step"] == 4 * n_params + 4,
+          f"12e world-1 comm profile {comm}")
+    dcomm = dp_report["comm"]
+    dgrad = dcomm["collectives"]["grad_allreduce"]
+    n_canon = sum(x.numel() for x in tree_leaves(model.tree()))
+    check(dgrad["payload_bytes"] == 4 * n_canon and dgrad["axis_size"] == 2
+          and dgrad["wire_bytes_per_device"] == 4 * n_canon,
+          f"12e phase 10's data=2 comm profile {dcomm}")
+    pre = manifest["preflight"]
+    check(pre["state_bytes"] == captured["state_bytes"], f"12e preflight "
+          f"state bytes {pre['state_bytes']} vs the live state "
+          f"{captured['state_bytes']}")
+    nums = {e["it"]: e for e in events if e["type"] == "numerics"}
+    batch0 = torch.as_tensor(next(shard_batches(tok, 3, 256, 0,
+                                                shard_skip=5000, seed=0)),
+                             dtype=torch.long, device=dev).reshape(3, 256)
+    g0 = torch.autograd.grad(llama.forward_loss(m259, batch0, vcfg),
+                             tree_leaves(m259.tree()))
+    direct = math.sqrt(sum(float((g.double() ** 2).sum()) for g in g0))
+    num_err = abs(nums[0]["grad_norm"] - direct) / direct
+    check(num_err <= TOL_NUMERICS, f"12e numerics grad norm "
+          f"{nums[0]['grad_norm']} vs recomputed {direct} (rel {num_err:.3g})")
+    del m259, g0
+    types = sorted({e["type"] for e in events})
+    out["faults"] = {"counters": rs.as_dict(), "losses": faulted.losses,
+                     "named_leaf": named, "bundles": len(bundles),
+                     "launches": bcounts}
+    out["telemetry"] = {
+        "events": len(events), "types": types,
+        "comm_world_1": comm, "comm_data_2": dcomm,
+        "preflight": pre, "live_state_bytes": captured["state_bytes"],
+        "measured_peak_bytes": peak, "allocated_before_bytes": base,
+        "numerics_steps": sorted(nums), "numerics_grad_norm": nums[0][
+            "grad_norm"], "numerics_recomputed": direct,
+        "numerics_rel_err": num_err}
+    print(f"telemetry 12e: {len(events)} events ({', '.join(types)}), "
+          f"every one valid, span trees without orphans; comm per step at "
+          f"world 1: payload {comm['payload_bytes_per_step']} B, wire "
+          f"{comm['wire_bytes_per_device_per_step']:.0f} B (analytic: "
+          f"{4 * n_params + 4} B of gradient and loss, 0 on the wire); phase "
+          f"10's data=2 gradient step: grad_allreduce payload "
+          f"{dgrad['payload_bytes'] / 1e6:.1f} MB fp32 per step ({dgrad['payload_bytes']} "
+          f"B = 4 x {n_canon} parameters), wire "
+          f"{dcomm['wire_bytes_per_device_per_step'] / 1e6:.1f} MB per "
+          f"device; preflight state {pre['state_bytes']} B = the live "
+          f"state's {captured['state_bytes']} B (params "
+          f"{pre['params_bytes']}, optimizer {pre['opt_state_bytes']}, "
+          f"window {pre['window_bytes']} int64), measured peak "
+          f"{peak / 1e6:.1f} MB allocated over the run ({base / 1e6:.1f} MB "
+          f"allocated before it); numerics at steps "
+          f"{sorted(nums)}, step 0's grad norm {nums[0]['grad_norm']:.6f} vs "
+          f"recomputed {direct:.6f} (rel {num_err:.3g}) {card}")
+
+    # 12c: rollback after three consecutive bad steps.
+    ck_c = os.path.join(tmp, "ck_c")
+    rb = train_llm_dp(None, TrainConfig(optimizer="pallas", iters=9),
+                      resilience=ResilienceConfig(),
+                      fault_plan=FaultPlan.from_spec(
+                          "nan_grad@6,nan_grad@7,nan_grad@8"),
+                      checkpoint_dir=ck_c, checkpoint_every=5, **kw)
+    check(rb.resilience.rollbacks == 1 and rb.resilience.skipped_steps == 3,
+          f"12c counters {rb.resilience}")
+    template = dp.init_state(llama.init_llama(
+        vcfg, torch.Generator().manual_seed(0), device="cpu").tree(),
+        bench_utils.make_optimizer("pallas"))
+    ckpt = Checkpointer(ck_c)
+    at5 = tree_leaves(ckpt.restore(template, step=5).params)
+    at9 = tree_leaves(ckpt.restore(template, step=9).params)
+    same = all(torch.equal(a, b) for a, b in zip(at5, at9))
+    check(same, "12c parameters after the rollback differ from step 5's")
+    print(f"resilience 12c: nan_grad at steps 6, 7, 8 with checkpoints "
+          f"every 5: skipped {rb.resilience.skipped_steps}, rollbacks "
+          f"{rb.resilience.rollbacks}; parameters after the rollback bitwise "
+          f"the step-5 checkpoint's ({len(at5)} leaves) {card}")
+
+    # 12d: preemption, then the second call completes the run.
+    ck_d = os.path.join(tmp, "ck_d")
+    first = train_llm_dp(None, tc10, fault_plan=FaultPlan.from_spec(
+        "preempt@8"), checkpoint_dir=ck_d, checkpoint_every=1000, **kw)
+    second = train_llm_dp(None, tc10, checkpoint_dir=ck_d,
+                          checkpoint_every=1000, **kw)
+    resumed = first.losses + second.losses
+    pre_err = max(abs(a - b) for a, b in zip(resumed, plain.losses))
+    check(first.preempted and not second.preempted
+          and second.start_step == len(first.losses)
+          and len(resumed) == tc10.iters and pre_err <= TOL_RESUME,
+          f"12d preemption: {first.preempted} {second.start_step} "
+          f"{len(resumed)} {pre_err}")
+    out["rollback_bitwise"] = same
+    out["preempt"] = {"stopped_at": len(first.losses),
+                      "max_abs_err": pre_err}
+    print(f"resilience 12d: preempt@8: the first call force-saved and "
+          f"returned preempted after {len(first.losses)} steps; the second "
+          f"resumed at {second.start_step} and completed; 10 losses vs the "
+          f"uninterrupted run max|d| {pre_err:.3g} {card}")
+
+    # 12f: rematerialized blocks at vocab 32000, B = 64 x 256, bf16.
+    rcfg = tcfg.replace(remat=True)
+    state, _, toks = bench_utils.build_train_step(tcfg, 64,
+                                                  opt_name="pallas",
+                                                  device=dev)
+    leaves = tree_leaves(state.params)
+    l0 = llama.forward_loss(state.params, toks, tcfg)
+    gp = torch.autograd.grad(l0, leaves)
+    l1 = llama.forward_loss(state.params, toks, rcfg)
+    gr = torch.autograd.grad(l1, leaves)
+    bitwise = l0.item() == l1.item() and all(torch.equal(a, b)
+                                             for a, b in zip(gp, gr))
+    r_loss = abs(l0.item() - l1.item())
+    r_grad = max(((a.float() - b.float()).abs().max()
+                  / b.float().abs().max()).item() for a, b in zip(gr, gp))
+    check(bitwise or (r_loss <= TOL_TRAIN_LOSS_BF16
+                      and r_grad <= TOL_TRAIN_GRAD_BF16),
+          f"12f remat vs plain: loss |d| {r_loss:.3g}, grads {r_grad:.3g}")
+    del state, toks, leaves, gp, gr, l0, l1
+    # In turns (plain, remat, remat, plain): the host sets the pace and
+    # drifts, so one run of each would compare the drift.
+    runs = {"plain": [], "remat": []}
+    peaks, bases, per = {}, {}, {}
+    for name in ("plain", "remat", "remat", "plain"):
+        c = rcfg if name == "remat" else tcfg
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        bases[name] = torch.cuda.memory_allocated(dev)
+        zero_counts()
+        runs[name].append(bench_utils.time_train_step(
+            c, 64, seq=c.ctx_size, opt_name="pallas", warmup=2,
+            timed_steps=5, device=dev))
+        per[name] = {k: n / 7 for k, n in read_counts().items()}
+        peaks[name] = torch.cuda.max_memory_allocated(dev)
+        check(per[name] == (dict(want, flash_fwd=12) if name == "remat"
+                            else want), f"12f {name} launches per step "
+              f"{per[name]}")
+    rates = {k: statistics.median(v) for k, v in runs.items()}
+    out["remat"] = {"bitwise": bitwise, "loss_abs_err": r_loss,
+                    "grad_rel_err": r_grad, "tokens_per_sec": rates,
+                    "tokens_per_sec_runs": runs, "peak_bytes": peaks,
+                    "allocated_before_bytes": bases,
+                    "launches_per_step": per}
+    print(f"remat 12f (vocab 32000, B=64 x 256, bf16): loss and {len(at5)} "
+          f"gradient leaves {'bitwise equal' if bitwise else 'within the bf16 limits'} "
+          f"(loss |d| {r_loss:.3g}, grads max|d|/max|ref| {r_grad:.3g}); "
+          f"launches per step remat {per['remat']} vs plain {per['plain']}; "
+          f"peak allocated {peaks['remat'] / 1e9:.2f} GB vs "
+          f"{peaks['plain'] / 1e9:.2f} GB ({bases['remat'] / 1e9:.2f} / "
+          f"{bases['plain'] / 1e9:.2f} GB allocated before each); tok/s "
+          f"in turns plain {[round(x) for x in runs['plain']]}, remat "
+          f"{[round(x) for x in runs['remat']]}: medians {rates['remat']:.0f} "
+          f"vs {rates['plain']:.0f} ({rates['remat'] / rates['plain']:.3f}x) "
+          f"{card}")
+
+    # 12g: the serving memory census and compile counts; faulted FL.
+    paged = PagedKVConfig(**SERVE_PAGED)
+    wl = synthetic_workload(vocab_size=cfg.vocab_size, **SERVE_WL)
+
+    def drive(memory_every, events):
+        # Every request queued at time 0 and a clock that stands still:
+        # the ticks, and so the batches, are the same in both runs.
+        eng = Engine(model, cfg, paged, SERVE_SLOTS, prefill_chunk=16,
+                     device=dev)
+        sched = Scheduler(eng, events=events, clock=lambda: 0.0,
+                          memory_every=memory_every)
+        for r in wl:
+            sched.submit(r, now=0.0)
+        while sched.outstanding:
+            sched.tick()
+        return {k: r.tokens for k, r in sched.records.items()}, eng
+
+    log = EventLog(os.path.join(tmp, "serve", "events.jsonl"))
+    zero_counts()
+    with_census, eng = drive(4, log)
+    log.close()
+    without, _ = drive(0, None)
+    scounts = read_counts()
+    streams_equal = with_census == without
+    mem_events = [e for e in read_events(log.path) if e["type"] == "memory"]
+    compiles = sum(len(w.compiles) for w in eng.watches())
+    retraces = sum(w.retraces for w in eng.watches())
+    check(streams_equal, "12g streams with the memory census differ")
+    check(mem_events and all(validate_event(e) == [] for e in mem_events),
+          f"12g memory events: {len(mem_events)}")
+    check(compiles == 2 and retraces == 0, f"12g compiles {compiles}, "
+          f"retraces {retraces}")
+    check(not any(scounts.values()), f"12g serving launched port kernels "
+          f"{scounts}")
+    last = mem_events[-1]
+    print(f"serving 12g: phase 5's 32 requests (all queued at once), "
+          f"memory_every=4: {len(mem_events)} memory events, streams bitwise "
+          f"those without the census; compiles {compiles} (prefill + "
+          f"decode call signatures), retraces {retraces}; last census: "
+          f"{last['blocks_in_use']} blocks in use, peak "
+          f"{last['peak_blocks_in_use']}, holes {last['holes']}, CUDA "
+          f"allocated {last.get('cuda_allocated_bytes', 0) / 1e6:.1f} MB "
+          f"{card}")
+    x, y, xt, yt = mnist_arrays
+    fcfg = FLConfig()
+    subsets = mnist.split(y, fcfg.nr_clients, iid=True, seed=fcfg.seed)
+    fparams = mnist_cnn.init(torch.Generator().manual_seed(FL_INIT_SEED),
+                             device=dev)
+
+    def no_dropout(p, xb):
+        return mnist_cnn.apply(p, xb)
+
+    runs = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        ftel = Telemetry(os.path.join(tmp, f"fl-{where}"))
+        server = fl.FedAvgServer(fparams, no_dropout,
+                                 fl.federate(x, y, subsets, device=d), xt,
+                                 yt, fcfg, device=d,
+                                 fault_plan=FaultPlan.from_spec(
+                                     "drop_client@0:2"), telemetry=ftel)
+        t0 = time.perf_counter()
+        server.run(2)
+        runs[where] = (server, time.perf_counter() - t0)
+        ftel.close()
+    fl_err = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(tree_leaves(runs["cuda"][0].params),
+                                 tree_leaves(runs["cpu"][0].params)))
+    fl_events = read_events(os.path.join(tmp, "fl-cuda", "events.jsonl"))
+    rounds = [e for e in fl_events if e["type"] == "fl_round"]
+    srv = runs["cuda"][0]
+    check(len(rounds) == 2 and rounds[0]["faults"] == {"dropped_clients": 2},
+          f"12g fl_round events {rounds}")
+    check(srv.resilience.dropped_clients == 2, f"12g FL {srv.resilience}")
+    check(math.isfinite(fl_err) and fl_err <= TOL_FL_DEVICE,
+          f"12g faulted FedAvg card vs CPU max|d|/max|ref|={fl_err:.3g}")
+    out["serving"] = {"memory_events": len(mem_events),
+                      "streams_bitwise": streams_equal,
+                      "compiles": compiles, "retraces": retraces}
+    out["fl"] = {"max_rel_err": fl_err, "rounds": len(rounds),
+                 "accuracy": srv.result.test_accuracy,
+                 "wall_s_card": runs["cuda"][1],
+                 "wall_s_cpu": runs["cpu"][1]}
+    print(f"fl 12g: 2 FedAvg rounds at phase 8's configuration with "
+          f"drop_client@0:2 (dropout off): 2 fl_round events, 2 clients "
+          f"dropped in round 0; card vs CPU max|d|/max|ref| {fl_err:.3g}; "
+          f"accuracy {srv.result.test_accuracy} {card}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"resilience/telemetry phase: {out['seconds']:.1f} s {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1594,6 +2025,7 @@ def main() -> int:
     from ddl25spring_tpu_torch.tree import tree_leaves
     from ddl25spring_tpu_torch.serving import (PagedKVConfig, reference_stream,
                                                run_serving, synthetic_workload)
+    from ddl25spring_tpu_torch.telemetry.costs import train_flops_per_token
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2141,6 +2573,10 @@ def main() -> int:
     ext_report = serving_ext_phase(dev, card, model, cfg, zero_counts,
                                    read_counts)
 
+    # 12. resilience and telemetry, remat ---------------------------------
+    res_report = resilience_phase(dev, card, zero_counts, read_counts,
+                                  model, cfg, dp_report, mnist_arrays)
+
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
     path_counts = {"forward (phase 4)": {"flash_fwd": main_launches},
@@ -2154,7 +2590,16 @@ def main() -> int:
                        {"flash_fwd": 0, "flash_bwd_dq": 0,
                         "flash_bwd_dkv": 0, "adam": 0},
                    "deploy trainer (phase 11), per step":
-                       ext_report["deploy"]["launches_per_step"]}
+                       ext_report["deploy"]["launches_per_step"],
+                   "guarded train_llm_dp (phase 12a), per step":
+                       res_report["guard"]["launches_per_step"],
+                   "faulted, observed train_llm_dp (phase 12b), 16 steps "
+                   "and the comm probe": res_report["faults"]["launches"],
+                   "remat train step (phase 12f), per step":
+                       res_report["remat"]["launches_per_step"]["remat"],
+                   "serving census (phase 12g), two runs":
+                       {"flash_fwd": 0, "flash_bwd_dq": 0,
+                        "flash_bwd_dkv": 0, "adam": 0}}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -2217,6 +2662,7 @@ def main() -> int:
                               "grad_rel_err": grad_err_bf16}},
                       "fl": fl_report, "tabular": tab_report,
                       "dp": dp_report, "serving_ext": ext_report,
+                      "resilience": res_report,
                       "adam_paired": adam_pairs, "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -53,10 +53,8 @@ def build_train_step(cfg: LlamaConfig, batch_size: int, *,
     over ``llama.forward_loss`` (K = ``steps_per_dispatch`` > 1: the K-step
     loop, for gradient and zero1), and this rank's rows of a ``[n ·
     batch_size, seq]`` batch of tokens drawn from a generator seeded 1 on
-    the device (the JAX function's one batch, sharded over the n ranks)."""
-    if cfg.remat:
-        raise NotImplementedError("LlamaConfig.remat is not ported yet: "
-                                  "ROADMAP.md, queue A item 9")
+    the device (the JAX function's one batch, sharded over the n ranks).
+    ``cfg.remat`` rematerializes each block in the backward."""
     dev = dist.rank_device(device)
     seq = seq or cfg.ctx_size
     model = llama.init_llama(cfg, torch.Generator().manual_seed(0),

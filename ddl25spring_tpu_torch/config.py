@@ -1,5 +1,5 @@
 """Configuration: the port's own copies of ``FLConfig``, ``LlamaConfig``,
-``TrainConfig``, ``VFLConfig`` and ``VAEConfig``.
+``TrainConfig``, ``ResilienceConfig``, ``VFLConfig`` and ``VAEConfig``.
 
 Same fields and defaults as the JAX package's ``config.FLConfig`` (the
 homework-1 federated setting: N=100, C=0.1, B=100, E=1, lr 0.01, 10
@@ -69,8 +69,8 @@ class LlamaConfig:
     flash_block: int = 512
     # Dtype of the materialized [B·H, T, T] score tensor on the plain path.
     softmax_dtype: str = "float32"
-    # Activation rematerialization in the backward: carried for parity; the
-    # port's trainer raises for True (ROADMAP.md, queue A).
+    # Activation rematerialization: each block under
+    # torch.utils.checkpoint (models/llama.py blocks_apply).
     remat: bool = False
 
     @property
@@ -123,6 +123,35 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ResilienceConfig:
+    """Self-healing knobs for the training loops (``resilience/``), field
+    for field the JAX package's. ``faults`` is a ``FaultPlan`` spec string
+    (empty: inject nothing). ``elastic=True`` (re-meshing over the
+    surviving ranks) is ROADMAP.md queue A item 8: the trainer raises
+    ``NotImplementedError`` for it."""
+
+    guard: bool = True             # wrap the train step in a StepGuard
+    # The skip fused into the step (parallel.dp ``guard_nonfinite``):
+    # mutually exclusive with ``guard``.
+    injit_guard: bool = False
+    max_consecutive_bad: int = 3   # K consecutive bad steps → rollback
+    ema_decay: float = 0.98        # update-norm EMA smoothing
+    anomaly_factor: float = 10.0   # spike threshold (×EMA); <=0 disables
+    ema_warmup: int = 20           # good steps before the detector arms
+    retry_attempts: int = 3        # checkpoint-IO retry budget
+    retry_base_delay: float = 0.1  # seconds; doubles per attempt, jittered
+    faults: str = ""               # FaultPlan spec for injection runs
+    fault_seed: int = 0            # drives every random fault choice
+    elastic: bool = False          # ROADMAP.md queue A item 8
+    mirror_every: int = 1          # elastic host-RAM mirror cadence
+
+    def fault_plan(self):
+        """The configured FaultPlan (empty spec → empty plan)."""
+        from .resilience.faults import FaultPlan
+        return FaultPlan.from_spec(self.faults, seed=self.fault_seed)
 
 
 @dataclass(frozen=True)

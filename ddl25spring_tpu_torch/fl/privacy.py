@@ -8,6 +8,8 @@ The central-DP recipe on the Δ-upload round of ``FedAvgGradServer``:
 3. the server adds Gaussian noise of per-coordinate std
    σ = noise_multiplier · clip_norm / m to the average, drawn from a
    stream of its own per round (never from a client's generator).
+   Under a fault plan m counts the surviving clients, so σ is that of
+   the mean actually taken.
 
 The accountant is pure float math, copied as written: ``dp_epsilon`` is
 the advanced-composition bound without subsampling amplification,
@@ -163,7 +165,9 @@ class DPFedAvgServer(_ServerBase):
                                               round_idx), self.device)
 
     def _round(self, params, r):
-        idx = self._sample(r)
+        idx = self._survivors(r, self._sample(r))
+        if idx is None:
+            return params
         gens = [rng.client_generator(self.cfg.seed, r, int(i),
                                      self.cfg.clients_per_round, self.device)
                 for i in idx]

@@ -149,8 +149,12 @@ class SecureAggFedAvgServer(_ServerBase):
 
     def quantized_deltas(self, params, r):
         """Round ``r``'s sampled clients and their clipped, quantized
-        deltas, stacked: ``(idx, q)``. Every client trains at once."""
-        idx = self._sample(r)
+        deltas, stacked: ``(idx, q)``. Every client trains at once. The
+        sampled clients are those the fault plan keeps (pairs are masked
+        among them alone); ``(None, None)`` when every client is lost."""
+        idx = self._survivors(r, self._sample(r))
+        if idx is None:
+            return None, None
         gens = [rng.client_generator(self.cfg.seed, r, int(i),
                                      self.cfg.clients_per_round, self.device)
                 for i in idx]
@@ -174,5 +178,7 @@ class SecureAggFedAvgServer(_ServerBase):
 
     def _round(self, params, r):
         idx, q = self.quantized_deltas(params, r)
+        if idx is None:
+            return params
         return finish_secagg_round(params, self.masked_sum(idx, q, r),
                                    self._scale, len(idx))

@@ -21,10 +21,19 @@ computed once per round. Client sampling and the per-(client, round)
 seeds stay on the host, observable; each client's randomness is a
 ``torch.Generator`` seeded with its seed, on the device. Products run in
 full fp32 (``device.fp32_products``).
+
+Every server takes ``fault_plan=`` (``resilience.FaultPlan``: scheduled
+client dropout and stragglers; the round re-weights over the survivors,
+and a round that loses every client is skipped, counted in
+``server.resilience``; ``fl.DPFedAvgServer`` and
+``fl.SecureAggFedAvgServer`` too, whose JAX counterparts ignore the plan) and ``telemetry=`` (``telemetry.Telemetry``: a
+manifest, one ``fl_round`` event and a heartbeat per round, ``fl_round_s``
+in the registry, a ``run_end`` snapshot).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -34,7 +43,7 @@ import torch
 from .. import rng
 from ..config import FLConfig
 from ..device import fp32_products, resolve_device, synchronize
-from ..metrics import RunResult, message_count
+from ..metrics import ResilienceStats, RunResult, message_count
 from ..tree import tree_index, tree_leaves, tree_map, tree_sub, \
     tree_weighted_fold
 from .federated_data import FederatedDataset
@@ -57,10 +66,6 @@ class _ServerBase:
     def __init__(self, init_params: dict, apply_fn, data: FederatedDataset,
                  test_x, test_y, cfg: FLConfig, algorithm: str,
                  fault_plan=None, telemetry=None, device=None):
-        if fault_plan is not None or telemetry is not None:
-            raise NotImplementedError(
-                "fault_plan= and telemetry= are not ported yet "
-                "(ROADMAP.md, queue A item 9)")
         self.device = dev = resolve_device(device)
         self.apply_fn = apply_fn
         self.params = tree_map(lambda t: torch.as_tensor(t).to(dev),
@@ -69,6 +74,13 @@ class _ServerBase:
         self.test_x = torch.as_tensor(test_x).to(dev)
         self.test_y = torch.as_tensor(test_y).to(dev, torch.int64)
         self.cfg = cfg
+        # Benign faults (resilience.FaultPlan): scheduled client dropout
+        # and stragglers per round, counted in ``self.resilience``.
+        self.fault_plan = fault_plan
+        # telemetry.Telemetry: ``run`` emits a manifest, one ``fl_round``
+        # event and a heartbeat per round, and a run_end snapshot.
+        self.telemetry = telemetry
+        self.resilience = ResilienceStats()
         self.result = RunResult(algorithm, cfg.nr_clients,
                                 cfg.client_fraction, cfg.batch_size,
                                 cfg.epochs, cfg.lr, cfg.seed)
@@ -102,8 +114,30 @@ class _ServerBase:
         i = torch.tensor(np.asarray(idx, dtype=np.int64), device=self.device)
         return self.data.x[i], self.data.y[i], self.data.mask[i], i
 
+    def _survivors(self, r: int, idx: np.ndarray) -> Optional[np.ndarray]:
+        """The sampled clients of round ``r`` that the fault plan keeps
+        (``idx`` itself without a plan), counting the dropped and the
+        stragglers; None when every client is lost (the round is skipped
+        and counted). The weights then renormalize over the survivors,
+        and each survivor's randomness is that of the fault-free round
+        (its seed comes from its global index), so the round equals the
+        fault-free round over that subset. The JAX servers pad the set back
+        to its width at weight 0 to keep one compiled shape, which their
+        fold makes bitwise the filtered round; eager PyTorch filters."""
+        if self.fault_plan is None:
+            return idx
+        mask, dropped, stragglers = self.fault_plan.surviving_clients(r, idx)
+        self.resilience.dropped_clients += dropped
+        self.resilience.straggler_clients += stragglers
+        if not mask.any():
+            self.resilience.skipped_rounds += 1
+            return None
+        return idx[mask]
+
     def _round(self, params: dict, r: int) -> dict:
-        idx = self._sample(r)
+        idx = self._survivors(r, self._sample(r))
+        if idx is None:
+            return params
         gens = [rng.client_generator(self.cfg.seed, r, int(i),
                                      self.cfg.clients_per_round, self.device)
                 for i in idx]
@@ -111,12 +145,39 @@ class _ServerBase:
 
     def run(self, nr_rounds: Optional[int] = None) -> RunResult:
         nr_rounds = self.cfg.rounds if nr_rounds is None else nr_rounds
+        tel = self.telemetry
+        if tel is not None:
+            tel.events.manifest(
+                trainer=f"fl/{self.result.algorithm}", jax_version=None,
+                torch_version=torch.__version__,
+                platform=("gpu" if self.device.type == "cuda"
+                          else self.device.type),
+                fl_cfg=dataclasses.asdict(self.cfg), rounds=nr_rounds)
+            prev_counters = self.resilience.as_dict()
         for r in range(nr_rounds):
             t0 = time.perf_counter()
             with torch.no_grad(), fp32_products():
                 self.params = self._round(self.params, r)
             synchronize(self.device)
             self._record(r, time.perf_counter() - t0)
+            if tel is not None:
+                tel.heartbeat.beat(step=r, phase="fl_round")
+                wall = self.result.wall_time[-1]
+                tel.registry.observe("fl_round_s", wall)
+                delta = self.resilience.delta(prev_counters)
+                prev_counters = self.resilience.as_dict()
+                tel.events.fl_round(
+                    round=r, wall_s=wall,
+                    test_accuracy=self.result.test_accuracy[-1],
+                    messages=self.result.message_count[-1],
+                    **({"faults": delta} if delta else {}))
+        if tel is not None:
+            tel.registry.absorb_resilience(self.resilience)
+            tel.events.run_end(steps=nr_rounds,
+                               final_accuracy=(self.result.test_accuracy[-1]
+                                               if self.result.rounds
+                                               else None),
+                               metrics=tel.registry.snapshot())
         return self.result
 
 

@@ -22,6 +22,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn as tnn
 
 from .. import nn
@@ -89,7 +90,8 @@ def init_llama(cfg: LlamaConfig, generator: torch.Generator,
     with std 0.02, the residual-out projections (``wo``, ``w_down``) scaled
     down by sqrt(2·L), norms at one, the ``padding_idx`` embedding row zero.
     Draws come from ``generator`` (on its own device) in a fixed order,
-    then move to ``device``. jax.random and torch cannot give the same
+    then move to ``device``; on ``torch.device("meta")`` nothing is drawn
+    (the shapes and dtypes only, as ``telemetry.memory.preflight`` needs). jax.random and torch cannot give the same
     numbers: to compare with the JAX package, convert its init with
     ``convert.params_from_jax``."""
     dev = resolve_device(device)
@@ -97,6 +99,8 @@ def init_llama(cfg: LlamaConfig, generator: torch.Generator,
     d, f, n = cfg.dmodel, cfg.ffn_dim, cfg.n_layers
 
     def normal(shape, std):
+        if dev.type == "meta":          # shapes only: no draw, no memory
+            return torch.empty(shape, dtype=dt, device=dev)
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device) * std
         return x.to(device=dev, dtype=dt)
@@ -248,12 +252,27 @@ def embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig
 
 def blocks_apply(blocks: dict, h: torch.Tensor, cfg: LlamaConfig,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Apply the stacked blocks in order (the JAX ``lax.scan``)."""
+    """Apply the stacked blocks in order (the JAX ``lax.scan``).
+
+    ``cfg.remat`` (with autograd recording): each block runs under
+    ``torch.utils.checkpoint.checkpoint``, the counterpart of the JAX
+    ``jax.checkpoint``: only the block's input is kept, and the backward
+    runs the block's forward again (the flash forward kernel and its
+    layout copies included) before differentiating it. The gradients are
+    those of the plain path: the recomputation repeats the same operations
+    on the same inputs."""
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(blocks["wq"].shape[0]):
-        h = block_apply(layer(blocks, i), h, cfg, cos, sin)
+        if remat:
+            # The block draws no random numbers: no RNG state to replay.
+            h = torch.utils.checkpoint.checkpoint(
+                block_apply, layer(blocks, i), h, cfg, cos, sin,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = block_apply(layer(blocks, i), h, cfg, cos, sin)
     return h
 
 

@@ -28,8 +28,8 @@ host memory, so on one card a collective is a host round trip, not NCCL:
 
 Every rank receives the same sums, so replicated state stays bitwise
 replicated. At a world of one (no group) every collective returns its
-input and starts nothing. The byte accounting of ``telemetry/comm.py`` is
-ROADMAP.md queue A item 9.
+input and starts nothing. Each collective records its bytes, under its
+call site's label, into ``telemetry.comm``'s active collector.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from ..device import resolve_device
+from ..telemetry import comm as _comm
 from ..tree import tree_leaves, tree_unflatten
 
 BACKEND = "gloo"
@@ -219,10 +220,11 @@ def run_ranks(fn: Callable, world: int, *args, device=None,
 
 
 # --------------------------------------------------------------- collectives
+# Each collective records its operand's bytes under its call site's
+# ``label`` into the active ``telemetry.comm.collecting()`` list (nothing
+# without one), at a world of one too, as the JAX package's wrappers do.
 
-def psum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, as a new tensor (``x`` itself at a
-    world of one)."""
+def _all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     if world_size() == 1:
         return x
     y = x.detach().clone()
@@ -230,18 +232,31 @@ def psum(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def pmean(x: torch.Tensor) -> torch.Tensor:
+def psum(x: torch.Tensor, *, label: Optional[str] = None,
+         record: bool = True) -> torch.Tensor:
+    """The sum of ``x`` over the ranks, as a new tensor (``x`` itself at a
+    world of one)."""
+    if record:
+        _comm.record("psum", label, x)
+    return _all_reduce_sum(x)
+
+
+def pmean(x: torch.Tensor, *, label: Optional[str] = None) -> torch.Tensor:
     """The mean of ``x`` over the ranks: the sum divided by the world
     size (``x`` itself at a world of one)."""
+    _comm.record("pmean", label, x)
     n = world_size()
-    return x if n == 1 else psum(x) / n
+    return x if n == 1 else _all_reduce_sum(x) / n
 
 
-def pmean_tree(tree):
+def pmean_tree(tree, *, label: Optional[str] = None, record: bool = True):
     """``pmean`` of every leaf of a tree (nested dicts and lists of
     tensors), one all-reduce per dtype over the leaves' concatenation.
     Returns a new tree of ``tree``'s structure (``tree`` itself at a world
-    of one)."""
+    of one). Recorded as one collective of the whole tree, as the JAX
+    package's ``pmean`` of a tree is."""
+    if record:
+        _comm.record("pmean", label, tree)
     n = world_size()
     if n == 1:
         return tree
@@ -258,7 +273,8 @@ def pmean_tree(tree):
     return tree_unflatten(tree, out)
 
 
-def psum_scatter(flat: torch.Tensor) -> torch.Tensor:
+def psum_scatter(flat: torch.Tensor, *,
+                 label: Optional[str] = None) -> torch.Tensor:
     """This rank's ``1/n`` slice of the sum of the 1-D ``flat`` over the
     ranks (its length must divide by the world size): the all-reduce, then
     the slice."""
@@ -266,13 +282,16 @@ def psum_scatter(flat: torch.Tensor) -> torch.Tensor:
     if flat.dim() != 1 or flat.numel() % n:
         raise ValueError(f"psum_scatter takes a 1-D tensor whose length "
                          f"divides by {n}, got shape {tuple(flat.shape)}")
+    _comm.record("psum_scatter", label, flat)
     local = flat.numel() // n
-    return psum(flat)[r * local:(r + 1) * local].clone()
+    return _all_reduce_sum(flat)[r * local:(r + 1) * local].clone()
 
 
-def all_gather(piece: torch.Tensor) -> torch.Tensor:
+def all_gather(piece: torch.Tensor, *,
+               label: Optional[str] = None) -> torch.Tensor:
     """The ranks' 1-D slices concatenated in rank order: an all-reduce of a
     zero buffer in which this rank has written its own."""
+    _comm.record("all_gather", label, piece)
     n, r = world_size(), get_rank()
     if n == 1:
         return piece
@@ -283,9 +302,11 @@ def all_gather(piece: torch.Tensor) -> torch.Tensor:
     return buf
 
 
-def broadcast(x: torch.Tensor, src: int = 0) -> torch.Tensor:
+def broadcast(x: torch.Tensor, src: int = 0, *,
+              label: Optional[str] = None) -> torch.Tensor:
     """Rank ``src``'s ``x`` on every rank, as a new tensor (``x`` itself at
     a world of one)."""
+    _comm.record("broadcast", label, x)
     if world_size() == 1:
         return x
     y = x.detach().clone()
@@ -297,4 +318,4 @@ def barrier(device) -> None:
     """Wait until every rank gets here: an all-reduce of one element on
     ``device`` and a host read of it."""
     if world_size() > 1:
-        float(psum(torch.ones((), device=device)))
+        float(_all_reduce_sum(torch.ones((), device=device)))

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from . import distributed as dist
+from ..telemetry import comm as _comm
 from ..ops.adam import apply_optimizer, apply_updates, resize_zero_padded
 from ..tree import (nested_leaves, nested_unflatten, tree_leaves,
                     tree_unflatten)
@@ -122,33 +123,57 @@ def _all_finite(loss: torch.Tensor, tensors) -> torch.Tensor:
     return ok
 
 
+def _pre_update_copy(params, numerics):
+    """The parameters before an in-place update, for the numerics summary
+    (None when numerics are off)."""
+    if numerics is None:
+        return None
+    return tree_unflatten(params, [p.detach().clone()
+                                   for p in tree_leaves(params)])
+
+
 def _make_local_grad_step(loss_fn: Callable, optimizer, accum_steps: int,
-                          guard_nonfinite: bool) -> Callable:
+                          guard_nonfinite: bool, numerics=None) -> Callable:
     """The gradient-aggregation step body shared by
-    ``make_grad_aggregation_step`` and ``make_multi_step``."""
+    ``make_grad_aggregation_step`` and ``make_multi_step``.
+
+    ``numerics`` (``telemetry.introspect.NumericsHandle``): the step's
+    second output becomes ``(loss, NumericsSummary)`` of the averaged
+    gradient and the update, from a copy of the parameters taken before
+    the in-place update; losses and parameters do not change. A step the
+    guard skips reports its gradient statistics and a zero update."""
 
     def local_step(state: TrainState, batch: torch.Tensor
                    ) -> Tuple[TrainState, torch.Tensor]:
         loss, grads = _local_loss_and_grads(loss_fn, state.params, batch,
                                             accum_steps)
-        grads = dist.pmean_tree(grads)
-        loss = dist.pmean(loss)
+        grads = dist.pmean_tree(grads, label="grad_allreduce")
+        loss = dist.pmean(loss, label="loss_allreduce")
+        old = _pre_update_copy(state.params, numerics)
+        grad_tree = tree_unflatten(state.params, grads)
         # The averaged values are the same on every rank, and so is the
         # verdict. The state is updated in place, so the check comes
         # first, and it waits for the device.
         if guard_nonfinite and not bool(_all_finite(loss, grads)):
+            if numerics is not None:
+                return state, (loss, numerics.summarize(old, grad_tree,
+                                                        old))
             return state, loss
         params, opt_state = apply_optimizer(
-            optimizer, tree_unflatten(state.params, grads), state.opt_state,
-            state.params)
-        return TrainState(params, opt_state, state.step + 1), loss
+            optimizer, grad_tree, state.opt_state, state.params)
+        new_state = TrainState(params, opt_state, state.step + 1)
+        if numerics is not None:
+            return new_state, (loss, numerics.summarize(old, grad_tree,
+                                                        params))
+        return new_state, loss
 
     return local_step
 
 
 def make_grad_aggregation_step(loss_fn: Callable, optimizer,
                                accum_steps: int = 1,
-                               guard_nonfinite: bool = False) -> Callable:
+                               guard_nonfinite: bool = False,
+                               numerics=None) -> Callable:
     """``step(state, batch) -> (state, loss)`` on this rank's ``batch``:
     gradients of ``loss_fn(params, batch) -> scalar``, averaged over
     ``accum_steps`` microbatches, then over the ranks, then one optimizer
@@ -159,29 +184,36 @@ def make_grad_aggregation_step(loss_fn: Callable, optimizer,
     ``guard_nonfinite=True``: a step whose averaged loss or gradient holds a
     NaN/Inf (one poisoned rank poisons the mean for every rank) is skipped
     (state unchanged, ``step`` not advanced) and its loss is returned as it
-    came."""
+    came. ``numerics``: see ``_make_local_grad_step``."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1 (got {accum_steps})")
     return _make_local_grad_step(loss_fn, optimizer, accum_steps,
-                                 guard_nonfinite)
+                                 guard_nonfinite, numerics)
 
 
 def _loop(local_step: Callable) -> Callable:
     """K calls of ``local_step`` over a ``[K, B, T]`` window, the losses
-    stacked on the device."""
+    (and numerics summaries, field by field) stacked on the device."""
+    from ..telemetry.introspect import NumericsSummary, split_step_output
 
     def multi(state: TrainState, window: torch.Tensor):
-        losses = []
+        losses, summaries = [], []
         for batch in window:
-            state, loss = local_step(state, batch)
+            state, out = local_step(state, batch)
+            loss, summary = split_step_output(out)
             losses.append(loss)
+            if summary is not None:
+                summaries.append(summary)
+        if summaries:
+            return state, (torch.stack(losses), NumericsSummary(
+                *(torch.stack(f) for f in zip(*summaries))))
         return state, torch.stack(losses)
 
     return multi
 
 
 def make_multi_step(loss_fn: Callable, optimizer, accum_steps: int = 1,
-                    guard_nonfinite: bool = False) -> Callable:
+                    guard_nonfinite: bool = False, numerics=None) -> Callable:
     """K-step loop: ``step(state, window) -> (state, losses)`` where
     ``window`` is this rank's ``[K, B, T]`` batches of K consecutive steps
     and ``losses`` the ``[K]`` per-step losses, on the device. The body is
@@ -189,17 +221,19 @@ def make_multi_step(loss_fn: Callable, optimizer, accum_steps: int = 1,
     bitwise K per-step calls. K is the window's leading dim, so one loop
     serves every window size."""
     return _loop(make_grad_aggregation_step(loss_fn, optimizer, accum_steps,
-                                            guard_nonfinite))
+                                            guard_nonfinite, numerics))
 
 
-def _pmean_float_leaves(tree):
+def _pmean_float_leaves(tree, label: str):
     """``pmean`` of every floating tensor leaf of a tree of dicts, lists
     and tuples, in place; other leaves (an int32 step count, equal on
-    every rank) stay."""
+    every rank) stay. Recorded as the JAX step's ``pmean`` of the whole
+    tree, under ``label``."""
+    _comm.record("pmean", label, tree)
     leaves = [x for x in nested_leaves(tree)
               if isinstance(x, torch.Tensor) and x.is_floating_point()]
     with torch.no_grad():
-        for x, mean in zip(leaves, dist.pmean_tree(leaves)):
+        for x, mean in zip(leaves, dist.pmean_tree(leaves, record=False)):
             if mean is not x:
                 x.copy_(mean)
     return tree
@@ -220,10 +254,10 @@ def make_weight_aggregation_step(loss_fn: Callable, optimizer) -> Callable:
             tree_unflatten(state.params, list(grads)), state.opt_state,
             state.params)
         apply_updates(state.params, updates)
-        _pmean_float_leaves(leaves)
-        _pmean_float_leaves(opt_state)
+        _pmean_float_leaves(state.params, "weight_allreduce")
+        _pmean_float_leaves(opt_state, "optstate_allreduce")
         return (TrainState(state.params, opt_state, state.step + 1),
-                dist.pmean(loss.detach()))
+                dist.pmean(loss.detach(), label="loss_allreduce"))
 
     return step
 
@@ -263,41 +297,55 @@ def _zero1_setup(optimizer, params) -> TrainState:
 
 
 def _make_zero1_local_step(loss_fn: Callable, optimizer, *,
-                           guard_nonfinite: bool = False) -> Callable:
+                           guard_nonfinite: bool = False,
+                           numerics=None) -> Callable:
     """The ZeRO-1 step body shared by ``make_zero1_step`` and
     ``make_zero1_multi_step``: local gradients → ``psum_scatter`` (this
     rank's averaged slice) → the optimizer on the slice → ``all_gather`` of
     the updated slices, cut to the parameter count and cast back into the
     parameters. Under ``guard_nonfinite`` a non-finite value lands only in
     the slice whose owner summed it, so the ranks' verdicts are summed in
-    a 4-byte ``psum`` before anyone applies an update."""
+    a 4-byte ``psum`` before anyone applies an update. ``numerics`` (built
+    with ``psum_axis``: the local gradients differ per rank) summarizes the
+    local gradients and the post-guard update, as the JAX body does."""
 
     def local_step(state: TrainState, batch: torch.Tensor):
         geom = state.zero1
         leaves = tree_leaves(state.params)
         loss = loss_fn(state.params, batch)
         grads = torch.autograd.grad(loss, leaves)
-        g_mine = dist.psum_scatter(_flat_fp32(grads, geom.pad)) / geom.n
+        g_mine = dist.psum_scatter(_flat_fp32(grads, geom.pad),
+                                   label="zero1_grad_scatter") / geom.n
         p_mine = _flat_fp32(leaves, geom.pad)[geom.mine].clone()
-        loss = dist.pmean(loss.detach())
+        loss = dist.pmean(loss.detach(), label="loss_allreduce")
+        old = _pre_update_copy(state.params, numerics)
+
+        def out(new_state):
+            if numerics is None:
+                return new_state, loss
+            return new_state, (loss, numerics.summarize(
+                old, tree_unflatten(state.params, list(grads)),
+                state.params))
+
         if guard_nonfinite:
             ok = _all_finite(loss, [g_mine]).to(torch.int32)
-            if int(dist.psum(ok)) != geom.n:
-                return state, loss
+            if int(dist.psum(ok, label="zero1_guard_verdict")) != geom.n:
+                return out(state)
         p_mine, opt_state = apply_optimizer(optimizer, g_mine,
                                             state.opt_state, p_mine)
-        flat_new = dist.all_gather(p_mine)[:geom.total]
+        flat_new = dist.all_gather(p_mine,
+                                   label="zero1_param_gather")[:geom.total]
         with torch.no_grad():
             for p, piece in zip(leaves, flat_new.split(
                     [p.numel() for p in leaves])):
                 p.copy_(piece.view(p.shape))
-        return state._replace(opt_state=opt_state, step=state.step + 1), loss
+        return out(state._replace(opt_state=opt_state, step=state.step + 1))
 
     return local_step
 
 
 def make_zero1_step(loss_fn: Callable, optimizer, params, *,
-                    guard_nonfinite: bool = False
+                    guard_nonfinite: bool = False, numerics=None
                     ) -> Tuple[TrainState, Callable]:
     """ZeRO-1 data parallelism: ``(state, step)``, the initial state (the
     parameters ``params``, moments for this rank's slice only) and
@@ -307,17 +355,19 @@ def make_zero1_step(loss_fn: Callable, optimizer, params, *,
     all-reduce of the padded vector."""
     return (_zero1_setup(optimizer, params),
             _make_zero1_local_step(loss_fn, optimizer,
-                                   guard_nonfinite=guard_nonfinite))
+                                   guard_nonfinite=guard_nonfinite,
+                                   numerics=numerics))
 
 
 def make_zero1_multi_step(loss_fn: Callable, optimizer, params, *,
-                          guard_nonfinite: bool = False
+                          guard_nonfinite: bool = False, numerics=None
                           ) -> Tuple[TrainState, Callable]:
     """``make_zero1_step`` inside the K-step loop: ``step(state, window)
     -> (state, losses)`` over a ``[K, B, T]`` window, bitwise K calls of
     the per-step function."""
     state, step = make_zero1_step(loss_fn, optimizer, params,
-                                  guard_nonfinite=guard_nonfinite)
+                                  guard_nonfinite=guard_nonfinite,
+                                  numerics=numerics)
     return state, _loop(step)
 
 

@@ -28,6 +28,7 @@ from ..config import LlamaConfig, TrainConfig
 from ..device import fp32_products, synchronize
 from ..models import llama
 from ..ops import flash_attention as fa
+from ..telemetry.comm import CommProfile, collecting
 from ..ops import pallas_adam as padam
 from ..tokenizers import ByteTokenizer
 from ..train.llm import train_llm_dp
@@ -139,6 +140,45 @@ def trainer_calls(calls, *, device) -> list:
         out.append({"losses": rep.losses, "steps": rep.steps,
                     "start_step": rep.start_step,
                     "resilience": rep.resilience.as_dict()})
+    return out
+
+
+def comm_profiles(cfg: dict, params, batch, *, device) -> dict:
+    """``telemetry.comm.measure_comm`` of one call of each data-parallel
+    step on this rank, from the JAX ``init_llama`` tree ``params`` (numpy)
+    with the "fused" optimizer: "gradient", "zero1", "weight" on this
+    rank's rows of the global batch ``batch`` ``[n·B, T]``, and "k4", the
+    K-step loop over a window of four copies of them. Returns each
+    profile's ``as_dict`` (``steps_per_dispatch=4`` for "k4")."""
+    from ..telemetry.comm import measure_comm
+
+    mcfg = LlamaConfig(**cfg)
+    r, n = dist.get_rank(), dist.world_size()
+    b = batch.shape[0] // n
+    local = torch.as_tensor(batch[r * b:(r + 1) * b], dtype=torch.long,
+                            device=device)
+
+    def loss_fn(p, x):
+        return llama.forward_loss(p, x, mcfg)
+
+    out = {}
+    for name in ("gradient", "zero1", "weight", "k4"):
+        tree = convert.params_from_jax(params, mcfg, device=device).tree()
+        opt = make_optimizer("fused")
+        x = local
+        if name == "zero1":
+            state, step = dp.make_zero1_step(loss_fn, opt, tree)
+        else:
+            state = dp.init_state(tree, opt)
+            if name == "weight":
+                step = dp.make_weight_aggregation_step(loss_fn, opt)
+            elif name == "k4":
+                step = dp.make_multi_step(loss_fn, opt)
+                x = local.expand(4, *local.shape)
+            else:
+                step = dp.make_grad_aggregation_step(loss_fn, opt)
+        out[name] = measure_comm(step, state, x).as_dict(
+            steps_per_dispatch=4 if name == "k4" else 1)
     return out
 
 
@@ -262,7 +302,8 @@ def phase10(tokens, directory: str, *, device) -> dict:
     the gradient); c. ``time_train_step`` at bf16, B = 32 per rank, and the
     gradient all-reduce alone; d. ZeRO-1 on b's batches; e. three steps of
     weight aggregation with the parameters' digest broadcast from rank 0;
-    f. the K-step loop at K = 4 against four per-step calls; g.
+    f. the K-step loop at K = 4 against four per-step calls; c also
+    records the bf16 step's communication profile (``comm``); g.
     ``train_llm_dp`` at vocab 259 (20 steps; 10 resumed to 20 from a
     checkpoint in ``directory``; the master-weight optimizer on bf16
     parameters). Returns the numbers and the per-step launch counts of
@@ -341,7 +382,9 @@ def phase10(tokens, directory: str, *, device) -> dict:
                        flash_dh_major=True, flash_block=512)
     state, step, batch = bench_utils.build_train_step(
         tcfg, 32, opt_name="pallas", device=device)
-    bf16_loss = float(step(state, batch)[1])
+    with collecting() as records:      # the step's communication profile
+        bf16_loss = float(step(state, batch)[1])
+    out["comm"] = CommProfile(list(records)).as_dict()
     del state, step, batch
     _zero_counts()
     tok_s = bench_utils.time_train_step(tcfg, 32, seq=tcfg.ctx_size,

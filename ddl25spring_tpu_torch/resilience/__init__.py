@@ -1,2 +1,23 @@
-"""Resilience: retry with backoff (``retry``). The step guard, fault plans
-and preemption handling are ROADMAP.md queue A item 9."""
+"""Resilience: the port's counterpart of the JAX package's ``resilience/``.
+
+- ``faults``     — ``FaultPlan``: NaN/Inf/spike gradients at chosen steps,
+                   FL client drop/straggle per round, checkpoint
+                   corruption, simulated SIGTERM preemption, replica
+                   loss/return signals.
+- ``guard``      — ``StepGuard``: all-finite and EMA-anomaly checked steps
+                   with skip-and-count and rollback to the last good
+                   checkpoint, restoring the live tensors in place.
+- ``retry``      — exponential backoff with seeded jitter (checkpoint IO).
+- ``preemption`` — SIGTERM → force-saved resumable checkpoint → clean exit.
+
+Counters land in ``metrics.ResilienceStats``, knobs in
+``config.ResilienceConfig``. The elastic re-mesh (``resilience/elastic.py``)
+and the autoscaler are ROADMAP.md queue A items 8 and 9.
+"""
+
+from .faults import (FaultEvent, FaultPlan, ReplicaLossError,  # noqa: F401
+                     ReplicaReturnSignal, corrupt_latest_checkpoint,
+                     parse_spec)
+from .guard import StepGuard, measure_overhead  # noqa: F401
+from .preemption import PreemptionHandler  # noqa: F401
+from .retry import backoff_schedule, retry_call, with_retry  # noqa: F401

@@ -56,6 +56,7 @@ from .. import nn
 from ..config import LlamaConfig
 from ..device import check_on_device, resolve_device
 from ..models import generate, llama
+from ..telemetry import introspect
 from .kvcache import (TRASH_BLOCK, BlockAllocator, PagedKVConfig, blocks_for,
                       init_pool, kv_bytes_per_token)
 
@@ -371,9 +372,6 @@ class Engine:
         self.last_tok = np.zeros(num_slots, np.int64)
         self.temps = np.zeros(num_slots, np.float64)
         self.generators: List[Optional[torch.Generator]] = [None] * num_slots
-        self._prefill = make_prefill_chunk(cfg, paged, prefill_chunk, top_k,
-                                           top_p)
-        self._decode = make_decode_step(cfg, paged, top_k, top_p)
         self.decode_dispatches = 0     # decode or verify dispatches
         self.decode_tokens = 0         # tokens those dispatches emitted
         self.draft_dispatches = 0
@@ -390,6 +388,19 @@ class Engine:
                                 for i in range(mb.bit_length() + 1)} | {mb})
         self.gather_bytes = 0          # KV bytes gathered, as narrowed
         self.gather_bytes_saved = 0    # bytes the full-width gather adds
+        n_shapes = len(self._buckets) if gather_buckets else 1
+        # The JAX engine's program budget, as call signatures
+        # (telemetry.introspect.CompileWatch): one prefill shape, one decode
+        # (and verify) shape per gather width; admission, retirement and
+        # raggedness are data, never shapes. A signature past the budget is
+        # a retrace; the scheduler binds its event stream to the watches.
+        tag = "" if engine_id is None else f"[{engine_id}]"
+        self._prefill = introspect.watch(
+            make_prefill_chunk(cfg, paged, prefill_chunk, top_k, top_p),
+            name=f"serving/prefill_chunk{tag}", max_caches=1)
+        self._decode = introspect.watch(
+            make_decode_step(cfg, paged, top_k, top_p),
+            name=f"serving/decode_step{tag}", max_caches=n_shapes)
         self.spec = speculate
         self.last_spec: Optional[dict] = None
         if speculate is not None:
@@ -397,17 +408,25 @@ class Engine:
             self.draft = DraftEngine(speculate, cfg, paged, num_slots,
                                      prefill_chunk=prefill_chunk,
                                      top_k=top_k, top_p=top_p,
-                                     device=self.device)
-            self._verify = make_verify_step(cfg, paged, speculate.k, top_k,
-                                            top_p)
+                                     device=self.device, engine_id=engine_id,
+                                     decode_shapes=n_shapes)
+            self._verify = introspect.watch(
+                make_verify_step(cfg, paged, speculate.k, top_k, top_p),
+                name=f"serving/verify_step{tag}", max_caches=n_shapes)
         else:
             self.draft = None
             self._verify = None
 
     def watches(self) -> list:
-        """Compile watches of the JAX engine's programs: nothing is traced
-        or compiled here, so there are none."""
-        return []
+        """The engine's ``CompileWatch`` set, its documented program
+        budget: prefill and decode, plus verify and the draft's prefill and
+        decode with speculation. ``compiles`` counts the call signatures
+        seen (the JAX engine's compiled programs), ``retraces`` those past
+        the budget."""
+        ws = [self._prefill, self._decode]
+        if self.spec is not None:
+            ws += [self._verify, self.draft._prefill, self.draft._decode]
+        return ws
 
     # ------------------------------------------------------------- admission
     def required_blocks(self, prompt_len: int, max_new: int) -> int:

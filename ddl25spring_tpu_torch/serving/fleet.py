@@ -240,6 +240,16 @@ class ServingFleet:
     def completed(self) -> int:
         return sum(s.completed for s in self.scheds)
 
+    def compiles(self) -> List[int]:
+        """Per engine: the call signatures its programs saw (the JAX
+        engine's compiles)."""
+        return [sum(len(w.compiles) for w in e.watches())
+                for e in self.engines]
+
+    def retraces(self) -> List[int]:
+        """Per engine: signatures past its program budget (0 expected)."""
+        return [sum(w.retraces for w in e.watches()) for e in self.engines]
+
     def pool_headroom(self, k: Optional[int] = None) -> float:
         """The smallest free-block fraction over the first ``k`` engines
         (default: the active ones)."""
@@ -252,8 +262,8 @@ class ServingFleet:
 @dataclass
 class FleetReport:
     """One fleet run: merged records, fleet-wide, per-class and per-engine
-    aggregates and the rollout log. (The JAX report's per-engine compile
-    counts have no counterpart: eager PyTorch compiles nothing.)"""
+    aggregates, the rollout log, and per-engine compile and retrace counts
+    (``ServingFleet.compiles`` / ``retraces``)."""
     records: Dict[str, RequestRecord]
     aggregates: dict
     per_class: Dict[str, dict]
@@ -266,6 +276,8 @@ class FleetReport:
     peak_blocks_per_engine: List[int] = field(default_factory=list)
     deploys: List[dict] = field(default_factory=list)
     requests: List[Request] = field(default_factory=list)
+    compiles: List[int] = field(default_factory=list)
+    retraces: List[int] = field(default_factory=list)
 
 
 def run_serving_fleet(params, cfg: LlamaConfig, paged: PagedKVConfig,
@@ -334,4 +346,5 @@ def run_serving_fleet(params, cfg: LlamaConfig, paged: PagedKVConfig,
         pool_bytes_per_engine=pool_bytes(cfg, paged),
         peak_blocks_per_engine=[e.allocator.peak_in_use
                                 for e in fleet.engines],
-        deploys=list(fleet.deploys), requests=list(workload))
+        deploys=list(fleet.deploys), requests=list(workload),
+        compiles=fleet.compiles(), retraces=fleet.retraces())

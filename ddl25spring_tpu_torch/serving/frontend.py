@@ -170,10 +170,10 @@ class ServingReport:
     naive_bytes_at_peak: int = 0
     peak_concurrency: int = 0
     requests: List[Request] = field(default_factory=list)
-    # The JAX package counts the compiles and retraces of the engine's
-    # programs here. Eager PyTorch traces and compiles nothing, so both
-    # stay 0; counting CUDA-graph captures belongs to the introspection
-    # port (ROADMAP.md, queue A item 9).
+    # The engine's compile watches (telemetry.introspect.CompileWatch): the
+    # call signatures its programs saw, and those past their budget. The
+    # contract is the JAX engine's: compiles equal the program shapes hit
+    # (prefill + decode, + one per extra gather width), retraces 0.
     compiles: int = 0
     retraces: int = 0
     # Target decode dispatches (verify dispatches when speculating), the
@@ -284,4 +284,6 @@ def run_serving(params, cfg: LlamaConfig, paged: PagedKVConfig,
         spec_proposed=spec_prop, spec_accepted=spec_acc,
         acceptance_rate=spec_acc / spec_prop if spec_prop else None,
         gather_bytes=engine.gather_bytes,
-        gather_bytes_saved=engine.gather_bytes_saved)
+        gather_bytes_saved=engine.gather_bytes_saved,
+        compiles=sum(len(w.compiles) for w in engine.watches()),
+        retraces=sum(w.retraces for w in engine.watches()))

@@ -21,7 +21,9 @@ request is one trace (``request`` root span with ``queue`` → ``prefill``
 (per-chunk ``prefill_chunk`` children) → ``decode`` → ``retire``), on the
 scheduler's own clock. In a fleet every event and span carries the
 ``engine`` it ran on; a weight swap emits a ``deploy`` event and span, and
-each speculative round a ``speculate`` event.
+each speculative round a ``speculate`` event. The engine's compile watches
+report ``compile`` events into the same stream, and ``memory_every=N``
+adds a ``memory`` event every N busy ticks.
 """
 
 from __future__ import annotations
@@ -34,8 +36,11 @@ import numpy as np
 import torch
 
 from ..telemetry.events import EventLog
+from ..telemetry.introspect import bind_events
+from ..telemetry.memory import MemoryMeter, allocator_census, tree_state_bytes
 from ..telemetry.trace import Span, Tracer
 from .engine import Engine
+from .kvcache import kv_bytes_per_token
 
 
 @dataclass(frozen=True)
@@ -110,10 +115,6 @@ class Scheduler:
         if admission not in ("fcfs", "sjf"):
             raise ValueError(f"admission must be 'fcfs' or 'sjf' "
                              f"(got {admission!r})")
-        if memory_every > 0:
-            raise NotImplementedError(
-                "memory_every: the memory census (telemetry/memory) is not "
-                "ported yet; ROADMAP.md, queue A item 9")
         self.engine = engine
         self.events = events
         self.token_events = token_events
@@ -129,11 +130,32 @@ class Scheduler:
         self.recent_done: List[Tuple[float, Optional[float]]] = []
         # engine.last_spec per speculative round, with or without events.
         self.spec_rounds: List[dict] = []
+        if events is not None:
+            # The engine's compile watches report into this stream.
+            for w in getattr(engine, "watches", list)():
+                bind_events(w, events)
         self.tracer = (Tracer(events,
                               clock_ns=lambda: int(self.clock() * 1e9))
                        if events is not None else None)
         self._spans: Dict[str, Dict[str, Span]] = {}   # rid -> open spans
         self._chunks: Dict[str, int] = {}              # rid -> chunks done
+        # Memory census: every ``memory_every``-th busy tick, one ``memory``
+        # event with the pool's occupancy and fragmentation, the engine's
+        # parameter bytes and the CUDA allocator's counters. Off (0) by
+        # default; on, it is host bookkeeping and reads no device value,
+        # so the served streams do not change.
+        self.memory_every = int(memory_every)
+        self.memory_meter = None
+        self._bytes_per_block = None
+        self._ticks = 0
+        if self.memory_every > 0:
+            self.memory_meter = MemoryMeter(events, source="serve",
+                                            device=engine.device)
+            self.memory_meter.note(
+                params_bytes=tree_state_bytes(engine.params))
+            self._bytes_per_block = (engine.paged.block_len
+                                     * kv_bytes_per_token(
+                                         engine.cfg, engine.paged.kv_dtype))
         self.queue: List[Request] = []
         self.records: Dict[str, RequestRecord] = {}
         self._by_slot: Dict[int, Request] = {}
@@ -249,6 +271,16 @@ class Scheduler:
                 self.events.speculate(**spec, **self._tag)
         if eos_dropped:
             self.engine.decode_tokens -= eos_dropped
+        if self.memory_meter is not None:
+            self._ticks += 1
+            if self._ticks % self.memory_every == 0:
+                self.memory_meter.sample(
+                    tick=self._ticks, in_flight=len(self._by_slot),
+                    queued=len(self.queue),
+                    **allocator_census(
+                        self.engine.allocator,
+                        bytes_per_block=self._bytes_per_block),
+                    **self._tag)
         return emitted
 
     def _finish(self, req: Request, rec: RequestRecord, slot: int,

@@ -50,6 +50,7 @@ from .. import rng
 from ..config import LlamaConfig
 from ..device import check_on_device
 from ..models import generate, llama
+from ..telemetry import introspect
 from .engine import (_forward_paged, inverse_cdf, make_decode_step,
                      make_prefill_chunk, sampling_probs)
 from .kvcache import TRASH_BLOCK, PagedKVConfig, init_pool
@@ -87,7 +88,8 @@ class DraftEngine:
     def __init__(self, spec: SpecConfig, target_cfg: LlamaConfig,
                  paged: PagedKVConfig, num_slots: int, *,
                  prefill_chunk: int, top_k: Optional[int],
-                 top_p: Optional[float], device: torch.device):
+                 top_p: Optional[float], device: torch.device,
+                 engine_id: Optional[int] = None, decode_shapes: int = 1):
         self.cfg = spec.draft_cfg or target_cfg
         if self.cfg.vocab_size != target_cfg.vocab_size:
             raise ValueError(
@@ -101,10 +103,14 @@ class DraftEngine:
         self.fused = generate._fuse_blocks(self.params["blocks"])
         self.pool = init_pool(self.cfg, paged, device)
         self.generators: List[Optional[torch.Generator]] = [None] * num_slots
-        self._prefill = make_prefill_chunk(self.cfg, paged, prefill_chunk,
-                                           top_k, top_p)
-        self._decode = make_decode_step(self.cfg, paged, top_k, top_p,
-                                        return_probs=True)
+        tag = "" if engine_id is None else f"[{engine_id}]"
+        self._prefill = introspect.watch(
+            make_prefill_chunk(self.cfg, paged, prefill_chunk, top_k, top_p),
+            name=f"serving/draft_prefill{tag}", max_caches=1)
+        self._decode = introspect.watch(
+            make_decode_step(self.cfg, paged, top_k, top_p,
+                             return_probs=True),
+            name=f"serving/draft_decode{tag}", max_caches=decode_shapes)
 
     def admit(self, s: int, temperature: float,
               generator: Optional[torch.Generator]) -> None:

@@ -10,9 +10,20 @@ and throughput accounting (all ranks' tokens, timed after
 ``warmup_steps_excluded`` steps, on a host read of the loss). At
 ``TrainConfig.data > 1`` it runs as ``data`` processes joined by a gloo
 group (``parallel.distributed``): a call from a plain process starts them
-and returns rank 0's report; a call inside a group uses that group. The
-rest of the JAX trainer (hierarchical DP, compressed and overlapped
-collectives, resilience, elastic mode, telemetry, numerics, remat) raises
+and returns rank 0's report; a call inside a group uses that group.
+
+The resilience layer wraps the step as the JAX trainer does: the fault
+plan innermost (``FaultPlan.wrap_step``), the ``StepGuard`` outermost
+(``ResilienceConfig.injit_guard`` is the step's own ``guard_nonfinite``
+instead); SIGTERM force-saves a checkpoint and returns
+``report.preempted=True``. ``telemetry`` opens the run's stream (manifest
+with the communication profile and the preflight, step events, heartbeat,
+fault events with the guard's attribution, ``numerics`` events every
+``TrainConfig.numerics_every`` steps, memory samples, dispatch spans and
+a ``run_end`` metrics snapshot), written by rank 0 alone.
+``TrainConfig.remat`` / ``LlamaConfig.remat`` rematerialize each block in
+the backward. The rest of the JAX trainer (hierarchical DP, compressed and
+overlapped collectives, elastic mode and ``scale_hook``) raises
 ``NotImplementedError`` naming its ROADMAP.md entry. ``on_checkpoint`` is
 the checkpoint publication hook of the train→deploy conveyor
 (``serving/deploy.py``).
@@ -20,6 +31,7 @@ the checkpoint publication hook of the train→deploy conveyor
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass, field, fields
@@ -29,15 +41,18 @@ import numpy as np
 import torch
 
 from ..bench_utils import make_optimizer
-from ..config import LlamaConfig, TrainConfig
+from ..config import LlamaConfig, ResilienceConfig, TrainConfig
 from ..data.tokens import TokenStream, shard_batches
 from ..metrics import ResilienceStats
 from ..models import llama
 from ..ops.adam import fused_adam
 from ..parallel import distributed as dist
 from ..parallel import dp
+from ..resilience.preemption import PreemptionHandler
+from ..telemetry import introspect
+from ..telemetry.trace import Spans, Tracer
 from ..tokenizers import load_tokenizer
-from ..tree import tree_leaves
+from ..tree import tree_copy, tree_leaves
 
 
 @dataclass
@@ -46,7 +61,11 @@ class LLMTrainReport:
     tokens_per_sec: float = 0.0
     steps: int = 0
     wall_time: float = 0.0
-    start_step: int = 0       # > 0 when the run resumed from a checkpoint
+    # True if the loop left early on a SIGTERM force-save (calling again
+    # resumes). ``start_step`` is the stream position losses[0] belongs to
+    # (> 0 after a resume).
+    preempted: bool = False
+    start_step: int = 0
     resilience: ResilienceStats = field(default_factory=ResilienceStats)
 
 
@@ -61,9 +80,7 @@ _QUEUED = {
     "wire_dcn": "queue A item 8 (compressed collectives)",
     "overlap_microbatches": "queue A item 8 (overlapped ring sync)",
     "comm_buckets": "queue A item 8 (overlapped ring sync)",
-    "numerics_every": "queue A item 9 (telemetry)",
     "psa": "queue A item 8 (tensor parallelism)",
-    "remat": "queue A item 9 (activation rematerialization)",
 }
 
 
@@ -115,16 +132,20 @@ def _make_trainer_optimizer(train_cfg: TrainConfig):
 
 def _setup_checkpoint(checkpoint_dir: Optional[str], state, iters: int,
                       log_fn: Callable[[str], None], *,
+                      resilience: Optional[ResilienceConfig] = None,
                       stats: Optional[ResilienceStats] = None):
-    """The resume preamble: open the checkpoint directory and restore the
-    newest step that verifies into ``state``'s layout (a corrupt newest
-    step falls back to the one before, ``checkpoint.py``). Returns
-    ``(ckpt, state, start_step, done)``; ``done`` means the checkpoint is
-    already at or past ``iters``."""
+    """The resume preamble: open the checkpoint directory (with the
+    resilience config's IO retry budget) and restore the newest step that
+    verifies into ``state``'s layout (a corrupt newest step falls back to
+    the one before, ``checkpoint.py``). Returns ``(ckpt, state,
+    start_step, done)``; ``done`` means the checkpoint is already at or
+    past ``iters``."""
     if checkpoint_dir is None:
         return None, state, 0, False
     from ..checkpoint import Checkpointer
-    ckpt = Checkpointer(checkpoint_dir, stats=stats)
+    res = resilience or ResilienceConfig()
+    ckpt = Checkpointer(checkpoint_dir, retry_attempts=res.retry_attempts,
+                        retry_base_delay=res.retry_base_delay, stats=stats)
     start_step = 0
     if ckpt.latest_step() is not None:
         state = ckpt.restore(state)
@@ -142,6 +163,55 @@ def _setup_checkpoint(checkpoint_dir: Optional[str], state, iters: int,
         ckpt.close()
         return ckpt, state, start_step, True
     return ckpt, state, start_step, False
+
+
+def _emit_manifest(telemetry, *, measure: bool, model_cfg, train_cfg,
+                   start_step: int, step_fn, state, n_data: int,
+                   device: torch.device, steps_per_dispatch: int = 1,
+                   preflight: Optional[dict] = None) -> None:
+    """Open a telemetry run: one manifest event with the configuration,
+    the step's communication profile (``telemetry.comm.measure_comm`` of
+    one call of the unguarded step on a copy of the state and a batch of
+    zeros) and the preflight. ``measure``: every rank of a group must run
+    the probe, since its collectives are real; rank 0 alone (``telemetry``
+    not None) emits."""
+    if not measure:
+        return
+    from ..telemetry import measure_comm
+    comm_profile = None
+    try:
+        shape = (train_cfg.batch_size, train_cfg.seq_len)
+        if steps_per_dispatch > 1:
+            shape = (steps_per_dispatch,) + shape
+        batch = torch.zeros(shape, dtype=torch.long, device=device)
+        # A copy: the step updates its state in place.
+        profile = measure_comm(step_fn, tree_copy(state), batch)
+        comm_profile = (profile.as_dict(steps_per_dispatch=steps_per_dispatch)
+                        if profile is not None else None)
+    except Exception:
+        pass                       # telemetry must never sink a trainer
+    if telemetry is None:
+        return
+    platform = "gpu" if device.type == "cuda" else device.type
+    telemetry.events.manifest(
+        trainer="dp", jax_version=None, torch_version=torch.__version__,
+        platform=platform, n_devices=n_data,
+        device_name=(torch.cuda.get_device_name(device)
+                     if device.type == "cuda" else "cpu"),
+        mesh={"data": n_data},
+        model_cfg=dataclasses.asdict(model_cfg),
+        train_cfg=dataclasses.asdict(train_cfg),
+        start_step=start_step, comm=comm_profile,
+        peaks=introspect.platform_peaks(platform),
+        **({} if preflight is None else {"preflight": preflight}))
+
+
+def _fault_extra(step_fn) -> dict:
+    """The StepGuard's trip attribution (the non-finite leaf paths of the
+    rejected state) as extra ``fault``-event fields."""
+    pop = getattr(step_fn, "pop_trip", None)
+    trip = pop() if callable(pop) else None
+    return {"attribution": trip} if trip else {}
 
 
 def _notify_checkpoint(hook, step: int, state, log_fn) -> None:
@@ -162,9 +232,15 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
               checkpoint_every: int, loss_sink, sink_every: int,
               log_every: int, log_fn, warmup_steps_excluded: int,
               stats: ResilienceStats, steps_per_dispatch: int = 1,
-              on_checkpoint=None) -> LLMTrainReport:
-    """The training loop. Iterations before ``start_step`` (a resume) only
-    consume their batches, so the data order is an uninterrupted run's.
+              on_checkpoint=None, telemetry=None, numerics=None,
+              numerics_every: int = 0, compile_watch=None,
+              injit_guard: bool = False,
+              memory_meter=None) -> LLMTrainReport:
+    """The training loop, the JAX ``_run_loop``'s. Iterations before
+    ``start_step`` (a resume) only consume their batches, so the data order
+    is an uninterrupted run's; step indices are stream positions, so a
+    skipped or rolled-back step consumes its batch without learning from
+    it and a checkpoint at step k always means "k batches consumed".
 
     Per step (``steps_per_dispatch`` 1): one step per batch; device losses
     are buffered and read to host floats at sink boundaries (every
@@ -176,17 +252,52 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
     (a resume from another step realigns with one shorter first chunk);
     each chunk's ``[k, B, T]`` window goes to the device in one copy, the
     next chunk's is staged on the host while the device runs this one, and
-    the step returns the ``[k]`` losses; warmup, sink flushes and
-    checkpoints fall on chunk edges (a checkpoint at the first edge at or
-    after each ``checkpoint_every`` boundary). ``on_checkpoint(step,
-    state)`` follows every save that succeeded."""
+    the step returns the ``[k]`` losses; warmup, sink flushes, checkpoints,
+    guard verdicts and fault indices fall on chunk edges.
+
+    SIGTERM (``PreemptionHandler``) is honoured at the next step or chunk
+    boundary: a checkpoint is force-saved (with a checkpoint directory)
+    and the report says ``preempted``. With ``telemetry``: a ``dispatch``
+    span tree per sampled step, ``host_iter_s``, a heartbeat every step, a
+    ``step`` event (and a memory sample) every ``telemetry.step_every``
+    steps, a ``numerics`` event every ``numerics_every`` steps, a ``fault``
+    event with the counter delta and the guard's attribution whenever a
+    counter moves, and ``run_end`` with ``registry.snapshot()``.
+    ``on_checkpoint(step, state)`` follows every save that succeeded."""
     report = LLMTrainReport(start_step=start_step, resilience=stats)
+    injit_step0 = int(state.step) if injit_guard else None
+    spans = Spans()
+    tracer = Tracer(telemetry.events if telemetry is not None else None,
+                    phases=spans)
+
+    def _phase(name: str, parent, span_name: str):
+        if parent is not None:
+            return tracer.span(span_name, parent=parent.ctx, phase=name)
+        return spans(name)
+
     tokens_per_step = n_data * train_cfg.batch_size * train_cfg.seq_len
     shape = (train_cfg.batch_size, train_cfg.seq_len)
     t_start = None
     excluded_steps = warmup_steps_excluded
     last_saved = -1
     pending = []   # (first step index, device loss or [k] losses)
+    last_event_t = time.perf_counter()
+    last_event_it = start_step - 1
+    last_replay_beat = -math.inf
+    prev_counters = report.resilience.as_dict()
+    last_numerics_it = start_step - max(1, numerics_every)
+
+    def _emit_numerics(it, aux, index=None):
+        nonlocal last_numerics_it
+        if aux is None or telemetry is None or numerics is None \
+                or last_numerics_it == it:
+            return
+        try:
+            telemetry.events.numerics(
+                it=it, **numerics.event_fields(aux, index=index))
+        except Exception:
+            pass                   # introspection must never sink the run
+        last_numerics_it = it
 
     def _flush_losses():
         for it0, ls in pending:
@@ -198,12 +309,13 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
                     loss_sink(i, v)
         pending.clear()
 
-    def _checkpoint(at: int) -> None:
+    def _checkpoint(at: int, parent) -> None:
         nonlocal last_saved
         try:
             # overwrite: after a corrupt-latest fallback resume the loop
             # re-treads step indices the dead lineage already wrote.
-            ckpt.save(at, state, overwrite=True)
+            with _phase("checkpoint", parent, "checkpoint"):
+                ckpt.save(at, state, overwrite=True)
             last_saved = at
         except OSError as e:
             log_fn(f"periodic checkpoint at {at} failed after retries "
@@ -211,23 +323,106 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
             return
         _notify_checkpoint(on_checkpoint, at, state, log_fn)
 
+    def _force_save(at: int) -> None:
+        # A checkpoint of this run's lineage at ``at`` exists only if this
+        # loop saved it or resumed from it; anything else on disk at ``at``
+        # is a stale remnant the save must replace.
+        if ckpt is not None and at not in (last_saved, start_step):
+            ckpt.save(at, state, overwrite=True)
+        report.preempted = True
+        report.resilience.preemptions += 1
+        log_fn(f"preempted at iter {at}: checkpoint "
+               f"{'force-saved' if ckpt is not None else 'not saved'}"
+               f"{'' if ckpt is not None else ' (no checkpoint dir)'}")
+
+    def _beat_replay(it):
+        nonlocal last_replay_beat
+        if telemetry is not None:
+            now = time.perf_counter()
+            if now - last_replay_beat >= 0.5:
+                telemetry.heartbeat.beat(step=it, phase="replay")
+                last_replay_beat = now
+
+    def _compute(droot, fn_args):
+        n_compiles = (len(compile_watch.compiles)
+                      if compile_watch is not None else 0)
+        with _phase("dispatch", droot, "compute") as csp:
+            out = step_fn(*fn_args)
+            if (csp is not None and compile_watch is not None
+                    and len(compile_watch.compiles) > n_compiles):
+                csp.attrs["compiled"] = True
+        return out
+
+    def _after_dispatch(last_it, loss_for_event, naux, t_iter, extra,
+                        index=None, force_event=False):
+        """Telemetry after a step or chunk: registry, heartbeat, step
+        event and memory sample, numerics, fault event."""
+        nonlocal last_event_t, last_event_it, prev_counters
+        telemetry.registry.observe("host_iter_s",
+                                   time.perf_counter() - t_iter)
+        telemetry.heartbeat.beat(step=last_it)
+        if force_event:
+            now = time.perf_counter()
+            if t_start is None:
+                extra = {**extra, "warmup": True}
+            telemetry.events.step(it=last_it, loss=float(loss_for_event),
+                                  dt_s=now - last_event_t,
+                                  steps=last_it - last_event_it, **extra)
+            last_event_t, last_event_it = now, last_it
+            if memory_meter is not None:
+                memory_meter.sample(it=last_it)
+        if naux is not None and last_it - last_numerics_it >= numerics_every:
+            _emit_numerics(last_it, naux, index)
+        delta = report.resilience.delta(prev_counters)
+        if delta:
+            _emit_numerics(last_it, naux, index)
+            telemetry.events.fault(counters=delta, it=last_it,
+                                   **_fault_extra(step_fn))
+            prev_counters = report.resilience.as_dict()
+
+    preempt = PreemptionHandler()
+    last_it = start_step - 1
     K = steps_per_dispatch
     if K <= 1:
-        for it in range(train_cfg.iters):
-            host_batch = next(batches).reshape(shape)
-            if it < start_step:
-                continue            # resume: replay the stream
-            state, loss = step_fn(state, to_device(host_batch))
-            if it + 1 == start_step + warmup_steps_excluded:
-                float(loss)             # hard sync before starting the timer
-                t_start = time.perf_counter()
-            pending.append((it, loss))
-            if it % sink_every == 0 or it == train_cfg.iters - 1:
-                _flush_losses()
-            if log_every and it % log_every == 0:
-                log_fn(f"iter {it}: loss {float(loss):.4f}")
-            if ckpt is not None and (it + 1) % checkpoint_every == 0:
-                _checkpoint(it + 1)
+        with preempt:
+            for it in range(train_cfg.iters):
+                droot = (tracer.start("dispatch", trace="train", it=it,
+                                      phase=False)
+                         if (telemetry is not None and it >= start_step
+                             and it % telemetry.step_every == 0) else None)
+                with _phase("data", droot, "stage"):
+                    host_batch = next(batches).reshape(shape)
+                if it < start_step:
+                    _beat_replay(it)
+                    continue            # resume: replay the stream
+                if preempt.requested:
+                    if droot is not None:
+                        droot.end(preempted=True)
+                    _force_save(it)
+                    break
+                last_it = it
+                t_iter = time.perf_counter()
+                state, out = _compute(droot, (state, to_device(host_batch)))
+                loss, naux = introspect.split_step_output(out)
+                if it + 1 == start_step + warmup_steps_excluded:
+                    float(loss)             # hard sync before the timer
+                    t_start = time.perf_counter()
+                    last_event_t, last_event_it = t_start, it
+                pending.append((it, loss))
+                if it % sink_every == 0 or it == train_cfg.iters - 1:
+                    with _phase("sink", droot, "sink"):
+                        _flush_losses()
+                if log_every and it % log_every == 0:
+                    log_fn(f"iter {it}: loss {float(loss):.4f}")
+                if telemetry is not None:
+                    _after_dispatch(
+                        it, loss, naux, t_iter, {},
+                        force_event=(it % telemetry.step_every == 0
+                                     or it == train_cfg.iters - 1))
+                if ckpt is not None and (it + 1) % checkpoint_every == 0:
+                    _checkpoint(it + 1, droot)
+                if droot is not None:
+                    droot.end()
     else:
         chunks = []
         edge = start_step
@@ -236,52 +431,128 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
             chunks.append((edge, nxt))
             edge = nxt
 
-        def _window(it0, it1):
-            return np.stack([next(batches).reshape(shape)
-                             for _ in range(it1 - it0)])
+        def _window(it0, it1, parent=None):
+            with _phase("data", parent, "stage"):
+                return np.stack([next(batches).reshape(shape)
+                                 for _ in range(it1 - it0)])
 
-        for _ in range(start_step):     # resume: replay the stream
-            next(batches)
         staged = None
         last_flush_edge = start_step
-        for ci, (it0, it1) in enumerate(chunks):
-            window = staged if staged is not None else _window(it0, it1)
-            state, losses = step_fn(state, to_device(window))
-            # Stage the next window while the device runs this one.
-            staged = _window(*chunks[ci + 1]) if ci + 1 < len(chunks) \
-                else None
-            pending.append((it0, losses))
-            if log_every:
-                for i in range(it0, it1):
-                    if i % log_every == 0:
-                        log_fn(f"iter {i}: loss {float(losses[i - it0]):.4f}")
-            if t_start is None:
-                float(losses[-1])   # warmup quantized to the first chunk
-                t_start = time.perf_counter()
-                excluded_steps = it1 - it0
-            if (it1 - last_flush_edge >= sink_every
-                    or it1 == train_cfg.iters):
-                _flush_losses()
-                last_flush_edge = it1
-            if ckpt is not None and (it1 // checkpoint_every
-                                     > it0 // checkpoint_every):
-                _checkpoint(it1)
+        with preempt:
+            for rep in range(start_step):   # resume: replay the stream
+                next(batches)
+                _beat_replay(rep)
+            for ci, (it0, it1) in enumerate(chunks):
+                if preempt.requested:
+                    _force_save(it0)
+                    break
+                droot = (tracer.start("dispatch", trace="train", it=it0,
+                                      steps=it1 - it0, phase=False)
+                         if telemetry is not None else None)
+                window = (staged if staged is not None
+                          else _window(it0, it1, droot))
+                staged = None
+                t_iter = time.perf_counter()
+                state, out = _compute(droot, (state, to_device(window)))
+                losses, naux = introspect.split_step_output(out)
+                # Stage the next window while the device runs this one.
+                if ci + 1 < len(chunks):
+                    staged = _window(*chunks[ci + 1], droot)
+                last_it = it1 - 1
+                first_chunk = t_start is None
+                pending.append((it0, losses))
+                if log_every:
+                    for i in range(it0, it1):
+                        if i % log_every == 0:
+                            log_fn(f"iter {i}: "
+                                   f"loss {float(losses[i - it0]):.4f}")
+                if telemetry is not None:
+                    _after_dispatch(
+                        last_it, losses[-1], naux, t_iter,
+                        {"steps_per_dispatch": it1 - it0}, index=-1,
+                        force_event=(last_it - last_event_it
+                                     >= telemetry.step_every
+                                     or it1 == train_cfg.iters))
+                if first_chunk:
+                    float(losses[-1])   # warmup quantized to the first chunk
+                    t_start = time.perf_counter()
+                    excluded_steps = it1 - it0
+                    last_event_t, last_event_it = t_start, last_it
+                if (it1 - last_flush_edge >= sink_every
+                        or it1 == train_cfg.iters):
+                    with _phase("sink", droot, "sink"):
+                        _flush_losses()
+                    last_flush_edge = it1
+                if ckpt is not None and (it1 // checkpoint_every
+                                         > it0 // checkpoint_every):
+                    _checkpoint(it1, droot)
+                if droot is not None:
+                    droot.end()
     if ckpt is not None:
-        if train_cfg.iters != last_saved:
+        if not report.preempted and train_cfg.iters != last_saved:
             ckpt.save(train_cfg.iters, state, overwrite=True)
             _notify_checkpoint(on_checkpoint, train_cfg.iters, state, log_fn)
         ckpt.close()
     _flush_losses()
-    report.steps = train_cfg.iters - start_step
+    report.steps = ((last_it + 1 if report.preempted else train_cfg.iters)
+                    - start_step)
+    if injit_step0 is not None:
+        # Steps run minus step-counter advances: the fused guard's skips.
+        good = int(state.step) - injit_step0
+        report.resilience.skipped_steps += max(0, report.steps - good)
     if t_start is not None and report.steps > excluded_steps:
         report.wall_time = time.perf_counter() - t_start
         timed = report.steps - excluded_steps
         report.tokens_per_sec = tokens_per_step * timed / report.wall_time
+    if telemetry is not None:
+        telemetry.registry.absorb_spans(spans)
+        telemetry.registry.absorb_resilience(report.resilience)
+        telemetry.events.run_end(
+            steps=report.steps, start_step=start_step,
+            preempted=report.preempted,
+            tokens_per_sec=report.tokens_per_sec, wall_s=report.wall_time,
+            metrics=telemetry.registry.snapshot())
+        telemetry.heartbeat.beat(step=last_it + 1, phase="done")
     return report
 
 
-def _check_dispatch(train_cfg: TrainConfig, aggregation: str) -> None:
-    """The JAX trainer's ValueErrors for what does not compose."""
+def _apply_resilience(step_fn, resilience: Optional[ResilienceConfig],
+                      fault_plan, ckpt, stats: ResilienceStats):
+    """The resilience layer around a step: fault injection innermost (the
+    guard sees the faulted step), the StepGuard outermost. ``fault_plan``
+    comes as an object or through ``resilience.faults``; fault step
+    indices are post-resume call indices."""
+    if fault_plan is None and resilience is not None and resilience.faults:
+        fault_plan = resilience.fault_plan()
+    if fault_plan:
+        step_fn = fault_plan.wrap_step(step_fn)
+    if resilience is not None and resilience.guard:
+        from ..resilience.guard import StepGuard
+        step_fn = StepGuard(
+            step_fn, ckpt=ckpt, stats=stats,
+            max_consecutive_bad=resilience.max_consecutive_bad,
+            ema_decay=resilience.ema_decay,
+            anomaly_factor=resilience.anomaly_factor,
+            ema_warmup=resilience.ema_warmup)
+    return step_fn
+
+
+def _check_options(train_cfg: TrainConfig, aggregation: str,
+                   resilience: Optional[ResilienceConfig],
+                   scale_hook) -> None:
+    """The JAX trainer's errors for what does not compose, and the
+    ROADMAP.md entries of what the port does not run."""
+    queued = unsupported_train_fields(train_cfg)
+    if resilience is not None and resilience.elastic:
+        queued.append("ResilienceConfig.elastic=True (queue A item 8 "
+                      "(elastic re-mesh))")
+    if scale_hook is not None:
+        queued.append("scale_hook (it requires resilience.elastic=True: "
+                      "queue A item 8 (elastic re-mesh))")
+    if queued:
+        raise NotImplementedError(
+            "train_llm_dp does not run these yet; see ROADMAP.md: "
+            + "; ".join(queued))
     if train_cfg.steps_per_dispatch < 1:
         raise ValueError(f"steps_per_dispatch must be >= 1 (got "
                          f"{train_cfg.steps_per_dispatch})")
@@ -298,6 +569,20 @@ def _check_dispatch(train_cfg: TrainConfig, aggregation: str) -> None:
     elif aggregation != "gradient":
         raise ValueError(f"unknown aggregation {aggregation!r}: expected "
                          "'gradient', 'weight' or 'zero1'")
+    if train_cfg.numerics_every > 0 and aggregation not in ("gradient",
+                                                            "zero1"):
+        raise ValueError("numerics_every requires gradient or zero1 "
+                         f"aggregation (got {aggregation!r})")
+    if resilience is not None and resilience.injit_guard:
+        if resilience.guard:
+            raise ValueError(
+                "injit_guard and guard are mutually exclusive skip "
+                "mechanisms (the host StepGuard would double-count the "
+                "fused skip); set ResilienceConfig(guard=False) to use "
+                "the in-step guard")
+        if aggregation not in ("gradient", "zero1"):
+            raise ValueError("injit_guard requires gradient or zero1 "
+                             f"aggregation (got {aggregation!r})")
 
 
 def _train_rank(model_cfg, train_cfg, kwargs: dict, *, device):
@@ -320,7 +605,7 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
                  checkpoint_every: int = 1000,
                  loss_sink: Optional[Callable[[int, float], None]] = None,
                  sink_every: int = 10,
-                 resilience=None,
+                 resilience: Optional[ResilienceConfig] = None,
                  fault_plan=None,
                  telemetry=None,
                  on_checkpoint=None,
@@ -335,9 +620,11 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
     steps per window), "weight" (no ``accum_steps``, no K > 1) or "zero1"
     (no ``accum_steps``). With no process group, ``data > 1`` starts
     ``data`` ranks (``distributed.run_ranks``) and returns rank 0's report;
-    ``log_fn`` and ``loss_sink`` then run in rank 0's process and must
-    pickle (a module-level function). Inside a group, the group's size
-    must be ``data``, and rank 0 alone logs and sinks.
+    ``log_fn``, ``loss_sink``, ``on_checkpoint``, ``fault_plan`` and
+    ``telemetry`` then travel to the ranks by pickling (a module-level
+    function; a ``Telemetry`` reopens its files in rank 0). Inside a
+    group, the group's size must be ``data``, and rank 0 alone logs,
+    sinks and writes telemetry.
 
     The model's vocab is the tokenizer's (``load_tokenizer``: the
     SentencePiece model when one is found, else bytes, vocab 259). Rank
@@ -345,6 +632,8 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
     (``shard_batches``, skip i·5000: the JAX trainer's data order), weights
     come from ``llama.init_llama`` seeded ``train_cfg.seed`` (the same on
     every rank), ``accum_steps`` splits each batch into microbatches.
+    ``train_cfg.remat`` (or ``model_cfg.remat``) rematerializes each block
+    in the backward.
 
     ``checkpoint_dir``: restore the newest valid step there and skip the
     iterations it covers, save every ``checkpoint_every`` steps and at the
@@ -352,33 +641,31 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
     (and at the last) with the host loss. ``on_checkpoint(step, state)``
     runs after every successful save (periodic and final; on every rank of
     a group), e.g. ``serving.CheckpointPublisher``; a hook that raises is
-    logged and training goes on. ``resilience``, ``fault_plan``,
-    ``telemetry``, ``scale_hook`` and the ``TrainConfig`` fields
-    ``unsupported_train_fields`` names raise ``NotImplementedError``
-    naming ROADMAP.md."""
+    logged and training goes on.
+
+    ``resilience`` (``config.ResilienceConfig``) wraps the step in a
+    ``StepGuard`` (skip non-finite steps, EMA spike detection, rollback
+    after K consecutive bad steps) and carries the checkpoint IO retry
+    budget; ``injit_guard`` uses the step's own non-finite skip instead.
+    ``fault_plan`` (``resilience.FaultPlan``) injects deterministic faults;
+    counters come back in ``report.resilience``. SIGTERM force-saves and
+    returns ``report.preempted=True``; calling again resumes.
+    ``telemetry`` (``telemetry.Telemetry``) writes the run's event stream
+    and heartbeat (``_run_loop``); ``TrainConfig.numerics_every`` adds
+    ``numerics`` events. ``ResilienceConfig.elastic``, ``scale_hook`` and
+    the ``TrainConfig`` fields ``unsupported_train_fields`` names raise
+    ``NotImplementedError`` naming ROADMAP.md."""
     train_cfg = train_cfg or TrainConfig()
-    queued = unsupported_train_fields(train_cfg)
-    for name, val, where in (
-            ("resilience", resilience, "queue A item 9"),
-            ("fault_plan", fault_plan, "queue A item 9"),
-            ("telemetry", telemetry, "queue A item 9"),
-            ("scale_hook", scale_hook, "queue A item 9")):
-        if val is not None:
-            queued.append(f"{name} ({where})")
-    if model_cfg is not None and model_cfg.remat:
-        queued.append("LlamaConfig.remat (queue A item 9)")
-    if queued:
-        raise NotImplementedError(
-            "train_llm_dp does not run these yet; see ROADMAP.md: "
-            + "; ".join(queued))
-    _check_dispatch(train_cfg, aggregation)
+    _check_options(train_cfg, aggregation, resilience, scale_hook)
     if train_cfg.data > 1 and not dist.is_initialized():
         kwargs = dict(tokenizer=tokenizer, aggregation=aggregation,
                       log_every=log_every, log_fn=log_fn,
                       warmup_steps_excluded=warmup_steps_excluded,
                       checkpoint_dir=checkpoint_dir,
                       checkpoint_every=checkpoint_every, loss_sink=loss_sink,
-                      sink_every=sink_every, on_checkpoint=on_checkpoint)
+                      sink_every=sink_every, resilience=resilience,
+                      fault_plan=fault_plan, telemetry=telemetry,
+                      on_checkpoint=on_checkpoint)
         return dist.run_ranks(_train_rank, train_cfg.data, model_cfg,
                               train_cfg, kwargs, device=device)[0]
     n_data = dist.world_size()
@@ -387,11 +674,14 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
                          f"group has {n_data} ranks")
     dev = dist.rank_device(device)
     rank = dist.get_rank()
+    measure = telemetry is not None     # every rank runs the comm probe
     if rank != 0:
-        log_fn, loss_sink = _quiet, None
+        log_fn, loss_sink, telemetry = _quiet, None, None
     tok = tokenizer or load_tokenizer()
     model_cfg = (model_cfg or LlamaConfig()).replace(
         vocab_size=tok.vocab_size)
+    if train_cfg.remat:
+        model_cfg = model_cfg.replace(remat=True)
     model = llama.init_llama(model_cfg,
                              torch.Generator().manual_seed(train_cfg.seed),
                              device=dev)
@@ -402,9 +692,14 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
 
     params = model.tree()
     spd = train_cfg.steps_per_dispatch
+    injit = bool(resilience is not None and resilience.injit_guard)
+    numerics = (introspect.make_summarizer(
+        params, psum_axis="data" if aggregation == "zero1" else None)
+        if train_cfg.numerics_every > 0 else None)
     if aggregation == "zero1":
         make = dp.make_zero1_multi_step if spd > 1 else dp.make_zero1_step
-        state, step_fn = make(loss_fn, optimizer, params)
+        state, step_fn = make(loss_fn, optimizer, params,
+                              guard_nonfinite=injit, numerics=numerics)
     else:
         if aggregation == "weight":
             step_fn = dp.make_weight_aggregation_step(loss_fn, optimizer)
@@ -412,13 +707,42 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
             make = (dp.make_multi_step if spd > 1
                     else dp.make_grad_aggregation_step)
             step_fn = make(loss_fn, optimizer,
-                           accum_steps=train_cfg.accum_steps)
+                           accum_steps=train_cfg.accum_steps,
+                           guard_nonfinite=injit, numerics=numerics)
         state = dp.init_state(params, optimizer)
+    # Each new call signature of the step is a ``compile`` record: one per
+    # run per step (a tail window's shape adds one under K > 1).
+    step_fn = introspect.watch(
+        step_fn, name=f"train/dp-{aggregation}"
+                      + (f"-k{spd}" if spd > 1 else ""),
+        max_caches=(1 if spd == 1 else None),
+        events=(telemetry.events if telemetry is not None else None),
+        meta={"steps_per_dispatch": spd},
+        meta_fn=(None if spd == 1 else
+                 (lambda st, w: {"steps_per_dispatch": int(w.shape[0])})))
+    compile_watch = step_fn
     stats = ResilienceStats()
     ckpt, state, start_step, done = _setup_checkpoint(
-        checkpoint_dir, state, train_cfg.iters, log_fn, stats=stats)
+        checkpoint_dir, state, train_cfg.iters, log_fn,
+        resilience=resilience, stats=stats)
     if done:
         return LLMTrainReport(start_step=start_step, resilience=stats)
+    pre = memory_meter = None
+    if telemetry is not None:
+        from ..telemetry import memory as memlib
+        pre = memlib.preflight(model_cfg, train_cfg, n_data=n_data,
+                               aggregation=aggregation, optimizer=optimizer)
+        memory_meter = memlib.MemoryMeter(telemetry.events, source="train",
+                                          device=dev)
+        if pre is not None:
+            memory_meter.note(params_bytes=pre["params_bytes"],
+                              opt_state_bytes=pre["opt_state_bytes"],
+                              window_bytes=pre["window_bytes"] or None)
+    _emit_manifest(telemetry, measure=measure, model_cfg=model_cfg,
+                   train_cfg=train_cfg, start_step=start_step,
+                   step_fn=compile_watch._fn, state=state, n_data=n_data,
+                   device=dev, steps_per_dispatch=spd, preflight=pre)
+    step_fn = _apply_resilience(step_fn, resilience, fault_plan, ckpt, stats)
     batches = shard_batches(tok, train_cfg.batch_size, train_cfg.seq_len,
                             rank, shard_skip=5000, seed=train_cfg.seed)
     return _run_loop(
@@ -428,4 +752,8 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
         checkpoint_every=checkpoint_every, loss_sink=loss_sink,
         sink_every=sink_every, log_every=log_every, log_fn=log_fn,
         warmup_steps_excluded=warmup_steps_excluded, stats=stats,
-        steps_per_dispatch=spd, on_checkpoint=on_checkpoint)
+        steps_per_dispatch=spd, on_checkpoint=on_checkpoint,
+        telemetry=telemetry, numerics=numerics,
+        numerics_every=train_cfg.numerics_every,
+        compile_watch=compile_watch, injit_guard=injit,
+        memory_meter=memory_meter)

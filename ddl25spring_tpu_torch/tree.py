@@ -162,3 +162,12 @@ def nested_unflatten(like, leaves):
         raise ValueError("more leaves than the structure holds")
     return out
 
+
+
+def tree_copy(tree):
+    """A device copy of every tensor leaf of a ``nested_leaves`` tree, each
+    requiring grad where its original does (other leaves shared)."""
+    return nested_unflatten(tree, [
+        x.detach().clone().requires_grad_(x.requires_grad)
+        if isinstance(x, torch.Tensor) else x
+        for x in nested_leaves(tree)])

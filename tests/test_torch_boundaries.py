@@ -11,10 +11,12 @@ import pytest
 import torch
 
 from ddl25spring_tpu_torch import bench_utils, convert, fl
-from ddl25spring_tpu_torch.config import FLConfig, LlamaConfig, TrainConfig
+from ddl25spring_tpu_torch.config import (FLConfig, LlamaConfig,
+                                          ResilienceConfig, TrainConfig)
 from ddl25spring_tpu_torch.models import generate, llama, mnist_cnn
 from ddl25spring_tpu_torch.ops import pallas_adam
 from ddl25spring_tpu_torch.parallel import distributed, programs
+from ddl25spring_tpu_torch.resilience import FaultPlan, measure_overhead
 from ddl25spring_tpu_torch.serving import (Engine, PagedKVConfig, Request,
                                            ServingFleet, SpecConfig,
                                            init_pool, reference_stream,
@@ -78,6 +80,18 @@ def test_the_scan_sees_every_port_module():
                  "ddl25spring_tpu_torch/serving/speculate.py",
                  "ddl25spring_tpu_torch/serving/fleet.py",
                  "ddl25spring_tpu_torch/serving/deploy.py",
+                 "ddl25spring_tpu_torch/resilience/faults.py",
+                 "ddl25spring_tpu_torch/resilience/guard.py",
+                 "ddl25spring_tpu_torch/resilience/preemption.py",
+                 "ddl25spring_tpu_torch/telemetry/__init__.py",
+                 "ddl25spring_tpu_torch/telemetry/comm.py",
+                 "ddl25spring_tpu_torch/telemetry/costs.py",
+                 "ddl25spring_tpu_torch/telemetry/events.py",
+                 "ddl25spring_tpu_torch/telemetry/heartbeat.py",
+                 "ddl25spring_tpu_torch/telemetry/introspect.py",
+                 "ddl25spring_tpu_torch/telemetry/memory.py",
+                 "ddl25spring_tpu_torch/telemetry/registry.py",
+                 "ddl25spring_tpu_torch/telemetry/trace.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -125,6 +139,12 @@ ENTRY_POINTS = {
         CFG, TrainConfig(iters=1), tokenizer=ByteTokenizer()),
     "train_llm_dp data=2": lambda: llm.train_llm_dp(
         CFG, TrainConfig(iters=1, data=2), tokenizer=ByteTokenizer()),
+    "train_llm_dp resilience": lambda: llm.train_llm_dp(
+        CFG, TrainConfig(iters=1, remat=True, numerics_every=1),
+        tokenizer=ByteTokenizer(), resilience=ResilienceConfig(),
+        fault_plan=FaultPlan.from_spec("nan_grad@0")),
+    "measure_overhead": lambda: measure_overhead(
+        lambda: None, torch.zeros((1, 2), dtype=torch.long)),
     "run_ranks": lambda: distributed.run_ranks(programs.loaded_modules, 2),
     "time_train_step": lambda: bench_utils.time_train_step(CFG, 1),
     "pallas_adam.smoke_check": lambda: pallas_adam.smoke_check(),
@@ -136,6 +156,8 @@ ENTRY_POINTS = {
     "FedSgdGradientServer": _fl_server(fl.FedSgdGradientServer),
     "FedSgdWeightServer": _fl_server(fl.FedSgdWeightServer),
     "FedAvgServer": _fl_server(fl.FedAvgServer),
+    "FedAvgServer fault_plan": _fl_server(
+        fl.FedAvgServer, fault_plan=FaultPlan.from_spec("drop_client@0")),
     "FedAvgGradServer": _fl_server(fl.FedAvgGradServer),
     "FedProxServer": _fl_server(fl.FedProxServer, mu=0.1),
     "CentralizedServer": lambda: fl.CentralizedServer(

@@ -204,11 +204,3 @@ def test_non_iid_fedavg_runs(setup):
     server = fl.FedAvgServer(s["params"], mnist_cnn.apply, data, s["xt"],
                              s["yt"], FLConfig(**CFG), device="cpu")
     assert np.isfinite(server.run(2).test_accuracy).all()
-
-
-@pytest.mark.parametrize("kw", ["fault_plan", "telemetry"])
-def test_unported_options_raise(setup, kw):
-    s = setup
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        fl.FedAvgServer(s["params"], tapply, s["data"], s["xt"], s["yt"],
-                        FLConfig(**CFG), device="cpu", **{kw: object()})

@@ -434,10 +434,3 @@ def test_fleet_events_pass_the_jax_validator(target, tmp_path):
                              "deploy-")])
     assert all(tree_check(t) == {"roots": 1, "orphans": 0, "imbalanced": 0}
                for t in trees.values())
-
-
-def test_memory_census_names_its_roadmap_item(target):
-    _, model = target
-    eng = Engine(model, CFG, PAGED, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        Scheduler(eng, memory_every=4)

@@ -277,7 +277,9 @@ def test_gather_narrowing_with_speculation_at_the_horizon(target, draft):
 
 def test_gather_narrowing_alone_keeps_every_stream(target):
     """Without speculation, narrowing keeps greedy and sampled streams
-    equal to generate()'s (dropped columns are masked to exact zeros)."""
+    equal to generate()'s (dropped columns are masked to exact zeros), and
+    the programs see at most one call signature per bucket width (the JAX
+    engine's compile bound) with no retrace."""
     _, model = target
     wl = synthetic_workload(seed=11, n_requests=8, rate_rps=300.0,
                             vocab_size=97, prompt_lens=(2, 5, 9),
@@ -287,7 +289,8 @@ def test_gather_narrowing_alone_keeps_every_stream(target):
     for r in wl:
         assert rep.records[r.rid].tokens == _ref(model, r), r.rid
     assert rep.gather_bytes_saved > 0 and rep.gather_bytes > 0
-    assert rep.compiles == 0 and rep.retraces == 0
+    buckets = len({1, 2, 4, 8})                  # mb=8 → 1/2/4/8
+    assert 2 <= rep.compiles <= 1 + buckets and rep.retraces == 0
 
 
 def test_a_verify_dispatch_draws_a_fixed_number_of_values(target, draft):
