@@ -166,6 +166,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
              those without, compiles 2 and retraces 0; 2 FedAvg rounds at
              phase 8's configuration with ``drop_client@0:2`` and
              telemetry: 2 ``fl_round`` events, card vs CPU within 1e-4.
+13. pipeline parallelism — three stage processes on the one card, joined
+             by gloo, each hop staged through the host (one
+             ``programs.phase13`` launch): a. the canonical model in fp32,
+             B = 12 x 256, S = 3, M = 3, GPipe, 1F1B and interleaved (two
+             chunks per stage): the loss and every stage's gradient leaves
+             within 1e-4 of the world-of-one step on the card at the same
+             weights and batch; b. bf16, B = 48 x 256, M = 6, the "pallas"
+             optimizer: each schedule's ms per step timed in turns (3
+             rounds of 5 steps, the order rotating), the flash forward,
+             dQ, dK/dV and Adam launches per stage per step (GPipe and
+             interleaved 12/12/12/1, 1F1B 24/12/12/1: its backward
+             recomputes the stage), and the hop of one [8, 256, 288] bf16
+             activation alone (device→host, gloo, host→device); c. the
+             homework's topologies through ``train_llm_pp`` at vocab 259,
+             20 steps: b1 ``stage=3, microbatches=3`` (losses within 2e-4
+             of phase 7's ``train_llm_dp`` on the same stream) and b2
+             ``data=2, stage=3`` (six processes), losses finite and
+             falling, 6/6/6/1 launches per stage per step; d. K = 4
+             bitwise per-step, 10 steps resumed to 20 bitwise, and
+             ``nan_grad@3`` skipped on every stage.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -2008,6 +2028,136 @@ def resilience_phase(dev: torch.device, card: str, zero_counts, read_counts,
     return out
 
 
+# ------------------------------------------------------------- phase 13
+
+# Phase 13 (pipeline parallelism): each schedule's gradient against the
+# world of one within the kernel limits (fp32), b1's losses within the JAX
+# package's own PP-vs-DP bar (tests/test_dp.py::
+# test_train_llm_pp_matches_dp), and each kernel's launches per stage per
+# step at S = 3 (2 layers per stage) and M microbatches: the forward twice
+# per microbatch under 1F1B (its backward recomputes the stage).
+TOL_PP_GRAD = 1e-4
+TOL_PP_VS_DP = 2e-4
+
+
+def pp_launches(schedule: str, m: int) -> dict:
+    fwd = 2 * m * (2 if schedule == "1f1b" else 1)
+    return {"flash_fwd": fwd, "flash_bwd_dq": 2 * m, "flash_bwd_dkv": 2 * m,
+            "adam": 1}
+
+
+def pp_phase(dev: torch.device, card: str, dp_losses) -> dict:
+    """Phase 13: three stage processes on the one card (one
+    ``programs.phase13`` launch) and six for the 2 × 3 topology
+    (``programs.phase13_b2``). ``dp_losses``: phase 7's ``train_llm_dp``
+    losses, the stream b1 reads. Raises on a failed check; returns the
+    numbers."""
+    from ddl25spring_tpu_torch.parallel import distributed, programs
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(13)
+    tokens_check = torch.randint(0, 32000, (12, 256), generator=gen).numpy()
+    tokens_time = torch.randint(0, 32000, (48, 256), generator=gen).numpy()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = distributed.run_ranks(programs.phase13, 3, tokens_check,
+                                      tokens_time, d, device=None,
+                                      timeout=900)
+    out = {"ranks": [{k: v for k, v in r.items() if k != "hop"}
+                     for r in ranks], "hop": ranks[0]["hop"]}
+    # a. fp32, B=12 x 256, M=3: every stage's gradient vs the world of one.
+    for sched in programs.PP_SCHEDULES:
+        errs = [r["check"][sched]["grad_rel_err"] for r in ranks]
+        loss_err = max(abs(r["check"][sched]["pp_loss"]
+                           - r["check"][sched]["loss"]) for r in ranks)
+        check(max(errs) <= TOL_PP_GRAD and loss_err <= TOL_PP_GRAD,
+              f"pp {sched} fp32 vs world of one: loss |d| {loss_err:.3g}, "
+              f"grads max|d|/max|ref| per stage {errs} > {TOL_PP_GRAD}")
+        print(f"pp {sched} fp32 B=12 M=3 S=3 vs world of one on the card: "
+              f"loss {ranks[0]['check'][sched]['pp_loss']:.6f} |d| "
+              f"{loss_err:.3g}, grads max|d|/max|ref| per stage "
+              f"{[f'{e:.3g}' for e in errs]}; launches per stage "
+              f"{[r['check'][sched]['launches'] for r in ranks]} {card}")
+    # b. bf16, B=48 x 256, M=6: ms per step in turns, launches, the hop.
+    for sched in programs.PP_SCHEDULES:
+        want = pp_launches(sched, 6)
+        got = [r["timing"][sched]["launches"] for r in ranks]
+        check(all(g == want for g in got), f"pp {sched} launches per stage "
+              f"per step {got}, expected {want}")
+        losses = ranks[0]["timing"][sched]["losses"]
+        check(all(math.isfinite(x) for x in losses),
+              f"pp {sched} bf16 losses {losses}")
+        t = ranks[0]["timing"][sched]
+        print(f"pp {sched} bf16 B=48 x 256 M=6 S=3: "
+              f"{t['ms_per_step']:.2f} ms per step (median of 3 turns of 5 "
+              f"steps: {[round(x, 2) for x in t['ms_per_step_turns']]}), "
+              f"{48 * 256 / t['ms_per_step'] * 1e3:.0f} tok/s; launches per "
+              f"stage per step {want}; loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} {card}")
+    hop = out["hop"]
+    print(f"pp hop (stage 0 -> 1, [8, 256, 288] bf16, {hop['bytes']} B, "
+          f"device->host, gloo over loopback, host->device): "
+          f"{hop['hop_ms']:.3f} ms one way (half the median round trip); "
+          f"device->host copy {hop['d2h_ms']:.3f} ms, host->device "
+          f"{hop['h2d_ms']:.3f} ms {card}")
+    # c. the homework's topologies through train_llm_pp at vocab 259.
+    b1 = ranks[0]["b1"]
+    for r in ranks:
+        check(r["b1"]["losses"] == b1["losses"], "b1 ranks disagree on the "
+              "losses")
+        check(r["b1"]["launches"] == pp_launches("gpipe", 3),
+              f"b1 stage {r['stage']} launches per step "
+              f"{r['b1']['launches']}")
+    ls = b1["losses"]
+    check(len(ls) == 20 and all(math.isfinite(x) for x in ls)
+          and ls[-1] < ls[0], f"b1 losses {ls}")
+    vs_dp = max(abs(a - b) for a, b in zip(ls, dp_losses))
+    check(vs_dp <= TOL_PP_VS_DP, f"b1 vs train_llm_dp max|d| {vs_dp:.3g} > "
+          f"{TOL_PP_VS_DP}")
+    print(f"pp b1 train_llm_pp(stage=3, microbatches=3), vocab 259, batch 3 "
+          f"x 256: {ls[0]:.4f} -> {ls[-1]:.4f} in 20 steps "
+          f"({b1['seconds']:.1f} s, {b1['tokens_per_sec']:.0f} tok/s after "
+          f"warmup), max|d| vs train_llm_dp (phase 7) {vs_dp:.3g}; launches "
+          f"per stage per step {b1['launches']} {card}")
+    t0 = time.perf_counter()
+    b2 = distributed.run_ranks(programs.phase13_b2, 6, device=None,
+                               timeout=600)
+    b2_s = time.perf_counter() - t0
+    for r in b2:
+        check(r["losses"] == b2[0]["losses"], "b2 ranks disagree")
+        check(r["launches"] == pp_launches("gpipe", 3),
+              f"b2 rank {r['rank']} launches per step {r['launches']}")
+    ls2 = b2[0]["losses"]
+    check(len(ls2) == 20 and all(math.isfinite(x) for x in ls2)
+          and ls2[-1] < ls2[0], f"b2 losses {ls2}")
+    out["b2"] = b2
+    print(f"pp b2 train_llm_pp(data=2, stage=3, microbatches=3): "
+          f"{ls2[0]:.4f} -> {ls2[-1]:.4f} in 20 steps ({b2_s:.1f} s with "
+          f"the launch of 6 processes, {b2[0]['tokens_per_sec']:.0f} tok/s "
+          f"after warmup); launches per rank per step {b2[0]['launches']} "
+          f"{card}")
+    # d. exactness: K-step, resume, a fault skipped on every rank.
+    r0 = ranks[0]
+    check(r0["kstep_losses"] == ls[:8], f"pp K=4 losses "
+          f"{r0['kstep_losses']} != per-step {ls[:8]}")
+    check(r0["resumed"]["start"] == 10 and r0["resumed"]["losses"] == ls,
+          f"pp resume {r0['resumed']} != {ls}")
+    for r in ranks:
+        f = r["fault"]
+        check(f["resilience"]["skipped_steps"] == 1
+              and math.isnan(f["losses"][3])
+              and all(math.isfinite(x) for i, x in enumerate(f["losses"])
+                      if i != 3) and f["losses"][:3] == ls[:3],
+              f"pp fault on stage {r['stage']}: {f}")
+    print(f"pp exactness: K=4 losses bitwise per-step; 10 steps resumed to "
+          f"20 bitwise the uninterrupted run; nan_grad@3 skipped on every "
+          f"stage ({[r['fault']['resilience']['skipped_steps'] for r in ranks]}"
+          f" skips) {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"pp phase: {out['seconds']:.1f} s (stage processes "
+          f"{[round(r['seconds'], 1) for r in ranks]} s) {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2537,6 +2687,7 @@ def main() -> int:
           f"train_llm_dp losses {rep.losses}")
     check(tper == twant, f"train_llm_dp launches per step {tper}, expected "
           f"{twant}")
+    dp_losses = rep.losses
     print(f"train_llm_dp (byte tokenizer, vocab 259, batch 3 x 256, "
           f"optimizer pallas): {iters} steps in {trainer_s:.1f} s, loss "
           f"{rep.losses[0]:.4f} -> {rep.losses[-1]:.4f}, "
@@ -2577,6 +2728,9 @@ def main() -> int:
     res_report = resilience_phase(dev, card, zero_counts, read_counts,
                                   model, cfg, dp_report, mnist_arrays)
 
+    # 13. pipeline parallelism, three and six stage processes -------------
+    pp_report = pp_phase(dev, card, dp_losses)
+
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
     path_counts = {"forward (phase 4)": {"flash_fwd": main_launches},
@@ -2599,7 +2753,14 @@ def main() -> int:
                        res_report["remat"]["launches_per_step"]["remat"],
                    "serving census (phase 12g), two runs":
                        {"flash_fwd": 0, "flash_bwd_dq": 0,
-                        "flash_bwd_dkv": 0, "adam": 0}}
+                        "flash_bwd_dkv": 0, "adam": 0},
+                   **{f"pp {sched} bf16 M=6 (phase 13b), per stage per step":
+                      pp_report["ranks"][0]["timing"][sched]["launches"]
+                      for sched in ("gpipe", "1f1b", "interleaved")},
+                   "train_llm_pp stage=3 (phase 13c), per stage per step":
+                       pp_report["ranks"][0]["b1"]["launches"],
+                   "train_llm_pp data=2 stage=3 (phase 13c), per rank per "
+                   "step": pp_report["b2"][0]["launches"]}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -2662,7 +2823,7 @@ def main() -> int:
                               "grad_rel_err": grad_err_bf16}},
                       "fl": fl_report, "tabular": tab_report,
                       "dp": dp_report, "serving_ext": ext_report,
-                      "resilience": res_report,
+                      "resilience": res_report, "pp": pp_report,
                       "adam_paired": adam_pairs, "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

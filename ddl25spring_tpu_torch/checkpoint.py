@@ -7,8 +7,12 @@ One file per step, ``<dir>/<step>.pt``: the state's tensor leaves, in
 and renamed into place, so a kill mid-write leaves no partial step. In a
 process group every rank calls ``save``: a ZeRO-1 state's moment slices
 are gathered into the padded flat vector that JAX's orbax saves
-(``parallel.dp.host_snapshot``), rank 0 alone writes, and a barrier ends
-the call. Every rank reads on ``restore``.
+(``parallel.dp.host_snapshot``), a pipeline stage's parameters and
+moments into the whole model's JAX-layout state (``parallel.pp.
+host_snapshot``, the file a data-parallel state of the model writes),
+rank 0 alone writes, and a barrier ends the call. Every rank reads on
+``restore``; a stage re-slices its own part (``parallel.pp.
+slice_state``).
 
 The JAX package's contract is kept:
 
@@ -43,12 +47,17 @@ import torch
 
 from .metrics import ResilienceStats
 from .parallel import distributed as dist
-from .parallel import dp
+from .parallel import dp, pp
 from .resilience.retry import retry_call
 from .tree import nested_leaves, nested_unflatten, tree_unflatten
 
 MANIFEST_VERSION = 1
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
+
+
+def _is_stage(state) -> bool:
+    """Whether ``state`` is a pipeline stage's (``parallel.pp``)."""
+    return getattr(state, "pp", None) is not None
 
 
 def _sha256_file(path: str) -> str:
@@ -147,7 +156,9 @@ class Checkpointer:
         if exists and not overwrite:
             raise ValueError(f"checkpoint step {step} already exists (pass "
                              f"overwrite=True to replace a stale entry)")
-        snapshot = dp.host_snapshot(state)      # a collective for ZeRO-1
+        # A collective for ZeRO-1 and for pipeline stages.
+        snapshot = (pp.host_snapshot(state) if _is_stage(state)
+                    else dp.host_snapshot(state))
         try:
             if dist.get_rank() == 0:
                 self._write(step, nested_leaves(snapshot))
@@ -206,6 +217,9 @@ class Checkpointer:
                           base=self._retry_base, seed=step,
                           retry_on=(OSError,), on_retry=self._count_retry)
         tensors = iter(data["tensors"])
+        stage = template if _is_stage(template) else None
+        if stage is not None:     # read the whole model, then re-slice
+            template = pp.merged_template(stage)
         t_leaves = nested_leaves(template)
         host = [next(tensors) if isinstance(t, torch.Tensor) else t
                 for t in t_leaves]
@@ -214,6 +228,8 @@ class Checkpointer:
                              f"than the template")
         saved = [tuple(h.shape) for h, t in zip(host, t_leaves)
                  if isinstance(t, torch.Tensor)]
+        if stage is not None:
+            return pp.slice_state(nested_unflatten(template, host), stage)
         want = [s for s in dp.global_shapes(template) if s is not None]
         out = dp.reshard_state(nested_unflatten(template, host), template)
         if saved != want:

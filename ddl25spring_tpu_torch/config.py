@@ -94,8 +94,9 @@ class TrainConfig:
     batch 3 per data shard, seq 256), field for field the JAX package's.
     Parallelism, wire formats and dispatch fields are kept so configs carry
     over; the port runs data parallelism (``data`` processes,
-    ``accum_steps``, ``steps_per_dispatch``, every ``optimizer``) and raises
-    for the rest (``train.llm.unsupported_train_fields``)."""
+    ``accum_steps``, ``steps_per_dispatch``, every ``optimizer``), pipeline
+    parallelism (``stage``, ``microbatches``: ``train.llm.train_llm_pp``)
+    and raises for the rest (``train.llm.unsupported_train_fields``)."""
 
     batch_size: int = 3            # per-data-shard batch
     seq_len: int = 256

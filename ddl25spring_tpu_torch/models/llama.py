@@ -320,3 +320,49 @@ def forward_loss(params, tokens: torch.Tensor, cfg: LlamaConfig,
 
 def param_count(params) -> int:
     return sum(int(x.numel()) for x in tree_leaves(as_tree(params)))
+
+
+# ---------------------------------------------------------- pipeline stages
+
+def split_stages(params, n_stages: int) -> list:
+    """Slice the stacked block axis into ``n_stages`` contiguous stage
+    trees (views): stage 0 carries ``embed``, the last stage
+    ``final_norm`` and ``lm_head``, the reference's First/Stage/Last
+    split."""
+    params = as_tree(params)
+    n_layers = tree_leaves(params["blocks"])[0].shape[0]
+    assert n_layers % n_stages == 0, (n_layers, n_stages)
+    per = n_layers // n_stages
+    stages = []
+    for s in range(n_stages):
+        stage = {"blocks": tree_map(lambda x: x[s * per:(s + 1) * per],
+                                    params["blocks"])}
+        if s == 0:
+            stage["embed"] = params["embed"]
+        if s == n_stages - 1:
+            stage["final_norm"] = params["final_norm"]
+            stage["lm_head"] = params["lm_head"]
+        stages.append(stage)
+    return stages
+
+
+def merge_stages(stages: list) -> dict:
+    """Inverse of ``split_stages``: the JAX tree, name for name."""
+    return {
+        "embed": stages[0]["embed"],
+        "blocks": tree_map(lambda *xs: torch.cat(xs, dim=0),
+                           *[s["blocks"] for s in stages]),
+        "final_norm": stages[-1]["final_norm"],
+        "lm_head": stages[-1]["lm_head"],
+    }
+
+
+def stage_apply(stage: dict, x: torch.Tensor, cfg: LlamaConfig, *,
+                is_first: bool, is_last: bool,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run one pipeline stage: tokens ``[B, T]`` on the first stage,
+    activations ``[B, T, D]`` otherwise; embeds if first, returns the
+    logits if last."""
+    h = embed(stage, x, cfg) if is_first else x
+    h = blocks_apply(stage["blocks"], h, cfg, positions)
+    return head(stage, h, cfg) if is_last else h

@@ -238,7 +238,8 @@ def flash_attention_bwd(q4: torch.Tensor, k4: torch.Tensor,
         # at stride 1; a cotangent broadcast from a sum has neither.
         do = do.contiguous()
     delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2)
-    delta = delta.reshape(b * h, t)                 # [B·H, T], dense
+    # [B·H, T], dense: at B = 1 the reshape is a strided view.
+    delta = delta.reshape(b * h, t).contiguous()
     dq, dk, dv = (torch.empty(b, t, h, dh, dtype=q4.dtype, device=q4.device)
                   for _ in range(3))
     ops = (q4, k4, v4, do.permute(0, 2, 1, 3))

@@ -30,6 +30,15 @@ Every rank receives the same sums, so replicated state stays bitwise
 replicated. At a world of one (no group) every collective returns its
 input and starts nothing. Each collective records its bytes, under its
 call site's label, into ``telemetry.comm``'s active collector.
+
+Pipeline parallelism lays the ranks on a ``{"data": D, "stage": S}``
+mesh in the JAX mesh's order (``pipeline_mesh``: rank ``d·S + s``), with
+a gloo group per data row (its stages) and one per stage (its data
+rows); the collectives take such a ``Group`` as ``group=``. Stages pass
+activations and cotangents point to point (``send``, ``recv``, ``isend``,
+``irecv``, and ``Hops`` for one step's hops): gloo sends CPU tensors
+only, so on the card a hop is a device→host copy, gloo over loopback and
+a host→device copy, as in the reference's gloo pipeline.
 """
 
 from __future__ import annotations
@@ -42,7 +51,8 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -219,45 +229,140 @@ def run_ranks(fn: Callable, world: int, *args, device=None,
     return [out[r] for r in range(world)]
 
 
+# -------------------------------------------------------------- the mesh
+
+@dataclass(frozen=True)
+class Group:
+    """The processes along one named axis of a process mesh: their global
+    ranks in axis order, this process's ``index`` among them, and the
+    gloo group joining them (None for a group of one, whose collectives
+    start nothing)."""
+
+    axis: str
+    ranks: Tuple[int, ...]
+    index: int
+    pg: Any = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+@dataclass(frozen=True)
+class PipelineMesh:
+    """A ``{"data": data, "stage": stage}`` layout of the process group,
+    in the JAX mesh's order: rank ``r = d·stage + s`` runs stage ``s`` of
+    data row ``d``. ``stage_group`` joins this data row's stages (the
+    point-to-point hops and the loss broadcast), ``data_group`` this
+    stage's replicas in every data row (the gradient mean)."""
+
+    data: int
+    stage: int
+    d: int
+    s: int
+    stage_group: Group
+    data_group: Group
+
+
+_MESHES: Dict[Tuple[int, int, int], PipelineMesh] = {}
+
+
+def pipeline_mesh(data: int, stage: int) -> PipelineMesh:
+    """This process's place on a ``data × stage`` mesh over the process
+    group (a world of one without a group), with one gloo group per data
+    row and one per stage, made once per process and layout. Every rank
+    must call it (``dist.new_group`` is collective). Raises unless the
+    group has ``data·stage`` ranks."""
+    n, rank = world_size(), get_rank()
+    if data < 1 or stage < 1 or n != data * stage:
+        raise ValueError(f"a data={data} x stage={stage} mesh needs "
+                         f"{data * stage} ranks, the process group has {n}")
+    key = (data, stage, id(dist.group.WORLD) if is_initialized() else 0)
+    if key not in _MESHES:
+        rows = [tuple(d * stage + s for s in range(stage))
+                for d in range(data)]
+        cols = [tuple(d * stage + s for d in range(data))
+                for s in range(stage)]
+        pgs = {}
+        for ranks in rows + cols:      # the same order on every rank
+            if len(ranks) > 1:
+                pgs[ranks] = dist.new_group(list(ranks), backend=BACKEND,
+                                            timeout=GROUP_TIMEOUT)
+        d, s = divmod(rank, stage)
+        _MESHES[key] = PipelineMesh(
+            data, stage, d, s,
+            Group("stage", rows[d], s, pgs.get(rows[d])),
+            Group("data", cols[s], d, pgs.get(cols[s])))
+    return _MESHES[key]
+
+
 # --------------------------------------------------------------- collectives
 # Each collective records its operand's bytes under its call site's
 # ``label`` into the active ``telemetry.comm.collecting()`` list (nothing
 # without one), at a world of one too, as the JAX package's wrappers do.
+# ``group`` (a ``Group``) runs it over one mesh axis; None means every rank
+# of the process group, recorded as the ``data`` axis.
 
-def _all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    if world_size() == 1:
+def _size(group: Optional[Group]) -> int:
+    return world_size() if group is None else group.size
+
+
+def _record(op: str, label: Optional[str], x, group: Optional[Group]):
+    if group is None:
+        _comm.record(op, label, x)
+    else:
+        _comm.record(op, label, x, axis=group.axis, axis_size=group.size)
+
+
+def _all_reduce_sum(x: torch.Tensor,
+                    group: Optional[Group] = None) -> torch.Tensor:
+    if _size(group) == 1:
         return x
     y = x.detach().clone()
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=None if group is None else group.pg)
     return y
 
 
 def psum(x: torch.Tensor, *, label: Optional[str] = None,
-         record: bool = True) -> torch.Tensor:
+         record: bool = True, group: Optional[Group] = None) -> torch.Tensor:
     """The sum of ``x`` over the ranks, as a new tensor (``x`` itself at a
     world of one)."""
     if record:
-        _comm.record("psum", label, x)
-    return _all_reduce_sum(x)
+        _record("psum", label, x, group)
+    return _all_reduce_sum(x, group)
 
 
-def pmean(x: torch.Tensor, *, label: Optional[str] = None) -> torch.Tensor:
+def pmean(x: torch.Tensor, *, label: Optional[str] = None,
+          group: Optional[Group] = None) -> torch.Tensor:
     """The mean of ``x`` over the ranks: the sum divided by the world
     size (``x`` itself at a world of one)."""
-    _comm.record("pmean", label, x)
-    n = world_size()
-    return x if n == 1 else _all_reduce_sum(x) / n
+    _record("pmean", label, x, group)
+    n = _size(group)
+    return x if n == 1 else _all_reduce_sum(x, group) / n
 
 
-def pmean_tree(tree, *, label: Optional[str] = None, record: bool = True):
+def pmean_tree(tree, *, label: Optional[str] = None, record: bool = True,
+               group: Optional[Group] = None):
     """``pmean`` of every leaf of a tree (nested dicts and lists of
     tensors), one all-reduce per dtype over the leaves' concatenation.
     Returns a new tree of ``tree``'s structure (``tree`` itself at a world
     of one). Recorded as one collective of the whole tree, as the JAX
     package's ``pmean`` of a tree is."""
     if record:
-        _comm.record("pmean", label, tree)
-    n = world_size()
+        _record("pmean", label, tree, group)
+    return _reduce_tree(tree, group, mean=True)
+
+
+def psum_tree(tree, *, label: Optional[str] = None, record: bool = True,
+              group: Optional[Group] = None):
+    """``psum`` of every leaf of a tree, as ``pmean_tree``."""
+    if record:
+        _record("psum", label, tree, group)
+    return _reduce_tree(tree, group, mean=False)
+
+
+def _reduce_tree(tree, group: Optional[Group], mean: bool):
+    n = _size(group)
     if n == 1:
         return tree
     leaves = tree_leaves(tree)
@@ -265,8 +370,9 @@ def pmean_tree(tree, *, label: Optional[str] = None, record: bool = True):
     for dtype in dict.fromkeys(x.dtype for x in leaves):
         idx = [i for i, x in enumerate(leaves) if x.dtype == dtype]
         flat = torch.cat([leaves[i].detach().reshape(-1) for i in idx])
-        dist.all_reduce(flat)
-        flat /= n
+        dist.all_reduce(flat, group=None if group is None else group.pg)
+        if mean:
+            flat /= n
         for i, piece in zip(idx, flat.split([leaves[i].numel()
                                              for i in idx])):
             out[i] = piece.view(leaves[i].shape)
@@ -319,3 +425,89 @@ def barrier(device) -> None:
     ``device`` and a host read of it."""
     if world_size() > 1:
         float(_all_reduce_sum(torch.ones((), device=device)))
+
+
+# ---------------------------------------------------- point-to-point hops
+# gloo's send and recv take CPU tensors only: a hop of a CUDA tensor is a
+# device→host copy, gloo over loopback TCP, and a host→device copy on the
+# receiving side. A send completes once its receiver has posted the
+# matching receive, so a schedule posts its sends without waiting
+# (``isend``) and waits for all of them at its end (``Hops.finish``).
+# ``to`` and ``frm`` are indices along ``group``; every wait gives up
+# after ``GROUP_TIMEOUT``. Each send records its bytes under ``label``
+# (op ``ppermute``, the JAX package's, on the group's axis).
+
+def isend(x: torch.Tensor, to: int, *, tag: int, label: str,
+          group: Group) -> Callable[[], None]:
+    """Post an asynchronous send of ``x`` to ``group.ranks[to]`` with
+    ``tag``; returns the wait, which holds the staged copy alive."""
+    _record("ppermute", label, x, group)
+    host = x.detach().to("cpu").contiguous()
+    work = dist.isend(host, group.ranks[to], group=group.pg, tag=tag)
+
+    def wait(staged: torch.Tensor = host) -> None:
+        work.wait(GROUP_TIMEOUT)
+
+    return wait
+
+
+def irecv(frm: int, shape, dtype: torch.dtype, *, tag: int, group: Group,
+          device) -> Callable[[], torch.Tensor]:
+    """Post an asynchronous receive from ``group.ranks[frm]`` with ``tag``;
+    returns the wait, which gives the tensor on ``device``."""
+    host = torch.empty(tuple(shape), dtype=dtype)
+    work = dist.irecv(host, group.ranks[frm], group=group.pg, tag=tag)
+
+    def wait() -> torch.Tensor:
+        work.wait(GROUP_TIMEOUT)
+        return host.to(device)
+
+    return wait
+
+
+def send(x: torch.Tensor, to: int, *, tag: int, label: str,
+         group: Group) -> None:
+    """``isend`` and its wait."""
+    isend(x, to, tag=tag, label=label, group=group)()
+
+
+def recv(frm: int, shape, dtype: torch.dtype, *, tag: int, group: Group,
+         device) -> torch.Tensor:
+    """``irecv`` and its wait."""
+    return irecv(frm, shape, dtype, tag=tag, group=group, device=device)()
+
+
+class Hops:
+    """The point-to-point hops of one pipeline step along ``group`` (a
+    ``stage`` axis): ``send`` posts an ``isend`` and keeps its wait,
+    ``recv`` receives and waits, ``finish`` waits for every send. A tag is
+    unique per (sender, receiver) within the step. A hop from a stage to
+    itself (one stage, interleaved) is handed over in memory and recorded
+    alike."""
+
+    def __init__(self, group: Group, device):
+        self.group = group
+        self.device = torch.device(device)
+        self._sends: List[Callable[[], None]] = []
+        self._local: Dict[int, torch.Tensor] = {}
+
+    def send(self, x: torch.Tensor, to: int, *, tag: int,
+             label: str) -> None:
+        if to == self.group.index:
+            _record("ppermute", label, x, self.group)
+            self._local[tag] = x.detach().clone()
+        else:
+            self._sends.append(isend(x, to, tag=tag, label=label,
+                                     group=self.group))
+
+    def recv(self, frm: int, shape, dtype: torch.dtype, *,
+             tag: int) -> torch.Tensor:
+        if frm == self.group.index:
+            return self._local.pop(tag)
+        return recv(frm, shape, dtype, tag=tag, group=self.group,
+                    device=self.device)
+
+    def finish(self) -> None:
+        for wait in self._sends:
+            wait()
+        self._sends.clear()

@@ -53,8 +53,8 @@ import torch
 from . import distributed as dist
 from ..telemetry import comm as _comm
 from ..ops.adam import apply_optimizer, apply_updates, resize_zero_padded
-from ..tree import (nested_leaves, nested_unflatten, tree_leaves,
-                    tree_unflatten)
+from ..tree import (nested_leaves, nested_unflatten, tree_copy,
+                    tree_leaves, tree_unflatten)
 
 
 @dataclass(frozen=True)
@@ -80,6 +80,7 @@ class TrainState(NamedTuple):
     opt_state: Any
     step: torch.Tensor
     zero1: Optional[Zero1Geometry] = None   # set on ZeRO-1 states only
+    pp: Any = None      # pipeline stage states only (``pp.StageGeometry``)
 
 
 def init_state(params, optimizer) -> TrainState:
@@ -141,7 +142,10 @@ def _make_local_grad_step(loss_fn: Callable, optimizer, accum_steps: int,
     second output becomes ``(loss, NumericsSummary)`` of the averaged
     gradient and the update, from a copy of the parameters taken before
     the in-place update; losses and parameters do not change. A step the
-    guard skips reports its gradient statistics and a zero update."""
+    guard skips reports the update it refused, as the JAX body does: the
+    optimizer runs on copies of the parameters and moments, which are
+    summarized and dropped (only skipped steps with numerics on pay for
+    the copies)."""
 
     def local_step(state: TrainState, batch: torch.Tensor
                    ) -> Tuple[TrainState, torch.Tensor]:
@@ -156,8 +160,11 @@ def _make_local_grad_step(loss_fn: Callable, optimizer, accum_steps: int,
         # first, and it waits for the device.
         if guard_nonfinite and not bool(_all_finite(loss, grads)):
             if numerics is not None:
+                refused, _ = apply_optimizer(
+                    optimizer, grad_tree, tree_copy(state.opt_state),
+                    _pre_update_copy(state.params, numerics))
                 return state, (loss, numerics.summarize(old, grad_tree,
-                                                        old))
+                                                        refused))
             return state, loss
         params, opt_state = apply_optimizer(
             optimizer, grad_tree, state.opt_state, state.params)
@@ -383,7 +390,8 @@ def _slice_mask(state) -> List[bool]:
            for x in nested_leaves(state.opt_state)]
     return ([False] * len(nested_leaves(state.params)) + opt
             + [False] * (len(nested_leaves(state.step))
-                         + len(nested_leaves(state.zero1))))
+                         + len(nested_leaves(state.zero1))
+                         + len(nested_leaves(state.pp))))
 
 
 def global_shapes(state) -> List[Optional[tuple]]:

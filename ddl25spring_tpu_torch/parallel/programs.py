@@ -2,8 +2,9 @@
 
 ``distributed.run_ranks`` pickles the function a child runs by its import
 path, so the per-rank bodies of the multi-rank tests
-(``tests/test_torch_{dp,zero1,checkpoint}.py``) and of ``chip_smoke.py``
-phase 10 live here, in the port, and a child imports nothing but the port.
+(``tests/test_torch_{dp,zero1,checkpoint,pp,pp_trainer}.py``) and of
+``chip_smoke.py`` phases 10 and 13 live here, in the port, and a child
+imports nothing but the port.
 Each takes plain data (numpy trees and batches, config dicts) and its
 ``device`` from the launcher, and returns host data: losses, parameters
 and optimizer state as numpy.
@@ -20,19 +21,21 @@ import time
 import torch
 
 from . import distributed as dist
-from . import dp
+from . import dp, pp
 from .. import bench_utils, convert
 from ..bench_utils import make_optimizer
 from ..checkpoint import Checkpointer
-from ..config import LlamaConfig, TrainConfig
+from ..config import LlamaConfig, ResilienceConfig, TrainConfig
 from ..device import fp32_products, synchronize
 from ..models import llama
 from ..ops import flash_attention as fa
+from ..telemetry import introspect
 from ..telemetry.comm import CommProfile, collecting
 from ..ops import pallas_adam as padam
 from ..tokenizers import ByteTokenizer
-from ..train.llm import train_llm_dp
-from ..tree import tree_leaves
+from ..resilience import FaultPlan
+from ..train.llm import train_llm_dp, train_llm_pp
+from ..tree import tree_leaves, tree_unflatten
 
 
 def gloo_probe(n: int = 26_398_368, *, device) -> dict:
@@ -265,6 +268,96 @@ def sequence(calls, *, device) -> list:
     return [globals()[name](*args, device=device) for name, args in calls]
 
 
+# ------------------------------------------------- pipeline parallelism
+
+def sgd(lr: float):
+    """Plain SGD, ``u = −lr·g``, with the optax surface (no state): a
+    step's update divided by ``−lr`` is its gradient."""
+    from ..ops.adam import GradientTransformation
+    from ..tree import tree_map
+    return GradientTransformation(
+        lambda params: (),
+        lambda grads, state, params=None: (
+            tree_map(lambda g: -lr * g, grads), state))
+
+
+def _pp_case(case: dict, device) -> dict:
+    """One pipeline run on this rank; see ``pp_cases``."""
+    cfg = LlamaConfig(**case["cfg"])
+    mesh = dist.pipeline_mesh(case["data"], case["stage"])
+    sched, v = case["schedule"], case.get("n_chunks", 2)
+    params = convert.params_from_jax(case["params"], cfg,
+                                     device=device).tree()
+    if sched == "interleaved":
+        params = pp.interleave_params(params, mesh.stage, v)
+    name, lr = case.get("optimizer", "sgd"), case.get("lr", 1024.0)
+    opt = sgd(lr) if name == "sgd" else make_optimizer(name, lr)
+    numerics = (pp.make_pp_numerics(params, mesh) if case.get("numerics")
+                else None)
+    state = pp.init_state(mesh, params, opt, device=device)
+    make = (pp.make_pipeline_multi_step if case.get("window")
+            else pp.make_pipeline_step)
+    step = make(cfg, opt, mesh, case["microbatches"], sched, v,
+                numerics=numerics, device=device)
+    out = {"rank": dist.get_rank(), "d": mesh.d, "s": mesh.s, "losses": [],
+           "comm": None, "numerics": None}
+    for batch in case["batches"]:
+        with collecting() as records:
+            state, loss = step(state, pp.shard_batch(mesh, batch, device))
+        loss, summary = introspect.split_step_output(loss)
+        if out["comm"] is None:
+            out["comm"] = CommProfile(list(records)).as_dict()
+        if summary is not None and out["numerics"] is None:
+            out["numerics"] = {"fields": numerics.event_fields(summary),
+                               "groups": numerics.groups,
+                               "paths": numerics.paths}
+        out["losses"] += loss.reshape(-1).tolist()
+    out["params"] = convert.tree_to_numpy(state.params)
+    out["step"] = int(state.step)
+    return out
+
+
+def pp_cases(cases, *, device) -> list:
+    """Run each pipeline case of ``cases`` on this rank (a rank of a
+    ``data × stage`` group) and return one dict per case: ``losses``,
+    this stage's ``params`` after the run (numpy, its data row ``d`` and
+    stage ``s``), ``step``, the first call's communication profile
+    (``comm``) and, with ``numerics``, the first step's numerics event
+    fields with the handle's group names and leaf paths.
+
+    A case is a dict: ``cfg`` (``LlamaConfig`` fields), ``params`` (a JAX
+    ``init_llama`` tree as numpy; interleaved for ``schedule=
+    "interleaved"`` here), ``data``, ``stage``, ``schedule``,
+    ``microbatches``, ``batches`` (global ``[D·B, T]`` batches, or with
+    ``window`` set ``[K, D·B, T]`` windows for the K-step driver; row d
+    takes its B rows), and optionally ``n_chunks``, ``optimizer`` ("sgd",
+    the default, or a ``make_optimizer`` name), ``lr`` (default 1024:
+    SGD's update is then far above the parameters' rounding, so update /
+    lr recovers the gradient) and ``numerics``."""
+    return [_pp_case(case, device) for case in cases]
+
+
+def pp_trainer_calls(calls, *, device) -> list:
+    """``train.llm.train_llm_pp`` inside this rank's group for each
+    ``(model_cfg fields, train_cfg fields, keyword arguments)`` of
+    ``calls``, in order (the byte tokenizer); returns each report's
+    ``losses``, ``steps``, ``start_step`` and counters. A ``fault_plan``
+    keyword is a spec string; ``checkpoint_dir`` is shared by the ranks,
+    so one call can resume another's checkpoint."""
+    out = []
+    for mcfg, tcfg, kwargs in calls:
+        kwargs = dict(kwargs)
+        if isinstance(kwargs.get("fault_plan"), str):
+            kwargs["fault_plan"] = FaultPlan.from_spec(kwargs["fault_plan"])
+        rep = train_llm_pp(LlamaConfig(**mcfg), TrainConfig(**tcfg),
+                           tokenizer=ByteTokenizer(), log_every=0,
+                           device=device, **kwargs)
+        out.append({"losses": rep.losses, "steps": rep.steps,
+                    "start_step": rep.start_step,
+                    "resilience": rep.resilience.as_dict()})
+    return out
+
+
 # --------------------------------------------- chip_smoke.py phase 10
 
 def _zero_counts() -> None:
@@ -439,3 +532,177 @@ def phase10(tokens, directory: str, *, device) -> dict:
         master_dtypes=sorted({str(x.dtype) for x in
                               tree_leaves(saved.opt_state.master)}))
     return out
+
+
+# --------------------------------------------- chip_smoke.py phase 13
+
+PP_SCHEDULES = ("gpipe", "1f1b", "interleaved")
+
+
+def _stage_grads_vs_world_of_one(state, grads, full, cfg, tokens, schedule,
+                                 mesh) -> dict:
+    """This stage's gradient leaves against the world-of-one gradient of
+    the whole model on the same weights and batch: the largest
+    ``max|d| / max|ref|`` over the stage's leaves, and the loss."""
+    leaves = tree_leaves(full)
+    loss = llama.forward_loss(full, tokens, cfg)
+    ref = tree_unflatten(full, list(torch.autograd.grad(loss, leaves)))
+    if schedule == "interleaved":
+        ref["blocks"] = pp.interleave_blocks(ref["blocks"], mesh.stage, 2)
+    ref = pp._stage_tree(ref, mesh.stage, mesh.s)
+    grads = {k: g for k, g in grads.items() if k in ref}   # no layout tag
+    worst = 0.0
+    for g, r in zip(tree_leaves(grads), tree_leaves(ref)):
+        scale = float(r.abs().max())
+        if scale > 0:
+            worst = max(worst, float((g - r).abs().max()) / scale)
+    return {"loss": float(loss.detach()), "grad_rel_err": worst}
+
+
+def _hop_ms(mesh, device, reps: int = 20) -> dict:
+    """The host-staged hop of phase 13's bf16 activation ([8, 256, 288],
+    1.18 MB) between stages 0 and 1: a round trip's median halved, and
+    its device→host and host→device copies alone (stage 0's medians)."""
+    x = torch.randn(8, 256, 288, device=device).to(torch.bfloat16)
+    g = mesh.stage_group
+    trips, d2h, h2d = [], [], []
+    for k in range(reps):
+        if mesh.s == 0:
+            synchronize(device)
+            t0 = time.perf_counter()
+            dist.send(x, 1, tag=k, label="pp_activation_hop", group=g)
+            y = dist.recv(1, x.shape, x.dtype, tag=k, group=g, device=device)
+            synchronize(device)
+            trips.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            host = x.to("cpu")
+            d2h.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            y = host.to(device)
+            synchronize(device)
+            h2d.append((time.perf_counter() - t0) * 1e3)
+        elif mesh.s == 1:
+            y = dist.recv(0, x.shape, x.dtype, tag=k, group=g, device=device)
+            dist.send(y, 0, tag=k, label="pp_activation_hop", group=g)
+    dist.barrier(device)
+    if mesh.s != 0:
+        return {}
+    return {"hop_ms": statistics.median(trips) / 2, "round_trips_ms": trips,
+            "d2h_ms": statistics.median(d2h), "h2d_ms": statistics.median(h2d),
+            "bytes": x.numel() * x.element_size()}
+
+
+def phase13(tokens_check, tokens_time, directory: str, *, device) -> dict:
+    """``chip_smoke.py`` phase 13 on this rank (stage ``s`` of a 3-stage
+    pipeline, every stage on the one card): a. at the canonical model in
+    fp32, each schedule's loss and gradient on ``tokens_check`` ``[12,
+    256]`` (M = 3) against the world of one on the card, and the kernels'
+    launches; b. at bf16 on ``tokens_time`` ``[48, 256]`` (M = 6, the
+    "pallas" optimizer), each schedule's ms per step timed in turns (3
+    rounds of 5 steps, the order rotating), launches per step, and the
+    host-staged hop alone; c. the homework's 3-stage run,
+    ``train_llm_pp(stage=3, microbatches=3)`` at vocab 259 for 20 steps,
+    with launches per step; d. the same trainer at K = 4 (8 steps), 10
+    steps resumed to 20 from a checkpoint in ``directory``, and 10 steps
+    guarded with ``nan_grad@3``. Returns the numbers; the caller checks
+    them."""
+    mesh = dist.pipeline_mesh(1, 3)
+    out = {"rank": dist.get_rank(), "stage": mesh.s}
+    t_phase = time.perf_counter()
+
+    cfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    full = llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                            device=device).tree()
+    tokens = torch.as_tensor(tokens_check, dtype=torch.long, device=device)
+    out["check"] = {}
+    with fp32_products():
+        for sched in PP_SCHEDULES:
+            params = (pp.interleave_params(full, mesh.stage, 2)
+                      if sched == "interleaved" else full)
+            state = pp.init_state(mesh, params, make_optimizer("fused"),
+                                  device=device)
+            _zero_counts()
+            loss, grads = pp.loss_and_grad(state, tokens, cfg, mesh, 3,
+                                           sched, device=device)
+            launches = _counts(device, 1)
+            res = _stage_grads_vs_world_of_one(state, grads, full, cfg,
+                                               tokens, sched, mesh)
+            out["check"][sched] = dict(res, pp_loss=float(loss),
+                                       launches=launches)
+            del state, grads
+    del full
+
+    tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                       flash_dh_major=True, flash_block=512)
+    whole = llama.init_llama(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu").tree()
+    tokens = torch.as_tensor(tokens_time, dtype=torch.long, device=device)
+    opt = make_optimizer("pallas")
+    runs = {}
+    for sched in PP_SCHEDULES:
+        params = (pp.interleave_params(whole, mesh.stage, 2)
+                  if sched == "interleaved" else whole)
+        step = pp.make_pipeline_step(tcfg, opt, mesh, 6, sched,
+                                     device=device)
+        state = pp.init_state(mesh, params, opt, device=device)
+        state, loss = step(state, tokens)           # warm up
+        runs[sched] = [state, step, [float(loss)], [], None]
+    del whole
+    for rnd in range(3):
+        for sched in PP_SCHEDULES[rnd:] + PP_SCHEDULES[:rnd]:
+            run = runs[sched]
+            _zero_counts()
+            dist.barrier(device)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                run[0], loss = run[1](run[0], tokens)
+            run[2].append(float(loss))
+            run[3].append((time.perf_counter() - t0) / 5 * 1e3)
+            run[4] = _counts(device, 5)
+    out["timing"] = {sched: {"ms_per_step": statistics.median(run[3]),
+                             "ms_per_step_turns": run[3], "losses": run[2],
+                             "launches": run[4]}
+                     for sched, run in runs.items()}
+    del runs, state
+    out["hop"] = _hop_ms(mesh, device)
+
+    def trainer(iters, spd=1, **kw):
+        _zero_counts()
+        tc = TrainConfig(iters=iters, stage=3, microbatches=3,
+                         optimizer="pallas", steps_per_dispatch=spd)
+        rep = train_llm_pp(None, tc, log_every=0, device=device, **kw)
+        return rep, _counts(device, iters)
+
+    t0 = time.perf_counter()
+    rep, launches = trainer(20)
+    out["b1"] = dict(losses=rep.losses, launches=launches,
+                     tokens_per_sec=rep.tokens_per_sec,
+                     seconds=time.perf_counter() - t0)
+    rep, _ = trainer(8, spd=4)
+    out["kstep_losses"] = rep.losses
+    ck = os.path.join(directory, "pp")
+    first, _ = trainer(10, checkpoint_dir=ck, checkpoint_every=10)
+    second, _ = trainer(20, checkpoint_dir=ck, checkpoint_every=10)
+    out["resumed"] = dict(losses=first.losses + second.losses,
+                          start=second.start_step)
+    rep, _ = trainer(10, resilience=ResilienceConfig(),
+                     fault_plan=FaultPlan.from_spec("nan_grad@3"))
+    out["fault"] = dict(losses=rep.losses,
+                        resilience=rep.resilience.as_dict())
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase13_b2(*, device) -> dict:
+    """``chip_smoke.py`` phase 13c's second topology on this rank: the
+    homework's 2 pipelines × 3 stages, ``train_llm_pp(data=2, stage=3,
+    microbatches=3)`` at vocab 259 for 20 steps, with launches per step."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    rep = train_llm_pp(None, TrainConfig(iters=20, data=2, stage=3,
+                                         microbatches=3, optimizer="pallas"),
+                       log_every=0, device=device)
+    return dict(rank=dist.get_rank(), losses=rep.losses,
+                launches=_counts(device, 20),
+                tokens_per_sec=rep.tokens_per_sec,
+                seconds=time.perf_counter() - t0)

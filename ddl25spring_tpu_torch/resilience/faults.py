@@ -222,7 +222,8 @@ class FaultPlan:
     def device_return_at(self, step: int) -> Optional[FaultEvent]:
         return self._at(("device_return",), step)
 
-    def wrap_step(self, step_fn, stats=None, *, start: int = 0):
+    def wrap_step(self, step_fn, stats=None, *, start: int = 0,
+                  leaf_map=None):
         """Wrap ``step_fn(state, batch) -> (state, loss)`` so gradient
         faults, simulated preemptions and replica losses fire at their
         scheduled steps (call indices from the wrap point, offset by
@@ -244,7 +245,12 @@ class FaultPlan:
         tensors, and ``spike_grad`` clones the parameters before the step
         (the JAX wrapper relies on its own pre-step copy). Fault-free
         steps pay nothing. A step that returns ``(loss, NumericsSummary)``
-        keeps its summary; the poison lands on the loss."""
+        keeps its summary; the poison lands on the loss.
+
+        ``leaf_map`` (a pipeline stage: ``pp.global_leaf_map``) maps a
+        leaf number of the whole model to this stage's own leaf number; a
+        stage that holds no part of the targeted leaf poisons only the
+        loss, and sees the fault through the guard's verdict."""
         counter = {"step": start}
 
         def wrapped(state, batch):
@@ -281,6 +287,8 @@ class FaultPlan:
                     bad = float("nan") if e.kind == "nan_grad" \
                         else float("inf")
                     target = int(e.arg) if e.arg else 0     # 0: every leaf
+                    if target and leaf_map is not None:
+                        target = leaf_map.get(target, -1)
                     for i, p in enumerate(leaves):
                         if target in (0, i + 1):
                             p.fill_(bad)

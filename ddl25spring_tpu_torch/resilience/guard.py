@@ -53,15 +53,23 @@ def _copy_into(live, src) -> None:
 
 
 @torch.no_grad()
-def _verdict(old_params, new_params, loss) -> Tuple[bool, float]:
+def _verdict(old_params, new_params, loss, group=None) -> Tuple[bool, float]:
     """``(all finite, update L2 norm)``: one pass over the leaves, one host
-    read."""
+    read. ``group`` (a ``distributed.Group``, the stage group of a
+    pipeline): this rank holds only its stage's leaves, so the count of
+    non-finite values and the squared norm are summed over the group, and
+    every rank takes the same decision on the whole model's update."""
     finite = torch.isfinite(loss).all()
     sq = torch.zeros((), dtype=torch.float32, device=loss.device)
     for o, n in zip(tree_leaves(old_params), tree_leaves(new_params)):
         d = (n - o).float()
         finite = finite & torch.isfinite(n).all()
         sq = sq + (d * d).sum()
+    if group is not None:
+        from ..parallel import distributed as dist
+        bad, sq = dist.psum(torch.stack([(~finite).float(), sq]),
+                            record=False, group=group)
+        finite = bad == 0
     ok, norm = torch.stack([finite.float(), sq.sqrt()]).tolist()
     return bool(ok), norm
 
@@ -76,7 +84,9 @@ class StepGuard:
     ``stats``: the ``metrics.ResilienceStats`` to count into.
     ``ema_decay`` / ``anomaly_factor`` / ``ema_warmup``: the update-norm
     detector, which learns from good steps only and arms after
-    ``ema_warmup`` of them; ``anomaly_factor <= 0`` disables it."""
+    ``ema_warmup`` of them; ``anomaly_factor <= 0`` disables it.
+    ``group``: the stage group of a pipeline stage's step, whose verdict
+    covers every stage's leaves (``_verdict``)."""
 
     def __init__(self, step_fn: Callable, *,
                  ckpt=None,
@@ -84,8 +94,10 @@ class StepGuard:
                  max_consecutive_bad: int = 3,
                  ema_decay: float = 0.98,
                  anomaly_factor: float = 10.0,
-                 ema_warmup: int = 20):
+                 ema_warmup: int = 20,
+                 group=None):
         self._step_fn = step_fn
+        self._group = group
         self._ckpt = ckpt
         self.stats = stats if stats is not None else ResilienceStats()
         self.max_consecutive_bad = max_consecutive_bad
@@ -109,7 +121,8 @@ class StepGuard:
         old = tree_copy(state)
         new_state, out = self._step_fn(state, batch)
         loss = out[0] if isinstance(out, tuple) else out
-        ok, upd_norm = _verdict(old.params, new_state.params, loss)
+        ok, upd_norm = _verdict(old.params, new_state.params, loss,
+                                self._group)
         anomalous = False
         if (ok and self.anomaly_factor > 0 and self._ema is not None
                 and self._good_steps >= self.ema_warmup):

@@ -5,8 +5,10 @@ The JAX package records each collective of a step while tracing it
 abstractly (``jax.eval_shape``), once per program, scaled by scan trips.
 The port cannot trace abstractly, so the collectives of
 ``parallel/distributed.py`` (``psum``, ``pmean``, ``pmean_tree``,
-``psum_scatter``, ``all_gather``, ``broadcast``) record into the active
-``collecting()`` list as they run, each under its call site's label, and
+``psum_tree``, ``psum_scatter``, ``all_gather``, ``broadcast``) and its
+pipeline hops (op ``ppermute`` on the ``stage`` axis, one record per
+send) record into the active ``collecting()`` list as they run, each
+under its call site's label and over its group's axis, and
 ``measure_comm`` runs one real call of the step (the trainer gives it a
 copy of the state). A K-step dispatch runs its collectives K times and so
 records K records of scale 1, which ``CommProfile``'s aggregates sum to
@@ -37,7 +39,7 @@ import torch
 _collector: contextvars.ContextVar[Optional[list]] = \
     contextvars.ContextVar("ddl25_comm_collector", default=None)
 
-AXIS = "data"       # the port's one collective axis: the process group
+AXIS = "data"       # the default axis: the whole process group
 
 
 @dataclass(frozen=True)
@@ -105,7 +107,8 @@ class CommProfile:
         return out
 
     def by_axis(self) -> Dict[str, dict]:
-        """Per-axis aggregates (the port has one axis, ``data``)."""
+        """Per-axis aggregates (``data``, and ``stage`` under pipeline
+        parallelism)."""
         out: Dict[str, dict] = {}
         for r in self.records:
             agg = out.setdefault(r.axis, {
@@ -172,15 +175,20 @@ def tree_bytes(tree: Any) -> int:
 
 
 def record(op: str, label: Optional[str], operand: Any,
-           scale: int = 1) -> None:
-    """Add one collective to the active collector (no-op without one):
-    ``operand``'s bytes, over the process group's ``data`` axis."""
+           scale: int = 1, *, axis: str = AXIS,
+           axis_size: Optional[int] = None) -> None:
+    """Add one collective (or point-to-point hop) to the active collector
+    (no-op without one): ``operand``'s bytes, over ``axis`` of
+    ``axis_size`` ranks (default: the process group's ``data`` axis, all
+    of the group's ranks)."""
     col = _collector.get()
     if col is None:
         return
-    from ..parallel import distributed as dist
-    col.append(CommRecord(op=op, label=label or op, axis=AXIS,
-                          axis_size=dist.world_size(),
+    if axis_size is None:
+        from ..parallel import distributed as dist
+        axis_size = dist.world_size()
+    col.append(CommRecord(op=op, label=label or op, axis=axis,
+                          axis_size=axis_size,
                           payload_bytes=tree_bytes(operand),
                           scale=int(scale)))
 

@@ -27,6 +27,11 @@ overlapped collectives, elastic mode and ``scale_hook``) raises
 ``NotImplementedError`` naming its ROADMAP.md entry. ``on_checkpoint`` is
 the checkpoint publication hook of the train→deploy conveyor
 (``serving/deploy.py``).
+
+``train_llm_pp`` runs the pipeline(-and-data)-parallel trainer on the same
+loop: ``data·stage`` stage processes (``parallel.pp``), each holding its
+stage's leaves and reading its data row's stream, under the GPipe, 1F1B
+or interleaved schedule.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from ..metrics import ResilienceStats
 from ..models import llama
 from ..ops.adam import fused_adam
 from ..parallel import distributed as dist
-from ..parallel import dp
+from ..parallel import dp, pp
 from ..resilience.preemption import PreemptionHandler
 from ..telemetry import introspect
 from ..telemetry.trace import Spans, Tracer
@@ -73,7 +78,6 @@ class LLMTrainReport:
 # the ROADMAP.md entry that ports each.
 _QUEUED = {
     "dcn": "queue A item 8 (hierarchical collectives)",
-    "stage": "queue A item 4 (pipeline parallelism)",
     "model": "queue A item 8 (tensor parallelism)",
     "seq": "queue A item 8 (sequence parallelism)",
     "wire": "queue A item 8 (compressed collectives)",
@@ -168,7 +172,8 @@ def _setup_checkpoint(checkpoint_dir: Optional[str], state, iters: int,
 def _emit_manifest(telemetry, *, measure: bool, model_cfg, train_cfg,
                    start_step: int, step_fn, state, n_data: int,
                    device: torch.device, steps_per_dispatch: int = 1,
-                   preflight: Optional[dict] = None) -> None:
+                   preflight: Optional[dict] = None, trainer: str = "dp",
+                   mesh: Optional[dict] = None) -> None:
     """Open a telemetry run: one manifest event with the configuration,
     the step's communication profile (``telemetry.comm.measure_comm`` of
     one call of the unguarded step on a copy of the state and a batch of
@@ -193,12 +198,13 @@ def _emit_manifest(telemetry, *, measure: bool, model_cfg, train_cfg,
     if telemetry is None:
         return
     platform = "gpu" if device.type == "cuda" else device.type
+    mesh = mesh or {"data": n_data}
     telemetry.events.manifest(
-        trainer="dp", jax_version=None, torch_version=torch.__version__,
-        platform=platform, n_devices=n_data,
+        trainer=trainer, jax_version=None, torch_version=torch.__version__,
+        platform=platform, n_devices=math.prod(mesh.values()),
         device_name=(torch.cuda.get_device_name(device)
                      if device.type == "cuda" else "cpu"),
-        mesh={"data": n_data},
+        mesh=mesh,
         model_cfg=dataclasses.asdict(model_cfg),
         train_cfg=dataclasses.asdict(train_cfg),
         start_step=start_step, comm=comm_profile,
@@ -517,15 +523,19 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
 
 
 def _apply_resilience(step_fn, resilience: Optional[ResilienceConfig],
-                      fault_plan, ckpt, stats: ResilienceStats):
+                      fault_plan, ckpt, stats: ResilienceStats, *,
+                      group=None, leaf_map=None):
     """The resilience layer around a step: fault injection innermost (the
     guard sees the faulted step), the StepGuard outermost. ``fault_plan``
     comes as an object or through ``resilience.faults``; fault step
-    indices are post-resume call indices."""
+    indices are post-resume call indices. A pipeline stage passes its
+    stage ``group`` (the guard's verdict covers every stage) and its
+    ``leaf_map`` (``pp.global_leaf_map``: fault targets are leaves of the
+    whole model)."""
     if fault_plan is None and resilience is not None and resilience.faults:
         fault_plan = resilience.fault_plan()
     if fault_plan:
-        step_fn = fault_plan.wrap_step(step_fn)
+        step_fn = fault_plan.wrap_step(step_fn, leaf_map=leaf_map)
     if resilience is not None and resilience.guard:
         from ..resilience.guard import StepGuard
         step_fn = StepGuard(
@@ -533,7 +543,7 @@ def _apply_resilience(step_fn, resilience: Optional[ResilienceConfig],
             max_consecutive_bad=resilience.max_consecutive_bad,
             ema_decay=resilience.ema_decay,
             anomaly_factor=resilience.anomaly_factor,
-            ema_warmup=resilience.ema_warmup)
+            ema_warmup=resilience.ema_warmup, group=group)
     return step_fn
 
 
@@ -757,3 +767,212 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
         numerics_every=train_cfg.numerics_every,
         compile_watch=compile_watch, injit_guard=injit,
         memory_meter=memory_meter)
+
+
+def _check_pp_options(train_cfg: TrainConfig, aggregation: str,
+                      schedule: str, resilience: Optional[ResilienceConfig],
+                      scale_hook) -> None:
+    """The JAX ``train_llm_pp``'s errors, in its order, then the ROADMAP.md
+    entries of what the port's pipeline trainer does not run."""
+    spd = train_cfg.steps_per_dispatch
+    ovl = train_cfg.overlap_microbatches
+    cb = train_cfg.comm_buckets
+    if spd < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1 (got {spd})")
+    if ovl < 0:
+        raise ValueError(f"overlap_microbatches must be >= 0 (got {ovl})")
+    if cb < 1:
+        raise ValueError(f"comm_buckets must be >= 1 (got {cb})")
+    if cb > 1 and ovl == 0:
+        raise ValueError(
+            "comm_buckets > 1 is a property of the overlap/ring driver "
+            "(the bucketed backward splits each microbatch's ring) — set "
+            f"overlap_microbatches >= 1 (got comm_buckets={cb} with "
+            "overlap_microbatches=0)")
+    if train_cfg.dcn != 1 or train_cfg.wire_dcn:
+        raise ValueError("hierarchical DP (TrainConfig.dcn / wire_dcn) is "
+                         "DP-trainer-only; the pipeline mesh has no "
+                         "two-level data tier")
+    if train_cfg.accum_steps != 1:
+        raise ValueError("accum_steps (DP gradient accumulation) is "
+                         "DP-trainer-only: the pipeline schedule owns its "
+                         "microbatching — raise TrainConfig.microbatches "
+                         "instead")
+    if aggregation not in ("gradient", "zero1"):
+        raise ValueError(f"unknown aggregation {aggregation!r}: the PP "
+                         "trainer supports 'gradient' and 'zero1'")
+    if train_cfg.wire != "fp32" and ovl == 0:
+        raise ValueError(
+            "wire compression on the PP trainer routes through the DP×PP "
+            "ring driver: set overlap_microbatches >= 1 "
+            f"(got wire={train_cfg.wire!r} with overlap_microbatches=0)")
+    if aggregation == "zero1" and ovl == 0:
+        raise ValueError(
+            "PP zero1 routes the data-axis sync through the ring driver: "
+            "set overlap_microbatches >= 1")
+    elastic = bool(resilience is not None and resilience.elastic)
+    if elastic and schedule == "interleaved":
+        raise ValueError(
+            "elastic mode does not compose with schedule='interleaved': a "
+            "stage re-partition re-slices the blocked [n_layers/S] stage "
+            "shards, and the interleaved chunk-major layer order breaks "
+            "that contiguity — use schedule='gpipe' or '1f1b'")
+    if elastic and train_cfg.numerics_every > 0:
+        raise ValueError("numerics_every does not compose with elastic "
+                         "mode yet")
+    if scale_hook is not None and not elastic:
+        raise ValueError("scale_hook requires resilience.elastic=True — "
+                         "capacity changes ride the elastic re-mesh "
+                         "machinery")
+    if resilience is not None and resilience.injit_guard:
+        raise ValueError("injit_guard is not fused into the pipeline step "
+                         "bodies — use the host StepGuard "
+                         "(ResilienceConfig.guard), which works at "
+                         "dispatch granularity under steps_per_dispatch")
+    queued = []
+    if ovl >= 1:
+        queued.append(f"overlap_microbatches={ovl} with aggregation="
+                      f"{aggregation!r}, wire={train_cfg.wire!r}, "
+                      f"comm_buckets={cb} (queue A item 8 (the DP×PP ring "
+                      "drivers))")
+    if elastic:
+        queued.append("ResilienceConfig.elastic=True"
+                      + (" and scale_hook" if scale_hook is not None else "")
+                      + " (queue A item 8 (elastic re-mesh))")
+    if queued:
+        raise NotImplementedError(
+            "train_llm_pp does not run these yet; see ROADMAP.md: "
+            + "; ".join(queued))
+
+
+def _train_pp_rank(model_cfg, train_cfg, kwargs: dict, *, device):
+    """One rank of a ``train_llm_pp`` call that started its own ranks."""
+    return train_llm_pp(model_cfg, train_cfg, device=device, **kwargs)
+
+
+def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
+                 train_cfg: Optional[TrainConfig] = None, *,
+                 tokenizer=None,
+                 schedule: str = "gpipe",
+                 aggregation: str = "gradient",
+                 log_every: int = 100,
+                 log_fn: Callable[[str], None] = print,
+                 warmup_steps_excluded: int = 2,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 1000,
+                 loss_sink: Optional[Callable[[int, float], None]] = None,
+                 sink_every: int = 10,
+                 resilience: Optional[ResilienceConfig] = None,
+                 fault_plan=None,
+                 scale_hook=None,
+                 on_checkpoint=None,
+                 telemetry=None,
+                 device=None) -> LLMTrainReport:
+    """Train the tiny-Llama pipeline(-and-data)-parallel on ``device``
+    (default CUDA; raises when no card is present): the reference's
+    3-stage microbatched run (homework 1b, ``stage=3``) and its
+    2-pipeline × 3-stage topology (``data=2, stage=3``).
+    ``train_cfg.stage`` / ``data`` / ``microbatches`` pick the topology,
+    ``schedule`` the pipeline schedule ("gpipe", "1f1b", "interleaved" at
+    two chunks per stage; ``parallel.pp``). Each stage is one process:
+    with no process group, ``data·stage`` ranks start
+    (``distributed.run_ranks``) and rank 0's report comes back, as in
+    ``train_llm_dp``; inside a group its size must be ``data·stage``.
+
+    Every rank initializes the whole model from ``train_cfg.seed`` (the
+    DP trainer's weights), keeps its stage's leaves and optimizer state,
+    and reads its data row's stream itself (``shard_batches``, skip
+    d·5000: the JAX trainer's data order), so tokens never travel. The
+    loss is broadcast over the stages, so rank 0 (stage 0) logs, sinks
+    and writes telemetry (manifest ``trainer="pp"``). The loop is
+    ``train_llm_dp``'s: ``steps_per_dispatch`` = K windows, checkpoints
+    (rank 0 writes the merged JAX-layout state; each rank re-slices its
+    stage on resume), the guard (its verdict summed over the stages),
+    faults (targets are leaves of the whole model), preemption,
+    ``numerics_every`` (stage-qualified groups, ``pp.make_pp_numerics``)
+    and ``remat``.
+
+    Refused as the JAX trainer refuses them (``ValueError``): ``dcn`` /
+    ``wire_dcn``, ``accum_steps``, ``injit_guard`` and the other option
+    checks of ``_check_pp_options``. The DP×PP ring drivers
+    (``overlap_microbatches`` with ``aggregation="zero1"``, ``wire``,
+    ``comm_buckets``) and elastic mode (``scale_hook``) raise
+    ``NotImplementedError`` naming ROADMAP.md."""
+    train_cfg = train_cfg or TrainConfig()
+    _check_pp_options(train_cfg, aggregation, schedule, resilience,
+                      scale_hook)
+    world = train_cfg.data * train_cfg.stage
+    if world > 1 and not dist.is_initialized():
+        kwargs = dict(tokenizer=tokenizer, schedule=schedule,
+                      aggregation=aggregation, log_every=log_every,
+                      log_fn=log_fn,
+                      warmup_steps_excluded=warmup_steps_excluded,
+                      checkpoint_dir=checkpoint_dir,
+                      checkpoint_every=checkpoint_every, loss_sink=loss_sink,
+                      sink_every=sink_every, resilience=resilience,
+                      fault_plan=fault_plan, telemetry=telemetry,
+                      on_checkpoint=on_checkpoint)
+        return dist.run_ranks(_train_pp_rank, world, model_cfg, train_cfg,
+                              kwargs, device=device)[0]
+    dev = dist.rank_device(device)
+    mesh = dist.pipeline_mesh(train_cfg.data, train_cfg.stage)
+    measure = telemetry is not None     # every rank runs the comm probe
+    if dist.get_rank() != 0:
+        log_fn, loss_sink, telemetry = _quiet, None, None
+    tok = tokenizer or load_tokenizer()
+    model_cfg = (model_cfg or LlamaConfig()).replace(
+        vocab_size=tok.vocab_size)
+    if train_cfg.remat:
+        model_cfg = model_cfg.replace(remat=True)
+    params = llama.init_llama(model_cfg,
+                              torch.Generator().manual_seed(train_cfg.seed),
+                              device="cpu").tree()
+    optimizer = _make_trainer_optimizer(train_cfg)
+    if schedule == "interleaved":
+        params = pp.interleave_params(params, mesh.stage, n_chunks=2)
+    numerics = (pp.make_pp_numerics(params, mesh)
+                if train_cfg.numerics_every > 0 else None)
+    state = pp.init_state(mesh, params, optimizer, device=dev)
+    del params
+    spd = train_cfg.steps_per_dispatch
+    make = pp.make_pipeline_multi_step if spd > 1 else pp.make_pipeline_step
+    step_fn = make(model_cfg, optimizer, mesh,
+                   n_microbatches=train_cfg.microbatches, schedule=schedule,
+                   numerics=numerics, device=dev)
+    step_fn = introspect.watch(
+        step_fn, name=f"train/pp-{schedule}" + (f"-k{spd}" if spd > 1
+                                                else ""),
+        max_caches=(1 if spd == 1 else None),
+        events=(telemetry.events if telemetry is not None else None),
+        meta={"steps_per_dispatch": spd},
+        meta_fn=(None if spd == 1 else
+                 (lambda st, w: {"steps_per_dispatch": int(w.shape[0])})))
+    compile_watch = step_fn
+    stats = ResilienceStats()
+    ckpt, state, start_step, done = _setup_checkpoint(
+        checkpoint_dir, state, train_cfg.iters, log_fn,
+        resilience=resilience, stats=stats)
+    if done:
+        return LLMTrainReport(start_step=start_step, resilience=stats)
+    _emit_manifest(telemetry, measure=measure, model_cfg=model_cfg,
+                   train_cfg=train_cfg, start_step=start_step,
+                   step_fn=compile_watch._fn, state=state,
+                   n_data=mesh.data, device=dev, steps_per_dispatch=spd,
+                   trainer="pp",
+                   mesh={"data": mesh.data, "stage": mesh.stage})
+    step_fn = _apply_resilience(step_fn, resilience, fault_plan, ckpt, stats,
+                                group=mesh.stage_group,
+                                leaf_map=pp.global_leaf_map(state))
+    batches = shard_batches(tok, train_cfg.batch_size, train_cfg.seq_len,
+                            mesh.d, shard_skip=5000, seed=train_cfg.seed)
+    return _run_loop(
+        step_fn, state, batches, train_cfg,
+        lambda b: torch.as_tensor(b, dtype=torch.long, device=dev),
+        n_data=mesh.data, start_step=start_step, ckpt=ckpt,
+        checkpoint_every=checkpoint_every, loss_sink=loss_sink,
+        sink_every=sink_every, log_every=log_every, log_fn=log_fn,
+        warmup_steps_excluded=warmup_steps_excluded, stats=stats,
+        steps_per_dispatch=spd, on_checkpoint=on_checkpoint,
+        telemetry=telemetry, numerics=numerics,
+        numerics_every=train_cfg.numerics_every,
+        compile_watch=compile_watch)

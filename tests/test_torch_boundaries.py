@@ -15,7 +15,8 @@ from ddl25spring_tpu_torch.config import (FLConfig, LlamaConfig,
                                           ResilienceConfig, TrainConfig)
 from ddl25spring_tpu_torch.models import generate, llama, mnist_cnn
 from ddl25spring_tpu_torch.ops import pallas_adam
-from ddl25spring_tpu_torch.parallel import distributed, programs
+from ddl25spring_tpu_torch.ops.adam import fused_adam
+from ddl25spring_tpu_torch.parallel import distributed, pp, programs
 from ddl25spring_tpu_torch.resilience import FaultPlan, measure_overhead
 from ddl25spring_tpu_torch.serving import (Engine, PagedKVConfig, Request,
                                            ServingFleet, SpecConfig,
@@ -74,6 +75,7 @@ def test_the_scan_sees_every_port_module():
                  "ddl25spring_tpu_torch/fl/federated_data.py",
                  "ddl25spring_tpu_torch/parallel/distributed.py",
                  "ddl25spring_tpu_torch/parallel/programs.py",
+                 "ddl25spring_tpu_torch/parallel/pp.py",
                  "ddl25spring_tpu_torch/ops/mixed_precision.py",
                  "ddl25spring_tpu_torch/checkpoint.py",
                  "ddl25spring_tpu_torch/resilience/retry.py",
@@ -139,6 +141,15 @@ ENTRY_POINTS = {
         CFG, TrainConfig(iters=1), tokenizer=ByteTokenizer()),
     "train_llm_dp data=2": lambda: llm.train_llm_dp(
         CFG, TrainConfig(iters=1, data=2), tokenizer=ByteTokenizer()),
+    "train_llm_pp": lambda: llm.train_llm_pp(
+        CFG, TrainConfig(iters=1), tokenizer=ByteTokenizer()),
+    "train_llm_pp stage=3": lambda: llm.train_llm_pp(
+        CFG.replace(n_layers=3), TrainConfig(iters=1, stage=3),
+        tokenizer=ByteTokenizer()),
+    "make_pipeline_step": lambda: pp.make_pipeline_step(
+        CFG, fused_adam(1e-3), distributed.pipeline_mesh(1, 1)),
+    "pp.init_state": lambda: pp.init_state(
+        distributed.pipeline_mesh(1, 1), _model(), fused_adam(1e-3)),
     "train_llm_dp resilience": lambda: llm.train_llm_dp(
         CFG, TrainConfig(iters=1, remat=True, numerics_every=1),
         tokenizer=ByteTokenizer(), resilience=ResilienceConfig(),

@@ -325,6 +325,53 @@ def test_numerics_event_grad_norm_is_the_gradient_norm(tmp_path):
     np.testing.assert_allclose(ev[0]["grad_norm"], want, rtol=1e-5)
 
 
+def _hold_fields(got, want, path=""):
+    """Event fields held to JAX's: the same keys, strings equal, NaN where
+    JAX has NaN, other numbers within 1e-5 relative."""
+    if isinstance(want, dict):
+        assert list(got) == list(want), path
+        for k in want:
+            _hold_fields(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, float):
+        assert np.isnan(got) == np.isnan(want), path
+        if not np.isnan(want):
+            np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=path)
+    else:
+        assert got == want, path
+
+
+def test_guard_skipped_step_summarizes_the_refused_update_as_jax():
+    """A NaN loss under ``guard_nonfinite``: the step is skipped, and its
+    numerics describe the update it refused (NaN parameter norms), as the
+    JAX body's do; the state stays as it was."""
+    batch = np.random.default_rng(2).integers(0, SMALL["vocab_size"], (B, T))
+    jcfg = JaxLlamaConfig(**SMALL)
+    params = jax.tree.map(jnp.asarray, TREE)
+    jh = jintro.make_summarizer(params)
+    jopt = jfused_adam(8e-4)
+    jstep = jdp.make_grad_aggregation_step(
+        lambda p, b: jllama.forward_loss(p, b, jcfg) * jnp.nan, jopt,
+        make_mesh({"data": 1}), guard_nonfinite=True, numerics=jh)
+    jstate, (_, jsum) = jstep(jdp.init_state(params, jopt), jnp.asarray(batch))
+    want = jh.event_fields(jsum)
+
+    cfg = LlamaConfig(**SMALL)
+    tree = params_from_jax(TREE, cfg, "cpu").tree()
+    h = introspect.make_summarizer(tree)
+    opt = fused_adam(8e-4)
+    step = dp.make_grad_aggregation_step(
+        lambda p, b: llama.forward_loss(p, b, cfg) * float("nan"), opt,
+        guard_nonfinite=True, numerics=h)
+    before = [x.detach().clone() for x in tree_leaves(tree)]
+    state, (_, summary) = step(dp.init_state(tree, opt),
+                               torch.as_tensor(batch))
+    got = h.event_fields(summary)
+    assert np.isnan(want["groups"]["blocks/0"]["param_norm"])
+    _hold_fields(got, want)
+    assert int(state.step) == int(jstate.step) == 0
+    assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves(tree)))
+
+
 # ---------------------------------------------------- communication bytes
 
 @pytest.fixture(scope="module")

@@ -166,12 +166,24 @@ def test_guard_nonfinite_skips_the_step():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("dcn", 2), ("stage", 2), ("wire", "bf16"),
+    ("dcn", 2), ("wire", "bf16"),
     ("overlap_microbatches", 1), ("model", 2)])
 def test_train_llm_dp_names_roadmap_for_what_it_does_not_run(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llm.train_llm_dp(LlamaConfig(**SMALL),
                          TrainConfig(**{field: value}), device="cpu")
+
+
+def test_train_llm_dp_ignores_stage_as_the_jax_trainer_does():
+    """The JAX DP trainer builds a ``data``-only mesh and reads ``stage``
+    nowhere (``train_llm_pp`` runs pipelines): so does the port's."""
+    cfg = dict(dmodel=32, num_heads=2, n_layers=2, ctx_size=16)
+    runs = [llm.train_llm_dp(LlamaConfig(**cfg),
+                             TrainConfig(iters=2, batch_size=2, seq_len=16,
+                                         stage=stage),
+                             tokenizer=ByteTokenizer(), log_every=0,
+                             device="cpu") for stage in (1, 2)]
+    assert runs[0].losses == runs[1].losses and len(runs[0].losses) == 2
 
 
 def test_eval_llm_reports_a_finite_loss():
