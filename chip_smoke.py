@@ -186,6 +186,31 @@ Phases, each of which raises on failure (exit code 1, no result line):
              falling, 6/6/6/1 launches per stage per step; d. K = 4
              bitwise per-step, 10 steps resumed to 20 bitwise, and
              ``nan_grad@3`` skipped on every stage.
+14. fleet-scale FL and the autoscaler — no port kernel launched: a.
+             homework 1's FedAvg (phase 8's configuration, data and initial
+             parameters) through ``FleetFedAvgServer`` over
+             ``FederatedArraySource``: round 0 bitwise ``FedAvgGradServer``'s
+             at cohort width 10 (the server's shapes), within 1e-6 of each
+             leaf's largest entry at width 4 (cohorts 4, 4, 2) and at E=2;
+             10 rounds at width 4 above phase 8's bar, ms per round beside
+             ``FedAvgGradServer``'s, ``fl_cohort``/``fl_tier`` events and
+             payload bytes exact, no retrace; b. the tiers: the edge
+             Multi-Krum's selection that of ``FedAvgGradServer(defense=)``,
+             secure aggregation at E=1 bitwise ``SecureAggFedAvgServer``'s
+             round, DP at z=0 within 1e-6 of the clip-only round, at z=1
+             the noise's std within 1% of σ, distinct streams per tier and
+             edge; c. ``experiments.fleet_smoke``: one round of 100,000
+             synthetic clients (clients/s, wall, the host's share, device
+             memory growth under four cohorts and the parameters beside
+             the all-at-once bytes), its control slice and Krum probe, and
+             a profiled 2,048-client round (busy share); d. the
+             autoscaler's serving side: phase 11f's two engines on phase
+             5's pool under a load that rises and ebbs over 11 control
+             ticks on a tick clock, ``Autoscaler.tick`` on
+             ``router_ttft_p95`` and the post-move ``pool_headroom``
+             applied through ``set_active``: a move each way, the decisions
+             equal to the same script's on the CPU, every greedy stream
+             ``generate()``'s, every ``scale`` event valid.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -2158,6 +2183,418 @@ def pp_phase(dev: torch.device, card: str, dp_losses) -> dict:
     return out
 
 
+# Phase 14 (fleet-scale FL and the autoscaler's serving side).
+FLEET_WIDTH = 4                # homework 1's 10 clients as cohorts of 4, 4, 2
+TOL_FLEET_RAGGED = 1e-6        # streamed vs vmapped, of each leaf's largest
+TOL_FLEET_DP = 1e-6            # z = 0 against the clip-only round, likewise
+FLEET_ROUNDS = 10
+FLEET_KRUM = dict(n_malicious=2, k=6)
+FLEET_DP_CLIP = 1.0
+FLEET_PROFILE_CLIENTS = 2048   # the profiled slice of the 100k round
+# 14d: a load that rises and ebbs over 11 control ticks (peak 24 requests
+# a tick), served on a tick clock (dt 0.05 s per fleet tick, 1 s between
+# control ticks): TTFT counts queueing ticks, so the decisions do not
+# depend on the host's or the card's speed.
+SCALE_TICKS = 11
+SCALE_PEAK = 24
+SCALE_PROMPT, SCALE_MAX_NEW = 16, 8
+SCALE_DT = 0.05
+SCALE_POLICY = dict(ttft_slo_s=1.0, pressure_frac=0.8, ebb_frac=0.3,
+                    sustain=2, cooldown=2, min_train_world=3,
+                    max_train_world=4, min_serve_engines=1,
+                    max_serve_engines=2, min_headroom_frac=0.1)
+
+
+def _leaf_rel(a: dict, b: dict) -> float:
+    """Largest |a − b| of a leaf over that leaf's largest |b|."""
+    from ddl25spring_tpu_torch.tree import tree_leaves
+    return max(((x - y).abs().max() / y.abs().max()).item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _bitwise(a: dict, b: dict) -> bool:
+    from ddl25spring_tpu_torch.tree import tree_leaves
+    return all(bool(torch.equal(x, y))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@contextlib.contextmanager
+def cudnn_mode(*, enabled: bool = True, deterministic: bool = False):
+    """cuDNN switched on or off, or kept to its deterministic algorithms,
+    inside the block (the previous settings restored after)."""
+    saved = torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.enabled = enabled
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic = \
+            saved
+
+
+def fleet_phase(dev: torch.device, card: str, mnist_arrays) -> dict:
+    """Phase 14 a-c: homework 1's FedAvg through the fleet engine (against
+    ``FedAvgGradServer`` on the card), its tiers (edge Multi-Krum, secure
+    aggregation, DP), and ``fleet_smoke``'s 100,000-client round. Raises on
+    a failed check; returns the numbers for the JSON record."""
+    from ddl25spring_tpu_torch import fl, profile_step
+    from ddl25spring_tpu_torch.config import FLConfig
+    from ddl25spring_tpu_torch.data import mnist
+    from ddl25spring_tpu_torch.device import fp32_products
+    from ddl25spring_tpu_torch.experiments import fleet_smoke
+    from ddl25spring_tpu_torch.fl import defenses
+    from ddl25spring_tpu_torch.models import mnist_cnn
+    from ddl25spring_tpu_torch.telemetry import (Telemetry, read_events,
+                                                 tree_bytes, validate_event)
+    from ddl25spring_tpu_torch.tree import tree_leaves, tree_sub
+
+    x, y, xt, yt = mnist_arrays
+    cfg = FLConfig()
+    m = cfg.clients_per_round
+    host_data = fl.federate(x, y, mnist.split(y, cfg.nr_clients, iid=True,
+                                              seed=cfg.seed), device="cpu")
+    data = host_data.to(dev)
+    source = fl.FederatedArraySource(host_data)
+    params = mnist_cnn.init(torch.Generator().manual_seed(FL_INIT_SEED),
+                            device=dev)
+    out: dict = {}
+
+    def fleet(width=FLEET_WIDTH, edges=1, **kw):
+        return fl.FleetFedAvgServer(
+            params, mnist_cnn.apply, source, xt, yt, cfg,
+            fl.FleetConfig(cohort_width=width, edges=edges, **kw),
+            device=dev)
+
+    def round0(server):
+        with torch.no_grad(), fp32_products():
+            out = server._round(server.params, 0)
+        torch.cuda.synchronize()
+        return out
+
+    # 14a: round 0 against FedAvgGradServer from the same parameters. On
+    # cuDNN a round is not reproducible (its default algorithms), and its
+    # deterministic algorithms differ with the convolution's group count,
+    # which vmap sets to the cohort's width: both measured and printed.
+    # The bars are held on PyTorch's own convolutions (cuDNN off), whose
+    # per-group products do not depend on the group count.
+    ref_server = fl.FedAvgGradServer(params, mnist_cnn.apply, data, xt, yt,
+                                     cfg, device=dev)
+    cudnn = {"default_rerun": _leaf_rel(round0(ref_server),
+                                        round0(ref_server))}
+    with cudnn_mode(deterministic=True):
+        dref = round0(ref_server)
+        cudnn["deterministic_rerun_bitwise"] = _bitwise(round0(ref_server),
+                                                        dref)
+        cudnn["deterministic_w10_bitwise"] = _bitwise(round0(fleet(width=m)),
+                                                      dref)
+        cudnn["deterministic_w4"] = _leaf_rel(round0(fleet()), dref)
+    with cudnn_mode(enabled=False):
+        ref = round0(ref_server)
+        ref_again = round0(ref_server)
+        servers = {"w10": fleet(width=m), "w4": fleet(),
+                   "w4_e2": fleet(edges=2)}
+        got = {k: round0(s) for k, s in servers.items()}
+    equal = {"reference_rerun": _bitwise(ref_again, ref)}
+    rel = {k: _leaf_rel(v, ref) for k, v in got.items()}
+    equal.update({k: _bitwise(v, ref) for k, v in got.items()})
+    check(equal["reference_rerun"], "14a FedAvgGradServer's round 0 "
+          "differs between two runs")
+    check(equal["w10"], f"14a fleet at cohort width {m} (the server's "
+          f"shapes) is not bitwise FedAvgGradServer's round: max|d|/max|ref| "
+          f"{rel['w10']:.3g}")
+    for k in ("w4", "w4_e2"):
+        check(rel[k] <= TOL_FLEET_RAGGED, f"14a fleet {k}: max|d|/max|ref| "
+              f"{rel[k]:.3g} > {TOL_FLEET_RAGGED}")
+    out["round0"] = {"bitwise": equal, "max_rel_diff": rel, "cudnn": cudnn}
+    print(f"fleet 14a round 0 against FedAvgGradServer (homework 1, 10 "
+          f"clients, dropout live, cuDNN off): width {m} bitwise "
+          f"{equal['w10']}; width {FLEET_WIDTH} (cohorts 4, 4, 2) bitwise "
+          f"{equal['w4']}, max|d|/max|ref| {rel['w4']:.3g}; E=2 bitwise "
+          f"{equal['w4_e2']}, {rel['w4_e2']:.3g} (bar {TOL_FLEET_RAGGED}); "
+          f"the reference against itself bitwise {equal['reference_rerun']}. "
+          f"On cuDNN: its default algorithms' rerun "
+          f"{cudnn['default_rerun']:.3g} apart; its deterministic ones: "
+          f"rerun bitwise {cudnn['deterministic_rerun_bitwise']}, width {m} "
+          f"bitwise {cudnn['deterministic_w10_bitwise']}, width "
+          f"{FLEET_WIDTH} {cudnn['deterministic_w4']:.3g} {card}")
+
+    # Ten rounds of each, the fleet observed.
+    with tempfile.TemporaryDirectory() as tmp:
+        tel = Telemetry(tmp)
+        f10 = fl.FleetFedAvgServer(
+            params, mnist_cnn.apply, source, xt, yt, cfg,
+            fl.FleetConfig(cohort_width=FLEET_WIDTH), telemetry=tel,
+            device=dev)
+        fres = f10.run(FLEET_ROUNDS)
+        tel.close()
+        events = read_events(tel.events_path, strict=True)
+    gserver = fl.FedAvgGradServer(params, mnist_cnn.apply, data, xt, yt, cfg,
+                                  device=dev)
+    gres = gserver.run(FLEET_ROUNDS)
+    bar = FL_JAX_FEDAVG_ACC - FL_ACC_MARGIN
+    acc = fres.test_accuracy[-1]
+    check(acc >= bar, f"14a fleet FedAvg after {FLEET_ROUNDS} rounds: "
+          f"accuracy {acc:.4f} < {bar:.4f}")
+    delta_bytes = tree_bytes(params)
+    cohorts = [e for e in events if e["type"] == "fl_cohort"]
+    tiers = [e for e in events if e["type"] == "fl_tier"]
+    sizes = [4, 4, 2] * FLEET_ROUNDS
+    check([e["clients"] for e in cohorts] == sizes
+          and all(e["payload_bytes"] == e["clients"] * delta_bytes
+                  for e in cohorts), f"14a fl_cohort events "
+          f"{[(e['clients'], e['payload_bytes']) for e in cohorts]}")
+    check(len(tiers) == 2 * FLEET_ROUNDS and all(
+        e["payload_bytes"] == (m if e["tier"] == "edge" else 1) * delta_bytes
+        for e in tiers), "14a fl_tier events")
+    check(all(validate_event(e) == [] for e in events), "14a events invalid")
+    watches = [s._stream_step for s in (*servers.values(), f10)]
+    check(all(w.retraces == 0 and len(w.compiles) == 1 for w in watches),
+          f"14a cohort step retraces "
+          f"{[(w.retraces, len(w.compiles)) for w in watches]}")
+    fleet_ms = [t * 1e3 for t in fres.wall_time]
+    grad_ms = [t * 1e3 for t in gres.wall_time]
+    out["ten_rounds"] = {
+        "accuracy": fres.test_accuracy, "bar": bar,
+        "reaches_jax_0_7335": acc >= FL_JAX_FEDAVG_ACC,
+        "ms_per_round": fleet_ms,
+        "median_ms": statistics.median(fleet_ms),
+        "fedavg_grad_server_accuracy": gres.test_accuracy,
+        "fedavg_grad_server_ms_per_round": grad_ms,
+        "fedavg_grad_server_median_ms": statistics.median(grad_ms),
+        "fl_cohort_events": len(cohorts), "fl_tier_events": len(tiers),
+        "payload_bytes_per_client": delta_bytes}
+    print(f"fleet 14a {FLEET_ROUNDS} rounds at width {FLEET_WIDTH}: accuracy "
+          f"{[round(a, 4) for a in fres.test_accuracy]} (bar {bar:.4f}; "
+          f"FedAvgGradServer {gres.test_accuracy[-1]:.4f}); ms per round "
+          f"median {statistics.median(fleet_ms):.1f} (first "
+          f"{fleet_ms[0]:.1f}) against FedAvgGradServer's "
+          f"{statistics.median(grad_ms):.1f} (first {grad_ms[0]:.1f}); "
+          f"{len(cohorts)} fl_cohort and {len(tiers)} fl_tier events, "
+          f"{delta_bytes} payload bytes per client; retraces 0 {card}")
+    del f10, gserver
+
+    # 14b: the tiers at the same configuration (cuDNN off, as 14a).
+    with cudnn_mode(enabled=False):
+        picks = {"fleet": [], "server": []}
+
+        def recording(into):
+            def rule(flat, n_malicious, k):
+                sel = defenses.multi_krum(flat, n_malicious, k)
+                picks[into].append(sorted(int(i) for i in sel))
+                return sel
+            return defenses.selection_defense(rule, **FLEET_KRUM)
+
+        kfleet = fleet(edge=fl.TierPolicy(defense=recording("fleet")))
+        kserver = fl.FedAvgGradServer(params, mnist_cnn.apply, data, xt, yt,
+                                      cfg, defense=recording("server"),
+                                      device=dev)
+        krel = _leaf_rel(round0(kfleet), round0(kserver))
+        check(picks["fleet"] == picks["server"], f"14b edge Multi-Krum picked "
+              f"{picks['fleet']}, FedAvgGradServer {picks['server']}")
+        check(krel <= TOL_FLEET_RAGGED, f"14b Multi-Krum round "
+              f"max|d|/max|ref| {krel:.3g}")
+
+        clip, bits = 5.0, 20
+        secure = fl.SecureAggFedAvgServer(params, mnist_cnn.apply, data, xt,
+                                          yt, cfg, clip_norm=clip, bits=bits,
+                                          device=dev)
+        sref = round0(secure)
+        sa = {w: round0(fleet(width=w, weighting="uniform",
+                              edge=fl.TierPolicy(secure_agg=(clip, bits))))
+              for w in (m, FLEET_WIDTH)}
+        quantum = fl.secure_agg.secagg_scale(clip, bits)
+        sa_quanta = max(((a - b).abs().max() / quantum).item() for a, b in
+                        zip(tree_leaves(sa[FLEET_WIDTH]), tree_leaves(sref)))
+        check(_bitwise(sa[m], sref), "14b secure-aggregation edge at E=1 is "
+              "not bitwise SecureAggFedAvgServer's round")
+
+        dp_clean = round0(fl.DPFedAvgServer(params, mnist_cnn.apply, data, xt,
+                                            yt, cfg, clip_norm=FLEET_DP_CLIP,
+                                            device=dev))
+        dp0 = round0(fleet(weighting="uniform",
+                           edge=fl.TierPolicy(dp_clip=FLEET_DP_CLIP)))
+        dp_rel = _leaf_rel(dp0, dp_clean)
+        check(dp_rel <= TOL_FLEET_DP, f"14b DP edge at z=0 max|d|/max|ref| "
+              f"{dp_rel:.3g} > {TOL_FLEET_DP}")
+        dp1 = round0(fleet(weighting="uniform", edge=fl.TierPolicy(
+            dp_clip=FLEET_DP_CLIP, dp_noise_multiplier=1.0)))
+        noise = torch.cat([(a - b).reshape(-1) for a, b in
+                           zip(tree_leaves(dp1), tree_leaves(dp0))])
+        sigma = 1.0 * FLEET_DP_CLIP / m
+        std = noise.std().item()
+        check(abs(std / sigma - 1) <= TOL_NOISE_STD, f"14b DP noise std "
+              f"{std:.5g} vs σ {sigma}")
+        probe = fleet(edges=2, weighting="uniform")
+        draws = [torch.randn(4096, generator=probe._noise_generator(0, t, e),
+                             device=dev) for t, e in ((0, 0), (0, 1), (1, 0))]
+        distinct = all(not torch.equal(draws[i], draws[j])
+                       for i in range(3) for j in range(i + 1, 3))
+        check(distinct, "14b DP noise streams of the tiers and edges coincide")
+    out["tiers"] = {"krum_selection": picks["fleet"][0],
+                    "krum_max_rel_diff": krel,
+                    "secagg_bitwise_width_10": True,
+                    "secagg_width_4_max_quanta": sa_quanta,
+                    "secagg_width_4_bitwise": _bitwise(sa[FLEET_WIDTH], sref),
+                    "dp_z0_max_rel_diff": dp_rel, "dp_z1_noise_std": std,
+                    "dp_sigma": sigma, "noise_streams_distinct": distinct}
+    print(f"fleet 14b: edge Multi-Krum (f=2, k=6) picked {picks['fleet'][0]} "
+          f"as FedAvgGradServer did (round max|d|/max|ref| {krel:.3g}); "
+          f"secure aggregation at E=1, width {m}, bitwise "
+          f"SecureAggFedAvgServer's round (width {FLEET_WIDTH}: "
+          f"{sa_quanta:.3g} quanta apart); DP edge z=0 {dp_rel:.3g} from "
+          f"DPFedAvgServer's clip-only round, z=1 noise std {std:.5g} vs σ "
+          f"{sigma}; tier and edge streams distinct {card}")
+
+    # 14c: fleet_smoke's 100,000-client round, and a profiled slice.
+    t0 = time.perf_counter()
+    smoke = fleet_smoke.run(fleet_smoke.parse_args([]))
+    smoke["phase_s"] = time.perf_counter() - t0
+    failed = [k for k, v in smoke["checks"].items() if not v]
+    check(not failed, f"14c fleet_smoke failed {failed}: "
+          f"{json.dumps(smoke)}")
+    pcfg = FLConfig(nr_clients=FLEET_PROFILE_CLIENTS, client_fraction=1.0,
+                    batch_size=8, epochs=1, lr=0.5, seed=0)
+    psrc = fl.SyntheticFleetSource(FLEET_PROFILE_CLIENTS, features=64,
+                                   classes=16)
+    pserver = fl.FleetFedAvgServer(
+        fleet_smoke.init_params(64, 0, dev), fleet_smoke.apply_fn, psrc,
+        *psrc.test_set(64), pcfg, fl.FleetConfig(cohort_width=64),
+        device=dev)
+    round0(pserver)
+    prof = profile_step.trace(lambda: round0(pserver), 1)
+    smoke["profiled_slice"] = {"clients": FLEET_PROFILE_CLIENTS, **prof}
+    out["fleet_smoke"] = smoke
+    print(f"fleet 14c fleet_smoke: {smoke['clients']} clients in one round, "
+          f"{smoke['round_wall_s']:.2f} s, {smoke['clients_per_s']:.0f} "
+          f"clients/s, host share (client data and generators) "
+          f"{smoke['host_share']:.3f}; device memory growth "
+          f"{smoke['memory_growth_bytes']} B (bar "
+          f"{smoke['memory_bound_bytes']} B: four cohorts and the "
+          f"parameters) against {smoke['naive_resident_mb']:.1f} MB all at "
+          f"once; control slice "
+          f"bitwise at equal shapes, ragged width bitwise "
+          f"{smoke['control_ragged_bitwise']} "
+          f"({smoke['control_ragged_rel_diff']:.3g}); E=8 "
+          f"{smoke['hierarchical_max_diff']:.3g}; Krum probe "
+          f"{smoke['krum_probe']}; profiled {FLEET_PROFILE_CLIENTS}-client "
+          f"round: {prof['kernel_ms_per_step']:.1f} ms of kernels in "
+          f"{prof['profiled_wall_ms_per_step']:.1f} ms, busy share "
+          f"{prof['profiled_busy_share']:.3f}, "
+          f"{prof['kernels_per_step']:.0f} launches {card}")
+    return out
+
+
+def autoscale_drive(dev: torch.device, params, cfg, events=None) -> dict:
+    """The autoscaler's serving side (phase 14d) on ``dev``: phase 11f's two
+    engines on phase 5's pool, one active at first, under SCALE_TICKS
+    control ticks of a rising and ebbing load on a tick clock. Each tick
+    serves its arrivals to completion, reads the router's p95 TTFT and the
+    post-move pool headroom, and applies the decision with ``set_active``;
+    ``train_world`` is only counted."""
+    import numpy as np
+
+    from ddl25spring_tpu_torch.resilience import (Autoscaler, AutoscalePolicy,
+                                                  router_ttft_p95)
+    from ddl25spring_tpu_torch.serving import (PagedKVConfig, Request,
+                                               ServingFleet)
+
+    class TickClock:
+        def __init__(self):
+            self.t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    clock = TickClock()
+    fleet = ServingFleet(params, cfg, PagedKVConfig(**SERVE_PAGED),
+                         num_engines=2, num_slots=SERVE_SLOTS,
+                         prefill_chunk=16, events=events, token_events=False,
+                         clock=clock, window_s=2.0, device=dev)
+    fleet.set_active(1)
+    scaler = Autoscaler(AutoscalePolicy(**SCALE_POLICY), train_world=4,
+                        serve_engines=1, events=events, log_fn=None)
+    curve = [max(0, round(SCALE_PEAK / 2 * (1 + math.sin(
+        2 * math.pi * i / SCALE_TICKS)))) for i in range(SCALE_TICKS)]
+    g = np.random.default_rng(7)
+    reqs = [Request(rid=f"s{i}", prompt=tuple(int(t) for t in g.integers(
+        1, cfg.vocab_size, SCALE_PROMPT)), max_new=SCALE_MAX_NEW)
+        for i in range(sum(curve))]
+    arrivals = iter(reqs)
+    p95s = []
+    for i, n in enumerate(curve):
+        clock.t += 1.0
+        for _ in range(n):
+            fleet.submit(next(arrivals), now=clock())
+        while fleet.outstanding:
+            fleet.tick()
+            clock.t += SCALE_DT
+        fleet.router.harvest(clock())
+        p95 = router_ttft_p95(fleet.router)
+        p95s.append(p95)
+        d = scaler.tick(p95, it=i, headroom_frac=fleet.pool_headroom(
+            min(scaler.serve_engines + 1, 2)))
+        if d is not None:
+            fleet.set_active(d.serve_engines)
+    return {"curve": curve, "p95": p95s,
+            "decisions": [tuple(d) for d in scaler.decisions],
+            "requests": reqs, "records": fleet.records,
+            "engine_of": dict(fleet.engine_of),
+            "retraces": fleet.retraces()}
+
+
+def autoscale_phase(dev: torch.device, card: str, model, cfg) -> dict:
+    """Phase 14d: ``autoscale_drive`` on the card and on the CPU. Raises on a
+    failed check; returns the numbers for the JSON record."""
+    from ddl25spring_tpu_torch.models import llama
+    from ddl25spring_tpu_torch.serving import PagedKVConfig
+    from ddl25spring_tpu_torch.telemetry import (EventLog, read_events,
+                                                 validate_event)
+    from ddl25spring_tpu_torch.tree import tree_map
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = EventLog(os.path.join(tmp, "events.jsonl"))
+        t0 = time.perf_counter()
+        run = autoscale_drive(dev, model, cfg, log)
+        card_s = time.perf_counter() - t0
+        log.close()
+        scale_events = [e for e in read_events(log.path, strict=True)
+                        if e["type"] == "scale"]
+    t0 = time.perf_counter()
+    cpu = autoscale_drive(torch.device("cpu"),
+                          tree_map(lambda t: t.cpu(), llama.as_tree(model)),
+                          cfg)
+    cpu_s = time.perf_counter() - t0
+    directions = [d[0] for d in run["decisions"]]
+    check("train_to_serve" in directions and "serve_to_train" in directions,
+          f"14d decisions {run['decisions']} move only one way")
+    check(run["decisions"] == cpu["decisions"], f"14d decisions on the card "
+          f"{run['decisions']} differ from the CPU's {cpu['decisions']}")
+    check(len(scale_events) == len(run["decisions"]) and all(
+        validate_event(e) == [] for e in scale_events), "14d scale events")
+    recs = run["records"]
+    check(len(recs) == len(run["requests"]), f"14d served {len(recs)} of "
+          f"{len(run['requests'])}")
+    check(set(run["engine_of"].values()) == {0, 1}, "14d one engine only")
+    check(all(r == 0 for r in run["retraces"]), "14d engine retraces")
+    exact, near = greedy_bar(dev, model, cfg, PagedKVConfig(**SERVE_PAGED),
+                             run["requests"],
+                             {k: r.tokens for k, r in recs.items()}, {},
+                             "14d")
+    out = {"curve": run["curve"],
+           "p95_ttft_s": run["p95"], "p95_ttft_s_cpu": cpu["p95"],
+           "decisions": run["decisions"], "decisions_cpu": cpu["decisions"],
+           "requests": len(recs), "greedy_exact": exact,
+           "greedy_near_tie": near, "card_s": card_s, "cpu_s": cpu_s}
+    print(f"autoscale 14d: {len(recs)} requests over {SCALE_TICKS} control "
+          f"ticks (arrivals {run['curve']}), p95 TTFT (tick clock, s) "
+          f"{[None if v is None else round(v, 3) for v in run['p95']]}; "
+          f"decisions {run['decisions']}, the CPU's {cpu['decisions']}; "
+          f"greedy {exact} exact {near} near-tie of {len(recs)}; "
+          f"{len(scale_events)} scale events valid; {card_s:.1f} s on the "
+          f"card, {cpu_s:.1f} s on the CPU {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2731,6 +3168,18 @@ def main() -> int:
     # 13. pipeline parallelism, three and six stage processes -------------
     pp_report = pp_phase(dev, card, dp_losses)
 
+    # 14. fleet-scale FL and the autoscaler's serving side (no port kernel)
+    zero_counts()
+    t0 = time.perf_counter()
+    fleet_report = fleet_phase(dev, card, mnist_arrays)
+    fleet_report["autoscale"] = autoscale_phase(dev, card, model, cfg)
+    fleet_report["phase_s"] = time.perf_counter() - t0
+    fleet_counts = read_counts()
+    check(not any(fleet_counts.values()), f"phase 14 launched port kernels: "
+          f"{fleet_counts}")
+    print(f"fleet/autoscale phase: {fleet_report['phase_s']:.1f} s, port "
+          f"kernel launches {fleet_counts} {card}")
+
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
     path_counts = {"forward (phase 4)": {"flash_fwd": main_launches},
@@ -2760,7 +3209,9 @@ def main() -> int:
                    "train_llm_pp stage=3 (phase 13c), per stage per step":
                        pp_report["ranks"][0]["b1"]["launches"],
                    "train_llm_pp data=2 stage=3 (phase 13c), per rank per "
-                   "step": pp_report["b2"][0]["launches"]}
+                   "step": pp_report["b2"][0]["launches"],
+                   "fleet FL and autoscaler (phase 14), whole phase":
+                       fleet_counts}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -2824,6 +3275,7 @@ def main() -> int:
                       "fl": fl_report, "tabular": tab_report,
                       "dp": dp_report, "serving_ext": ext_report,
                       "resilience": res_report, "pp": pp_report,
+                      "fleet": fleet_report,
                       "adam_paired": adam_pairs, "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,8 @@
+"""The port's twins of the JAX package's experiments whose modules are
+ported, each beside its counterpart's name and run as ``python -m
+ddl25spring_tpu_torch.experiments.<name>`` (on the card by default;
+``--device cpu`` for the plain paths): ``fleet_smoke`` (a 100,000-client
+cohort-streamed FedAvg round), ``serving_bench`` (the serving engine and
+fleet under seeded Poisson traffic) and ``memory_smoke`` (the byte
+accounting of training and serving). Each writes a JSON result and exits
+non-zero when one of its checks fails."""

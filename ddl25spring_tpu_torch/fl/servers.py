@@ -70,7 +70,7 @@ class _ServerBase:
         self.apply_fn = apply_fn
         self.params = tree_map(lambda t: torch.as_tensor(t).to(dev),
                                init_params)
-        self.data = data.to(dev)
+        self.data = self._place_data(data)
         self.test_x = torch.as_tensor(test_x).to(dev)
         self.test_y = torch.as_tensor(test_y).to(dev, torch.int64)
         self.cfg = cfg
@@ -84,6 +84,12 @@ class _ServerBase:
         self.result = RunResult(algorithm, cfg.nr_clients,
                                 cfg.client_fraction, cfg.batch_size,
                                 cfg.epochs, cfg.lr, cfg.seed)
+
+    def _place_data(self, data):
+        """Where the clients' data lives: the client-axis tensors, once on
+        the server's device (the fleet server keeps its streaming source
+        as it is)."""
+        return data.to(self.device)
 
     def test(self) -> float:
         """Accuracy on the whole test set, in one batch."""
@@ -152,7 +158,8 @@ class _ServerBase:
                 torch_version=torch.__version__,
                 platform=("gpu" if self.device.type == "cuda"
                           else self.device.type),
-                fl_cfg=dataclasses.asdict(self.cfg), rounds=nr_rounds)
+                fl_cfg=dataclasses.asdict(self.cfg), rounds=nr_rounds,
+                **getattr(self, "_manifest_extra", {}))
             prev_counters = self.resilience.as_dict()
         for r in range(nr_rounds):
             t0 = time.perf_counter()

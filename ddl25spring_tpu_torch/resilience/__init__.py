@@ -9,12 +9,17 @@
                    checkpoint, restoring the live tensors in place.
 - ``retry``      — exponential backoff with seeded jitter (checkpoint IO).
 - ``preemption`` — SIGTERM → force-saved resumable checkpoint → clean exit.
+- ``autoscale``  — the SLO autoscaler's policy (``AutoscalePolicy``,
+                   ``Autoscaler``, ``router_ttft_p95``); its decisions
+                   drive ``ServingFleet.set_active``.
 
 Counters land in ``metrics.ResilienceStats``, knobs in
-``config.ResilienceConfig``. The elastic re-mesh (``resilience/elastic.py``)
-and the autoscaler are ROADMAP.md queue A items 8 and 9.
+``config.ResilienceConfig``. The elastic re-mesh (``resilience/elastic.py``),
+which the autoscaler's training side needs, is ROADMAP.md queue A item 8e.
 """
 
+from .autoscale import (Autoscaler, AutoscalePolicy,  # noqa: F401
+                        ScaleDecision, router_ttft_p95)
 from .faults import (FaultEvent, FaultPlan, ReplicaLossError,  # noqa: F401
                      ReplicaReturnSignal, corrupt_latest_checkpoint,
                      parse_spec)

@@ -554,11 +554,11 @@ def _check_options(train_cfg: TrainConfig, aggregation: str,
     ROADMAP.md entries of what the port does not run."""
     queued = unsupported_train_fields(train_cfg)
     if resilience is not None and resilience.elastic:
-        queued.append("ResilienceConfig.elastic=True (queue A item 8 "
+        queued.append("ResilienceConfig.elastic=True (queue A item 8e "
                       "(elastic re-mesh))")
     if scale_hook is not None:
         queued.append("scale_hook (it requires resilience.elastic=True: "
-                      "queue A item 8 (elastic re-mesh))")
+                      "queue A item 8e (elastic re-mesh))")
     if queued:
         raise NotImplementedError(
             "train_llm_dp does not run these yet; see ROADMAP.md: "
@@ -838,7 +838,7 @@ def _check_pp_options(train_cfg: TrainConfig, aggregation: str,
     if elastic:
         queued.append("ResilienceConfig.elastic=True"
                       + (" and scale_hook" if scale_hook is not None else "")
-                      + " (queue A item 8 (elastic re-mesh))")
+                      + " (queue A item 8e (elastic re-mesh))")
     if queued:
         raise NotImplementedError(
             "train_llm_pp does not run these yet; see ROADMAP.md: "

@@ -13,11 +13,15 @@ import torch
 from ddl25spring_tpu_torch import bench_utils, convert, fl
 from ddl25spring_tpu_torch.config import (FLConfig, LlamaConfig,
                                           ResilienceConfig, TrainConfig)
+from ddl25spring_tpu_torch.experiments import (fleet_smoke, memory_smoke,
+                                               serving_bench)
 from ddl25spring_tpu_torch.models import generate, llama, mnist_cnn
 from ddl25spring_tpu_torch.ops import pallas_adam
 from ddl25spring_tpu_torch.ops.adam import fused_adam
 from ddl25spring_tpu_torch.parallel import distributed, pp, programs
-from ddl25spring_tpu_torch.resilience import FaultPlan, measure_overhead
+from ddl25spring_tpu_torch.resilience import (Autoscaler, AutoscalePolicy,
+                                              FaultPlan, measure_overhead,
+                                              router_ttft_p95)
 from ddl25spring_tpu_torch.serving import (Engine, PagedKVConfig, Request,
                                            ServingFleet, SpecConfig,
                                            init_pool, reference_stream,
@@ -85,6 +89,12 @@ def test_the_scan_sees_every_port_module():
                  "ddl25spring_tpu_torch/resilience/faults.py",
                  "ddl25spring_tpu_torch/resilience/guard.py",
                  "ddl25spring_tpu_torch/resilience/preemption.py",
+                 "ddl25spring_tpu_torch/resilience/autoscale.py",
+                 "ddl25spring_tpu_torch/fl/fleet.py",
+                 "ddl25spring_tpu_torch/experiments/__init__.py",
+                 "ddl25spring_tpu_torch/experiments/fleet_smoke.py",
+                 "ddl25spring_tpu_torch/experiments/serving_bench.py",
+                 "ddl25spring_tpu_torch/experiments/memory_smoke.py",
                  "ddl25spring_tpu_torch/telemetry/__init__.py",
                  "ddl25spring_tpu_torch/telemetry/comm.py",
                  "ddl25spring_tpu_torch/telemetry/costs.py",
@@ -173,6 +183,18 @@ ENTRY_POINTS = {
     "FedProxServer": _fl_server(fl.FedProxServer, mu=0.1),
     "CentralizedServer": lambda: fl.CentralizedServer(
         *_fl_inputs()[:2], *_fl_inputs()[3:] * 2, FL_CFG),
+    "FleetFedAvgServer": lambda: fl.FleetFedAvgServer(
+        _fl_inputs()[0], mnist_cnn.apply,
+        fl.FederatedArraySource(_fl_inputs()[2]), *_fl_inputs()[3:],
+        FL_CFG),
+    "vmapped_round_reference": lambda: fl.vmapped_round_reference(
+        _fl_inputs()[0], mnist_cnn.apply,
+        fl.FederatedArraySource(_fl_inputs()[2]), [0], FL_CFG, 0),
+    "fleet_smoke": lambda: fleet_smoke.main(["--clients", "100"]),
+    "serving_bench": lambda: serving_bench.main(["--requests", "1"]),
+    "serving_bench fleet": lambda: serving_bench.main(
+        ["--requests", "2", "--engines", "2"]),
+    "memory_smoke": lambda: memory_smoke.main(["--out", "unused.json"]),
 }
 
 
@@ -182,6 +204,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(name,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ENTRY_POINTS[name]()
+
+
+def test_the_autoscaler_is_host_logic_on_any_device(monkeypatch):
+    """No device at all: the policy reads numbers, and an empty router
+    window reads as None."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scaler = Autoscaler(AutoscalePolicy(ttft_slo_s=1.0, max_train_world=2,
+                                        max_serve_engines=2),
+                        train_world=2, serve_engines=1, log_fn=None)
+    assert scaler.tick(None) is None
+    assert router_ttft_p95(type("R", (), {"_ttft": [[]]})()) is None
 
 
 def test_explicit_cpu_device_runs(monkeypatch):

@@ -1,0 +1,115 @@
+"""The port's experiment twins (``ddl25spring_tpu_torch/experiments/``) on
+the CPU at their quick sizes: each exits 0 and writes its JSON with every
+check passed; the serving twin's event streams pass the JAX package's
+``experiments/slo_monitor.py --check`` (the single engine under a TTFT and
+queue-wait ceiling, the fleet under its per-class SLOs) and export through
+``experiments/trace_export.chrome_trace`` with one complete event per
+span, a ``deploy`` span among them after a hot swap; the memory twin's
+stream passes the monitor's headroom gate against a roomy budget and
+fails it against a tight one."""
+
+import json
+
+import pytest
+import torch
+
+from ddl25spring_tpu.telemetry.events import read_events, validate_event
+from ddl25spring_tpu_torch.experiments import (fleet_smoke, memory_smoke,
+                                               serving_bench)
+from ddl25spring_tpu_torch.serving import TrafficClass, class_slos
+from experiments import slo_monitor
+from experiments.trace_export import chrome_trace
+
+torch.set_num_threads(1)
+
+
+def _result(path):
+    with open(path) as f:
+        return json.loads(f.readline())
+
+
+def test_fleet_smoke_quick_on_the_cpu(tmp_path):
+    out = tmp_path / "fleet.json"
+    tel = tmp_path / "tel"
+    rc = fleet_smoke.main(["--device", "cpu", "--quick", "--out", str(out),
+                           "--telemetry-dir", str(tel)])
+    res = _result(out)
+    assert rc == 0 and res["ok"], res["checks"]
+    assert res["clients"] == res["sampled_per_round"] == 20_000
+    assert res["control_ragged_bitwise"]
+    events = read_events(str(tel / "events.jsonl"), strict=True)
+    cohorts = [e for e in events if e["type"] == "fl_cohort"]
+    assert sum(e["clients"] for e in cohorts) == 20_000
+    assert all(validate_event(e) == [] for e in events)
+
+
+@pytest.fixture(scope="module")
+def serving_runs(tmp_path_factory):
+    """The serving twin once on one engine and once as a 2-engine fleet
+    with a hot swap, each with its stream."""
+    runs = {}
+    for name, extra in (("single", []),
+                        ("fleet", ["--engines", "2", "--hot-swap"])):
+        d = tmp_path_factory.mktemp(name)
+        rc = serving_bench.main(["--device", "cpu", "--quick", "--out",
+                                 str(d / "out.json"), "--telemetry-dir",
+                                 str(d / "tel")] + extra)
+        runs[name] = (rc, _result(d / "out.json"), d / "tel")
+    return runs
+
+
+@pytest.mark.parametrize("name", ["single", "fleet"])
+def test_serving_bench_quick_on_the_cpu(serving_runs, name):
+    rc, res, _ = serving_runs[name]
+    assert rc == 0 and res["ok"], res["checks"]
+    assert res["verified_bitwise"] == 6 and res["parity_mismatches"] == []
+
+
+def test_serving_stream_passes_the_slo_monitor(serving_runs):
+    _, _, tel = serving_runs["single"]
+    assert slo_monitor.main([str(tel), "--check", "--ttft-p99", "120",
+                             "--queue-p99", "120", "--no-emit"]) == 0
+
+
+def test_fleet_stream_passes_its_class_slos(serving_runs):
+    _, res, tel = serving_runs["fleet"]
+    classes = (TrafficClass("chat", 1.0, ttft_p99_s=120.0, queue_p99_s=120.0),
+               TrafficClass("batch", 1.0, ttft_p99_s=240.0,
+                            queue_p99_s=240.0))
+    stream = read_events(str(tel / "events.jsonl"))
+    monitor = slo_monitor.replay_monitor(stream, slo_monitor.SLOConfig(
+        window_s=30.0, per_class=class_slos(classes)))
+    assert monitor.violations == []
+    assert set(res["per_class"]) == {"chat", "batch"}
+
+
+@pytest.mark.parametrize("name", ["single", "fleet"])
+def test_serving_stream_exports_to_chrome_trace(serving_runs, name):
+    _, _, tel = serving_runs[name]
+    stream = read_events(str(tel / "events.jsonl"), strict=True)
+    assert all(validate_event(e) == [] for e in stream)
+    exported = json.loads(json.dumps(chrome_trace(stream)))
+    spans = sum(e.get("type") == "span" for e in stream)
+    complete = [ev for ev in exported["traceEvents"] if ev.get("ph") == "X"]
+    assert len(complete) == spans > 0
+    if name == "fleet":
+        assert any(ev.get("name") == "deploy" for ev in complete)
+
+
+def test_memory_smoke_on_the_cpu_and_its_headroom_gate(tmp_path):
+    out = tmp_path / "memory.json"
+    tel = tmp_path / "tel"
+    rc = memory_smoke.main(["--device", "cpu", "--out", str(out),
+                            "--telemetry-dir", str(tel)])
+    with open(out) as f:
+        res = json.load(f)
+    assert rc == 0 and res["ok"], res["checks"]
+    assert res["fit"]["rel_err"] < 0.10
+    peak = res["peak_device_bytes"]
+    path = str(tel / "events.jsonl")
+    assert slo_monitor.main([path, "--check", "--slo-headroom", "0.2",
+                             "--device-bytes", str(peak * 10),
+                             "--no-emit"]) == 0
+    assert slo_monitor.main([path, "--check", "--slo-headroom", "0.2",
+                             "--device-bytes", str(peak * 1.1),
+                             "--no-emit"]) != 0
