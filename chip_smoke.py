@@ -211,6 +211,34 @@ Phases, each of which raises on failure (exit code 1, no result line):
              applied through ``set_active``: a move each way, the decisions
              equal to the same script's on the CPU, every greedy stream
              ``generate()``'s, every ``scale`` event valid.
+15. compressed and overlapped gradient sync — two ranks, then a 2 x 2
+             layout of four (``programs.phase15_two`` / ``phase15_four``): a.
+             ``ring_reduce_scatter`` on the canonical padded gradient vector
+             (26,398,368 seeded fp32 values per rank) in fp32, bf16 and
+             int8_ef (two calls, the residual held too), bitwise the numpy
+             spec (``parallel/ring_spec.py``) at 2 and 4 ranks;
+             ``hier_reduce_scatter`` (fp32 islands, int8_ef DCN) bitwise
+             the spec at 2x2, 1x4 and 4x1, and at 1x4 and 4x1 bitwise the
+             flat ring; each format's ms per call and per hop (and an fp32
+             hop's device->host, gloo and host->device parts) beside the
+             105.6 MB fp32 all-reduce, in turns; b. the ring step at two
+             ranks: fp32 at B=4 per rank against a world of one at B=8
+             (loss and every gradient leaf within 1e-5, phase 10's bar),
+             K=4 bitwise 4 per-step calls under int8_ef, and at bf16, B=32
+             per rank, phase 10's plain step and the ring in {fp32, bf16,
+             int8_ef} x {gradient, zero1} at M=1 plus int8_ef zero1 at M=2
+             and at comm_buckets=8, timed in turns: ms per step, wire bytes
+             per step, launches per rank per step (6·M / 6·M / 6·M, Adam 1
+             under gradient aggregation and 0 under zero1), replicas bitwise;
+             c. the two-level step at 2x2, B=16 per rank, gradient and
+             zero1: replicas bitwise, the DCN axis's bytes per step at most
+             0.30 of the flat fp32 all-reduce's, the DCN ring exact to the
+             analytic count, a save at step 2 resumed bitwise to the
+             uninterrupted 4 steps, residuals included; d. ``train_llm_dp``
+             at vocab 259, 20 steps: ``data=2, overlap_microbatches=2,
+             wire="int8_ef"`` under zero1, and ``dcn=2, data=2,
+             wire_dcn="int8_ef"`` observed: losses finite and falling, the
+             manifest's comm profile by axis, no retrace.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -2595,6 +2623,223 @@ def autoscale_phase(dev: torch.device, card: str, model, cfg) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 15
+
+# Phase 15 (compressed and overlapped gradient sync): the fp32 ring step
+# against a world of one as phase 10 holds the plain step; the DCN tier's
+# bytes per step against the flat fp32 all-reduce's (the JAX smoke's
+# budget).
+TOL_RING_LOSS = 1e-5
+TOL_RING_GRAD = 1e-5
+DCN_BUDGET = 0.30
+
+
+def _k7_eligible(n_elements: int) -> bool:
+    """Whether a ZeRO-1 slice of ``n_elements`` takes the Adam kernel
+    (``pallas_adam._pallas_eligible``'s size rule)."""
+    return n_elements >= 65536 and n_elements % 512 == 0
+
+
+def comm_phase(dev: torch.device, card: str) -> dict:
+    """Phase 15: two ranks (``programs.phase15_two``) and a 2 × 2 layout of
+    four (``programs.phase15_four``) on the card, against a world of one
+    computed here. Raises on a failed check; returns the numbers for the
+    JSON record."""
+    from ddl25spring_tpu_torch import bench_utils
+    from ddl25spring_tpu_torch.config import LlamaConfig
+    from ddl25spring_tpu_torch.models import llama
+    from ddl25spring_tpu_torch.parallel import distributed, programs
+    from ddl25spring_tpu_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    kcfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    g15 = torch.Generator()
+    g15.manual_seed(15)
+    toks = torch.randint(0, kcfg.vocab_size, (5, 8, kcfg.ctx_size),
+                         generator=g15)
+    m1 = llama.init_llama(kcfg, torch.Generator().manual_seed(0), device=dev)
+    l1 = llama.forward_loss(m1, toks[0].to(dev), kcfg)
+    ref_grads = [g.cpu() for g in torch.autograd.grad(
+        l1, tree_leaves(m1.tree()))]
+    ref_loss = l1.item()
+    del m1, l1
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        two = distributed.run_ranks(programs.phase15_two, 2, toks.numpy(),
+                                    tmp, timeout=900)
+    with tempfile.TemporaryDirectory() as tmp:
+        four = distributed.run_ranks(programs.phase15_four, 4, tmp,
+                                     timeout=900)
+    phase_s = time.perf_counter() - t0
+    r0, q0 = two[0], four[0]
+
+    # a. the rings at full size -------------------------------------------
+    for rk in two + four:
+        rings = rk["rings"]
+        for wire, rec in rings["flat"].items():
+            check(rec["bitwise"] and rec.get("residual", {"bitwise": True})
+                  ["bitwise"], f"ring {wire} rank {rk['rank']} of "
+                  f"{len(two) if rk in two else 4} vs the spec: {rec}")
+        for lay, rec in rings["hier"].items():
+            check(rec["bitwise"] and rec["residual"]["bitwise"]
+                  and rec.get("flat_bitwise", True),
+                  f"hier_reduce_scatter {lay} rank {rk['rank']}: {rec}")
+    for world, rk in ((2, r0), (4, q0)):
+        rg = rk["rings"]
+        chunk_mb = 4 * rg["elements"] / world / 1e6
+        print(f"ring_reduce_scatter at {world} ranks, {rg['elements']} "
+              f"fp32 elements ({4 * rg['elements'] / 1e6:.1f} MB): fp32, "
+              f"bf16 and int8_ef (2 calls, residual) bitwise the numpy spec"
+              + (", hier_reduce_scatter fp32/int8_ef at 2x2 (2 calls), 1x4 "
+                 "and 4x1 bitwise the spec, 1x4 and 4x1 bitwise the flat "
+                 "ring" if world == 4 else "")
+              + f"; ms per call (median of 3, in turns): all-reduce "
+              f"{rg['call_ms']['allreduce']:.2f}, fp32 "
+              f"{rg['call_ms']['fp32']:.2f}, bf16 {rg['call_ms']['bf16']:.2f},"
+              f" int8_ef {rg['call_ms']['int8_ef']:.2f}; ms per hop "
+              f"({chunk_mb:.1f} MB fp32 chunk): fp32 "
+              f"{rg['hop_ms']['fp32']:.2f}, bf16 {rg['hop_ms']['bf16']:.2f}, "
+              f"int8 {rg['hop_ms']['int8_ef']:.2f}; an fp32 hop's parts: "
+              f"device->host {rg['fp32_hop_parts_ms']['d2h']:.2f}, gloo "
+              f"{rg['fp32_hop_parts_ms']['gloo']:.2f}, host->device "
+              f"{rg['fp32_hop_parts_ms']['h2d']:.2f}"
+              + (f"; hier 2x2 call {rg['hier_call_ms']:.2f}"
+                 if world == 4 else "") + f" {card}")
+
+    # b. the ring step, two ranks -----------------------------------------
+    loss_err = abs(r0["check"]["loss"] - ref_loss)
+    grad_err = max(((a - r).abs().max() / r.abs().max()).item()
+                   for a, r in zip(r0["check"]["grads"], ref_grads))
+    check(loss_err <= TOL_RING_LOSS, f"ring fp32 loss vs world of one "
+          f"|d|={loss_err:.3g} > {TOL_RING_LOSS}")
+    check(grad_err <= TOL_RING_GRAD, f"ring fp32 gradient vs world of one "
+          f"max|d|/max|ref|={grad_err:.3g} > {TOL_RING_GRAD}")
+    for rk in two:
+        check(rk["kstep"]["losses_equal"] and rk["kstep"]["state_equal"],
+              f"ring K=4 vs per step rank {rk['rank']}: {rk['kstep']}")
+    print(f"ring step fp32 B=4 per rank x {kcfg.ctx_size}, wire fp32, M=1, "
+          f"B=1, vs world of one at B=8: loss {r0['check']['loss']:.6f} vs "
+          f"{ref_loss:.6f} |d| {loss_err:.3g}, gradient (one SGD step at lr "
+          f"1024) max|d|/max|ref| {grad_err:.3g} over {len(ref_grads)} "
+          f"leaves; int8_ef zero1 M=2: K=4 bitwise 4 per-step calls "
+          f"(losses, parameters, moments, residuals) {card}")
+    grid = {}
+    plain_ms = r0["grid"]["plain"]["ms_per_step"]
+    for name, kw in programs.PHASE15_CELLS:
+        cell = r0["grid"][name]
+        m = (kw or {}).get("microbatches", 1)
+        zero1 = (kw or {}).get("aggregation") == "zero1"
+        want = {"flash_fwd": 6 * m, "flash_bwd_dq": 6 * m,
+                "flash_bwd_dkv": 6 * m, "adam": 0 if zero1 else 1}
+        for rk in two:
+            c = rk["grid"][name]
+            check(c["replicas_bitwise"], f"ring cell {name}: replicas "
+                  f"differ after {3 * 3 + 2} steps")
+            check(c["launches"] == want, f"ring cell {name} rank "
+                  f"{rk['rank']}: launches per step {c['launches']}, "
+                  f"expected {want}")
+            check(math.isfinite(c["last_loss"]), f"ring cell {name}: loss "
+                  f"{c['last_loss']}")
+        wire_b = cell["comm"]["wire_bytes_per_device_per_step"]
+        grid[name] = {"ms_per_step": cell["ms_per_step"],
+                      "ms_all": cell["ms"], "wire_bytes_per_step": wire_b,
+                      "launches_per_step": cell["launches"],
+                      "vs_plain": cell["ms_per_step"] / plain_ms}
+        print(f"ring grid {name:>17}: {cell['ms_per_step']:8.2f} ms per step "
+              f"({cell['ms_per_step'] / plain_ms:.3f}x phase 10's plain "
+              f"step, timed in turns), wire {wire_b / 1e6:8.3f} MB per step "
+              f"per rank, launches per rank per step {cell['launches']}, "
+              f"replicas bitwise {card}")
+
+    # c. the hierarchy, 2 x 2 -------------------------------------------------
+    flat_wire = q0["flat_allreduce_wire"]
+    hier = {}
+    for agg, h in q0["hier"].items():
+        by = h["comm"]["collectives"]
+        local = h["local"]
+        dcn = h["comm"]["axes"]["dcn"]["wire_bytes_per_device"]
+        ratio = dcn / flat_wire
+        for rk in four:
+            check(rk["hier"][agg]["replicas_bitwise"], f"hier {agg}: "
+                  f"replicas differ (rank {rk['rank']})")
+        check(ratio <= DCN_BUDGET, f"hier {agg}: DCN bytes {dcn} are "
+              f"{ratio:.3f} of the flat fp32 all-reduce's {flat_wire}")
+        got = (by["ring_grad_dcn_int8"]["payload_bytes"],
+               by["ring_grad_dcn_scale"]["payload_bytes"],
+               by["ring_grad_dcn_int8"]["wire_bytes_per_device"])
+        check(got == (local, 4, local), f"hier {agg}: DCN ring bytes {got},"
+              f" analytic {(local, 4, local)}")
+        want = {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+                "adam": 0 if agg == "zero1" else 1}
+        check(h["launches"] == want, f"hier {agg}: launches {h['launches']}")
+        if agg == "zero1":
+            for rk in four:
+                res = rk["hier"][agg]["resume"]
+                check(res["losses_equal"] and res["state_equal"],
+                      f"hier resume rank {rk['rank']}: {res}")
+        hier[agg] = {"ms_per_step": h["ms_per_step"], "dcn_wire": dcn,
+                     "dcn_ratio": ratio, "axes": h["comm"]["axes"],
+                     "launches_per_step": h["launches"],
+                     "losses": h["losses"]}
+        print(f"hier 2x2 {agg} bf16 B=16 per rank (fp32 islands, int8_ef "
+              f"DCN): {h['ms_per_step']:.2f} ms per step; DCN "
+              f"{dcn / 1e6:.3f} MB per step per rank = {ratio:.4f} of the "
+              f"flat fp32 all-reduce's {flat_wire / 1e6:.3f} MB (budget "
+              f"{DCN_BUDGET}); DCN ring exact ({local} int8 + 4 bytes per "
+              f"hop); island axis {h['comm']['axes']['data']['wire_bytes_per_device'] / 1e6:.3f}"
+              f" MB; replicas bitwise; launches per rank per step "
+              f"{h['launches']}"
+              + ("; saved at step 2 and resumed: bitwise the uninterrupted "
+                 "4 steps, residuals included" if agg == "zero1" else "")
+              + f" {card}")
+
+    # d. the trainer ----------------------------------------------------------
+    tok_cfg = LlamaConfig(vocab_size=259)
+    total = sum(x.numel() for x in tree_leaves(llama.init_llama(
+        tok_cfg, torch.Generator().manual_seed(0), device="meta").tree()))
+    for label, rk, want in (
+            ("data=2 M=2 int8_ef zero1", r0,
+             {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+              "adam": int(_k7_eligible(-(-total // 2)))}),
+            ("dcn=2 data=2 wire_dcn=int8_ef M=1", q0,
+             {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+              "adam": 1})):
+        tr = rk["trainer"]
+        ls = tr["losses"]
+        check(len(ls) == 20 and all(math.isfinite(x) for x in ls)
+              and ls[-1] < ls[0], f"train_llm_dp {label}: losses {ls}")
+        check(tr["launches"] == want, f"train_llm_dp {label}: launches "
+              f"{tr['launches']}, expected {want}")
+        print(f"train_llm_dp {label} (vocab 259, batch 4 x 256 per rank, "
+              f"optimizer pallas): loss {ls[0]:.4f} -> {ls[-1]:.4f} in 20 "
+              f"steps ({tr['seconds']:.1f} s, {tr['tokens_per_sec']:.0f} "
+              f"tok/s all ranks after warmup); launches per rank per step "
+              f"{tr['launches']}" + (
+                  f"; manifest mesh {tr['manifest_mesh']}, comm axes "
+                  f"{tr['manifest_axes']} (DCN {tr['dcn_wire']:.0f} B per "
+                  f"step), compiles {tr['compiles']}, retraces "
+                  f"{tr['retraces']}" if "manifest_axes" in tr else "")
+              + f" {card}")
+    tq = q0["trainer"]
+    check("dcn" in tq["manifest_axes"] and tq["retraces"] == 0
+          and tq["compiles"] == 1, f"hierarchical trainer's manifest and "
+          f"compiles: {tq}")
+    print(f"comm phase: {phase_s:.1f} s (rings {r0['rings']['seconds']:.1f} "
+          f"/ {q0['rings']['seconds']:.1f} s, grid "
+          f"{r0['grid_seconds']:.1f} s) {card}")
+    return {"seconds": phase_s,
+            "rings": {w: {k: rk["rings"][k] for k in (
+                "call_ms", "call_ms_all", "hop_ms", "fp32_hop_parts_ms",
+                "hop_bytes", "allreduce_bytes", "elements")}
+                for w, rk in (("2", r0), ("4", q0))},
+            "hier_call_ms": q0["rings"]["hier_call_ms"],
+            "fp32_check": {"loss_abs_err": loss_err,
+                           "grad_rel_err": grad_err},
+            "grid": grid, "hier": hier, "flat_allreduce_wire": flat_wire,
+            "trainer": {"data2": r0["trainer"], "dcn2": q0["trainer"]}}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3180,6 +3425,9 @@ def main() -> int:
     print(f"fleet/autoscale phase: {fleet_report['phase_s']:.1f} s, port "
           f"kernel launches {fleet_counts} {card}")
 
+    # 15. compressed and overlapped gradient sync, 2 and 2 x 2 ranks ------
+    comm_report = comm_phase(dev, card)
+
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
     path_counts = {"forward (phase 4)": {"flash_fwd": main_launches},
@@ -3211,7 +3459,18 @@ def main() -> int:
                    "train_llm_pp data=2 stage=3 (phase 13c), per rank per "
                    "step": pp_report["b2"][0]["launches"],
                    "fleet FL and autoscaler (phase 14), whole phase":
-                       fleet_counts}
+                       fleet_counts,
+                   **{f"ring step {k} bf16 B=32 (phase 15b), per rank per "
+                      f"step": v["launches_per_step"]
+                      for k, v in comm_report["grid"].items()},
+                   **{f"hier 2x2 {k} (phase 15c), per rank per step":
+                      v["launches_per_step"]
+                      for k, v in comm_report["hier"].items()},
+                   "train_llm_dp data=2 M=2 int8_ef zero1 (phase 15d), per "
+                   "rank per step": comm_report["trainer"]["data2"][
+                       "launches"],
+                   "train_llm_dp dcn=2 data=2 (phase 15d), per rank per "
+                   "step": comm_report["trainer"]["dcn2"]["launches"]}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -3275,7 +3534,7 @@ def main() -> int:
                       "fl": fl_report, "tabular": tab_report,
                       "dp": dp_report, "serving_ext": ext_report,
                       "resilience": res_report, "pp": pp_report,
-                      "fleet": fleet_report,
+                      "fleet": fleet_report, "comm": comm_report,
                       "adam_paired": adam_pairs, "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,9 +2,10 @@
 package's ``bench_utils.py`` (``make_optimizer``, ``time_train_step``).
 
 The port times the data-parallel step (gradient aggregation per step or
-K steps per window, weight aggregation, ZeRO-1) in the caller's process
-group, or at a world of one without one; compressed and overlapped
-collectives raise ``NotImplementedError`` naming ROADMAP.md. Timing is
+K steps per window, weight aggregation, ZeRO-1, the compressed and
+overlapped ring step and the legacy bf16 and int8 steps of
+``parallel/compress.py``) in the caller's process group, or at a world of
+one without one. Timing is
 sync-honest: the timed chain ends in a host read of the last loss, which
 waits for the device, and at a world above one in a barrier after it.
 ``kernel_time_us`` times one kernel call on the device alone
@@ -22,8 +23,8 @@ import torch
 from .config import LlamaConfig
 from .models import llama
 from .ops.adam import fused_adam
+from .parallel import compress, dp
 from .parallel import distributed as dist
-from .parallel import dp
 
 
 def make_optimizer(opt_name: str, lr: float = 8e-4):
@@ -47,22 +48,54 @@ def make_optimizer(opt_name: str, lr: float = 8e-4):
 def build_train_step(cfg: LlamaConfig, batch_size: int, *,
                      seq: Optional[int] = None, opt_name: str = "fused",
                      aggregation: str = "gradient",
-                     steps_per_dispatch: int = 1, device=None):
+                     steps_per_dispatch: int = 1, wire: Optional[str] = None,
+                     overlap_microbatches: int = 0, comm_buckets: int = 1,
+                     device=None):
     """What ``time_train_step`` times: ``(state, step, tokens)`` — a fresh
     train state from ``init_llama`` seeded 0, the step of ``aggregation``
     over ``llama.forward_loss`` (K = ``steps_per_dispatch`` > 1: the K-step
     loop, for gradient and zero1), and this rank's rows of a ``[n ·
     batch_size, seq]`` batch of tokens drawn from a generator seeded 1 on
     the device (the JAX function's one batch, sharded over the n ranks).
-    ``cfg.remat`` rematerializes each block in the backward."""
+    ``cfg.remat`` rematerializes each block in the backward.
+
+    The JAX function's composition rules: ``overlap_microbatches`` = M >=
+    1 takes the ring step (``wire`` or fp32, ``comm_buckets``, gradient
+    or zero1, any K); at M = 0 a ``wire`` ("bf16", "int8_ef") takes the
+    legacy per-step steps (gradient aggregation, K = 1 only), and
+    ``comm_buckets > 1`` raises."""
     dev = dist.rank_device(device)
     seq = seq or cfg.ctx_size
+    K = max(1, int(steps_per_dispatch))
+    M = int(overlap_microbatches)
+    B = max(1, int(comm_buckets))
+    if M == 0 and wire is not None and (aggregation != "gradient" or K != 1):
+        raise ValueError("wire compression composes with per-step gradient "
+                         "aggregation only (pass overlap_microbatches >= 1 "
+                         "for the composing ring driver)")
+    if M == 0 and B > 1:
+        raise ValueError("comm_buckets > 1 needs the overlapped ring driver "
+                         "(pass overlap_microbatches >= 1)")
     model = llama.init_llama(cfg, torch.Generator().manual_seed(0),
                              device=dev)
     opt = make_optimizer(opt_name)
     loss_fn = lambda p, batch: llama.forward_loss(p, batch, cfg)
-    multi = steps_per_dispatch > 1
-    if aggregation == "zero1":
+    multi = K > 1
+    if M >= 1:
+        make = (compress.make_overlap_multi_step if multi
+                else compress.make_overlap_step)
+        state, step = make(loss_fn, opt, model.tree(), microbatches=M, wire=wire or "fp32",
+                           aggregation=aggregation, comm_buckets=B,
+                           device=dev)
+    elif wire == "bf16":
+        step = compress.make_bf16_grad_step(loss_fn, opt)
+        state = dp.init_state(model.tree(), opt)
+    elif wire == "int8_ef":
+        state = compress.init_ef_state(model.tree(), opt)
+        step = compress.make_int8_ef_grad_step(loss_fn, opt)
+    elif wire is not None:
+        raise ValueError(f"unknown wire format {wire!r}")
+    elif aggregation == "zero1":
         make = dp.make_zero1_multi_step if multi else dp.make_zero1_step
         state, step = make(loss_fn, opt, model.tree())
     elif aggregation == "gradient":
@@ -100,22 +133,16 @@ def time_train_step(cfg: LlamaConfig, batch_size: int, *,
     for the slowest rank. ``steps_per_dispatch`` = K > 1 runs the K-step
     loop over a window of K copies of the batch, the step budgets
     ceil-divided into windows. ``aggregation``: "gradient", "zero1" (any
-    K) or "weight" (K = 1). ``seq`` defaults to ``cfg.ctx_size``."""
-    for name, val, default, where in (
-            ("wire", wire, None, "queue A item 8 (compressed collectives)"),
-            ("overlap_microbatches", overlap_microbatches, 0,
-             "queue A item 8 (overlapped ring sync)"),
-            ("comm_buckets", comm_buckets, 1,
-             "queue A item 8 (overlapped ring sync)")):
-        if val != default:
-            raise NotImplementedError(
-                f"time_train_step({name}={val!r}) is not ported yet: "
-                f"ROADMAP.md, {where}")
+    K) or "weight" (K = 1). ``wire``, ``overlap_microbatches`` and
+    ``comm_buckets`` compose as ``build_train_step`` says.
+    ``seq`` defaults to ``cfg.ctx_size``."""
     seq = seq or cfg.ctx_size
     K = max(1, int(steps_per_dispatch))
     state, step, tokens = build_train_step(
         cfg, batch_size, seq=seq, opt_name=opt_name, aggregation=aggregation,
-        steps_per_dispatch=K, device=device)
+        steps_per_dispatch=K, wire=wire,
+        overlap_microbatches=overlap_microbatches,
+        comm_buckets=comm_buckets, device=device)
     batch = tokens.expand(K, *tokens.shape) if K > 1 else tokens
     warm, timed = ((max(1, -(-warmup // K)), max(1, -(-timed_steps // K)))
                    if K > 1 else (warmup, timed_steps))

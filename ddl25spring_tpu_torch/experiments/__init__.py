@@ -3,6 +3,8 @@ ported, each beside its counterpart's name and run as ``python -m
 ddl25spring_tpu_torch.experiments.<name>`` (on the card by default;
 ``--device cpu`` for the plain paths): ``fleet_smoke`` (a 100,000-client
 cohort-streamed FedAvg round), ``serving_bench`` (the serving engine and
-fleet under seeded Poisson traffic) and ``memory_smoke`` (the byte
-accounting of training and serving). Each writes a JSON result and exits
+fleet under seeded Poisson traffic), ``memory_smoke`` (the byte
+accounting of training and serving) and ``comm_wire_smoke`` (the
+compressed and overlapped sync's wire bytes, accounting and overlap
+evidence over four ranks). Each writes a JSON result and exits
 non-zero when one of its checks fails."""

@@ -31,6 +31,16 @@ replicated. At a world of one (no group) every collective returns its
 input and starts nothing. Each collective records its bytes, under its
 call site's label, into ``telemetry.comm``'s active collector.
 
+The compressed and overlapped gradient sync (``parallel/compress.py``)
+adds ``pmax`` (the int8 scales), ``ppermute`` (a ring shift over a
+``Group``, on the point-to-point hops below) and ``all_gather`` over a
+``Group`` in the operand's own dtype. These move the int8 and bf16 wire
+formats, which gloo's CUDA route is not known to sum, so they stage the
+operand to the host explicitly and run gloo on CPU tensors; each records
+the bytes of its operand in its own dtype. ``hier_data_mesh`` lays the
+ranks out as ``{"dcn": D, "data": S}`` islands (rank ``d·S + s``) with a
+gloo group per island and one per column.
+
 Pipeline parallelism lays the ranks on a ``{"data": D, "stage": S}``
 mesh in the JAX mesh's order (``pipeline_mesh``: rank ``d·S + s``), with
 a gloo group per data row (its stages) and one per stage (its data
@@ -267,6 +277,70 @@ class PipelineMesh:
 _MESHES: Dict[Tuple[int, int, int], PipelineMesh] = {}
 
 
+@dataclass(frozen=True)
+class HierMesh:
+    """A ``{"dcn": dcn, "data": data}`` layout of the process group: ``dcn``
+    islands of ``data`` replicas, island-major (rank ``r = d·data + s`` is
+    replica ``s`` of island ``d``), as the JAX package's
+    ``hier_data_mesh``. ``data_group`` joins this island's replicas (the
+    fast, full-precision tier), ``dcn_group`` the replicas at this
+    position in every island (the scarce tier)."""
+
+    dcn: int
+    data: int
+    d: int
+    s: int
+    data_group: Group
+    dcn_group: Group
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"dcn": self.dcn, "data": self.data}
+
+
+_HIER: Dict[Tuple[int, int, int], HierMesh] = {}
+
+
+def hier_data_mesh(islands: int, island_size: int) -> HierMesh:
+    """This process's place on an ``islands × island_size`` hierarchical
+    data-parallel layout (a world of one without a group), with one gloo
+    group per island (axis ``data``) and one per column (axis ``dcn``),
+    made once per process and layout. Every rank must call it
+    (``dist.new_group`` is collective). Raises unless the group has
+    ``islands·island_size`` ranks."""
+    n, rank = world_size(), get_rank()
+    if islands < 1 or island_size < 1 or n != islands * island_size:
+        raise ValueError(f"a dcn={islands} x data={island_size} layout needs "
+                         f"{islands * island_size} ranks, the process group "
+                         f"has {n}")
+    key = (islands, island_size,
+           id(dist.group.WORLD) if is_initialized() else 0)
+    if key not in _HIER:
+        isles = [tuple(d * island_size + s for s in range(island_size))
+                 for d in range(islands)]
+        cols = [tuple(d * island_size + s for d in range(islands))
+                for s in range(island_size)]
+        pgs = {}
+        for ranks in isles + cols:     # the same order on every rank
+            if len(ranks) > 1:
+                pgs[ranks] = (dist.group.WORLD if len(ranks) == n else
+                              dist.new_group(list(ranks), backend=BACKEND,
+                                             timeout=GROUP_TIMEOUT))
+        d, s = divmod(rank, island_size)
+        _HIER[key] = HierMesh(islands, island_size, d, s,
+                              Group("data", isles[d], s, pgs.get(isles[d])),
+                              Group("dcn", cols[s], d, pgs.get(cols[s])))
+    return _HIER[key]
+
+
+def data_group() -> Group:
+    """Every rank of the process group as one ``data`` axis (a group of one
+    without a process group)."""
+    n = world_size()
+    return Group("data", tuple(range(n)), get_rank(),
+                 dist.group.WORLD if n > 1 else None)
+
+
 def pipeline_mesh(data: int, stage: int) -> PipelineMesh:
     """This process's place on a ``data × stage`` mesh over the process
     group (a world of one without a group), with one gloo group per data
@@ -379,6 +453,20 @@ def _reduce_tree(tree, group: Optional[Group], mean: bool):
     return tree_unflatten(tree, out)
 
 
+def pmax(x: torch.Tensor, *, label: Optional[str] = None,
+         record: bool = True, group: Optional[Group] = None) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ranks (``x`` itself at a
+    world of one), reduced on a host copy."""
+    if record:
+        _record("pmax", label, x, group)
+    if _size(group) == 1:
+        return x
+    host = x.detach().to("cpu", copy=True)
+    dist.all_reduce(host, op=dist.ReduceOp.MAX,
+                    group=None if group is None else group.pg)
+    return host.to(x.device)
+
+
 def psum_scatter(flat: torch.Tensor, *,
                  label: Optional[str] = None) -> torch.Tensor:
     """This rank's ``1/n`` slice of the sum of the 1-D ``flat`` over the
@@ -393,10 +481,21 @@ def psum_scatter(flat: torch.Tensor, *,
     return _all_reduce_sum(flat)[r * local:(r + 1) * local].clone()
 
 
-def all_gather(piece: torch.Tensor, *,
-               label: Optional[str] = None) -> torch.Tensor:
-    """The ranks' 1-D slices concatenated in rank order: an all-reduce of a
-    zero buffer in which this rank has written its own."""
+def all_gather(piece: torch.Tensor, *, label: Optional[str] = None,
+               group: Optional[Group] = None) -> torch.Tensor:
+    """The ranks' 1-D slices concatenated in rank order. Over the process
+    group (``group`` None): an all-reduce of a zero buffer in which this
+    rank has written its own. Over a ``Group``: gloo's all-gather of a host
+    copy, in the piece's own dtype (int8 and bf16 wire formats too), in
+    the group's index order (``piece`` itself for a group of one)."""
+    if group is not None:
+        _record("all_gather", label, piece, group)
+        if group.size == 1:
+            return piece
+        host = piece.detach().to("cpu").contiguous()
+        parts = [torch.empty_like(host) for _ in range(group.size)]
+        dist.all_gather(parts, host, group=group.pg)
+        return torch.cat([p.reshape(-1) for p in parts]).to(piece.device)
     _comm.record("all_gather", label, piece)
     n, r = world_size(), get_rank()
     if n == 1:
@@ -475,6 +574,29 @@ def recv(frm: int, shape, dtype: torch.dtype, *, tag: int, group: Group,
          device) -> torch.Tensor:
     """``irecv`` and its wait."""
     return irecv(frm, shape, dtype, tag=tag, group=group, device=device)()
+
+
+RING_TAG = 7    # every ring shift completes before the next starts
+
+
+def ppermute(x: torch.Tensor, *, label: str, group: Group) -> torch.Tensor:
+    """The ring shift ``lax.ppermute`` with ``perm = [(i, (i+1) % n)]`` over
+    ``group``: send ``x`` to index ``i + 1``, receive the tensor of index
+    ``i − 1`` (same shape and dtype) on ``x``'s device. Both hops are
+    posted before either is waited on, so the ring cannot deadlock, and
+    both are complete on return. Records op ``ppermute`` with ``x``'s
+    bytes in its own dtype on the group's axis."""
+    n, i = group.size, group.index
+    if n == 1:
+        _record("ppermute", label, x, group)
+        return x
+    shape = x.shape
+    wait_send = isend(x.reshape(-1), (i + 1) % n, tag=RING_TAG, label=label,
+                      group=group)
+    got = irecv((i - 1) % n, (x.numel(),), x.dtype, tag=RING_TAG,
+                group=group, device=x.device)()
+    wait_send()
+    return got.reshape(shape)
 
 
 class Hops:

@@ -27,6 +27,14 @@ the identity, and the steps are the world-of-one steps they were.
   exist for that slice only, and ``all_gather`` brings every slice back
   into the replicated parameters.
 
+On a hierarchical layout (``distributed.hier_data_mesh``: ``dcn`` islands
+of ``data`` ranks) the plain steps above would average over the whole
+group as if it were flat; given such a layout as ``mesh=`` they refuse it
+with the JAX package's error and point to the two-level ring step
+(``parallel/compress.py``). ``slice_index`` is the one ownership rule of
+ZeRO-1's slices and the ring's reduced chunks: the rank on a flat layout,
+``s·D + d`` for replica ``s`` of island ``d`` on a hierarchical one.
+
 ``guard_nonfinite`` skips a step whose averaged loss or gradient holds a
 NaN or Inf: the state stays as it was and ``step`` does not advance. Every
 rank reaches the same verdict (it is taken on the averaged values, or on
@@ -39,7 +47,9 @@ parameter tree, so the model a caller holds is the trained one. Each rank
 holds the full parameters; only ZeRO-1 splits the moments, and its state
 carries the slice geometry (``TrainState.zero1``). ``host_snapshot`` and
 ``reshard_state`` move states to the host and back, across world sizes
-for ZeRO-1's flat moment vectors (``checkpoint.py``).
+for ZeRO-1's flat moment vectors (``checkpoint.py``), and at the same world
+for the per-rank error-feedback residuals of ``parallel/compress.py``'s
+states, stacked ``[n, ...]`` in rank order as the JAX package shards them.
 """
 
 from __future__ import annotations
@@ -61,18 +71,27 @@ from ..tree import (nested_leaves, nested_unflatten, tree_copy,
 class Zero1Geometry:
     """The padded flat-vector geometry of a ZeRO-1 state
     (``_flat_geometry``): world ``n``, ``pad`` zeros after the ``total``
-    parameters, ``local`` elements per rank, and the rank whose slice
-    ``[rank·local, (rank+1)·local)`` this state's moments cover."""
+    parameters, ``local`` elements per rank, and the slice index ``rank``
+    (``slice_index``) whose slice ``[rank·local, (rank+1)·local)`` this
+    state's moments cover. ``position`` is this process's rank, the block
+    its moments take in a stack gathered in rank order (``host_snapshot``);
+    it differs from ``rank`` only on a hierarchical layout."""
 
     n: int
     pad: int
     local: int
     total: int
     rank: int
+    position: Optional[int] = None
 
     @property
     def mine(self) -> slice:
         return slice(self.rank * self.local, (self.rank + 1) * self.local)
+
+    @property
+    def stored(self) -> slice:
+        p = self.rank if self.position is None else self.position
+        return slice(p * self.local, (p + 1) * self.local)
 
 
 class TrainState(NamedTuple):
@@ -180,7 +199,7 @@ def _make_local_grad_step(loss_fn: Callable, optimizer, accum_steps: int,
 def make_grad_aggregation_step(loss_fn: Callable, optimizer,
                                accum_steps: int = 1,
                                guard_nonfinite: bool = False,
-                               numerics=None) -> Callable:
+                               numerics=None, *, mesh=None) -> Callable:
     """``step(state, batch) -> (state, loss)`` on this rank's ``batch``:
     gradients of ``loss_fn(params, batch) -> scalar``, averaged over
     ``accum_steps`` microbatches, then over the ranks, then one optimizer
@@ -191,7 +210,9 @@ def make_grad_aggregation_step(loss_fn: Callable, optimizer,
     ``guard_nonfinite=True``: a step whose averaged loss or gradient holds a
     NaN/Inf (one poisoned rank poisons the mean for every rank) is skipped
     (state unchanged, ``step`` not advanced) and its loss is returned as it
-    came. ``numerics``: see ``_make_local_grad_step``."""
+    came. ``numerics``: see ``_make_local_grad_step``. ``mesh``: a
+    hierarchical layout raises (``_require_flat_data_mesh``)."""
+    _require_flat_data_mesh(mesh, "make_grad_aggregation_step")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1 (got {accum_steps})")
     return _make_local_grad_step(loss_fn, optimizer, accum_steps,
@@ -220,13 +241,15 @@ def _loop(local_step: Callable) -> Callable:
 
 
 def make_multi_step(loss_fn: Callable, optimizer, accum_steps: int = 1,
-                    guard_nonfinite: bool = False, numerics=None) -> Callable:
+                    guard_nonfinite: bool = False, numerics=None, *,
+                    mesh=None) -> Callable:
     """K-step loop: ``step(state, window) -> (state, losses)`` where
     ``window`` is this rank's ``[K, B, T]`` batches of K consecutive steps
     and ``losses`` the ``[K]`` per-step losses, on the device. The body is
     ``make_grad_aggregation_step``'s, so the losses and the final state are
     bitwise K per-step calls. K is the window's leading dim, so one loop
     serves every window size."""
+    _require_flat_data_mesh(mesh, "make_multi_step")
     return _loop(make_grad_aggregation_step(loss_fn, optimizer, accum_steps,
                                             guard_nonfinite, numerics))
 
@@ -246,12 +269,14 @@ def _pmean_float_leaves(tree, label: str):
     return tree
 
 
-def make_weight_aggregation_step(loss_fn: Callable, optimizer) -> Callable:
+def make_weight_aggregation_step(loss_fn: Callable, optimizer, *,
+                                 mesh=None) -> Callable:
     """``step(state, batch) -> (state, loss)``: one local optimizer step on
     this rank's gradient (``optimizer.update`` and ``p += u``), then the
     parameters, the optimizer state's floating leaves and the loss
     averaged over the ranks: the reference's weight aggregation with the
     averages written back (its script leaves them unused)."""
+    _require_flat_data_mesh(mesh, "make_weight_aggregation_step")
 
     def step(state: TrainState, batch: torch.Tensor):
         leaves = tree_leaves(state.params)
@@ -269,12 +294,87 @@ def make_weight_aggregation_step(loss_fn: Callable, optimizer) -> Callable:
     return step
 
 
+# ------------------------------------------------------------- topology
+
+def data_axes(mesh=None) -> Tuple[str, ...]:
+    """The axes that together form the data-parallel world, outermost
+    first: ``("dcn", "data")`` on a hierarchical layout with more than one
+    island (``distributed.hier_data_mesh``), ``("data",)`` otherwise
+    (``mesh`` None: the whole process group)."""
+    if mesh is not None and mesh.shape.get("dcn", 1) > 1:
+        return ("dcn", "data")
+    return ("data",)
+
+
+def data_partition(mesh=None):
+    """The JAX package's PartitionSpec entry for a dim split over the data
+    world: one axis name, or the tuple of the hierarchical axes whose size
+    exceeds 1. The port places nothing by it; it names the layout."""
+    axes = data_axes(mesh)
+    if len(axes) == 1:
+        return axes[0]
+    axes = tuple(a for a in axes if mesh.shape[a] > 1)
+    return axes if len(axes) > 1 else axes[0]
+
+
+def hier_slice_index(mesh) -> int:
+    """The hierarchical slice-ownership map: replica ``s`` of island ``d``
+    owns flat slice ``s·D + d``, the slice the two-level reduce-scatter's
+    chunk lands on (``compress.hier_reduce_scatter``)."""
+    return mesh.s * mesh.dcn + mesh.d
+
+
+def slice_index(mesh=None) -> int:
+    """This rank's slice of the padded flat parameter vector: its index on
+    the data axis (the rank, ``mesh`` None), ``hier_slice_index`` on a
+    hierarchical layout."""
+    if mesh is None:
+        return dist.get_rank()
+    if len(data_axes(mesh)) == 1:
+        return mesh.data_group.index
+    return hier_slice_index(mesh)
+
+
+def _require_flat_data_mesh(mesh, what: str) -> None:
+    """The plain steps reduce over the ``data`` axis only: on a
+    hierarchical layout they would aggregate within islands (the JAX
+    package's error, pointing to the two-level ring step)."""
+    if mesh is not None and mesh.shape.get("dcn", 1) > 1:
+        raise ValueError(
+            f"{what} reduces over the 'data' axis only and would silently "
+            "aggregate per-island on a hierarchical (dcn x data) mesh; "
+            "use the two-level ring driver (parallel/compress.py "
+            "make_overlap_step / make_overlap_multi_step with "
+            'wire={"ici": ..., "dcn": ...})')
+
+
+def shard_batch(batch, *, device) -> torch.Tensor:
+    """This rank's rows of a global ``[n·B, ...]`` batch on ``device``:
+    rank r reads rows ``[r·B, (r+1)·B)``. On a hierarchical layout rank
+    ``d·S + s`` is replica (d, s), so the rows are island-major, as the
+    JAX package's ``shard_batch`` places them."""
+    n, r = dist.world_size(), dist.get_rank()
+    b = batch.shape[0] // n
+    return torch.as_tensor(batch[r * b:(r + 1) * b], dtype=torch.long,
+                           device=device)
+
+
+def shard_batch_window(window, *, device) -> torch.Tensor:
+    """This rank's ``[K, B, T]`` part of a ``[K, n·B, T]`` window (the
+    second axis split as ``shard_batch`` splits the first)."""
+    n, r = dist.world_size(), dist.get_rank()
+    b = window.shape[1] // n
+    return torch.as_tensor(window[:, r * b:(r + 1) * b], dtype=torch.long,
+                           device=device)
+
+
 # -------------------------------------------------------------------- ZeRO-1
 
 def _flat_geometry(params) -> Tuple[int, int, int, int]:
     """``(n, pad, local, total)`` of the padded flat parameter vector: n is
-    the world, total the parameter count, pad brings it to a multiple of
-    n, and local = (total + pad) / n is one rank's slice."""
+    the world (``dcn·data`` on a hierarchical layout: the whole group),
+    total the parameter count, pad brings it to a multiple of n, and local
+    = (total + pad) / n is one rank's slice."""
     n = dist.world_size()
     total = sum(x.numel() for x in tree_leaves(params))
     pad = (-total) % n
@@ -291,12 +391,13 @@ def _flat_fp32(leaves, pad: int) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def _zero1_setup(optimizer, params) -> TrainState:
+def _zero1_setup(optimizer, params, mesh=None) -> TrainState:
     """The initial ZeRO-1 state: the replicated parameters, and optimizer
-    state for this rank's ``1/n`` slice of the padded fp32 flat vector
-    only."""
+    state for this rank's ``1/n`` slice (``slice_index(mesh)``) of the
+    padded fp32 flat vector only."""
     n, pad, local, total = _flat_geometry(params)
-    geom = Zero1Geometry(n, pad, local, total, dist.get_rank())
+    geom = Zero1Geometry(n, pad, local, total, slice_index(mesh),
+                         dist.get_rank())
     mine = _flat_fp32(tree_leaves(params), pad)[geom.mine].clone()
     return TrainState(params, optimizer.init(mine),
                       torch.zeros((), dtype=torch.int32, device=mine.device),
@@ -352,14 +453,16 @@ def _make_zero1_local_step(loss_fn: Callable, optimizer, *,
 
 
 def make_zero1_step(loss_fn: Callable, optimizer, params, *,
-                    guard_nonfinite: bool = False, numerics=None
-                    ) -> Tuple[TrainState, Callable]:
+                    guard_nonfinite: bool = False, numerics=None,
+                    mesh=None) -> Tuple[TrainState, Callable]:
     """ZeRO-1 data parallelism: ``(state, step)``, the initial state (the
     parameters ``params``, moments for this rank's slice only) and
     ``step(state, batch) -> (state, loss)``. Adam is elementwise, so the
     sliced update equals the replicated one up to float re-association.
     On this route ``psum_scatter`` and ``all_gather`` are each a full
-    all-reduce of the padded vector."""
+    all-reduce of the padded vector. ``mesh``: a hierarchical layout
+    raises (``_require_flat_data_mesh``)."""
+    _require_flat_data_mesh(mesh, "make_zero1_step")
     return (_zero1_setup(optimizer, params),
             _make_zero1_local_step(loss_fn, optimizer,
                                    guard_nonfinite=guard_nonfinite,
@@ -367,11 +470,12 @@ def make_zero1_step(loss_fn: Callable, optimizer, params, *,
 
 
 def make_zero1_multi_step(loss_fn: Callable, optimizer, params, *,
-                          guard_nonfinite: bool = False, numerics=None
-                          ) -> Tuple[TrainState, Callable]:
+                          guard_nonfinite: bool = False, numerics=None,
+                          mesh=None) -> Tuple[TrainState, Callable]:
     """``make_zero1_step`` inside the K-step loop: ``step(state, window)
     -> (state, losses)`` over a ``[K, B, T]`` window, bitwise K calls of
     the per-step function."""
+    _require_flat_data_mesh(mesh, "make_zero1_multi_step")
     state, step = make_zero1_step(loss_fn, optimizer, params,
                                   guard_nonfinite=guard_nonfinite,
                                   numerics=numerics)
@@ -381,38 +485,55 @@ def make_zero1_multi_step(loss_fn: Callable, optimizer, params, *,
 # ------------------------------------------------------ host snapshots
 
 def _slice_mask(state) -> List[bool]:
-    """Per ``nested_leaves(state)`` leaf: whether it is one rank's ZeRO-1
-    slice (an optimizer-state tensor of ndim >= 1 in a ZeRO-1 state; its
-    count stays replicated)."""
-    if not (isinstance(state, TrainState) and state.zero1 is not None):
+    """Per ``nested_leaves(state)`` leaf: whether each rank holds its own
+    block of it (stacked in rank order along dim 0 in a snapshot): a
+    ZeRO-1 state's optimizer-state tensors of ndim >= 1 (its count stays
+    replicated), and every tensor of the fields a state type names in
+    ``PER_RANK_FIELDS`` (``compress.EFTrainState``'s and
+    ``compress.OverlapEFState``'s error-feedback residuals)."""
+    fields = getattr(state, "_fields", None)
+    geom = getattr(state, "zero1", None)
+    per_rank = getattr(type(state), "PER_RANK_FIELDS", ())
+    if fields is None or (geom is None and not per_rank):
         return [False] * len(nested_leaves(state))
-    opt = [isinstance(x, torch.Tensor) and x.dim() >= 1
-           for x in nested_leaves(state.opt_state)]
-    return ([False] * len(nested_leaves(state.params)) + opt
-            + [False] * (len(nested_leaves(state.step))
-                         + len(nested_leaves(state.zero1))
-                         + len(nested_leaves(state.pp))))
+    mask: List[bool] = []
+    for name, value in zip(fields, state):
+        leaves = nested_leaves(value)
+        if name in per_rank:
+            mask += [isinstance(x, torch.Tensor) for x in leaves]
+        elif name == "opt_state" and geom is not None:
+            mask += [isinstance(x, torch.Tensor) and x.dim() >= 1
+                     for x in leaves]
+        else:
+            mask += [False] * len(leaves)
+    return mask
 
 
 def global_shapes(state) -> List[Optional[tuple]]:
     """The shape of every ``nested_leaves`` leaf as the whole world holds
-    it (a ZeRO-1 slice as the ``[n·local]`` vector of every rank's
-    slices), None for a leaf that is no tensor."""
-    geom = getattr(state, "zero1", None)
+    it (a per-rank block as the stack of every rank's blocks along dim 0:
+    a ZeRO-1 slice as the ``[n·local]`` vector), None for a leaf that is
+    no tensor."""
+    n = dist.world_size()
     return [None if not isinstance(x, torch.Tensor)
-            else (geom.n * geom.local,) if is_slice else tuple(x.shape)
+            else (n * x.shape[0],) + tuple(x.shape[1:]) if is_slice
+            else tuple(x.shape)
             for x, is_slice in zip(nested_leaves(state), _slice_mask(state))]
 
 
 def host_snapshot(state):
     """A host-RAM copy of a state (any tree of dicts, lists and tuples):
-    every tensor leaf as a CPU tensor, a ZeRO-1 state's moment slices
-    gathered from every rank into the padded flat vector (a collective:
-    every rank calls it). Other leaves stay as they are."""
+    every tensor leaf as a CPU tensor, each per-rank leaf (``_slice_mask``:
+    ZeRO-1 moment slices, error-feedback residuals) gathered from every
+    rank and stacked along dim 0 in rank order (a collective: every rank
+    calls it). Other leaves stay as they are."""
     def copy(x, is_slice):
         if not isinstance(x, torch.Tensor):
             return x
-        return (dist.all_gather(x) if is_slice else x.detach()).cpu().clone()
+        if not is_slice:
+            return x.detach().cpu().clone()
+        stacked = dist.all_gather(x.detach().reshape(-1))
+        return stacked.reshape((-1,) + tuple(x.shape[1:])).cpu().clone()
 
     return nested_unflatten(state, [copy(x, s) for x, s in zip(
         nested_leaves(state), _slice_mask(state))])
@@ -421,13 +542,18 @@ def host_snapshot(state):
 def reshard_state(host_state, template_state):
     """Place a host snapshot (``host_snapshot``'s CPU tensors or numpy
     arrays; a checkpoint's leaves) into ``template_state``'s layout, on its
-    devices and dtypes, possibly at another world size. A ZeRO-1 slice
-    leaf takes its rank's slice of the saved padded vector after
-    ``resize_zero_padded`` to the template's ``n·local`` (a non-zero
-    truncated tail raises); every other leaf must keep its shape. Leaves
-    that are no tensor in the template come from the template. Returns a
-    new state; the template is not changed."""
+    devices and dtypes. A per-rank leaf takes this rank's block of the
+    saved stack. A plain ZeRO-1 ``TrainState`` may come from another world
+    size: its moment vectors pass through ``resize_zero_padded`` to the
+    template's ``n·local`` first (a non-zero truncated tail raises); the
+    per-rank leaves of any other state need the saved world (another is
+    the elastic path, ROADMAP.md queue A item 8e). Every other leaf must
+    keep its shape. Leaves that are no tensor in the template come from
+    the template. Returns a new state; the template is not changed."""
     geom = getattr(template_state, "zero1", None)
+    resizable = isinstance(template_state, TrainState) and geom is not None
+    pos = (geom.position if geom is not None and geom.position is not None
+           else dist.get_rank())
 
     def place(h, t, is_slice):
         if not isinstance(t, torch.Tensor):
@@ -435,8 +561,18 @@ def reshard_state(host_state, template_state):
         h = (h.detach().cpu() if isinstance(h, torch.Tensor)
              else torch.from_numpy(np.array(h)))
         if is_slice:
-            h = torch.from_numpy(resize_zero_padded(
-                h.numpy(), geom.n * geom.local))[geom.mine]
+            rows = t.shape[0]
+            if resizable:
+                h = torch.from_numpy(resize_zero_padded(
+                    h.numpy(), geom.n * geom.local))
+            elif h.shape[0] != dist.world_size() * rows:
+                raise ValueError(
+                    f"a per-rank leaf saved as {tuple(h.shape)} does not "
+                    f"stack {dist.world_size()} blocks of the template's "
+                    f"{tuple(t.shape)}: restoring error-feedback state at "
+                    "another world is the elastic path (ROADMAP.md queue A "
+                    "item 8e)")
+            h = h[pos * rows:(pos + 1) * rows]
         if tuple(h.shape) != tuple(t.shape):
             raise ValueError(f"leaf of shape {tuple(h.shape)} does not fit "
                              f"the template's {tuple(t.shape)}")

@@ -2,8 +2,9 @@
 
 ``distributed.run_ranks`` pickles the function a child runs by its import
 path, so the per-rank bodies of the multi-rank tests
-(``tests/test_torch_{dp,zero1,checkpoint,pp,pp_trainer}.py``) and of
-``chip_smoke.py`` phases 10 and 13 live here, in the port, and a child
+(``tests/test_torch_{dp,zero1,checkpoint,pp,pp_trainer,compress,
+hier_collectives}.py``) and of ``chip_smoke.py`` phases 10, 13 and 15 live
+here, in the port, and a child
 imports nothing but the port.
 Each takes plain data (numpy trees and batches, config dicts) and its
 ``device`` from the launcher, and returns host data: losses, parameters
@@ -21,7 +22,7 @@ import time
 import torch
 
 from . import distributed as dist
-from . import dp, pp
+from . import compress, dp, pp
 from .. import bench_utils, convert
 from ..bench_utils import make_optimizer
 from ..checkpoint import Checkpointer
@@ -30,12 +31,12 @@ from ..device import fp32_products, synchronize
 from ..models import llama
 from ..ops import flash_attention as fa
 from ..telemetry import introspect
-from ..telemetry.comm import CommProfile, collecting
+from ..telemetry.comm import CommProfile, collecting, measure_comm
 from ..ops import pallas_adam as padam
 from ..tokenizers import ByteTokenizer
 from ..resilience import FaultPlan
 from ..train.llm import train_llm_dp, train_llm_pp
-from ..tree import tree_leaves, tree_unflatten
+from ..tree import nested_leaves, tree_copy, tree_leaves, tree_unflatten
 
 
 def gloo_probe(n: int = 26_398_368, *, device) -> dict:
@@ -268,6 +269,148 @@ def sequence(calls, *, device) -> list:
     return [globals()[name](*args, device=device) for name, args in calls]
 
 
+# ------------------------------------------ compressed and overlapped sync
+
+def _layout(hier):
+    """``None`` (the flat process group) or the ``hier_data_mesh`` of
+    ``hier = (D, S)``."""
+    return None if hier is None else dist.hier_data_mesh(*hier)
+
+
+def ring_cases(cases, *, device) -> list:
+    """Each ring case on this rank; returns per case this rank's ``owned``
+    chunk and ``residual`` (numpy) and the call's comm profile by label
+    and by axis. A case: ``xs`` ``[n, L]`` fp32 (rank r's vector is row
+    r), ``wire`` (or ``wire_ici`` and ``wire_dcn`` with ``hier = (D, S)``:
+    ``hier_reduce_scatter``), optionally ``residuals`` ``[n, L']`` and
+    ``calls`` (the residual threads through that many calls); or ``xs``
+    and ``encode``: ``_int8_encode`` with its scale synced over the group
+    (``owned`` is then q, with the ``scale``)."""
+    out = []
+    r = dist.get_rank()
+    for case in cases:
+        mesh = _layout(case.get("hier"))
+        x = torch.as_tensor(case["xs"][r], device=device)
+        if case.get("encode"):
+            with collecting() as records:
+                q, s, res = compress._int8_encode(
+                    x, scale_sync_group=dist.data_group())
+            out.append({"owned": q.cpu().numpy(), "scale": float(s),
+                        "residual": res.cpu().numpy(),
+                        "by_label": CommProfile(list(records)).by_label()})
+            continue
+        res = case.get("residuals")
+        res = None if res is None else torch.as_tensor(res[r], device=device)
+        with collecting() as records:
+            for _ in range(case.get("calls", 1)):
+                if mesh is not None:
+                    owned, res = compress.hier_reduce_scatter(
+                        x, mesh, wire_ici=case.get("wire_ici", "fp32"),
+                        wire_dcn=case.get("wire_dcn", "int8_ef"),
+                        residual=res)
+                else:
+                    owned, res = compress.ring_reduce_scatter(
+                        x, dist.data_group(), wire=case["wire"],
+                        residual=res)
+        prof = CommProfile(list(records))
+        out.append({"owned": owned.cpu().numpy(),
+                    "residual": None if res is None else res.cpu().numpy(),
+                    "by_label": prof.by_label(), "by_axis": prof.by_axis()})
+    return out
+
+
+def _overlap_case(case: dict, device) -> dict:
+    """One run of the overlap step (or a legacy compressed step) on this
+    rank; see ``overlap_cases``."""
+    cfg = LlamaConfig(**case["cfg"])
+    tree = convert.params_from_jax(case["params"], cfg, device=device).tree()
+    opt = make_optimizer(case.get("optimizer", "fused"), case.get("lr", 1e-3))
+    r = dist.get_rank()
+    poison = case.get("poison")        # (rank, call): that loss becomes NaN
+    nan_token = case.get("nan_token")  # a batch opening with it: NaN loss
+    calls = [0]
+
+    def loss_fn(p, batch):
+        loss = llama.forward_loss(p, batch, cfg)
+        calls[0] += 1
+        if poison is not None and (r, calls[0]) == tuple(poison):
+            loss = loss * float("nan")
+        if nan_token is not None and int(batch[0, 0]) == nan_token:
+            loss = loss * float("nan")
+        return loss
+
+    mesh = _layout(case.get("hier"))
+    numerics = (introspect.make_summarizer(tree, psum_axis="data")
+                if case.get("numerics") else None)
+    legacy = case.get("legacy")
+    if legacy == "bf16":
+        state = dp.init_state(tree, opt)
+        step = compress.make_bf16_grad_step(loss_fn, opt)
+    elif legacy == "int8_ef":
+        state = compress.init_ef_state(tree, opt)
+        step = compress.make_int8_ef_grad_step(loss_fn, opt)
+    else:
+        make = (compress.make_overlap_multi_step if case.get("multi")
+                else compress.make_overlap_step)
+        state, step = make(
+            loss_fn, opt, tree, mesh=mesh,
+            microbatches=case.get("microbatches", 1),
+            wire=case.get("wire", "fp32"),
+            aggregation=case.get("aggregation", "gradient"),
+            comm_buckets=case.get("comm_buckets", 1),
+            guard_nonfinite=case.get("guard", False), numerics=numerics,
+            device=device)
+    if case.get("restore"):
+        state = Checkpointer(case["restore"]).restore(state)
+    out = {"rank": r, "losses": [], "comm": None, "numerics": [],
+           "evidence": None, "steps": []}
+    shard = (dp.shard_batch_window if case.get("multi")
+             else dp.shard_batch)
+    for i, batch in enumerate(case["batches"]):
+        local = shard(batch, device=device)
+        if i == 0 and case.get("evidence"):
+            out["evidence"] = compress.ring_overlap_evidence(
+                step, tree_copy(state), local)
+        with collecting() as records:
+            state, o = step(state, local)
+        if out["comm"] is None:
+            out["comm"] = CommProfile(list(records)).as_dict()
+        loss, summary = introspect.split_step_output(o)
+        if summary is not None:
+            out["numerics"].append(numerics.event_fields(summary))
+        out["losses"] += loss.reshape(-1).tolist()
+        out["steps"].append(int(state.step))
+    out["params"] = convert.tree_to_numpy(state.params)
+    out["snapshot"] = [x.numpy() if isinstance(x, torch.Tensor) else x
+                       for x in nested_leaves(dp.host_snapshot(state))]
+    ckpt = case.get("checkpoint")
+    if ckpt is not None:
+        Checkpointer(ckpt).save(int(state.step), state, overwrite=True)
+    return out
+
+
+def overlap_cases(cases, *, device) -> list:
+    """Run each case on this rank and return one dict per case: ``losses``
+    (averaged over the ranks), ``params`` (numpy), ``steps`` (the step
+    counter after each call), the first call's comm profile (``comm``),
+    the numerics event fields of every call, the state's host snapshot
+    leaves (``snapshot``: residuals and moments stacked in rank order) and
+    with ``evidence`` the ``ring_overlap_evidence`` of the first call.
+
+    A case is a dict: ``cfg`` (``LlamaConfig`` fields), ``params`` (a JAX
+    ``init_llama`` tree as numpy), ``batches`` (global ``[n·B, T]``
+    batches, or with ``multi`` ``[K, n·B, T]`` windows), and optionally
+    ``optimizer``, ``lr``, ``microbatches``, ``wire`` (a string, or the
+    per-axis dict with ``hier = (D, S)``), ``aggregation``,
+    ``comm_buckets``, ``guard``, ``numerics``, ``poison`` (``(rank,
+    call)``), ``nan_token`` (a microbatch whose first token is this has a
+    NaN loss), ``legacy`` ("bf16" or "int8_ef": the per-step compressed
+    steps instead), ``restore`` (a checkpoint directory the fresh state
+    is restored from first) and ``checkpoint`` (a directory the final
+    state is saved to)."""
+    return [_overlap_case(case, device) for case in cases]
+
+
 # ------------------------------------------------- pipeline parallelism
 
 def sgd(lr: float):
@@ -329,7 +472,7 @@ def pp_cases(cases, *, device) -> list:
     ``init_llama`` tree as numpy; interleaved for ``schedule=
     "interleaved"`` here), ``data``, ``stage``, ``schedule``,
     ``microbatches``, ``batches`` (global ``[D·B, T]`` batches, or with
-    ``window`` set ``[K, D·B, T]`` windows for the K-step driver; row d
+    ``window`` set ``[K, D·B, T]`` windows for the K-step loop; row d
     takes its B rows), and optionally ``n_chunks``, ``optimizer`` ("sgd",
     the default, or a ``make_optimizer`` name), ``lr`` (default 1024:
     SGD's update is then far above the parameters' rounding, so update /
@@ -706,3 +849,404 @@ def phase13_b2(*, device) -> dict:
                 launches=_counts(device, 20),
                 tokens_per_sec=rep.tokens_per_sec,
                 seconds=time.perf_counter() - t0)
+
+
+# --------------------------------------------- chip_smoke.py phase 15
+
+RING_SEED = 15
+RING_CALLS = 2           # the int8 residual threads through two calls
+
+
+def _ring_vectors(n: int, length: int) -> "np.ndarray":
+    """The ``[n, length]`` fp32 vectors of phase 15a (every rank draws all
+    of them from one seed, so each can hold its own result to the spec)."""
+    import numpy as np
+    return np.random.default_rng(RING_SEED).standard_normal(
+        (n, length), dtype=np.float32)
+
+
+def _ms(fn, device) -> float:
+    synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    synchronize(device)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _spec_equal(got, want) -> dict:
+    import numpy as np
+    g = got.cpu().numpy()
+    return {"bitwise": bool(np.array_equal(g, want)),
+            "max_abs_diff": float(np.abs(g - want).max())}
+
+
+def _ring_phase(length: int, device, layouts) -> dict:
+    """Phase 15a on this rank: ``ring_reduce_scatter`` over the process
+    group in each wire format (int8 over ``RING_CALLS`` calls, its residual
+    held too) and ``hier_reduce_scatter`` at each ``(D, S)`` of
+    ``layouts``, each held bitwise to ``ring_spec`` (and at D = 1 or S = 1
+    to the flat ring's own result); then each format's
+    call and one hop, and the fp32 all-reduce of the whole vector, timed
+    in turns (3 rounds, median)."""
+    from . import ring_spec
+    import numpy as np
+    n, r = dist.world_size(), dist.get_rank()
+    xs = _ring_vectors(n, length)
+    x = torch.as_tensor(xs[r], device=device)
+    group = dist.data_group()
+    out = {"rank": r, "elements": length, "flat": {}, "hier": {}}
+    flat_out = {}
+    for wire in compress.WIRES:
+        res = (torch.zeros(length, device=device) if wire == "int8_ef"
+               else None)
+        sres = None if res is None else [np.zeros(length, np.float32)] * n
+        for _ in range(RING_CALLS if res is not None else 1):
+            owned, res = compress.ring_reduce_scatter(x, group, wire=wire,
+                                                      residual=res)
+            want, sres = ring_spec.ring(list(xs), wire, sres)
+        rec = _spec_equal(owned, want[r])
+        if res is not None:
+            rec["residual"] = _spec_equal(res, sres[r])
+        out["flat"][wire] = rec
+        flat_out[wire] = (owned, res)
+    for D, S in layouts:
+        mesh = dist.hier_data_mesh(D, S)
+        res = torch.zeros(D * length // n, device=device)
+        sres = [np.zeros(D * length // n, np.float32)] * n
+        for _ in range(RING_CALLS):
+            owned, res = compress.hier_reduce_scatter(
+                x, mesh, wire_ici="fp32", wire_dcn="int8_ef", residual=res)
+            want, sres = ring_spec.hier(list(xs), D, S, "fp32", "int8_ef",
+                                        sres)
+        rec = _spec_equal(owned, want[r])
+        rec["residual"] = _spec_equal(res, sres[r])
+        if D == 1 or S == 1:
+            # One ring is the identity: the fp32 island ring at D = 1, the
+            # int8 DCN ring (its residual too) at S = 1.
+            f_owned, f_res = flat_out["fp32" if D == 1 else "int8_ef"]
+            rec["flat_bitwise"] = bool(torch.equal(owned, f_owned)) and (
+                D == 1 or bool(torch.equal(res, f_res)))
+        out["hier"][f"{D}x{S}"] = rec
+    del xs, flat_out
+    chunk = length // n
+    times = {k: [] for k in ("allreduce", *compress.WIRES)}
+    hops = {k: [] for k in compress.WIRES}
+    copies = {"d2h": [], "gloo": [], "h2d": []}
+    res = torch.zeros(length, device=device)
+    host = torch.empty(chunk, dtype=torch.float32)
+    dev_chunk = x[:chunk].clone()
+    for rnd in range(3):
+        order = ("allreduce", *compress.WIRES)
+        for k in order[rnd % 4:] + order[:rnd % 4]:
+            if k == "allreduce":
+                times[k].append(_ms(lambda: dist.psum(x), device))
+            else:
+                times[k].append(_ms(lambda: compress.ring_reduce_scatter(
+                    x, group, wire=k,
+                    residual=res if k == "int8_ef" else None), device))
+        for k, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                      ("int8_ef", torch.int8)):
+            piece = dev_chunk.to(dt)
+            hops[k].append(_ms(lambda: dist.ppermute(
+                piece, label="hop", group=group), device))
+        copies["d2h"].append(_ms(lambda: host.copy_(dev_chunk), device))
+        copies["gloo"].append(_ms(lambda: dist.ppermute(
+            host, label="hop", group=group), device))
+        copies["h2d"].append(_ms(lambda: dev_chunk.copy_(host), device))
+    out["call_ms"] = {k: statistics.median(v) for k, v in times.items()}
+    out["call_ms_all"] = times
+    out["hop_ms"] = {k: statistics.median(v) for k, v in hops.items()}
+    out["fp32_hop_parts_ms"] = {k: statistics.median(v)
+                                for k, v in copies.items()}
+    out["hop_bytes"] = {"fp32": 4 * chunk, "bf16": 2 * chunk,
+                        "int8_ef": chunk + 4}
+    out["allreduce_bytes"] = 4 * length
+    return out
+
+
+PHASE15_CELLS = (
+    # name, ring step options (None: phase 10's plain step)
+    ("plain", None),
+    ("fp32-gradient", dict(wire="fp32", aggregation="gradient")),
+    ("fp32-zero1", dict(wire="fp32", aggregation="zero1")),
+    ("bf16-gradient", dict(wire="bf16", aggregation="gradient")),
+    ("bf16-zero1", dict(wire="bf16", aggregation="zero1")),
+    ("int8_ef-gradient", dict(wire="int8_ef", aggregation="gradient")),
+    ("int8_ef-zero1", dict(wire="int8_ef", aggregation="zero1")),
+    ("int8_ef-zero1-m2", dict(wire="int8_ef", aggregation="zero1",
+                              microbatches=2)),
+    ("int8_ef-zero1-b8", dict(wire="int8_ef", aggregation="zero1",
+                              comm_buckets=8)),
+)
+
+
+def _replicas_equal(params, device) -> bool:
+    mine = _digest(params, device)
+    return bool(torch.equal(dist.broadcast(mine, 0), mine))
+
+
+def _time_cells(cells, batch, device, rounds: int = 3, steps: int = 3):
+    """Each cell ``name -> (state, step)`` warmed (its first call's comm
+    profile kept), then timed in turns: ``rounds`` rounds of ``steps``
+    steps per cell, the cell order rotating, each cell's launches read
+    per step. Returns ``(states, report)``."""
+    names = list(cells)
+    states = {k: cells[k][0] for k in names}
+    report = {k: {"ms": [], "launches": None} for k in names}
+    for k in names:
+        with collecting() as records:
+            states[k], loss = cells[k][1](states[k], batch)
+        report[k]["comm"] = CommProfile(list(records)).as_dict()
+        states[k], loss = cells[k][1](states[k], batch)
+        report[k]["loss"] = float(loss)
+    for rnd in range(rounds):
+        for k in names[rnd % len(names):] + names[:rnd % len(names)]:
+            dist.barrier(device)
+            synchronize(device)
+            _zero_counts()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                states[k], loss = cells[k][1](states[k], batch)
+            float(loss)
+            dist.barrier(device)
+            report[k]["ms"].append((time.perf_counter() - t0) * 1e3 / steps)
+            report[k]["launches"] = _counts(device, steps)
+            report[k]["last_loss"] = float(loss)
+    for k in names:
+        report[k]["ms_per_step"] = statistics.median(report[k]["ms"])
+        report[k]["replicas_bitwise"] = _replicas_equal(
+            states[k].params, device)
+    return states, report
+
+
+def phase15_two(tokens_check, directory: str, *, device) -> dict:
+    """``chip_smoke.py`` phase 15 on each of two ranks: a. the rings at
+    full size (the canonical padded gradient vector) against the spec,
+    timed; b. the ring step: the fp32 check at B = 4 per rank on this
+    rank's rows of ``tokens_check`` ``[5, n·4, T]`` (one step of SGD at lr
+    1024, whose update over −lr is the averaged gradient: rank 0 returns
+    it), K = 4 bitwise four per-step calls under int8_ef, and the grid of
+    ``PHASE15_CELLS`` at bf16, B = 32 per rank, timed in turns with
+    launches and wire bytes per step; d. ``train_llm_dp(data=2,
+    overlap_microbatches=2, wire="int8_ef")`` under ZeRO-1 at vocab 259,
+    batch 4 × 256 per rank, 20 steps."""
+    r, n = dist.get_rank(), dist.world_size()
+    total = sum(x.numel() for x in tree_leaves(llama.init_llama(
+        LlamaConfig(), torch.Generator().manual_seed(0),
+        device="meta").tree()))
+    out = {"rank": r}
+    t0 = time.perf_counter()
+    out["rings"] = _ring_phase(total + (-total) % n, device, [])
+    out["rings"]["seconds"] = time.perf_counter() - t0
+
+    cfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    b = tokens_check.shape[1] // n
+    local = torch.as_tensor(tokens_check[:, r * b:(r + 1) * b],
+                            dtype=torch.long, device=device)
+
+    def loss_fn(p, x):
+        return llama.forward_loss(p, x, cfg)
+
+    def fresh():
+        return llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                                device=device).tree()
+
+    with fp32_products():
+        lr = 1024.0
+        params = fresh()
+        before = [p.detach().clone() for p in tree_leaves(params)]
+        state, step = compress.make_overlap_step(
+            loss_fn, sgd(lr), params, wire="fp32", device=device)
+        state, loss = step(state, local[0])
+        out["check"] = {"loss": float(loss)}
+        if r == 0:
+            out["check"]["grads"] = [
+                ((p0 - p1.detach()) / lr).cpu()
+                for p0, p1 in zip(before, tree_leaves(state.params))]
+        del before, state, params
+        kres = {}
+        for name in ("per_step", "multi"):
+            opt = make_optimizer("pallas")
+            make = (compress.make_overlap_multi_step if name == "multi"
+                    else compress.make_overlap_step)
+            st, fn = make(loss_fn, opt, fresh(), wire="int8_ef",
+                          aggregation="zero1", microbatches=2,
+                          device=device)
+            if name == "multi":
+                st, ls = fn(st, local[:4])
+                ls = ls.tolist()
+            else:
+                ls = []
+                for x in local[:4]:
+                    st, loss = fn(st, x)
+                    ls.append(float(loss))
+            kres[name] = (ls, dp.host_snapshot(st))
+        (la, sa), (lb, sb) = kres["per_step"], kres["multi"]
+        out["kstep"] = {
+            "losses_equal": la == lb,
+            "state_equal": all(
+                torch.equal(x, y) for x, y in zip(nested_leaves(sa),
+                                                  nested_leaves(sb))
+                if isinstance(x, torch.Tensor))}
+        del kres, sa, sb
+
+    tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                       flash_dh_major=True, flash_block=512)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, tcfg.vocab_size, (n * 32, tcfg.ctx_size),
+                           generator=gen, device=device)
+    batch = tokens[r * 32:(r + 1) * 32]
+
+    def tloss(p, x):
+        return llama.forward_loss(p, x, tcfg)
+
+    cells = {}
+    for name, kw in PHASE15_CELLS:
+        opt = make_optimizer("pallas")
+        tree = llama.init_llama(tcfg, torch.Generator().manual_seed(0),
+                                device=device).tree()
+        if kw is None:
+            cells[name] = (dp.init_state(tree, opt),
+                           dp.make_grad_aggregation_step(tloss, opt))
+        else:
+            cells[name] = compress.make_overlap_step(tloss, opt, tree,
+                                                     device=device, **kw)
+    t0 = time.perf_counter()
+    states, out["grid"] = _time_cells(cells, batch, device)
+    out["grid_seconds"] = time.perf_counter() - t0
+    del states, cells
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    rep = train_llm_dp(None, TrainConfig(
+        iters=20, data=n, batch_size=4, overlap_microbatches=2,
+        wire="int8_ef", optimizer="pallas"), aggregation="zero1",
+        log_every=0,
+        device=device)
+    out["trainer"] = {"losses": rep.losses, "launches": _counts(device, 20),
+                      "seconds": time.perf_counter() - t0,
+                      "tokens_per_sec": rep.tokens_per_sec}
+    return out
+
+
+def phase15_four(directory: str, *, device) -> dict:
+    """``chip_smoke.py`` phase 15 on each of four ranks laid out 2 × 2: a.
+    the flat ring at four and ``hier_reduce_scatter`` at (2, 2), (1, 4)
+    and (4, 1) against the spec at full size, timed; c. the two-level
+    driver (fp32 islands, int8_ef across ``dcn``) at bf16, B = 16 per
+    rank, gradient and ZeRO-1: ms per step, launches, the comm profile by
+    axis beside the flat fp32 all-reduce's, replicas bitwise, and a save
+    at step 2 resumed to step 4 against an uninterrupted 4-step run; d.
+    ``train_llm_dp(dcn=2, data=2, wire_dcn="int8_ef")`` at vocab 259,
+    batch 4 × 256 per rank, 20 steps, observed (``Telemetry``: its comm
+    probe runs one more step, counted in the launches per step)."""
+    from ..telemetry import Telemetry, read_events
+    r, n = dist.get_rank(), dist.world_size()
+    total = sum(x.numel() for x in tree_leaves(llama.init_llama(
+        LlamaConfig(), torch.Generator().manual_seed(0),
+        device="meta").tree()))
+    out = {"rank": r}
+    t0 = time.perf_counter()
+    out["rings"] = _ring_phase(total + (-total) % n, device,
+                               [(2, 2), (1, 4), (4, 1)])
+    mesh = dist.hier_data_mesh(2, 2)
+    x = torch.as_tensor(_ring_vectors(n, total + (-total) % n)[r],
+                        device=device)
+    res = torch.zeros(2 * x.numel() // n, device=device)
+    out["rings"]["hier_call_ms"] = statistics.median(
+        _ms(lambda: compress.hier_reduce_scatter(x, mesh, residual=res),
+            device) for _ in range(3))
+    del x, res
+    out["rings"]["seconds"] = time.perf_counter() - t0
+
+    tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                       flash_dh_major=True, flash_block=512)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    tokens = torch.randint(0, tcfg.vocab_size, (4, n * 16, tcfg.ctx_size),
+                           generator=gen, device=device)
+    local = tokens[:, r * 16:(r + 1) * 16]
+
+    def tloss(p, x):
+        return llama.forward_loss(p, x, tcfg)
+
+    def make(aggregation):
+        return compress.make_overlap_step(
+            tloss, make_optimizer("pallas"), llama.init_llama(
+                tcfg, torch.Generator().manual_seed(0), device=device
+            ).tree(), mesh=mesh, wire={"ici": "fp32", "dcn": "int8_ef"},
+            aggregation=aggregation, device=device)
+
+    tree = llama.init_llama(tcfg, torch.Generator().manual_seed(0),
+                            device=device).tree()
+    flat = measure_comm(dp.make_grad_aggregation_step(
+        tloss, make_optimizer("pallas")), dp.init_state(
+        tree, make_optimizer("pallas")), local[0])
+    out["flat_allreduce_wire"] = flat.wire_bytes_per_device_per_step
+    del tree
+    hier = {}
+    for agg in ("gradient", "zero1"):
+        st, fn = make(agg)
+        with collecting() as records:
+            st, loss = fn(st, local[0])
+        comm = CommProfile(list(records)).as_dict()
+        _zero_counts()
+        synchronize(device)
+        t0 = time.perf_counter()
+        losses = [float(loss)]
+        for x in local[1:]:
+            st, loss = fn(st, x)
+            losses.append(float(loss))
+        ms = (time.perf_counter() - t0) * 1e3 / 3
+        hier[agg] = {"comm": comm, "losses": losses, "ms_per_step": ms,
+                     "launches": _counts(device, 3),
+                     "replicas_bitwise": _replicas_equal(st.params, device),
+                     "local": st.ring_residual.shape[1] // 2}
+        if agg == "zero1":
+            full = dp.host_snapshot(st)
+            ck = os.path.join(directory, "hier")
+            st, fn = make(agg)
+            for x in local[:2]:
+                st, _ = fn(st, x)
+            Checkpointer(ck).save(2, st, overwrite=True)
+            st, fn = make(agg)
+            st = Checkpointer(ck).restore(st)
+            resumed = []
+            for x in local[2:]:
+                st, loss = fn(st, x)
+                resumed.append(float(loss))
+            hier[agg]["resume"] = {
+                "losses_equal": resumed == losses[2:],
+                "state_equal": all(
+                    torch.equal(a, b) for a, b in zip(
+                        nested_leaves(dp.host_snapshot(st)),
+                        nested_leaves(full))
+                    if isinstance(a, torch.Tensor))}
+        del st, fn
+    out["hier"] = hier
+
+    tel_dir = os.path.join(directory, "trainer-tel")
+    _zero_counts()
+    t0 = time.perf_counter()
+    rep = train_llm_dp(None, TrainConfig(
+        iters=20, dcn=2, data=2, batch_size=4, wire_dcn="int8_ef",
+        overlap_microbatches=1, optimizer="pallas"), log_every=0,
+        telemetry=Telemetry(tel_dir), device=device)
+    # 20 steps and the manifest's comm probe, one more step.
+    out["trainer"] = {"losses": rep.losses, "launches": _counts(device, 21),
+                      "seconds": time.perf_counter() - t0,
+                      "tokens_per_sec": rep.tokens_per_sec}
+    if r == 0:
+        events = read_events(os.path.join(tel_dir, "events.jsonl"))
+        manifest = next(e for e in events if e["type"] == "manifest")
+        compiles = [e for e in events if e["type"] == "compile"]
+        out["trainer"].update(
+            manifest_axes=sorted((manifest.get("comm") or {}).get("axes",
+                                                                  {})),
+            manifest_mesh=manifest.get("mesh"),
+            dcn_wire=manifest["comm"]["axes"]["dcn"][
+                "wire_bytes_per_device"],
+            compiles=len(compiles),
+            retraces=sum(1 for e in compiles if e.get("retrace")))
+    return out

@@ -207,7 +207,10 @@ def preflight(model_cfg, train_cfg=None, *, n_data=None,
     - ``opt_state_bytes``: per rank; under ``aggregation="zero1"`` the
       optimizer state of one rank's padded ``1/n`` flat fp32 slice
       (``parallel.dp``'s geometry), ~1/n of ``opt_state_replicated_bytes``;
-    - ``residual_bytes``: 0 (the port has no error-feedback wire);
+    - ``residual_bytes``: the int8 ring step's error-feedback residuals
+      (``compress.OverlapEFState``: the ring slot ``[1, Ppad]`` and the
+      gather slot ``[local]``, fp32) when ``overlap_microbatches >= 1`` and
+      ``wire`` carries error feedback, the JAX package's count;
     - ``window_bytes``: the per-rank token window, int64 (twice the JAX
       package's int32 figure);
     - ``kv_pool_bytes``: the paged pool (``kvcache.pool_bytes``) when
@@ -265,6 +268,10 @@ def preflight(model_cfg, train_cfg=None, *, n_data=None,
         except Exception:
             kv_pool_bytes = 0
     residual_bytes = 0
+    wire = getattr(train_cfg, "wire", "fp32") if train_cfg else "fp32"
+    ovl = getattr(train_cfg, "overlap_microbatches", 0) if train_cfg else 0
+    if ovl >= 1 and "ef" in str(wire):
+        residual_bytes = 4 * (padded + local)
     state_bytes = params_bytes + opt_local + residual_bytes
     return {
         "n_data": n,

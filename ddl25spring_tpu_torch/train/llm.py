@@ -22,9 +22,15 @@ fault events with the guard's attribution, ``numerics`` events every
 ``TrainConfig.numerics_every`` steps, memory samples, dispatch spans and
 a ``run_end`` metrics snapshot), written by rank 0 alone.
 ``TrainConfig.remat`` / ``LlamaConfig.remat`` rematerialize each block in
-the backward. The rest of the JAX trainer (hierarchical DP, compressed and
-overlapped collectives, elastic mode and ``scale_hook``) raises
-``NotImplementedError`` naming its ROADMAP.md entry. ``on_checkpoint`` is
+the backward. The compressed and overlapped gradient sync routes as the
+JAX trainer's does (``parallel/compress.py``): ``overlap_microbatches >=
+1`` takes the ring step (``wire`` fp32, bf16 or int8_ef; ``comm_buckets``;
+ZeRO-1; K steps per dispatch), ``dcn > 1`` lays ``dcn·data`` ranks out as
+islands and takes the two-level ring (``wire_dcn`` on the DCN tier), and a
+compressed ``wire`` without microbatches takes the legacy per-step steps.
+The rest of the JAX trainer (tensor and sequence parallelism, elastic
+mode and ``scale_hook``) raises ``NotImplementedError`` naming its
+ROADMAP.md entry. ``on_checkpoint`` is
 the checkpoint publication hook of the train→deploy conveyor
 (``serving/deploy.py``).
 
@@ -52,7 +58,7 @@ from ..metrics import ResilienceStats
 from ..models import llama
 from ..ops.adam import fused_adam
 from ..parallel import distributed as dist
-from ..parallel import dp, pp
+from ..parallel import compress, dp, pp
 from ..resilience.preemption import PreemptionHandler
 from ..telemetry import introspect
 from ..telemetry.trace import Spans, Tracer
@@ -77,14 +83,9 @@ class LLMTrainReport:
 # TrainConfig fields the port does not run yet at a non-default value, with
 # the ROADMAP.md entry that ports each.
 _QUEUED = {
-    "dcn": "queue A item 8 (hierarchical collectives)",
-    "model": "queue A item 8 (tensor parallelism)",
-    "seq": "queue A item 8 (sequence parallelism)",
-    "wire": "queue A item 8 (compressed collectives)",
-    "wire_dcn": "queue A item 8 (compressed collectives)",
-    "overlap_microbatches": "queue A item 8 (overlapped ring sync)",
-    "comm_buckets": "queue A item 8 (overlapped ring sync)",
-    "psa": "queue A item 8 (tensor parallelism)",
+    "model": "queue A item 8b (tensor parallelism)",
+    "seq": "queue A item 8c (sequence parallelism)",
+    "psa": "queue A item 8b (tensor parallelism)",
 }
 
 
@@ -173,7 +174,8 @@ def _emit_manifest(telemetry, *, measure: bool, model_cfg, train_cfg,
                    start_step: int, step_fn, state, n_data: int,
                    device: torch.device, steps_per_dispatch: int = 1,
                    preflight: Optional[dict] = None, trainer: str = "dp",
-                   mesh: Optional[dict] = None) -> None:
+                   mesh: Optional[dict] = None,
+                   overlap_microbatches: int = 1) -> None:
     """Open a telemetry run: one manifest event with the configuration,
     the step's communication profile (``telemetry.comm.measure_comm`` of
     one call of the unguarded step on a copy of the state and a batch of
@@ -191,8 +193,10 @@ def _emit_manifest(telemetry, *, measure: bool, model_cfg, train_cfg,
         batch = torch.zeros(shape, dtype=torch.long, device=device)
         # A copy: the step updates its state in place.
         profile = measure_comm(step_fn, tree_copy(state), batch)
-        comm_profile = (profile.as_dict(steps_per_dispatch=steps_per_dispatch)
-                        if profile is not None else None)
+        comm_profile = (profile.as_dict(
+            steps_per_dispatch=steps_per_dispatch,
+            overlap_microbatches=overlap_microbatches)
+            if profile is not None else None)
     except Exception:
         pass                       # telemetry must never sink a trainer
     if telemetry is None:
@@ -550,8 +554,10 @@ def _apply_resilience(step_fn, resilience: Optional[ResilienceConfig],
 def _check_options(train_cfg: TrainConfig, aggregation: str,
                    resilience: Optional[ResilienceConfig],
                    scale_hook) -> None:
-    """The JAX trainer's errors for what does not compose, and the
-    ROADMAP.md entries of what the port does not run."""
+    """The ROADMAP.md entries of what the port does not run, then the JAX
+    trainer's errors for what does not compose, in its order and with its
+    texts (the ring step's wire checks included: ``compress.
+    check_wire``), all before any rank starts."""
     queued = unsupported_train_fields(train_cfg)
     if resilience is not None and resilience.elastic:
         queued.append("ResilienceConfig.elastic=True (queue A item 8e "
@@ -563,26 +569,42 @@ def _check_options(train_cfg: TrainConfig, aggregation: str,
         raise NotImplementedError(
             "train_llm_dp does not run these yet; see ROADMAP.md: "
             + "; ".join(queued))
-    if train_cfg.steps_per_dispatch < 1:
-        raise ValueError(f"steps_per_dispatch must be >= 1 (got "
-                         f"{train_cfg.steps_per_dispatch})")
-    if aggregation == "zero1":
-        if train_cfg.accum_steps != 1:
-            raise ValueError("accum_steps composes with gradient aggregation "
-                             "only (zero1 scatters the raw local gradient)")
-    elif aggregation == "weight":
-        if train_cfg.accum_steps != 1:
-            raise ValueError("accum_steps needs gradient aggregation")
-        if train_cfg.steps_per_dispatch != 1:
-            raise ValueError("steps_per_dispatch > 1 supports gradient and "
-                             "zero1 aggregation only")
-    elif aggregation != "gradient":
-        raise ValueError(f"unknown aggregation {aggregation!r}: expected "
-                         "'gradient', 'weight' or 'zero1'")
-    if train_cfg.numerics_every > 0 and aggregation not in ("gradient",
-                                                            "zero1"):
-        raise ValueError("numerics_every requires gradient or zero1 "
-                         f"aggregation (got {aggregation!r})")
+    hier = train_cfg.dcn > 1
+    if train_cfg.wire_dcn and not hier:
+        raise ValueError(
+            "wire_dcn selects the DCN tier of a hierarchical mesh; set "
+            "TrainConfig.dcn > 1 (or pass a hier_data_mesh)")
+    spd = train_cfg.steps_per_dispatch
+    if spd < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1 (got {spd})")
+    ovl = train_cfg.overlap_microbatches
+    if ovl < 0:
+        raise ValueError(f"overlap_microbatches must be >= 0 (got {ovl})")
+    cb = train_cfg.comm_buckets
+    if cb < 1:
+        raise ValueError(f"comm_buckets must be >= 1 (got {cb})")
+    if cb > 1 and ovl == 0:
+        raise ValueError(
+            "comm_buckets > 1 is a property of the overlap/ring driver "
+            "(the bucketed backward splits each microbatch's ring) — set "
+            f"overlap_microbatches >= 1 (got comm_buckets={cb} with "
+            "overlap_microbatches=0)")
+    if hier and ovl == 0:
+        raise ValueError(
+            "a hierarchical mesh (TrainConfig.dcn > 1 / wire_dcn) routes "
+            "gradient sync through the two-level ring driver: set "
+            "overlap_microbatches >= 1")
+    wire = train_cfg.wire
+    if train_cfg.numerics_every > 0:
+        if aggregation not in ("gradient", "zero1"):
+            raise ValueError("numerics_every requires gradient or zero1 "
+                             f"aggregation (got {aggregation!r})")
+        if ovl == 0 and wire != "fp32":
+            raise ValueError(
+                "numerics_every requires wire='fp32' on the legacy "
+                "per-step compressed paths (they own their collective "
+                "schedules) — overlap_microbatches >= 1 is the composing "
+                "path")
     if resilience is not None and resilience.injit_guard:
         if resilience.guard:
             raise ValueError(
@@ -593,6 +615,56 @@ def _check_options(train_cfg: TrainConfig, aggregation: str,
         if aggregation not in ("gradient", "zero1"):
             raise ValueError("injit_guard requires gradient or zero1 "
                              f"aggregation (got {aggregation!r})")
+        if ovl == 0 and wire != "fp32":
+            raise ValueError(
+                "injit_guard is not fused into the legacy per-step "
+                "compressed paths — overlap_microbatches >= 1 is the "
+                "composing path")
+    if ovl >= 1:
+        if aggregation not in ("gradient", "zero1"):
+            raise ValueError("overlap_microbatches supports gradient and "
+                             f"zero1 aggregation only (got {aggregation!r})")
+        if train_cfg.accum_steps != 1:
+            raise ValueError("overlap_microbatches replaces accum_steps "
+                             "(both split the local batch axis); set "
+                             "accum_steps=1")
+        shape = ({"dcn": train_cfg.dcn, "data": train_cfg.data} if hier
+                 else {"data": train_cfg.data})
+        compress.check_wire(_wire_arg(train_cfg), aggregation, shape)
+    elif wire != "fp32":
+        if aggregation != "gradient" or train_cfg.accum_steps != 1 \
+                or spd != 1:
+            raise ValueError(
+                "wire compression requires gradient aggregation without "
+                "accumulation or multi-step dispatch (got "
+                f"aggregation={aggregation!r}, "
+                f"accum_steps={train_cfg.accum_steps}, "
+                f"steps_per_dispatch={spd}) — overlap_microbatches >= 1 "
+                "is the composing path")
+        if wire not in ("bf16", "int8_ef"):
+            raise ValueError(f"unknown wire format {wire!r}")
+    elif aggregation == "zero1":
+        if train_cfg.accum_steps != 1:
+            raise ValueError("accum_steps composes with gradient aggregation "
+                             "only (zero1 scatters the raw local gradient)")
+    elif aggregation == "weight":
+        if train_cfg.accum_steps != 1:
+            raise ValueError("accum_steps needs gradient aggregation")
+        if spd != 1:
+            raise ValueError("steps_per_dispatch > 1 supports gradient and "
+                             "zero1 aggregation only")
+    elif aggregation != "gradient":
+        raise ValueError(f"unknown aggregation {aggregation!r}: expected "
+                         "'gradient', 'weight' or 'zero1'")
+
+
+def _wire_arg(train_cfg: TrainConfig):
+    """The ring step's ``wire``: the per-axis dict on a hierarchical
+    layout (the island tier rides ``wire``, the DCN tier ``wire_dcn``,
+    default fp32), else ``wire``."""
+    if train_cfg.dcn > 1:
+        return {"ici": train_cfg.wire, "dcn": train_cfg.wire_dcn or "fp32"}
+    return train_cfg.wire
 
 
 def _train_rank(model_cfg, train_cfg, kwargs: dict, *, device):
@@ -628,8 +700,15 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
 
     ``aggregation``: "gradient" (per step, or ``steps_per_dispatch`` = K
     steps per window), "weight" (no ``accum_steps``, no K > 1) or "zero1"
-    (no ``accum_steps``). With no process group, ``data > 1`` starts
-    ``data`` ranks (``distributed.run_ranks``) and returns rank 0's report;
+    (no ``accum_steps``). ``overlap_microbatches`` = M >= 1 routes the
+    gradient sync through the ring step (``compress.make_overlap_step``:
+    ``wire`` fp32, bf16 or int8_ef, ``comm_buckets``, gradient or zero1,
+    any K); a compressed ``wire`` at M = 0 takes the legacy per-step bf16
+    or int8 steps (gradient aggregation, K = 1). ``dcn`` = D > 1 runs
+    ``D·data`` ranks as D islands (``distributed.hier_data_mesh``) through
+    the two-level ring, ``wire_dcn`` on the DCN tier (M >= 1 required).
+    With no process group, a world above one starts its ranks
+    (``distributed.run_ranks``) and returns rank 0's report;
     ``log_fn``, ``loss_sink``, ``on_checkpoint``, ``fault_plan`` and
     ``telemetry`` then travel to the ranks by pickling (a module-level
     function; a ``Telemetry`` reopens its files in rank 0). Inside a
@@ -667,7 +746,10 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
     ``NotImplementedError`` naming ROADMAP.md."""
     train_cfg = train_cfg or TrainConfig()
     _check_options(train_cfg, aggregation, resilience, scale_hook)
-    if train_cfg.data > 1 and not dist.is_initialized():
+    hier = train_cfg.dcn > 1
+    n_dcn = train_cfg.dcn if hier else 1
+    world = train_cfg.data * n_dcn
+    if world > 1 and not dist.is_initialized():
         kwargs = dict(tokenizer=tokenizer, aggregation=aggregation,
                       log_every=log_every, log_fn=log_fn,
                       warmup_steps_excluded=warmup_steps_excluded,
@@ -676,12 +758,14 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
                       sink_every=sink_every, resilience=resilience,
                       fault_plan=fault_plan, telemetry=telemetry,
                       on_checkpoint=on_checkpoint)
-        return dist.run_ranks(_train_rank, train_cfg.data, model_cfg,
+        return dist.run_ranks(_train_rank, world, model_cfg,
                               train_cfg, kwargs, device=device)[0]
     n_data = dist.world_size()
-    if n_data != train_cfg.data:
-        raise ValueError(f"TrainConfig.data={train_cfg.data} but the process "
-                         f"group has {n_data} ranks")
+    if n_data != world:
+        raise ValueError(f"TrainConfig.data={train_cfg.data}"
+                         + (f" x dcn={train_cfg.dcn}" if hier else "")
+                         + f" but the process group has {n_data} ranks")
+    mesh = dist.hier_data_mesh(n_dcn, train_cfg.data) if hier else None
     dev = dist.rank_device(device)
     rank = dist.get_rank()
     measure = telemetry is not None     # every rank runs the comm probe
@@ -702,29 +786,52 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
 
     params = model.tree()
     spd = train_cfg.steps_per_dispatch
+    ovl = train_cfg.overlap_microbatches
+    cb = train_cfg.comm_buckets
+    wire = train_cfg.wire
     injit = bool(resilience is not None and resilience.injit_guard)
     numerics = (introspect.make_summarizer(
-        params, psum_axis="data" if aggregation == "zero1" else None)
-        if train_cfg.numerics_every > 0 else None)
-    if aggregation == "zero1":
+        params, psum_axis="data" if (ovl or aggregation == "zero1")
+        else None) if train_cfg.numerics_every > 0 else None)
+    state = None
+    if ovl >= 1:
+        make = (compress.make_overlap_multi_step if spd > 1
+                else compress.make_overlap_step)
+        state, step_fn = make(loss_fn, optimizer, params, mesh=mesh,
+                              microbatches=ovl, wire=_wire_arg(train_cfg),
+                              aggregation=aggregation, comm_buckets=cb,
+                              guard_nonfinite=injit, numerics=numerics,
+                              device=dev)
+    elif wire == "bf16":
+        step_fn = compress.make_bf16_grad_step(loss_fn, optimizer)
+    elif wire == "int8_ef":
+        state = compress.init_ef_state(params, optimizer)
+        step_fn = compress.make_int8_ef_grad_step(loss_fn, optimizer)
+    elif aggregation == "zero1":
         make = dp.make_zero1_multi_step if spd > 1 else dp.make_zero1_step
         state, step_fn = make(loss_fn, optimizer, params,
                               guard_nonfinite=injit, numerics=numerics)
+    elif aggregation == "weight":
+        step_fn = dp.make_weight_aggregation_step(loss_fn, optimizer)
     else:
-        if aggregation == "weight":
-            step_fn = dp.make_weight_aggregation_step(loss_fn, optimizer)
-        else:
-            make = (dp.make_multi_step if spd > 1
-                    else dp.make_grad_aggregation_step)
-            step_fn = make(loss_fn, optimizer,
-                           accum_steps=train_cfg.accum_steps,
-                           guard_nonfinite=injit, numerics=numerics)
+        make = (dp.make_multi_step if spd > 1
+                else dp.make_grad_aggregation_step)
+        step_fn = make(loss_fn, optimizer,
+                       accum_steps=train_cfg.accum_steps,
+                       guard_nonfinite=injit, numerics=numerics)
+    if state is None:
         state = dp.init_state(params, optimizer)
     # Each new call signature of the step is a ``compile`` record: one per
-    # run per step (a tail window's shape adds one under K > 1).
+    # run per step (a tail window's shape adds one under K > 1). The name
+    # carries the JAX trainer's suffixes.
     step_fn = introspect.watch(
         step_fn, name=f"train/dp-{aggregation}"
-                      + (f"-k{spd}" if spd > 1 else ""),
+                      + (f"-k{spd}" if spd > 1 else "")
+                      + ((f"-hier{n_dcn}x{train_cfg.data}"
+                          f"-{wire}/{train_cfg.wire_dcn or 'fp32'}"
+                          f"-m{ovl}") if hier else
+                         (f"-ring{wire}-m{ovl}" if ovl else ""))
+                      + (f"-b{cb}" if cb > 1 else ""),
         max_caches=(1 if spd == 1 else None),
         events=(telemetry.events if telemetry is not None else None),
         meta={"steps_per_dispatch": spd},
@@ -747,11 +854,14 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
         if pre is not None:
             memory_meter.note(params_bytes=pre["params_bytes"],
                               opt_state_bytes=pre["opt_state_bytes"],
+                              residual_bytes=pre["residual_bytes"] or None,
                               window_bytes=pre["window_bytes"] or None)
     _emit_manifest(telemetry, measure=measure, model_cfg=model_cfg,
                    train_cfg=train_cfg, start_step=start_step,
                    step_fn=compile_watch._fn, state=state, n_data=n_data,
-                   device=dev, steps_per_dispatch=spd, preflight=pre)
+                   device=dev, steps_per_dispatch=spd, preflight=pre,
+                   mesh=(mesh.shape if hier else None),
+                   overlap_microbatches=max(1, ovl))
     step_fn = _apply_resilience(step_fn, resilience, fault_plan, ckpt, stats)
     batches = shard_batches(tok, train_cfg.batch_size, train_cfg.seq_len,
                             rank, shard_skip=5000, seed=train_cfg.seed)
@@ -833,7 +943,7 @@ def _check_pp_options(train_cfg: TrainConfig, aggregation: str,
     if ovl >= 1:
         queued.append(f"overlap_microbatches={ovl} with aggregation="
                       f"{aggregation!r}, wire={train_cfg.wire!r}, "
-                      f"comm_buckets={cb} (queue A item 8 (the DP×PP ring "
+                      f"comm_buckets={cb} (queue A item 8e (the DP×PP ring "
                       "drivers))")
     if elastic:
         queued.append("ResilienceConfig.elastic=True"
@@ -894,7 +1004,7 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
 
     Refused as the JAX trainer refuses them (``ValueError``): ``dcn`` /
     ``wire_dcn``, ``accum_steps``, ``injit_guard`` and the other option
-    checks of ``_check_pp_options``. The DP×PP ring drivers
+    checks of ``_check_pp_options``. The DP×PP ring steps
     (``overlap_microbatches`` with ``aggregation="zero1"``, ``wire``,
     ``comm_buckets``) and elastic mode (``scale_hook``) raise
     ``NotImplementedError`` naming ROADMAP.md."""

@@ -13,12 +13,13 @@ import torch
 from ddl25spring_tpu_torch import bench_utils, convert, fl
 from ddl25spring_tpu_torch.config import (FLConfig, LlamaConfig,
                                           ResilienceConfig, TrainConfig)
-from ddl25spring_tpu_torch.experiments import (fleet_smoke, memory_smoke,
-                                               serving_bench)
+from ddl25spring_tpu_torch.experiments import (comm_wire_smoke, fleet_smoke,
+                                               memory_smoke, serving_bench)
 from ddl25spring_tpu_torch.models import generate, llama, mnist_cnn
 from ddl25spring_tpu_torch.ops import pallas_adam
 from ddl25spring_tpu_torch.ops.adam import fused_adam
-from ddl25spring_tpu_torch.parallel import distributed, pp, programs
+from ddl25spring_tpu_torch.parallel import (compress, distributed, pp,
+                                            programs)
 from ddl25spring_tpu_torch.resilience import (Autoscaler, AutoscalePolicy,
                                               FaultPlan, measure_overhead,
                                               router_ttft_p95)
@@ -168,6 +169,18 @@ ENTRY_POINTS = {
         lambda: None, torch.zeros((1, 2), dtype=torch.long)),
     "run_ranks": lambda: distributed.run_ranks(programs.loaded_modules, 2),
     "time_train_step": lambda: bench_utils.time_train_step(CFG, 1),
+    "time_train_step ring": lambda: bench_utils.time_train_step(
+        CFG, 1, wire="int8_ef", overlap_microbatches=1),
+    "make_overlap_step": lambda: compress.make_overlap_step(
+        lambda p, b: None, fused_adam(1e-3), _model().tree()),
+    "train_llm_dp ring": lambda: llm.train_llm_dp(
+        CFG, TrainConfig(iters=1, wire="int8_ef", overlap_microbatches=1),
+        tokenizer=ByteTokenizer()),
+    "train_llm_dp dcn=2": lambda: llm.train_llm_dp(
+        CFG, TrainConfig(iters=1, dcn=2, wire_dcn="int8_ef",
+                         overlap_microbatches=1),
+        tokenizer=ByteTokenizer()),
+    "comm_wire_smoke": lambda: comm_wire_smoke.main(["--out", "unused.json"]),
     "pallas_adam.smoke_check": lambda: pallas_adam.smoke_check(),
     "mnist_cnn.init": lambda: mnist_cnn.init(torch.Generator()),
     "mnist_params_from_jax": lambda: convert.mnist_params_from_jax(

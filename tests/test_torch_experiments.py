@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from ddl25spring_tpu.telemetry.events import read_events, validate_event
-from ddl25spring_tpu_torch.experiments import (fleet_smoke, memory_smoke,
-                                               serving_bench)
+from ddl25spring_tpu_torch.experiments import (comm_wire_smoke, fleet_smoke,
+                                               memory_smoke, serving_bench)
 from ddl25spring_tpu_torch.serving import TrafficClass, class_slos
 from experiments import slo_monitor
 from experiments.trace_export import chrome_trace
@@ -113,3 +113,22 @@ def test_memory_smoke_on_the_cpu_and_its_headroom_gate(tmp_path):
     assert slo_monitor.main([path, "--check", "--slo-headroom", "0.2",
                              "--device-bytes", str(peak * 1.1),
                              "--no-emit"]) != 0
+
+
+def test_comm_wire_smoke_on_the_cpu(tmp_path):
+    """The twin at its quick size (four gloo ranks, K = 2): every check
+    holds, the ratios sit under their budgets and the ring accounting is
+    exact."""
+    out = tmp_path / "comm-wire.json"
+    rc = comm_wire_smoke.main(["--device", "cpu", "--quick", "--out",
+                               str(out)])
+    with open(out) as f:
+        res = json.load(f)
+    assert rc == 0 and res["ok"], {k: v["ok"] for k, v in
+                                   res["checks"].items()}
+    assert res["checks"]["wire_ratio"]["value"] <= 0.26
+    assert res["checks"]["hier_dcn_ratio"]["value"] <= 0.30
+    ev = res["checks"]["bucket_grid"]["overlap_evidence"]
+    assert ev["m1_b8"]["first_hop_independent"]
+    assert ev["m2_b1"]["first_hop_independent"]
+    assert not ev["m1_b1"]["first_hop_independent"]

@@ -166,8 +166,7 @@ def test_guard_nonfinite_skips_the_step():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("dcn", 2), ("wire", "bf16"),
-    ("overlap_microbatches", 1), ("model", 2)])
+    ("model", 2), ("seq", 2), ("psa", "ag")])
 def test_train_llm_dp_names_roadmap_for_what_it_does_not_run(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llm.train_llm_dp(LlamaConfig(**SMALL),
