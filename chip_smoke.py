@@ -239,6 +239,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
              wire="int8_ef"`` under zero1, and ``dcn=2, data=2,
              wire_dcn="int8_ef"`` observed: losses finite and falling, the
              manifest's comm profile by axis, no retrace.
+16. tp    — tensor parallelism, two ranks at ``model=2`` and four laid
+             out ``data=2 x model=2`` (``programs.phase16_two`` /
+             ``phase16_four``): a. the fp32 step (one SGD step at lr 1024)
+             at B=4 per data row against a world of one on the same rows
+             (loss and every merged gradient leaf within 1e-5); b. K2, K5
+             and K6 at a shard's shape (B=32, T=256, H=3, Dh=48, bf16,
+             dh-major) against their plain versions (phase 3's limits),
+             timed beside SDPA and their bounds; c. the bf16 step at
+             B=32 timed in turns with a world of one at B=32, launches
+             6/6/6/1 per rank per step, one activation sum and the
+             replicated-gradient sum timed apart; d. psa "full", "defer:3"
+             and "int8_ef" in the same turns, model-axis bytes per step
+             exactly ``psa_sync_wire_bytes``; e. the DP x TP ring (int8_ef,
+             ZeRO-1) at 2x2, B=16 per row, M=1 and 2: data-axis ring bytes
+             exact, data replicas bitwise, K7 bypassed, a save at step 2
+             resumed bitwise to 4 steps; f. ``train_llm_tp`` at vocab 259,
+             20 steps, ``model=2, psa="int8_ef", steps_per_dispatch=2`` and
+             ``data=2, model=2, overlap_microbatches=2, wire="int8_ef"``
+             under zero1: losses finite and falling, the manifest's model
+             axis, no retrace.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -2840,6 +2860,292 @@ def comm_phase(dev: torch.device, card: str) -> dict:
 
 
 
+# ------------------------------------------------------------- phase 16
+
+# Phase 16 (tensor parallelism): the fp32 step against a world of one as
+# phase 15 holds the ring driver; K2, K5 and K6 at the TP shard's H = 3.
+TOL_TP_LOSS = 1e-5
+TOL_TP_GRAD = 1e-5
+TOL_TP_VS_DP = 1e-3        # 20-step TP trainer losses vs the world of one's
+TOL_TP_INT8_REL = 0.03     # psa="int8_ef" vs psa="" losses, relative, each step
+TP_SHAPE = (32, 256, 3, 48)      # B, T, H per shard at model=2, Dh
+PSA_BYTES = {"full": 56_623_104, "defer:3": 9_437_184, "int8_ef": 28_311_600}
+
+
+def _tp_kernels(dev: torch.device, card: str) -> dict:
+    """Phase 16b: K2, K5 and K6 at the TP shape against their plain
+    versions (phase 3's limits), timed beside SDPA and their bounds."""
+    from ddl25spring_tpu_torch.bench_utils import kernel_time_us as time_us
+    from ddl25spring_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, dh = TP_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    q, k, v, do = (torch.randn(b, t, h, dh, generator=gen, device=dev
+                               ).to(torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, dh_major=True)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = (out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    tag = f"B={b} T={t} H={h} Dh={dh} bfloat16 dh_major=True causal=True"
+    check(math.isfinite(err) and err <= TOL_OUT[torch.bfloat16],
+          f"16b flash_fwd out {tag}: max|d|={err:.3g}")
+    check(math.isfinite(lse_err) and lse_err <= TOL_LSE,
+          f"16b flash_fwd lse {tag}: max|d|={lse_err:.3g}")
+    ops = fa.kernel_operands(q, k, v, True)
+    lse_buf = torch.empty(b * h, t, dtype=torch.float32, device=dev)
+    fwd = {"max_abs_err": err, "lse_max_abs_err": lse_err,
+           "kernel_us": time_us(lambda: fa._launch(*ops, lse_buf,
+                                                   causal=True)),
+           "plain_us": time_us(lambda: fa.flash_attention_reference(
+               q, k, v, causal=True))}
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    fwd["sdpa_us"] = time_us(lambda: torch.nn.functional.
+                             scaled_dot_product_attention(qs, ks, vs,
+                                                          is_causal=True))
+    fwd["bound_us"], fwd["bound_by"] = attention_bound_us(
+        b, t, h, dh, torch.bfloat16, True)
+
+    q4, k4, v4, out, lse = fa._fwd(q, k, v, causal=True, dh_major=True)
+    got = fa.flash_attention_bwd(q4, k4, v4, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                           causal=True)
+    scale = max(r.float().abs().max().item() for r in ref)
+    errs = dict(zip(("dq", "dk", "dv"), [(g.float() - r.float()).abs().max()
+                                         .item() for g, r in zip(got, ref)]))
+    for name, e in errs.items():
+        check(math.isfinite(e) and e <= TOL_BWD[torch.bfloat16] * scale,
+              f"16b flash backward {name} {tag}: max|d|={e:.3g}")
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+        b * h, t)
+    bops = (q4, k4, v4, do.permute(0, 2, 1, 3))
+    g4 = [x.permute(0, 2, 1, 3) for x in got]
+    bwd = {"max_abs_err": errs, "scale": scale,
+           "dq_us": time_us(lambda: fa._launch_bwd(
+               "ddl_flash_bwd_dq", bops, g4[:1], lse, delta, causal=True)),
+           "dkv_us": time_us(lambda: fa._launch_bwd(
+               "ddl_flash_bwd_dkv", bops, g4[1:], lse, delta, causal=True)),
+           "plain_us": time_us(lambda: fa.flash_attention_bwd_reference(
+               q, k, v, out, lse, do, causal=True), reps=20, burst=2)}
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True)
+    dos = do.transpose(1, 2)
+    bwd["sdpa_bwd_us"] = time_us(lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), dos, retain_graph=True), reps=20, burst=2)
+    for key, which in (("dq", "dq"), ("dkv", "dkv")):
+        bwd[f"{key}_bound_us"], bwd[f"{key}_bound_by"] = \
+            attention_bwd_bound_us(b, t, h, dh, torch.bfloat16, True, which)
+    print(f"16b K2 at the TP shape {tag}: max|d| out {err:.3g} lse "
+          f"{lse_err:.3g}; kernel {fwd['kernel_us']:.1f} us, plain "
+          f"{fwd['plain_us']:.1f}, sdpa {fwd['sdpa_us']:.1f}, bound "
+          f"{fwd['bound_us']:.2f} ({fwd['bound_by']}); K5 dq max|d| "
+          f"{errs['dq']:.3g}, {bwd['dq_us']:.1f} us (bound "
+          f"{bwd['dq_bound_us']:.2f}); K6 dk/dv {errs['dk']:.3g}/"
+          f"{errs['dv']:.3g}, {bwd['dkv_us']:.1f} us (bound "
+          f"{bwd['dkv_bound_us']:.2f}); plain backward "
+          f"{bwd['plain_us']:.1f} us, sdpa backward {bwd['sdpa_bwd_us']:.1f}"
+          f" us {card}")
+    return {"shape": list(TP_SHAPE), "fwd": fwd, "bwd": bwd}
+
+
+def _world_of_one(dev: torch.device, tokens: torch.Tensor) -> tuple:
+    """The canonical fp32 model's loss and gradient on ``tokens``."""
+    from ddl25spring_tpu_torch.config import LlamaConfig
+    from ddl25spring_tpu_torch.models import llama
+    from ddl25spring_tpu_torch.tree import tree_leaves
+
+    kcfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    m1 = llama.init_llama(kcfg, torch.Generator().manual_seed(0), device=dev)
+    loss = llama.forward_loss(m1, tokens.to(dev), kcfg)
+    grads = [g.cpu() for g in torch.autograd.grad(loss,
+                                                  tree_leaves(m1.tree()))]
+    out = (loss.item(), grads)
+    del m1, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(dev: torch.device, card: str) -> dict:
+    """Phase 16: two ranks at ``model=2`` (``programs.phase16_two``) and
+    four at ``data=2 × model=2`` (``programs.phase16_four``) on the card,
+    against worlds of one computed here, and the kernels at the TP shape.
+    Raises on a failed check; returns the numbers for the JSON record."""
+    from ddl25spring_tpu_torch.parallel import distributed, programs
+
+    from ddl25spring_tpu_torch.config import TrainConfig
+    from ddl25spring_tpu_torch.train.llm import train_llm_dp
+
+    t0 = time.perf_counter()
+    g16 = torch.Generator()
+    g16.manual_seed(16)
+    toks = torch.randint(0, 32000, (8, 256), generator=g16)
+    refs = {2: _world_of_one(dev, toks[:4]), 4: _world_of_one(dev, toks)}
+    # f's reference: the world of one on data row 0's stream.
+    one_losses = train_llm_dp(None, TrainConfig(
+        iters=20, batch_size=4, optimizer="pallas"), log_every=0,
+        device=dev).losses
+    kernels = _tp_kernels(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        two = distributed.run_ranks(programs.phase16_two, 2,
+                                    toks[:4].numpy(), tmp, timeout=900)
+    with tempfile.TemporaryDirectory() as tmp:
+        four = distributed.run_ranks(programs.phase16_four, 4, toks.numpy(),
+                                     tmp, timeout=900)
+    phase_s = time.perf_counter() - t0
+    r0, q0 = two[0], four[0]
+
+    # a. the fp32 step against a world of one -----------------------------
+    fp32 = {}
+    for label, rk, world in (("model=2 B=4", r0, 2),
+                             ("data=2 x model=2 B=4 per row", q0, 4)):
+        ref_loss, ref_grads = refs[world]
+        loss_err = abs(rk["check"]["loss"] - ref_loss)
+        grad_err = max(((a - r).abs().max() / r.abs().max()).item()
+                       for a, r in zip(rk["check"]["grads"], ref_grads))
+        check(loss_err <= TOL_TP_LOSS, f"16a TP {label} fp32 loss vs world "
+              f"of one |d|={loss_err:.3g} > {TOL_TP_LOSS}")
+        check(grad_err <= TOL_TP_GRAD, f"16a TP {label} fp32 gradient vs "
+              f"world of one max|d|/max|ref|={grad_err:.3g} > "
+              f"{TOL_TP_GRAD}")
+        fp32[label] = {"loss_abs_err": loss_err, "grad_rel_err": grad_err}
+        print(f"16a TP {label} fp32 vs a world of one at B={4 * world // 2}"
+              f": loss {rk['check']['loss']:.6f} vs {ref_loss:.6f} |d| "
+              f"{loss_err:.3g}, merged gradient (one SGD step at lr 1024) "
+              f"max|d|/max|ref| {grad_err:.3g} over {len(ref_grads)} leaves"
+              f" {card}")
+
+    # c, d. the bf16 step and the PSA modes, in turns -----------------------
+    grid = {}
+    want = {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+            "adam": 1}
+    one_ms = r0["grid"]["world of one"]["ms_per_step"]
+    for name, cell in r0["grid"].items():
+        if name == "world of one":
+            check(cell["launches"] == want, f"16c world of one: launches "
+                  f"{cell['launches']}")
+        else:
+            for rk in two:
+                c = rk["grid"][name]
+                check(c["launches"] == want, f"16c TP {name} rank "
+                      f"{rk['rank']}: launches per step {c['launches']}, "
+                      f"expected {want}")
+                check(math.isfinite(c["last_loss"]), f"16c TP {name}: loss "
+                      f"{c['last_loss']}")
+        if name in PSA_BYTES:
+            check(cell["model_wire"] == cell["budget"] == PSA_BYTES[name],
+                  f"16d psa={name}: model-axis bytes {cell['model_wire']}, "
+                  f"analytic {cell['budget']} / {PSA_BYTES[name]}")
+        grid[name] = {"ms_per_step": cell["ms_per_step"], "ms": cell["ms"],
+                      "launches_per_step": cell["launches"],
+                      "vs_world_of_one": cell["ms_per_step"] / one_ms,
+                      **({"model_wire": cell["model_wire"]}
+                         if name in PSA_BYTES else {})}
+        print(f"16c/d {name:>12} bf16 B=32 x 256: {cell['ms_per_step']:8.2f}"
+              f" ms per step ({cell['ms_per_step'] / one_ms:.3f}x the world "
+              f"of one, timed in turns; all {[round(x, 2) for x in cell['ms']]}"
+              f"), launches per rank per step {cell['launches']}"
+              + (f", model-axis activation bytes {cell['model_wire']:.0f} "
+                 f"(analytic {PSA_BYTES[name]})" if name in PSA_BYTES else "")
+              + f" {card}")
+    print(f"16c one activation sum ({r0['act_sum_bytes']} B bf16, staged in "
+          f"fp32): {r0['act_sum_ms']:.2f} ms; the replicated-gradient sum "
+          f"({r0['replicated_sum_elements']} fp32): "
+          f"{r0['replicated_sum_ms']:.2f} ms (medians) {card}")
+
+    # e. the DP x TP ring ----------------------------------------------------
+    ring = {}
+    for m in (1, 2):
+        cell = q0["ring"][f"m{m}"]
+        local = q0["local"]
+        got = (cell["ring_int8"], cell["ring_scale"], cell["gather_int8"])
+        check(got == (m * local, 4 * m, local), f"16e ring M={m}: data-axis "
+              f"bytes {got}, analytic {(m * local, 4 * m, local)}")
+        wz = {"flash_fwd": 6 * m, "flash_bwd_dq": 6 * m,
+              "flash_bwd_dkv": 6 * m, "adam": 0}
+        for rk in four:
+            c = rk["ring"][f"m{m}"]
+            check(c["data_replicas_bitwise"], f"16e ring M={m}: data "
+                  f"replicas differ (rank {rk['rank']})")
+            check(c["launches"] == wz, f"16e ring M={m} rank {rk['rank']}: "
+                  f"launches {c['launches']}, expected {wz}")
+        ring[f"m{m}"] = {"ms_per_step": cell["ms_per_step"],
+                         "ms": cell["ms"], "axes": cell["axes"],
+                         "launches_per_step": cell["launches"]}
+        print(f"16e DP x TP 2x2 int8_ef zero1 M={m} bf16 B=16 per row: "
+              f"{cell['ms_per_step']:.2f} ms per step "
+              f"({[round(x, 2) for x in cell['ms']]}); data ring "
+              f"{cell['ring_int8']} int8 + {cell['ring_scale']} scale bytes "
+              f"per step (exact), delta gather {cell['gather_int8']}; data "
+              f"replicas bitwise; launches per rank per step "
+              f"{cell['launches']} {card}")
+    for rk in four:
+        check(rk["resume_bitwise"], f"16e resume rank {rk['rank']}: the "
+              "resumed state differs from 4 uninterrupted steps")
+    print(f"16e saved at step 2 and resumed: bitwise the uninterrupted 4 "
+          f"steps, residuals and moments included, on all 4 ranks {card}")
+
+    # f. the trainer ---------------------------------------------------------
+    # Launches per step over the 20 steps and the manifest's comm probe
+    # (one dispatch: K=2 steps, or one step of M=2 microbatches).
+    k2 = {"flash_fwd": 6 * 22 / 20, "flash_bwd_dq": 6 * 22 / 20,
+          "flash_bwd_dkv": 6 * 22 / 20, "adam": 22 / 20}
+    for label, ranks, key, want in (
+            ("model=2 psa=int8_ef K=2", two, "trainer", k2),
+            ("model=2 psa='' K=2", two, "trainer_plain", k2),
+            ("data=2 model=2 M=2 int8_ef zero1", four, "trainer",
+             {"flash_fwd": 12 * 21 / 20, "flash_bwd_dq": 12 * 21 / 20,
+              "flash_bwd_dkv": 12 * 21 / 20, "adam": 0})):
+        tr = ranks[0][key]
+        ls = tr["losses"]
+        check(all(rk[key]["losses"] == ls for rk in ranks),
+              f"16f train_llm_tp {label}: the ranks disagree on the losses")
+        check(all(abs(tr["launches"][k] - v) < 1e-9 for k, v in
+                  want.items()), f"16f train_llm_tp {label}: launches "
+              f"{tr['launches']}, expected {want}")
+        check(len(ls) == 20 and all(math.isfinite(x) for x in ls)
+              and ls[-1] < ls[0], f"16f train_llm_tp {label}: losses {ls}")
+        check("model" in tr["manifest_axes"] and tr["retraces"] == 0,
+              f"16f train_llm_tp {label}: manifest axes "
+              f"{tr['manifest_axes']}, retraces {tr['retraces']}")
+        print(f"16f train_llm_tp {label} (vocab 259, batch 4 x 256 per data "
+              f"row, optimizer pallas): loss {ls[0]:.4f} -> {ls[-1]:.4f} in "
+              f"20 steps ({tr['seconds']:.1f} s, {tr['tokens_per_sec']:.0f} "
+              f"tok/s after warmup); launches per rank per step, the comm "
+              f"probe included, {tr['launches']}; manifest mesh {tr['manifest_mesh']}, comm "
+              f"axes {tr['manifest_axes']} (model {tr['model_wire']:.0f} B "
+              f"per call), compiles {tr['compiles']}, retraces "
+              f"{tr['retraces']} {card}")
+    # The TP trainer against the world of one step by step (a loss spike
+    # of the reference's dynamics included), and int8_ef against psa="".
+    plain, int8 = r0["trainer_plain"]["losses"], r0["trainer"]["losses"]
+    vs_one = max(abs(a - b) for a, b in zip(plain, one_losses))
+    int8_rel = max(abs(a - b) / abs(b) for a, b in zip(int8, plain))
+    check(vs_one <= TOL_TP_VS_DP, f"16f train_llm_tp psa='' vs train_llm_dp "
+          f"at a world of one: max|d| {vs_one:.3g} > {TOL_TP_VS_DP}; "
+          f"{plain} vs {one_losses}")
+    check(int8_rel <= TOL_TP_INT8_REL, f"16f train_llm_tp psa=int8_ef vs "
+          f"psa='': max|d|/|loss| {int8_rel:.3g} > {TOL_TP_INT8_REL}; "
+          f"{int8} vs {plain}")
+    print(f"16f train_llm_tp model=2 psa='' vs train_llm_dp at a world of "
+          f"one (batch 4 x 256, the same stream): max|d| {vs_one:.3g} over "
+          f"20 steps; psa=int8_ef vs psa='': max|d|/|loss| {int8_rel:.3g}; "
+          f"losses world of one {[round(x, 4) for x in one_losses]}, "
+          f"psa='' {[round(x, 4) for x in plain]}, int8_ef "
+          f"{[round(x, 4) for x in int8]} {card}")
+    print(f"tp phase: {phase_s:.1f} s {card}")
+    return {"seconds": phase_s, "fp32_check": fp32, "kernels": kernels,
+            "grid": grid, "act_sum_ms": r0["act_sum_ms"],
+            "replicated_sum_ms": r0["replicated_sum_ms"], "ring": ring,
+            "trainer": {"model2": r0["trainer"],
+                        "model2_plain": r0["trainer_plain"],
+                        "data2": q0["trainer"], "world_of_one": one_losses,
+                        "vs_world_of_one": vs_one, "int8_vs_plain": int8_rel}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3428,6 +3734,9 @@ def main() -> int:
     # 15. compressed and overlapped gradient sync, 2 and 2 x 2 ranks ------
     comm_report = comm_phase(dev, card)
 
+    # 16. tensor parallelism, 2 and 2 x 2 ranks --------------------------
+    tp_report = tp_phase(dev, card)
+
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
     path_counts = {"forward (phase 4)": {"flash_fwd": main_launches},
@@ -3470,7 +3779,20 @@ def main() -> int:
                    "rank per step": comm_report["trainer"]["data2"][
                        "launches"],
                    "train_llm_dp dcn=2 data=2 (phase 15d), per rank per "
-                   "step": comm_report["trainer"]["dcn2"]["launches"]}
+                   "step": comm_report["trainer"]["dcn2"]["launches"],
+                   **{f"tp model=2 psa={'off' if k == 'tp' else k} bf16 B=32 "
+                      f"(phase 16c/d), per rank per step": v["launches_per_step"]
+                      for k, v in tp_report["grid"].items()
+                      if k != "world of one"},
+                   **{f"tp 2x2 ring int8_ef zero1 {k} (phase 16e), per rank "
+                      f"per step": v["launches_per_step"]
+                      for k, v in tp_report["ring"].items()},
+                   "train_llm_tp model=2 psa=int8_ef K=2 (phase 16f), per "
+                   "rank per step": tp_report["trainer"]["model2"][
+                       "launches"],
+                   "train_llm_tp data=2 model=2 M=2 zero1 (phase 16f), per "
+                   "rank per step": tp_report["trainer"]["data2"][
+                       "launches"]}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -3521,6 +3843,28 @@ def main() -> int:
         "design": DESIGN["adam"],
         "times_cover": f"one train step: {len(leaves)} leaves, "
                        f"{n_adam} elements, one launch"})
+    # K2, K5 and K6 at a TP shard's shape (phase 16b).
+    for kern, part in zip(kernels[:3], ("fwd", "dq", "dkv")):
+        k16 = tp_report["kernels"]
+        if part == "fwd":
+            f16 = k16["fwd"]
+            kern["tp_shape"] = {
+                "shape": k16["shape"], "ms": f16["kernel_us"] / 1e3,
+                "bound_ms": f16["bound_us"] / 1e3,
+                "bound_by": f16["bound_by"],
+                "plain_ms": f16["plain_us"] / 1e3,
+                "library_ms": f16["sdpa_us"] / 1e3,
+                "max_abs_err": f16["max_abs_err"],
+                "lse_max_abs_err": f16["lse_max_abs_err"]}
+        else:
+            b16 = k16["bwd"]
+            kern["tp_shape"] = {
+                "shape": k16["shape"], "ms": b16[f"{part}_us"] / 1e3,
+                "bound_ms": b16[f"{part}_bound_us"] / 1e3,
+                "bound_by": b16[f"{part}_bound_by"],
+                "plain_ms": b16["plain_us"] / 1e3,
+                "library_ms": b16["sdpa_bwd_us"] / 1e3,
+                "max_abs_err": b16["max_abs_err"]}
     print(json.dumps({"kernels": kernels, "launches_by_path": path_counts,
                       "train_step": {
                           "tokens_per_sec_wall": tok_s,
@@ -3535,6 +3879,7 @@ def main() -> int:
                       "dp": dp_report, "serving_ext": ext_report,
                       "resilience": res_report, "pp": pp_report,
                       "fleet": fleet_report, "comm": comm_report,
+                      "tp": tp_report,
                       "adam_paired": adam_pairs, "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,7 +5,8 @@ The port times the data-parallel step (gradient aggregation per step or
 K steps per window, weight aggregation, ZeRO-1, the compressed and
 overlapped ring step and the legacy bf16 and int8 steps of
 ``parallel/compress.py``) in the caller's process group, or at a world of
-one without one. Timing is
+one without one, and the tensor-parallel step of ``parallel/tp.py`` on a
+``data × model`` layout (``time_tp_train_step``). Timing is
 sync-honest: the timed chain ends in a host read of the last loss, which
 waits for the device, and at a world above one in a barrier after it.
 ``kernel_time_us`` times one kernel call on the device alone
@@ -157,6 +158,69 @@ def time_train_step(cfg: LlamaConfig, batch_size: int, *,
     dist.barrier(tokens.device)
     dt = time.perf_counter() - t0
     return dist.world_size() * batch_size * seq * timed * K / dt
+
+
+def time_tp_train_step(mesh, cfg: LlamaConfig, batch_size: int, *,
+                       seq: Optional[int] = None, opt_name: str = "fused",
+                       psa: str = "", wire: Optional[str] = None,
+                       warmup: int = 3, timed_steps: int = 20,
+                       steps_per_dispatch: int = 1,
+                       aggregation: str = "gradient",
+                       overlap_microbatches: int = 0,
+                       device=None) -> float:
+    """Total tokens/sec of the tensor-parallel train step on ``mesh``
+    (``distributed.tp_mesh``; every rank of the group calls it):
+    ``time_train_step``'s contract, the JAX function's composition rules.
+    ``batch_size`` is per data row, and the return counts ``n_data ·
+    batch_size · seq`` tokens per step, since the model shards of a row
+    share one batch. ``steps_per_dispatch`` = K > 1 times the K-step
+    drivers; ``overlap_microbatches`` = M >= 1 routes the data-axis sync
+    through the DP×TP ring (``wire``, ``aggregation="zero1"``); at M = 0
+    a ``wire`` or zero1 raises. ``psa``: the activation sync mode."""
+    from .parallel import tp
+
+    dev = dist.rank_device(device)
+    seq = seq or cfg.ctx_size
+    K = max(1, int(steps_per_dispatch))
+    M = int(overlap_microbatches)
+    params = llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                              device="cpu").tree()
+    opt = make_optimizer(opt_name)
+    if M >= 1:
+        make = (tp.make_tp_overlap_multi_step if K > 1
+                else tp.make_tp_overlap_step)
+        state, step = make(cfg, opt, mesh, params, aggregation=aggregation,
+                           wire=wire or "fp32", overlap_microbatches=M,
+                           psa=psa, device=dev)
+    else:
+        if wire is not None or aggregation != "gradient":
+            raise ValueError("TP wire compression / zero1 route through "
+                             "the ring driver: pass "
+                             "overlap_microbatches >= 1")
+        make = tp.make_tp_multi_step if K > 1 else tp.make_tp_step
+        state, step = make(cfg, opt, mesh, params, psa=psa,
+                           batch_shape=(batch_size, seq), device=dev)
+    del params
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (mesh.data * batch_size, seq),
+                           generator=gen, device=dev)
+    batch = tp.shard_batch(mesh, tokens, dev)
+    if K > 1:
+        batch = batch.expand(K, *batch.shape)
+    warm, timed = ((max(1, -(-warmup // K)), max(1, -(-timed_steps // K)))
+                   if K > 1 else (warmup, timed_steps))
+    for _ in range(warm):
+        state, loss = step(state, batch)
+    float(loss.reshape(-1)[-1])                  # hard sync before the timer
+    dist.barrier(dev)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, loss = step(state, batch)
+    float(loss.reshape(-1)[-1])                  # waits for the timed chain
+    dist.barrier(dev)
+    dt = time.perf_counter() - t0
+    return mesh.data * batch_size * seq * timed * K / dt
 
 
 def kernel_time_us(fn, reps: int = 100, burst: int = 10) -> float:

@@ -9,10 +9,13 @@ process group every rank calls ``save``: a ZeRO-1 state's moment slices
 are gathered into the padded flat vector that JAX's orbax saves
 (``parallel.dp.host_snapshot``), a pipeline stage's parameters and
 moments into the whole model's JAX-layout state (``parallel.pp.
-host_snapshot``, the file a data-parallel state of the model writes),
-rank 0 alone writes, and a barrier ends the call. Every rank reads on
-``restore``; a stage re-slices its own part (``parallel.pp.
-slice_state``).
+host_snapshot``, the file a data-parallel state of the model writes), a
+tensor-parallel rank's slices into the JAX global layout with the per-rank
+residuals and ZeRO-1 moments stacked ``[n_data, tp, ...]``
+(``parallel.tp.host_snapshot``), rank 0 alone writes, and a barrier ends
+the call. Every rank reads on ``restore``; a stage or a tensor-parallel
+rank re-slices its own part (``parallel.pp.slice_state``,
+``parallel.tp.slice_state``).
 
 The JAX package's contract is kept:
 
@@ -47,7 +50,7 @@ import torch
 
 from .metrics import ResilienceStats
 from .parallel import distributed as dist
-from .parallel import dp, pp
+from .parallel import dp, pp, tp
 from .resilience.retry import retry_call
 from .tree import nested_leaves, nested_unflatten, tree_unflatten
 
@@ -158,6 +161,7 @@ class Checkpointer:
                              f"overwrite=True to replace a stale entry)")
         # A collective for ZeRO-1 and for pipeline stages.
         snapshot = (pp.host_snapshot(state) if _is_stage(state)
+                    else tp.host_snapshot(state) if tp._is_state(state)
                     else dp.host_snapshot(state))
         try:
             if dist.get_rank() == 0:
@@ -218,8 +222,11 @@ class Checkpointer:
                           retry_on=(OSError,), on_retry=self._count_retry)
         tensors = iter(data["tensors"])
         stage = template if _is_stage(template) else None
+        shard = template if tp._is_state(template) else None
         if stage is not None:     # read the whole model, then re-slice
             template = pp.merged_template(stage)
+        elif shard is not None:
+            template = tp.merged_template(shard)
         t_leaves = nested_leaves(template)
         host = [next(tensors) if isinstance(t, torch.Tensor) else t
                 for t in t_leaves]
@@ -230,6 +237,8 @@ class Checkpointer:
                  if isinstance(t, torch.Tensor)]
         if stage is not None:
             return pp.slice_state(nested_unflatten(template, host), stage)
+        if shard is not None:
+            return tp.slice_state(nested_unflatten(template, host), shard)
         want = [s for s in dp.global_shapes(template) if s is not None]
         out = dp.reshard_state(nested_unflatten(template, host), template)
         if saved != want:

@@ -18,7 +18,7 @@ PyTorch attention (``_xla_attention``, named after its JAX twin).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -196,7 +196,13 @@ def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention(block: dict, x: torch.Tensor, cfg: LlamaConfig,
-              cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+              cos: torch.Tensor, sin: torch.Tensor,
+              tp_sum: Optional[Callable] = None) -> torch.Tensor:
+    """Causal self-attention of ``x [B, T, D]``. Under tensor parallelism
+    the block holds this shard's columns of wq/wk/wv and rows of wo: its
+    ``H/tp`` heads run end to end and ``tp_sum`` (the JAX ``lax.psum(·,
+    tp_axis)``: a differentiable sum over the model axis) adds up the
+    partial ``wo`` outputs."""
     b, t, _ = x.shape
     dh = cfg.head_dim
     q, k, v = qkv_proj(block, x, dh)
@@ -219,22 +225,31 @@ def attention(block: dict, x: torch.Tensor, cfg: LlamaConfig,
     else:
         out = _xla_attention(q, k, v, causal=True,
                              softmax_dtype=cfg.softmax_dtype)
-    return out.reshape(b, t, -1) @ block["wo"].to(x.dtype)
+    y = out.reshape(b, t, -1) @ block["wo"].to(x.dtype)
+    return y if tp_sum is None else tp_sum(y)
 
 
-def mlp(block: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP with the gate|up projection fused into one matmul."""
+def mlp(block: dict, x: torch.Tensor,
+        tp_sum: Optional[Callable] = None) -> torch.Tensor:
+    """SwiGLU MLP with the gate|up projection fused into one matmul. Under
+    tensor parallelism the block holds this shard's columns of
+    w_gate/w_up and rows of w_down, and ``tp_sum`` adds up the partial
+    outputs."""
     f = block["w_gate"].shape[1]
     w_gu = torch.cat([block["w_gate"], block["w_up"]], dim=1).to(x.dtype)
     gu = x @ w_gu
-    return (F.silu(gu[..., :f]) * gu[..., f:]) @ block["w_down"].to(x.dtype)
+    y = (F.silu(gu[..., :f]) * gu[..., f:]) @ block["w_down"].to(x.dtype)
+    return y if tp_sum is None else tp_sum(y)
 
 
 def block_apply(block: dict, x: torch.Tensor, cfg: LlamaConfig,
-                cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+                cos: torch.Tensor, sin: torch.Tensor,
+                tp_sum: Optional[Callable] = None) -> torch.Tensor:
     x = x + attention(block, nn.rmsnorm(block["attn_norm"], x,
-                                        eps=cfg.norm_eps), cfg, cos, sin)
-    x = x + mlp(block, nn.rmsnorm(block["mlp_norm"], x, eps=cfg.norm_eps))
+                                        eps=cfg.norm_eps), cfg, cos, sin,
+                      tp_sum)
+    x = x + mlp(block, nn.rmsnorm(block["mlp_norm"], x, eps=cfg.norm_eps),
+                tp_sum)
     return x
 
 
@@ -251,7 +266,8 @@ def embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig
 
 
 def blocks_apply(blocks: dict, h: torch.Tensor, cfg: LlamaConfig,
-                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 positions: Optional[torch.Tensor] = None,
+                 tp_sum: Optional[Callable] = None) -> torch.Tensor:
     """Apply the stacked blocks in order (the JAX ``lax.scan``).
 
     ``cfg.remat`` (with autograd recording): each block runs under
@@ -260,7 +276,9 @@ def blocks_apply(blocks: dict, h: torch.Tensor, cfg: LlamaConfig,
     runs the block's forward again (the flash forward kernel and its
     layout copies included) before differentiating it. The gradients are
     those of the plain path: the recomputation repeats the same operations
-    on the same inputs."""
+    on the same inputs (under tensor parallelism its sums too, in the same
+    order on every shard). ``tp_sum``: a tensor-parallel shard's sum over
+    the model axis (``attention``, ``mlp``)."""
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
@@ -269,10 +287,10 @@ def blocks_apply(blocks: dict, h: torch.Tensor, cfg: LlamaConfig,
         if remat:
             # The block draws no random numbers: no RNG state to replay.
             h = torch.utils.checkpoint.checkpoint(
-                block_apply, layer(blocks, i), h, cfg, cos, sin,
+                block_apply, layer(blocks, i), h, cfg, cos, sin, tp_sum,
                 use_reentrant=False, preserve_rng_state=False)
         else:
-            h = block_apply(layer(blocks, i), h, cfg, cos, sin)
+            h = block_apply(layer(blocks, i), h, cfg, cos, sin, tp_sum)
     return h
 
 

@@ -668,6 +668,13 @@ class _Ringer:
                 self.cond.notify_all()
         return hook
 
+    def put(self, m: int, grads) -> None:
+        """Hand microbatch m's gradient leaves over at once (a composed
+        step whose gradients are complete only after a collective of its
+        own, as tensor parallelism's replicated leaves)."""
+        for i, g in enumerate(grads):
+            self._hook(m, i)(g)
+
     def _vector(self, m: int, b: int) -> torch.Tensor:
         grads = []
         for j in range(len(self.leaves)):
@@ -750,9 +757,14 @@ def _make_overlap_local_step(loss_fn: Callable, optimizer, n: int, pad: int,
                              wire, aggregation: str, mesh=None,
                              hier_shape=None, bucket_map=None,
                              guard_nonfinite: bool = False,
-                             numerics=None) -> Callable:
+                             numerics=None, grads_fn=None,
+                             prefix: Optional[str] = None,
+                             shard: Optional[int] = None,
+                             data_group=None,
+                             scale_sync_groups=(None, None)) -> Callable:
     """The per-rank overlapped step shared by ``make_overlap_step`` and
-    ``make_overlap_multi_step`` (the JAX body, in eager order).
+    ``make_overlap_multi_step`` (the JAX body, in eager order), and by the
+    DP×TP drivers (``parallel/tp.py``).
 
     Per step: the local batch splits into M microbatches, each forward and
     backward launched in turn while the ring thread (``_Ringer``) rings
@@ -779,15 +791,31 @@ def _make_overlap_local_step(loss_fn: Callable, optimizer, n: int, pad: int,
     ``bucket_map``: each microbatch's gradient is cut into per-bucket ring
     vectors that ring under ``ring_grad_b{b}``; the owned slice is the
     concat of the per-bucket chunks and the gather legs stay one
-    collective each."""
+    collective each.
+
+    A composed step (the flat ring only) passes ``grads_fn(params, leaves,
+    batch, ringer, m) -> (loss, grads)``, which hands microbatch m's
+    gradients to ``ringer`` itself (default: ``loss_fn`` under
+    ``ringer.hooks(m)``); ``prefix``, the label prefix of its ring and
+    gathers (``{prefix}ring_grad``, ``{prefix}param_gather``, ...; default
+    ``ring_grad`` and ``overlap_...``); ``shard``, its slice index
+    (default ``dp.slice_index(mesh)``); ``data_group``, the group its ring
+    runs over; and ``scale_sync_groups``, the groups the int8 scales are
+    agreed over (the ring thread's, the gather leg's). A per-rank ring
+    residual of one dimension (the composed layout) stays so."""
     M = microbatches
     bm = bucket_map
     B = bm.nbuckets if bm is not None else 1
     hier = hier_shape is not None
-    if mesh is None:              # the whole process group as one axis
+    if data_group is not None:
+        dgroup, cgroup = data_group, None
+    elif mesh is None:            # the whole process group as one axis
         dgroup, cgroup = dist.data_group(), None
     else:
         dgroup, cgroup = mesh.data_group, mesh.dcn_group
+    ring_sync, gather_sync = scale_sync_groups
+    ring_label = f"{prefix or ''}ring_grad"
+    gp = prefix or "overlap_"     # the flat ring's gather labels
     if hier:
         D, S = hier_shape
         wire_ici, wire_dcn = wire["ici"], wire["dcn"]
@@ -798,13 +826,25 @@ def _make_overlap_local_step(loss_fn: Callable, optimizer, n: int, pad: int,
     anchor: List[int] = []
 
     def _reduce(vec, ring_res, bucket=None):
-        label = "ring_grad" if bucket is None else f"ring_grad_b{bucket}"
+        label = ring_label if bucket is None else f"{ring_label}_b{bucket}"
         if hier:
             return hier_reduce_scatter(
                 vec, mesh, wire_ici=wire_ici, wire_dcn=wire_dcn,
                 residual=ring_res, label=label)
         return ring_reduce_scatter(vec, dgroup, wire=wire,
-                                   residual=ring_res, label=label)
+                                   residual=ring_res, label=label,
+                                   scale_sync_group=ring_sync)
+
+    def _hooked(params, leaves, batch, ringer, m):
+        # Each leaf's gradient goes to the ring thread as the backward
+        # produces it: a bucket rings once its leaves are in, while the
+        # backward (and the next microbatch) go on.
+        with ringer.hooks(m):
+            l = loss_fn(params, batch)
+            g = torch.autograd.grad(l, leaves)
+        return l.detach(), g
+
+    grads_of = grads_fn or _hooked
 
     def local_step(state, batch: torch.Tensor):
         if batch.shape[0] % M:
@@ -817,12 +857,16 @@ def _make_overlap_local_step(loss_fn: Callable, optimizer, n: int, pad: int,
             keyed = _keyed_leaves(params)
             anchor.extend([i for i, (k, _) in enumerate(keyed)
                            if k == "blocks"] or range(len(keyed)))
-        if not ef:
-            ring_res = None
-        elif bm is None:
-            ring_res = state.ring_residual[0]
+        if ef:
+            first = (state.ring_residual if bm is None
+                     else state.ring_residual[0])
+            lead = first.dim() == 2     # [1, n·local]; composed: [n·local]
+            if bm is None:
+                ring_res = first[0] if lead else first
+            else:
+                ring_res = [r[0] if lead else r for r in state.ring_residual]
         else:
-            ring_res = [r[0] for r in state.ring_residual]
+            ring_res = None
         micro = batch.reshape((M, -1) + tuple(batch.shape[1:]))
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         gacc = None
@@ -832,13 +876,8 @@ def _make_overlap_local_step(loss_fn: Callable, optimizer, n: int, pad: int,
                          side)
         try:
             for m in range(M):
-                # Each leaf's gradient goes to the ring thread as the
-                # backward produces it: a bucket rings once its leaves are
-                # in, while the backward (and the next microbatch) go on.
-                with ringer.hooks(m):
-                    l = loss_fn(params, micro[m])
-                    g = torch.autograd.grad(l, leaves)
-                loss_sum = loss_sum + l.detach().float()
+                l, g = grads_of(params, leaves, micro[m], ringer, m)
+                loss_sum = loss_sum + l.float()
                 if numerics is not None:
                     gacc = ([x.float() for x in g] if gacc is None
                             else [a + x.float() for a, x in zip(gacc, g)])
@@ -877,14 +916,14 @@ def _make_overlap_local_step(loss_fn: Callable, optimizer, n: int, pad: int,
         gather_res = None
         old = None
         if aggregation == "zero1":
-            shard = dp.slice_index(mesh)
+            mine = dp.slice_index(mesh) if shard is None else shard
             if bm is None:
-                p_mine = flat_p[shard * local:(shard + 1) * local].clone()
+                p_mine = flat_p[mine * local:(mine + 1) * local].clone()
                 new_p_mine, opt_state = apply_optimizer(
                     optimizer, g_mine, opt_in, p_mine.clone())
             else:
-                p_chunks = [pvecs[b][shard * bm.sizes[b]:
-                                     (shard + 1) * bm.sizes[b]]
+                p_chunks = [pvecs[b][mine * bm.sizes[b]:
+                                     (mine + 1) * bm.sizes[b]]
                             for b in range(B)]
                 new_chunks, opts = [], []
                 for b in range(B):
@@ -938,11 +977,12 @@ def _make_overlap_local_step(loss_fn: Callable, optimizer, n: int, pad: int,
             elif wire == "int8_ef":
                 gres = (torch.cat(state.gather_residual)
                         if bm is not None else state.gather_residual)
-                q, s, gather_res = _int8_encode((new_p_mine - p_mine) + gres)
-                q_all = dist.all_gather(q, label="overlap_delta_gather_int8",
+                q, s, gather_res = _int8_encode((new_p_mine - p_mine) + gres,
+                                                gather_sync)
+                q_all = dist.all_gather(q, label=f"{gp}delta_gather_int8",
                                         group=dgroup)
                 s_all = dist.all_gather(s.reshape(1),
-                                        label="overlap_delta_scale_gather",
+                                        label=f"{gp}delta_scale_gather",
                                         group=dgroup)
                 if bm is None:
                     flat_new = _fma(flat_p, s_all.repeat_interleave(local),
@@ -954,7 +994,7 @@ def _make_overlap_local_step(loss_fn: Callable, optimizer, n: int, pad: int,
                                     q_slc[b]) for b in range(B)]
             else:
                 flat_new = dist.all_gather(new_p_mine,
-                                           label="overlap_param_gather",
+                                           label=f"{gp}param_gather",
                                            group=dgroup)
                 if bm is not None:
                     vec_new = _bucket_slices(bm, flat_new)
@@ -999,21 +1039,21 @@ def _make_overlap_local_step(loss_fn: Callable, optimizer, n: int, pad: int,
                         super_g, label="overlap_grad_gather_ici",
                         group=dgroup)
             elif wire == "int8_ef":
-                q, s, gather_res = _int8_encode(g_mine + gres)
-                q_all = dist.all_gather(q, label="overlap_grad_gather_int8",
+                q, s, gather_res = _int8_encode(g_mine + gres, gather_sync)
+                q_all = dist.all_gather(q, label=f"{gp}grad_gather_int8",
                                         group=dgroup)
                 s_all = dist.all_gather(s.reshape(1),
-                                        label="overlap_grad_scale_gather",
+                                        label=f"{gp}grad_scale_gather",
                                         group=dgroup)
                 flat_g = (s_all.repeat_interleave(local)
                           * q_all.to(torch.float32))
             elif wire == "bf16":
                 flat_g = dist.all_gather(
                     g_mine.to(torch.bfloat16),
-                    label="overlap_grad_gather_bf16",
+                    label=f"{gp}grad_gather_bf16",
                     group=dgroup).to(torch.float32)
             else:
-                flat_g = dist.all_gather(g_mine, label="overlap_grad_gather",
+                flat_g = dist.all_gather(g_mine, label=f"{gp}grad_gather",
                                          group=dgroup)
             if bm is None:
                 grad_leaves = [piece.view(p.shape).to(p.dtype) for p, piece
@@ -1043,17 +1083,18 @@ def _make_overlap_local_step(loss_fn: Callable, optimizer, n: int, pad: int,
                 for p, x in zip(leaves, tree_leaves(new_tree)):
                     p.copy_(x)
         step = state.step + 1
-        if ef:
-            if bm is not None:
-                ring_res = tuple(r[None] for r in ring_res)
-                gather_res = tuple(
-                    gather_res[bm.offsets[b]:bm.offsets[b] + bm.sizes[b]]
-                    for b in range(B))
-            else:
-                ring_res = ring_res[None]
-            return OverlapEFState(params, opt_state, step, ring_res,
-                                  gather_res, state.zero1), out
-        return dp.TrainState(params, opt_state, step, state.zero1), out
+        if not ef:
+            return state._replace(opt_state=opt_state, step=step), out
+        if bm is not None:
+            ring_res = tuple(r[None] if lead else r for r in ring_res)
+            gather_res = tuple(
+                gather_res[bm.offsets[b]:bm.offsets[b] + bm.sizes[b]]
+                for b in range(B))
+        elif lead:
+            ring_res = ring_res[None]
+        return state._replace(opt_state=opt_state, step=step,
+                              ring_residual=ring_res,
+                              gather_residual=gather_res), out
 
     return local_step
 

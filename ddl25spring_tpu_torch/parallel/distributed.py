@@ -44,7 +44,13 @@ gloo group per island and one per column.
 Pipeline parallelism lays the ranks on a ``{"data": D, "stage": S}``
 mesh in the JAX mesh's order (``pipeline_mesh``: rank ``d·S + s``), with
 a gloo group per data row (its stages) and one per stage (its data
-rows); the collectives take such a ``Group`` as ``group=``. Stages pass
+rows); the collectives take such a ``Group`` as ``group=``. Tensor
+parallelism lays them on a ``{"data": D, "model": M}`` mesh the same way
+(``tp_mesh``: rank ``d·M + m``), with a gloo group per data row (its model
+shards), one per model column (its data rows) and a second per data row for
+the ring thread's int8 scales; ``psum_ad`` is the all-reduce autograd sees
+through, whose backward is the same sum (the transpose of ``lax.psum``
+under ``shard_map``). Stages pass
 activations and cotangents point to point (``send``, ``recv``, ``isend``,
 ``irecv``, and ``Hops`` for one step's hops): gloo sends CPU tensors
 only, so on the card a hop is a device→host copy, gloo over loopback and
@@ -333,6 +339,67 @@ def hier_data_mesh(islands: int, island_size: int) -> HierMesh:
     return _HIER[key]
 
 
+@dataclass(frozen=True)
+class TPMesh:
+    """A ``{"data": data, "model": model}`` layout of the process group, in
+    the JAX mesh's order: rank ``r = d·model + m`` runs model shard ``m`` of
+    data row ``d``. ``model_group`` joins this data row's shards (the
+    activation and replicated-gradient sums), ``data_group`` this shard's
+    replicas in every data row (the gradient sync), and
+    ``ring_model_group`` this data row's shards again, on a gloo group of
+    its own, for the int8 scale maxima the ring thread takes while the main
+    thread sums activations over ``model_group``."""
+
+    data: int
+    model: int
+    d: int
+    m: int
+    model_group: Group
+    data_group: Group
+    ring_model_group: Group
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+
+_TP: Dict[Tuple[int, int, int], TPMesh] = {}
+
+
+def tp_mesh(data: int, model: int) -> TPMesh:
+    """This process's place on a ``data × model`` mesh over the process
+    group (a world of one without a group), with one gloo group per data
+    row, one per model column and a second one per data row, made once per
+    process and layout. Every rank must call it (``dist.new_group`` is
+    collective). Raises unless the group has ``data·model`` ranks."""
+    n, rank = world_size(), get_rank()
+    if data < 1 or model < 1 or n != data * model:
+        raise ValueError(f"a data={data} x model={model} mesh needs "
+                         f"{data * model} ranks, the process group has {n}")
+    key = (data, model, id(dist.group.WORLD) if is_initialized() else 0)
+    if key not in _TP:
+        rows = [tuple(d * model + m for m in range(model))
+                for d in range(data)]
+        cols = [tuple(d * model + m for d in range(data))
+                for m in range(model)]
+        pgs, ring = {}, {}
+        for ranks in rows + cols:      # the same order on every rank
+            if len(ranks) > 1:
+                pgs[ranks] = dist.new_group(list(ranks), backend=BACKEND,
+                                            timeout=GROUP_TIMEOUT)
+        for ranks in rows:
+            if len(ranks) > 1:
+                ring[ranks] = dist.new_group(list(ranks), backend=BACKEND,
+                                             timeout=GROUP_TIMEOUT)
+        d, m = divmod(rank, model)
+        _TP[key] = TPMesh(
+            data, model, d, m,
+            Group("model", rows[d], m, pgs.get(rows[d])),
+            Group("data", cols[m], d, pgs.get(cols[m])),
+            Group("model", rows[d], m, ring.get(rows[d])))
+    return _TP[key]
+
+
 def data_group() -> Group:
     """Every rank of the process group as one ``data`` axis (a group of one
     without a process group)."""
@@ -451,6 +518,50 @@ def _reduce_tree(tree, group: Optional[Group], mean: bool):
                                              for i in idx])):
             out[i] = piece.view(leaves[i].shape)
     return tree_unflatten(tree, out)
+
+
+def _sum_over(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` as a new tensor: gloo on the tensor
+    itself in fp32; any other dtype (gloo is not known to sum bf16 on
+    CUDA) is staged to the host in fp32, summed there and rounded back
+    once, which at two ranks is the bf16 add itself."""
+    if group.size == 1:
+        return x
+    if x.dtype == torch.float32:
+        return _all_reduce_sum(x, group)
+    host = x.detach().to("cpu", torch.float32)
+    dist.all_reduce(host, group=group.pg)
+    return host.to(device=x.device, dtype=x.dtype)
+
+
+class _PsumAD(torch.autograd.Function):
+    """``lax.psum`` over a ``Group`` as autograd sees it under
+    ``shard_map(check_vma=False)``: forward and backward are both the
+    sum over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _sum_over(ct.contiguous(), ctx.group), None
+
+
+def psum_ad(x: torch.Tensor, group: Group, *,
+            label: Optional[str] = None) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, differentiable: its gradient is the
+    sum of the cotangents over the group (the tensor-parallel f/g pair of
+    the JAX model). With ``label`` the forward sum is recorded (the
+    backward's never is, as the JAX package's trace-time accounting cannot
+    see autodiff's transposes); without one nothing is, the raw
+    in-model ``lax.psum``."""
+    if label is not None:
+        _record("psum", label, x, group)
+    if group.size == 1:
+        return x
+    return _PsumAD.apply(x, group)
 
 
 def pmax(x: torch.Tensor, *, label: Optional[str] = None,

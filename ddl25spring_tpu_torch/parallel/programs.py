@@ -22,7 +22,7 @@ import time
 import torch
 
 from . import distributed as dist
-from . import compress, dp, pp
+from . import compress, dp, pp, tp
 from .. import bench_utils, convert
 from ..bench_utils import make_optimizer
 from ..checkpoint import Checkpointer
@@ -35,7 +35,7 @@ from ..telemetry.comm import CommProfile, collecting, measure_comm
 from ..ops import pallas_adam as padam
 from ..tokenizers import ByteTokenizer
 from ..resilience import FaultPlan
-from ..train.llm import train_llm_dp, train_llm_pp
+from ..train.llm import train_llm_dp, train_llm_pp, train_llm_tp
 from ..tree import nested_leaves, tree_copy, tree_leaves, tree_unflatten
 
 
@@ -985,37 +985,47 @@ def _replicas_equal(params, device) -> bool:
     return bool(torch.equal(dist.broadcast(mine, 0), mine))
 
 
-def _time_cells(cells, batch, device, rounds: int = 3, steps: int = 3):
-    """Each cell ``name -> (state, step)`` warmed (its first call's comm
-    profile kept), then timed in turns: ``rounds`` rounds of ``steps``
-    steps per cell, the cell order rotating, each cell's launches read
-    per step. Returns ``(states, report)``."""
+def _time_cells(cells, batch, device, rounds: int = 3, steps: int = 3,
+                replicas: bool = True):
+    """Each cell ``name -> (state, step[, solo])`` warmed (its first call's
+    comm profile kept), then timed in turns: ``rounds`` rounds of
+    ``steps`` steps per cell, the cell order rotating, each cell's
+    launches read per step. A ``solo`` cell (a world of one inside the
+    group) runs on rank 0 alone while the others wait. ``replicas``: each
+    cell's parameters held bitwise across the ranks at the end. Returns
+    ``(states, report)``."""
     names = list(cells)
+    solo = {k: len(cells[k]) > 2 and cells[k][2] for k in names}
+    mine = {k: dist.get_rank() == 0 or not solo[k] for k in names}
     states = {k: cells[k][0] for k in names}
     report = {k: {"ms": [], "launches": None} for k in names}
     for k in names:
-        with collecting() as records:
+        if mine[k]:
+            with collecting() as records:
+                states[k], loss = cells[k][1](states[k], batch)
+            report[k]["comm"] = CommProfile(list(records)).as_dict()
             states[k], loss = cells[k][1](states[k], batch)
-        report[k]["comm"] = CommProfile(list(records)).as_dict()
-        states[k], loss = cells[k][1](states[k], batch)
-        report[k]["loss"] = float(loss)
+            report[k]["loss"] = float(loss)
+        if solo[k]:
+            dist.barrier(device)
     for rnd in range(rounds):
         for k in names[rnd % len(names):] + names[:rnd % len(names)]:
             dist.barrier(device)
             synchronize(device)
             _zero_counts()
             t0 = time.perf_counter()
-            for _ in range(steps):
-                states[k], loss = cells[k][1](states[k], batch)
-            float(loss)
+            if mine[k]:
+                for _ in range(steps):
+                    states[k], loss = cells[k][1](states[k], batch)
+                report[k]["last_loss"] = float(loss)
             dist.barrier(device)
             report[k]["ms"].append((time.perf_counter() - t0) * 1e3 / steps)
             report[k]["launches"] = _counts(device, steps)
-            report[k]["last_loss"] = float(loss)
     for k in names:
         report[k]["ms_per_step"] = statistics.median(report[k]["ms"])
-        report[k]["replicas_bitwise"] = _replicas_equal(
-            states[k].params, device)
+        if replicas:
+            report[k]["replicas_bitwise"] = _replicas_equal(
+                states[k].params, device)
     return states, report
 
 
@@ -1249,4 +1259,398 @@ def phase15_four(directory: str, *, device) -> dict:
                 "wire_bytes_per_device"],
             compiles=len(compiles),
             retraces=sum(1 for e in compiles if e.get("retrace")))
+    return out
+
+
+# -------------------------------------------------- tensor parallelism
+
+def _tp_step(case: dict, cfg, opt, mesh, device):
+    """The state and step of a TP case's ``driver``."""
+    params = case["params"]
+    driver = case.get("driver", "step")
+    overlap = driver.startswith("overlap")
+    numerics = (tp.make_tp_numerics(params, mesh, psum_data=overlap)
+                if case.get("numerics") else None)
+    if driver == "train":
+        return (tp.init_state(mesh, params, opt, device),
+                tp.make_tp_train_step(cfg, opt, mesh, device), numerics)
+    if overlap:
+        make = (tp.make_tp_overlap_multi_step if driver == "overlap_multi"
+                else tp.make_tp_overlap_step)
+        state, step = make(
+            cfg, opt, mesh, params,
+            aggregation=case.get("aggregation", "zero1"),
+            wire=case.get("wire", "fp32"),
+            overlap_microbatches=case.get("microbatches", 1),
+            psa=case.get("psa", ""),
+            comm_buckets=case.get("comm_buckets", 1), numerics=numerics,
+            device=device)
+        return state, step, numerics
+    make = tp.make_tp_multi_step if driver == "multi" else tp.make_tp_step
+    state, step = make(cfg, opt, mesh, params, psa=case.get("psa", ""),
+                       batch_shape=case.get("batch_shape"),
+                       numerics=numerics, device=device)
+    return state, step, numerics
+
+
+def _tp_case(case: dict, device) -> dict:
+    """One TP case on this rank; see ``tp_cases``."""
+    cfg = LlamaConfig(**case["cfg"])
+    mesh = dist.tp_mesh(case["data"], case["model"])
+    r = dist.get_rank()
+    out = {"rank": r, "d": mesh.d, "m": mesh.m}
+    driver = case.get("driver", "step")
+    if driver == "forward":
+        local = tp.shard_params(mesh, case["params"], device)
+        with torch.no_grad():
+            logits = tp.tp_forward(local, tp.shard_batch(
+                mesh, case["batches"][0], device), cfg, mesh)
+        out["logits"] = logits.cpu().numpy()
+        return out
+    if driver == "int8_sync":
+        y = torch.as_tensor(case["y"][r], device=device)
+        res0 = torch.zeros_like(y)
+        out1, res1 = tp._psa_int8_sync(y, res0, mesh.model_group)
+        out2, res2 = tp._psa_int8_sync(y, res1, mesh.model_group)
+        exact = dist.psum(y, record=False, group=mesh.model_group)
+        out.update({k: v.detach().cpu().numpy() for k, v in (
+            ("out1", out1), ("out2", out2), ("res1", res1), ("res2", res2),
+            ("exact", exact))})
+        return out
+    if driver == "trainer":
+        return {**out, **_tp_trainer_call(case, device)}
+    name, lr = case.get("optimizer", "fused"), case.get("lr", 1e-3)
+    opt = sgd(lr) if name == "sgd" else make_optimizer(name, lr)
+    state, step, numerics = _tp_step(case, cfg, opt, mesh, device)
+    if case.get("restore"):
+        state = Checkpointer(case["restore"]).restore(state)
+    out.update({"losses": [], "comm": None, "numerics": []})
+    for batch in case["batches"]:
+        local = tp.shard_batch(mesh, batch, device)
+        with collecting() as records:
+            state, o = step(state, local)
+        if out["comm"] is None:
+            out["comm"] = CommProfile(list(records)).as_dict()
+        loss, summary = introspect.split_step_output(o)
+        if summary is not None:
+            out["numerics"].append(numerics.event_fields(
+                summary, index=-1 if driver.endswith("multi") else None))
+        out["losses"] += loss.reshape(-1).tolist()
+    out["step"] = int(state.step)
+    out["params"] = convert.tree_to_numpy(state.params)
+    snap = tp.host_snapshot(state)
+    if r == 0:
+        out["merged"] = convert.tree_to_numpy(snap.params)
+        out["snapshot"] = [x.numpy() for x in nested_leaves(snap)
+                           if isinstance(x, torch.Tensor)]
+    if case.get("checkpoint"):
+        Checkpointer(case["checkpoint"]).save(int(state.step), state,
+                                              overwrite=True)
+    return out
+
+
+def _tp_trainer_call(case: dict, device) -> dict:
+    """``train.llm.train_llm_tp`` inside this rank's group (the byte
+    tokenizer): the report's losses, steps, start step and counters. A
+    ``fault_plan`` keyword is a spec string, which only the ranks in
+    ``case["fault_ranks"]`` (default: every rank) inject."""
+    kwargs = dict(case.get("kwargs", {}))
+    spec = kwargs.pop("fault_plan", None)
+    if spec and dist.get_rank() in case.get("fault_ranks",
+                                            range(dist.world_size())):
+        kwargs["fault_plan"] = FaultPlan.from_spec(spec)
+    rep = train_llm_tp(LlamaConfig(**case["cfg"]),
+                       TrainConfig(**case["train_cfg"]),
+                       tokenizer=ByteTokenizer(), log_every=0,
+                       device=device, **kwargs)
+    return {"losses": rep.losses, "steps": rep.steps,
+            "start_step": rep.start_step,
+            "tokens_per_sec": rep.tokens_per_sec,
+            "resilience": rep.resilience.as_dict()}
+
+
+def tp_cases(cases, *, device) -> list:
+    """Run each TP case of ``cases`` on this rank (a rank of a ``data ×
+    model`` group; every case of a launch shares the group) and return
+    one dict per case, with this rank's data row ``d`` and model shard
+    ``m``: ``losses``, ``step``, this rank's ``params`` (numpy), the first
+    call's ``comm`` profile, the ``numerics`` event fields of every call,
+    and on rank 0 the merged JAX-layout parameters (``merged``) and the
+    host snapshot's tensors (``snapshot``, per-rank stacks ``[n_data, tp,
+    ...]``).
+
+    A case is a dict: ``cfg`` (``LlamaConfig`` fields), ``params`` (a JAX
+    ``init_llama`` tree as numpy), ``data``, ``model``, ``batches``
+    (global ``[D·B, T]`` batches, ``[K, D·B, T]`` windows for the K-step
+    drivers), and optionally ``driver`` ("step", the default, "multi",
+    "train" for ``make_tp_train_step``, "overlap", "overlap_multi"),
+    ``psa``, ``batch_shape``, ``optimizer`` ("fused" default, "sgd", or a
+    ``make_optimizer`` name), ``lr``, ``numerics``, ``aggregation``,
+    ``wire``, ``microbatches``, ``comm_buckets``, ``restore`` (a
+    checkpoint directory the fresh state is restored from) and
+    ``checkpoint`` (a directory the final state is saved to). Three
+    drivers take other keys: "forward" returns the logits of the first
+    batch; "int8_sync" runs ``_psa_int8_sync`` twice on ``y[rank]`` and
+    returns both outputs, both residuals and the exact sum; "trainer" runs
+    ``train_llm_tp`` with ``cfg``, ``train_cfg`` (``TrainConfig`` fields),
+    ``kwargs`` and ``fault_ranks`` (``_tp_trainer_call``)."""
+    return [_tp_case(case, device) for case in cases]
+
+
+# --------------------------------------------- chip_smoke.py phase 16
+
+PHASE16_PSA = ("full", "defer:3", "int8_ef")
+
+
+def _tp_check(mesh, tokens, device) -> dict:
+    """Phase 16a on this rank: one SGD step at lr 1024 of the canonical
+    model in fp32 from the seed-0 weights on this data row's rows of
+    ``tokens``; the loss, and on rank 0 the merged JAX-layout gradient
+    (the update over −lr)."""
+    cfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    lr = 1024.0
+    whole = llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                             device="cpu").tree()
+    with fp32_products():
+        state, step = tp.make_tp_step(cfg, sgd(lr), mesh, whole,
+                                      device=device)
+        before = tp.host_snapshot(state).params
+        state, loss = step(state, tp.shard_batch(mesh, tokens, device))
+        after = tp.host_snapshot(state).params
+    out = {"loss": float(loss)}
+    if dist.get_rank() == 0:
+        out["grads"] = [(b - a) / lr for b, a in zip(tree_leaves(before),
+                                                     tree_leaves(after))]
+    return out
+
+
+def _data_replicas_equal(params, mesh, device) -> bool:
+    """Whether every data row's copy of this model shard's slices holds
+    the same bits."""
+    mine = _digest(params, device)
+    rows = dist.all_gather(mine, group=mesh.data_group).view(mesh.data, -1)
+    return bool((rows == rows[0]).all())
+
+
+def _solo_step(cfg, optimizer):
+    """The world of one's gradient step (``dp.make_grad_aggregation_step``
+    at one rank) inside a larger group: no collective."""
+    from ..ops.adam import apply_optimizer
+
+    def step(state, batch):
+        leaves = tree_leaves(state.params)
+        loss = llama.forward_loss(state.params, batch, cfg)
+        grads = tree_unflatten(state.params,
+                               list(torch.autograd.grad(loss, leaves)))
+        params, opt_state = apply_optimizer(optimizer, grads,
+                                            state.opt_state, state.params)
+        return dp.TrainState(params, opt_state, state.step + 1), loss.detach()
+
+    return step
+
+
+def _trainer_run(tcfg: TrainConfig, directory: str, device,
+                 aggregation: str = "gradient") -> dict:
+    """``train_llm_tp`` inside this group with telemetry in ``directory``
+    (rank 0 writes it): losses, launches per step, seconds, throughput,
+    and on rank 0 the manifest's mesh and comm axes and the compiles."""
+    from ..telemetry import Telemetry, read_events
+    tel = Telemetry(directory)
+    _zero_counts()
+    t0 = time.perf_counter()
+    rep = train_llm_tp(None, tcfg, aggregation=aggregation, log_every=0,
+                       telemetry=tel, device=device)
+    out = {"losses": rep.losses, "launches": _counts(device, tcfg.iters),
+           "seconds": time.perf_counter() - t0,
+           "tokens_per_sec": rep.tokens_per_sec}
+    tel.close()
+    dist.barrier(device)
+    if dist.get_rank() == 0:
+        events = read_events(os.path.join(directory, "events.jsonl"))
+        manifest = next(e for e in events if e["type"] == "manifest")
+        compiles = [e for e in events if e["type"] == "compile"]
+        out.update(manifest_mesh=manifest["mesh"],
+                   manifest_axes=sorted(manifest["comm"]["axes"]),
+                   model_wire=manifest["comm"]["axes"]["model"][
+                       "wire_bytes_per_device"],
+                   compiles=len(compiles),
+                   retraces=sum(1 for e in compiles if e.get("retrace")))
+    return out
+
+
+def phase16_two(tokens_check, directory: str, *, device) -> dict:
+    """``chip_smoke.py`` phase 16 on each of two ranks, ``model=2`` on the
+    one card: a. the fp32 check on ``tokens_check`` ``[4, 256]``
+    (``_tp_check``); c. the bf16 step at B = 32 (the "pallas" optimizer)
+    timed in turns with a world of one at B = 32 on rank 0, with launches
+    per step, one activation sum and the replicated-gradient sum timed
+    apart; d. the PSA modes ``PHASE16_PSA`` in the same turns, with their
+    model-axis bytes per step; f. ``train_llm_tp(model=2, psa="int8_ef",
+    steps_per_dispatch=2)`` at vocab 259 for 20 steps, and the same with
+    ``psa=""``."""
+    mesh = dist.tp_mesh(1, 2)
+    out = {"rank": dist.get_rank(), "m": mesh.m}
+    t0 = time.perf_counter()
+    out["check"] = _tp_check(mesh, tokens_check, device)
+    out["check_seconds"] = time.perf_counter() - t0
+
+    tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                       flash_dh_major=True, flash_block=512)
+    b, t = 32, tcfg.ctx_size
+    whole = llama.init_llama(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu").tree()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    batch = torch.randint(0, tcfg.vocab_size, (b, t), generator=gen,
+                          device=device)
+    cells = {}
+    if dist.get_rank() == 0:
+        one = llama.init_llama(tcfg, torch.Generator().manual_seed(0),
+                               device=device).tree()
+        opt = make_optimizer("pallas")
+        cells["world of one"] = (dp.init_state(one, opt),
+                                 _solo_step(tcfg, opt), True)
+    else:
+        cells["world of one"] = (None, None, True)
+    for psa in ("",) + PHASE16_PSA:
+        state, step = tp.make_tp_step(
+            tcfg, make_optimizer("pallas"), mesh, whole, psa=psa,
+            batch_shape=(b, t), device=device)
+        cells[psa or "tp"] = (state, step, False)
+    t0 = time.perf_counter()
+    states, out["grid"] = _time_cells(cells, batch, device,
+                                      replicas=False)
+    out["grid_seconds"] = time.perf_counter() - t0
+    for psa in PHASE16_PSA:
+        by = out["grid"][psa]["comm"]["collectives"]
+        out["grid"][psa]["model_wire"] = sum(
+            by[k]["wire_bytes_per_device"] for k in (
+                "psa_full_sync", "psa_defer_sync", "psa_act_int8",
+                "psa_act_scale") if k in by)
+        out["grid"][psa]["budget"] = tp.psa_sync_wire_bytes(tcfg, psa, 2, b,
+                                                            t)
+
+    # One activation sum, and the replicated-gradient sum, alone.
+    act = torch.randn(b, t, tcfg.dmodel, generator=gen, device=device,
+                      dtype=torch.bfloat16)
+    params = states["tp"].params
+    grads = [torch.ones_like(p, dtype=torch.float32)
+             for p in tree_leaves(params)]
+
+    def timed(fn, reps):
+        ms = []
+        for _ in range(reps):
+            dist.barrier(device)
+            synchronize(device)
+            t1 = time.perf_counter()
+            fn()
+            synchronize(device)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(ms)
+
+    out["act_sum_ms"] = timed(lambda: dist.psum_ad(act, mesh.model_group),
+                              10)
+    out["act_sum_bytes"] = act.numel() * act.element_size()
+    out["replicated_sum_ms"] = timed(
+        lambda: tp._sum_replicated(params, grads, mesh.model_group), 5)
+    out["replicated_sum_elements"] = sum(
+        g.numel() for g, s in zip(grads, tree_leaves(
+            tp._sharded_mask(params))) if not s)
+    del states, cells, params, grads, whole
+
+    for key, psa in (("trainer", "int8_ef"), ("trainer_plain", "")):
+        out[key] = _trainer_run(TrainConfig(
+            iters=20, model=2, batch_size=4, psa=psa, steps_per_dispatch=2,
+            optimizer="pallas"), os.path.join(directory, f"tel16f{psa}"),
+            device)
+    return out
+
+
+def phase16_four(tokens_check, directory: str, *, device) -> dict:
+    """``chip_smoke.py`` phase 16 on each of four ranks laid out ``data=2 ×
+    model=2``: a. the fp32 check on ``tokens_check`` ``[8, 256]`` (B = 4
+    per data row); e. the DP×TP ring (int8_ef, ZeRO-1) at bf16, B = 16
+    per data row, M ∈ {1, 2}: ms per step, launches, the data-axis ring
+    bytes, data replicas bitwise, and at M = 1 a save at step 2 resumed
+    to step 4 against 4 uninterrupted steps (the merged states, residuals
+    included); f. ``train_llm_tp(data=2, model=2, overlap_microbatches=2,
+    wire="int8_ef")`` under ZeRO-1 at vocab 259 for 20 steps."""
+    mesh = dist.tp_mesh(2, 2)
+    r = dist.get_rank()
+    out = {"rank": r, "d": mesh.d, "m": mesh.m}
+    out["check"] = _tp_check(mesh, tokens_check, device)
+
+    tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                       flash_dh_major=True, flash_block=512)
+    b, t = 16, tcfg.ctx_size
+    whole = llama.init_llama(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu").tree()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    tokens = torch.randint(0, tcfg.vocab_size, (4, mesh.data * b, t),
+                           generator=gen, device=device)
+    local = tp.shard_batch(mesh, tokens, device)
+    _, _, n_local, _ = tp._tp_flat_geometry(mesh, whole)
+    out["local"] = n_local
+
+    def ring(m):
+        return tp.make_tp_overlap_step(
+            tcfg, make_optimizer("pallas"), mesh, whole,
+            aggregation="zero1", wire="int8_ef", overlap_microbatches=m,
+            device=device)
+
+    out["ring"] = {}
+    for m in (1, 2):
+        state, step = ring(m)
+        with collecting() as records:
+            state, loss = step(state, local[0])
+        comm = CommProfile(list(records)).as_dict()
+        ms = []
+        for rnd in range(3):
+            dist.barrier(device)
+            synchronize(device)
+            _zero_counts()
+            t1 = time.perf_counter()
+            state, loss = step(state, local[1 + rnd % 3])
+            float(loss)
+            dist.barrier(device)
+            ms.append((time.perf_counter() - t1) * 1e3)
+            launches = _counts(device, 1)
+        by = comm["collectives"]
+        out["ring"][f"m{m}"] = {
+            "ms_per_step": statistics.median(ms), "ms": ms,
+            "launches": launches, "axes": comm["axes"],
+            "ring_int8": by["tp_ring_grad_int8"]["payload_bytes"],
+            "ring_scale": by["tp_ring_grad_scale"]["payload_bytes"],
+            "gather_int8": by["tp_delta_gather_int8"]["payload_bytes"],
+            "data_replicas_bitwise": _data_replicas_equal(state.params, mesh,
+                                                          device),
+            "last_loss": float(loss)}
+        del state, step
+
+    # Save at step 2, resume, and compare with 4 uninterrupted steps.
+    def run(state, step, batches):
+        for x in batches:
+            state, _ = step(state, x)
+        return state
+
+    straight = tp.host_snapshot(run(*ring(1), local))
+    ckpt = os.path.join(directory, "ckpt16e")
+    state, step = ring(1)
+    state = run(state, step, local[:2])
+    Checkpointer(ckpt).save(2, state, overwrite=True)
+    del state
+    template, step = ring(1)
+    resumed = tp.host_snapshot(run(Checkpointer(ckpt).restore(template),
+                                   step, local[2:]))
+    out["resume_bitwise"] = all(
+        torch.equal(x, y) for x, y in zip(nested_leaves(straight),
+                                          nested_leaves(resumed))
+        if isinstance(x, torch.Tensor))
+    del straight, resumed, template, step, whole
+
+    out["trainer"] = _trainer_run(TrainConfig(
+        iters=20, data=2, model=2, batch_size=4, overlap_microbatches=2,
+        wire="int8_ef", optimizer="pallas"),
+        os.path.join(directory, "tel16f4"), device, aggregation="zero1")
     return out

@@ -53,18 +53,25 @@ def _copy_into(live, src) -> None:
 
 
 @torch.no_grad()
-def _verdict(old_params, new_params, loss, group=None) -> Tuple[bool, float]:
+def _verdict(old_params, new_params, loss, group=None,
+             shared=None) -> Tuple[bool, float]:
     """``(all finite, update L2 norm)``: one pass over the leaves, one host
-    read. ``group`` (a ``distributed.Group``, the stage group of a
-    pipeline): this rank holds only its stage's leaves, so the count of
-    non-finite values and the squared norm are summed over the group, and
-    every rank takes the same decision on the whole model's update."""
+    read. ``group`` (a ``distributed.Group``: the stage group of a
+    pipeline, the model group of a tensor-parallel shard): this rank holds
+    only its part of the model, so the count of non-finite values and the
+    squared norm are summed over the group, and every rank takes the same
+    decision on the whole model's update. ``shared``: per leaf, whether
+    every rank of the group holds it whole (a replicated leaf), whose
+    square then counts once in the sum."""
     finite = torch.isfinite(loss).all()
     sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-    for o, n in zip(tree_leaves(old_params), tree_leaves(new_params)):
+    for i, (o, n) in enumerate(zip(tree_leaves(old_params),
+                                   tree_leaves(new_params))):
         d = (n - o).float()
         finite = finite & torch.isfinite(n).all()
-        sq = sq + (d * d).sum()
+        term = (d * d).sum()
+        sq = sq + (term / group.size if shared is not None and shared[i]
+                   else term)
     if group is not None:
         from ..parallel import distributed as dist
         bad, sq = dist.psum(torch.stack([(~finite).float(), sq]),
@@ -85,8 +92,10 @@ class StepGuard:
     ``ema_decay`` / ``anomaly_factor`` / ``ema_warmup``: the update-norm
     detector, which learns from good steps only and arms after
     ``ema_warmup`` of them; ``anomaly_factor <= 0`` disables it.
-    ``group``: the stage group of a pipeline stage's step, whose verdict
-    covers every stage's leaves (``_verdict``)."""
+    ``group``, ``shared``: the group whose ranks hold the parts of the
+    model (a pipeline's stages, a tensor-parallel row's model shards), so
+    that the verdict covers the whole model, and the leaves each of them
+    holds whole (``_verdict``)."""
 
     def __init__(self, step_fn: Callable, *,
                  ckpt=None,
@@ -95,9 +104,9 @@ class StepGuard:
                  ema_decay: float = 0.98,
                  anomaly_factor: float = 10.0,
                  ema_warmup: int = 20,
-                 group=None):
+                 group=None, shared=None):
         self._step_fn = step_fn
-        self._group = group
+        self._group, self._shared = group, shared
         self._ckpt = ckpt
         self.stats = stats if stats is not None else ResilienceStats()
         self.max_consecutive_bad = max_consecutive_bad
@@ -122,7 +131,7 @@ class StepGuard:
         new_state, out = self._step_fn(state, batch)
         loss = out[0] if isinstance(out, tuple) else out
         ok, upd_norm = _verdict(old.params, new_state.params, loss,
-                                self._group)
+                                self._group, self._shared)
         anomalous = False
         if (ok and self.anomaly_factor > 0 and self._ema is not None
                 and self._good_steps >= self.ema_warmup):

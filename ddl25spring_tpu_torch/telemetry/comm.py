@@ -217,3 +217,14 @@ def measure_comm(fn, *args, **kwargs) -> Optional[CommProfile]:
         except Exception:
             return None
     return CommProfile(list(records))
+
+
+@contextlib.contextmanager
+def quiet() -> Iterator[None]:
+    """Record nothing inside the block (a rematerialized forward repeats
+    collectives the first forward recorded)."""
+    token = _collector.set(None)
+    try:
+        yield
+    finally:
+        _collector.reset(token)

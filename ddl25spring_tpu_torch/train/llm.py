@@ -28,9 +28,10 @@ JAX trainer's does (``parallel/compress.py``): ``overlap_microbatches >=
 ZeRO-1; K steps per dispatch), ``dcn > 1`` lays ``dcn·data`` ranks out as
 islands and takes the two-level ring (``wire_dcn`` on the DCN tier), and a
 compressed ``wire`` without microbatches takes the legacy per-step steps.
-The rest of the JAX trainer (tensor and sequence parallelism, elastic
-mode and ``scale_hook``) raises ``NotImplementedError`` naming its
-ROADMAP.md entry. ``on_checkpoint`` is
+The rest of the JAX trainer (sequence parallelism, elastic mode and
+``scale_hook``) raises ``NotImplementedError`` naming its ROADMAP.md
+entry; ``TrainConfig.model`` and ``psa`` are the tensor-parallel
+trainer's, which the JAX DP and PP trainers do not read either. ``on_checkpoint`` is
 the checkpoint publication hook of the train→deploy conveyor
 (``serving/deploy.py``).
 
@@ -38,6 +39,11 @@ the checkpoint publication hook of the train→deploy conveyor
 loop: ``data·stage`` stage processes (``parallel.pp``), each holding its
 stage's leaves and reading its data row's stream, under the GPipe, 1F1B
 or interleaved schedule.
+
+``train_llm_tp`` runs the tensor(-and-data)-parallel trainer on the same
+loop: ``data·model`` ranks (``parallel.tp``), each holding its model
+shard's slices and reading its data row's stream, with the PSA modes, the
+K-step drivers and the DP×TP ring drivers.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ from ..metrics import ResilienceStats
 from ..models import llama
 from ..ops.adam import fused_adam
 from ..parallel import distributed as dist
-from ..parallel import compress, dp, pp
+from ..parallel import compress, dp, pp, tp
 from ..resilience.preemption import PreemptionHandler
 from ..telemetry import introspect
 from ..telemetry.trace import Spans, Tracer
@@ -83,9 +89,7 @@ class LLMTrainReport:
 # TrainConfig fields the port does not run yet at a non-default value, with
 # the ROADMAP.md entry that ports each.
 _QUEUED = {
-    "model": "queue A item 8b (tensor parallelism)",
     "seq": "queue A item 8c (sequence parallelism)",
-    "psa": "queue A item 8b (tensor parallelism)",
 }
 
 
@@ -528,14 +532,15 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
 
 def _apply_resilience(step_fn, resilience: Optional[ResilienceConfig],
                       fault_plan, ckpt, stats: ResilienceStats, *,
-                      group=None, leaf_map=None):
+                      group=None, shared=None, leaf_map=None):
     """The resilience layer around a step: fault injection innermost (the
     guard sees the faulted step), the StepGuard outermost. ``fault_plan``
     comes as an object or through ``resilience.faults``; fault step
     indices are post-resume call indices. A pipeline stage passes its
     stage ``group`` (the guard's verdict covers every stage) and its
     ``leaf_map`` (``pp.global_leaf_map``: fault targets are leaves of the
-    whole model)."""
+    whole model); a tensor-parallel shard its model ``group`` and the
+    leaves it holds whole (``shared``)."""
     if fault_plan is None and resilience is not None and resilience.faults:
         fault_plan = resilience.fault_plan()
     if fault_plan:
@@ -547,7 +552,7 @@ def _apply_resilience(step_fn, resilience: Optional[ResilienceConfig],
             max_consecutive_bad=resilience.max_consecutive_bad,
             ema_decay=resilience.ema_decay,
             anomaly_factor=resilience.anomaly_factor,
-            ema_warmup=resilience.ema_warmup, group=group)
+            ema_warmup=resilience.ema_warmup, group=group, shared=shared)
     return step_fn
 
 
@@ -1073,6 +1078,234 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
     step_fn = _apply_resilience(step_fn, resilience, fault_plan, ckpt, stats,
                                 group=mesh.stage_group,
                                 leaf_map=pp.global_leaf_map(state))
+    batches = shard_batches(tok, train_cfg.batch_size, train_cfg.seq_len,
+                            mesh.d, shard_skip=5000, seed=train_cfg.seed)
+    return _run_loop(
+        step_fn, state, batches, train_cfg,
+        lambda b: torch.as_tensor(b, dtype=torch.long, device=dev),
+        n_data=mesh.data, start_step=start_step, ckpt=ckpt,
+        checkpoint_every=checkpoint_every, loss_sink=loss_sink,
+        sink_every=sink_every, log_every=log_every, log_fn=log_fn,
+        warmup_steps_excluded=warmup_steps_excluded, stats=stats,
+        steps_per_dispatch=spd, on_checkpoint=on_checkpoint,
+        telemetry=telemetry, numerics=numerics,
+        numerics_every=train_cfg.numerics_every,
+        compile_watch=compile_watch)
+
+
+def _check_tp_options(model_cfg: LlamaConfig, train_cfg: TrainConfig,
+                      aggregation: str,
+                      resilience: Optional[ResilienceConfig],
+                      scale_hook) -> None:
+    """The JAX ``train_llm_tp``'s errors, in its order and with its texts
+    (the factories' PSA and ring checks included), then the ROADMAP.md
+    entries of what the port's TP trainer does not run, all before any
+    rank starts."""
+    spd = train_cfg.steps_per_dispatch
+    ovl = train_cfg.overlap_microbatches
+    psa = train_cfg.psa
+    if spd < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1 (got {spd})")
+    if ovl < 0:
+        raise ValueError(f"overlap_microbatches must be >= 0 (got {ovl})")
+    cb = train_cfg.comm_buckets
+    if cb < 1:
+        raise ValueError(f"comm_buckets must be >= 1 (got {cb})")
+    if cb > 1 and ovl == 0:
+        raise ValueError(
+            "comm_buckets > 1 is a property of the overlap/ring driver "
+            "(the bucketed backward splits each microbatch's ring) — set "
+            f"overlap_microbatches >= 1 (got comm_buckets={cb} with "
+            "overlap_microbatches=0)")
+    if train_cfg.dcn != 1 or train_cfg.wire_dcn:
+        raise ValueError("hierarchical DP (TrainConfig.dcn / wire_dcn) is "
+                         "DP-trainer-only; the TP mesh has no two-level "
+                         "data tier")
+    if train_cfg.accum_steps != 1:
+        raise ValueError("accum_steps (DP gradient accumulation) is "
+                         "DP-trainer-only; use overlap_microbatches on "
+                         "the TP trainer's ring path")
+    if aggregation not in ("gradient", "zero1"):
+        raise ValueError(f"unknown aggregation {aggregation!r}: the TP "
+                         "trainer supports 'gradient' and 'zero1'")
+    if train_cfg.wire != "fp32" and ovl == 0:
+        raise ValueError(
+            "wire compression on the TP trainer routes through the DP×TP "
+            "ring driver: set overlap_microbatches >= 1 "
+            f"(got wire={train_cfg.wire!r} with overlap_microbatches=0)")
+    if aggregation == "zero1" and ovl == 0:
+        raise ValueError(
+            "TP zero1 routes the data-axis sync through the ring driver: "
+            "set overlap_microbatches >= 1")
+    elastic = bool(resilience is not None and resilience.elastic)
+    if elastic and ovl >= 1:
+        raise ValueError(
+            "elastic mode does not compose with the DP×TP ring driver "
+            "(overlap_microbatches >= 1): its (data, model)-sharded ring "
+            "stacks have no cross-topology reshard rule yet — set "
+            "overlap_microbatches=0 (the fused dispatch paths, including "
+            "psa='int8_ef', are elastic)")
+    if elastic and train_cfg.numerics_every > 0:
+        raise ValueError("numerics_every does not compose with elastic "
+                         "mode yet")
+    if scale_hook is not None and not elastic:
+        raise ValueError("scale_hook requires resilience.elastic=True — "
+                         "capacity changes ride the elastic re-mesh "
+                         "machinery")
+    if resilience is not None and resilience.injit_guard:
+        raise ValueError("injit_guard is not fused into the TP step "
+                         "bodies — use the host StepGuard "
+                         "(ResilienceConfig.guard), which works at "
+                         "dispatch granularity under steps_per_dispatch")
+    if train_cfg.model < 2:
+        raise ValueError("the TP trainer needs model >= 2 "
+                         "(set TrainConfig.model); model=1 is the DP "
+                         "trainer's mesh")
+    if ovl >= 1:
+        tp._tp_overlap_setup_checks(train_cfg.wire, aggregation, psa,
+                                    model_cfg.n_layers,
+                                    {"data": train_cfg.data,
+                                     "model": train_cfg.model})
+    else:
+        tp._parse_psa(psa, model_cfg.n_layers)
+    if elastic:
+        raise NotImplementedError(
+            "train_llm_tp does not run these yet; see ROADMAP.md: "
+            "ResilienceConfig.elastic=True"
+            + (" and scale_hook" if scale_hook is not None else "")
+            + " (queue A item 8e (elastic re-mesh))")
+
+
+def _train_tp_rank(model_cfg, train_cfg, kwargs: dict, *, device):
+    """One rank of a ``train_llm_tp`` call that started its own ranks."""
+    return train_llm_tp(model_cfg, train_cfg, device=device, **kwargs)
+
+
+def train_llm_tp(model_cfg: Optional[LlamaConfig] = None,
+                 train_cfg: Optional[TrainConfig] = None, *,
+                 tokenizer=None,
+                 aggregation: str = "gradient",
+                 log_every: int = 100,
+                 log_fn: Callable[[str], None] = print,
+                 warmup_steps_excluded: int = 2,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 1000,
+                 loss_sink: Optional[Callable[[int, float], None]] = None,
+                 sink_every: int = 10,
+                 resilience: Optional[ResilienceConfig] = None,
+                 fault_plan=None,
+                 scale_hook=None,
+                 on_checkpoint=None,
+                 telemetry=None,
+                 device=None) -> LLMTrainReport:
+    """Train the tiny-Llama tensor(-and-data)-parallel on ``device``
+    (default CUDA; raises when no card is present). ``train_cfg.model``
+    picks the TP degree (the Megatron layout of ``parallel.tp``) and
+    ``data`` the data axis: ``data·model`` processes, rank ``d·model + m``
+    model shard m of data row d. With no process group the ranks start
+    (``distributed.run_ranks``) and rank 0's report comes back, as in
+    ``train_llm_dp``; inside a group its size must be ``data·model``.
+
+    Every rank initializes the whole model from ``train_cfg.seed`` (the DP
+    trainer's weights) and keeps its slices; each data row reads its own
+    stream (``shard_batches``, skip d·5000, the JAX trainer's data order)
+    and every model shard of the row the same one. Routing, JAX's:
+    ``overlap_microbatches`` = M >= 1 takes the DP×TP ring drivers
+    (``tp.make_tp_overlap_step`` / ``_multi_step``: ``wire``,
+    ``comm_buckets``, gradient or zero1), else the shared-body drivers
+    (``tp.make_tp_step`` / ``make_tp_multi_step``) with ``psa``;
+    ``steps_per_dispatch`` > 1 the K-step ones. ``numerics_every``: the
+    model-agreed summaries (``tp.make_tp_numerics``). The loop is
+    ``train_llm_dp``'s: checkpoints (rank 0 writes the merged JAX-layout
+    state, residuals stacked ``[n_data, tp, ...]``; each rank re-slices
+    on resume), the guard (its verdict summed over the model group),
+    faults, preemption, telemetry (manifest ``trainer="tp"``, rank 0).
+
+    Refused as the JAX trainer refuses them (``ValueError``, its texts):
+    ``model < 2``, ``dcn``/``wire_dcn``, ``accum_steps``, a ``wire``
+    without a ring, zero1 without a ring, ``comm_buckets`` without a ring,
+    ``injit_guard``, a bad ``psa`` and the ring's own checks. Elastic mode
+    (and ``scale_hook`` with it) raises ``NotImplementedError`` naming
+    ROADMAP.md."""
+    model_cfg = model_cfg or LlamaConfig()
+    train_cfg = train_cfg or TrainConfig()
+    _check_tp_options(model_cfg, train_cfg, aggregation, resilience,
+                      scale_hook)
+    world = train_cfg.data * train_cfg.model
+    if not dist.is_initialized():
+        kwargs = dict(tokenizer=tokenizer, aggregation=aggregation,
+                      log_every=log_every, log_fn=log_fn,
+                      warmup_steps_excluded=warmup_steps_excluded,
+                      checkpoint_dir=checkpoint_dir,
+                      checkpoint_every=checkpoint_every, loss_sink=loss_sink,
+                      sink_every=sink_every, resilience=resilience,
+                      fault_plan=fault_plan, telemetry=telemetry,
+                      on_checkpoint=on_checkpoint)
+        return dist.run_ranks(_train_tp_rank, world, model_cfg, train_cfg,
+                              kwargs, device=device)[0]
+    dev = dist.rank_device(device)
+    mesh = dist.tp_mesh(train_cfg.data, train_cfg.model)
+    measure = telemetry is not None     # every rank runs the comm probe
+    if dist.get_rank() != 0:
+        log_fn, loss_sink, telemetry = _quiet, None, None
+    tok = tokenizer or load_tokenizer()
+    model_cfg = model_cfg.replace(vocab_size=tok.vocab_size)
+    if train_cfg.remat:
+        model_cfg = model_cfg.replace(remat=True)
+    params = llama.init_llama(model_cfg,
+                              torch.Generator().manual_seed(train_cfg.seed),
+                              device="cpu").tree()
+    optimizer = _make_trainer_optimizer(train_cfg)
+    spd = train_cfg.steps_per_dispatch
+    ovl = train_cfg.overlap_microbatches
+    cb = train_cfg.comm_buckets
+    psa = train_cfg.psa
+    numerics = (tp.make_tp_numerics(params, mesh, psum_data=ovl >= 1)
+                if train_cfg.numerics_every > 0 else None)
+    if ovl >= 1:
+        make = (tp.make_tp_overlap_multi_step if spd > 1
+                else tp.make_tp_overlap_step)
+        state, step_fn = make(model_cfg, optimizer, mesh, params,
+                              aggregation=aggregation, wire=train_cfg.wire,
+                              overlap_microbatches=ovl, psa=psa,
+                              comm_buckets=cb, numerics=numerics,
+                              device=dev)
+    else:
+        make = tp.make_tp_multi_step if spd > 1 else tp.make_tp_step
+        state, step_fn = make(model_cfg, optimizer, mesh, params, psa=psa,
+                              batch_shape=(train_cfg.batch_size,
+                                           train_cfg.seq_len),
+                              numerics=numerics, device=dev)
+    del params
+    step_fn = introspect.watch(
+        step_fn,
+        name="train/tp"
+             + (f"-psa-{psa.replace(':', '')}" if psa else "")
+             + (f"-{aggregation}" if aggregation != "gradient" else "")
+             + (f"-k{spd}" if spd > 1 else "")
+             + (f"-ring{train_cfg.wire}-m{ovl}" if ovl else "")
+             + (f"-b{cb}" if cb > 1 else ""),
+        max_caches=(1 if spd == 1 else None),
+        events=(telemetry.events if telemetry is not None else None),
+        meta={"steps_per_dispatch": spd},
+        meta_fn=(None if spd == 1 else
+                 (lambda st, w: {"steps_per_dispatch": int(w.shape[0])})))
+    compile_watch = step_fn
+    stats = ResilienceStats()
+    ckpt, state, start_step, done = _setup_checkpoint(
+        checkpoint_dir, state, train_cfg.iters, log_fn,
+        resilience=resilience, stats=stats)
+    if done:
+        return LLMTrainReport(start_step=start_step, resilience=stats)
+    _emit_manifest(telemetry, measure=measure, model_cfg=model_cfg,
+                   train_cfg=train_cfg, start_step=start_step,
+                   step_fn=compile_watch._fn, state=state,
+                   n_data=mesh.data, device=dev, steps_per_dispatch=spd,
+                   trainer="tp", mesh=mesh.shape,
+                   overlap_microbatches=max(1, ovl))
+    step_fn = _apply_resilience(
+        step_fn, resilience, fault_plan, ckpt, stats, group=mesh.model_group,
+        shared=[not s for s in tree_leaves(tp._sharded_mask(state.params))])
     batches = shard_batches(tok, train_cfg.batch_size, train_cfg.seq_len,
                             mesh.d, shard_skip=5000, seed=train_cfg.seed)
     return _run_loop(

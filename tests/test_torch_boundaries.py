@@ -14,12 +14,13 @@ from ddl25spring_tpu_torch import bench_utils, convert, fl
 from ddl25spring_tpu_torch.config import (FLConfig, LlamaConfig,
                                           ResilienceConfig, TrainConfig)
 from ddl25spring_tpu_torch.experiments import (comm_wire_smoke, fleet_smoke,
-                                               memory_smoke, serving_bench)
+                                               memory_smoke, serving_bench,
+                                               tp_fusion_smoke)
 from ddl25spring_tpu_torch.models import generate, llama, mnist_cnn
 from ddl25spring_tpu_torch.ops import pallas_adam
 from ddl25spring_tpu_torch.ops.adam import fused_adam
 from ddl25spring_tpu_torch.parallel import (compress, distributed, pp,
-                                            programs)
+                                            programs, tp)
 from ddl25spring_tpu_torch.resilience import (Autoscaler, AutoscalePolicy,
                                               FaultPlan, measure_overhead,
                                               router_ttft_p95)
@@ -67,6 +68,8 @@ def test_the_scan_sees_every_port_module():
                  "ddl25spring_tpu_torch/ops/flash_attention.py",
                  "ddl25spring_tpu_torch/serving/engine.py",
                  "ddl25spring_tpu_torch/train/llm.py",
+                 "ddl25spring_tpu_torch/parallel/tp.py",
+                 "ddl25spring_tpu_torch/experiments/tp_fusion_smoke.py",
                  "ddl25spring_tpu_torch/ops/pallas_adam.py",
                  "ddl25spring_tpu_torch/models/mnist_cnn.py",
                  "ddl25spring_tpu_torch/data/mnist.py",
@@ -181,6 +184,15 @@ ENTRY_POINTS = {
                          overlap_microbatches=1),
         tokenizer=ByteTokenizer()),
     "comm_wire_smoke": lambda: comm_wire_smoke.main(["--out", "unused.json"]),
+    "tp_mesh": lambda: tp.init_state(distributed.tp_mesh(1, 1), _model(),
+                                     fused_adam(1e-3)),
+    "make_tp_step": lambda: tp.make_tp_step(
+        CFG, fused_adam(1e-3), distributed.tp_mesh(1, 1), _model()),
+    "time_tp_train_step": lambda: bench_utils.time_tp_train_step(
+        distributed.tp_mesh(1, 1), CFG, 1),
+    "train_llm_tp": lambda: llm.train_llm_tp(
+        CFG, TrainConfig(iters=1, model=2), tokenizer=ByteTokenizer()),
+    "tp_fusion_smoke": lambda: tp_fusion_smoke.main(["--out", "unused.json"]),
     "pallas_adam.smoke_check": lambda: pallas_adam.smoke_check(),
     "mnist_cnn.init": lambda: mnist_cnn.init(torch.Generator()),
     "mnist_params_from_jax": lambda: convert.mnist_params_from_jax(

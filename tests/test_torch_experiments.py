@@ -15,7 +15,8 @@ import torch
 
 from ddl25spring_tpu.telemetry.events import read_events, validate_event
 from ddl25spring_tpu_torch.experiments import (comm_wire_smoke, fleet_smoke,
-                                               memory_smoke, serving_bench)
+                                               memory_smoke, serving_bench,
+                                               tp_fusion_smoke)
 from ddl25spring_tpu_torch.serving import TrafficClass, class_slos
 from experiments import slo_monitor
 from experiments.trace_export import chrome_trace
@@ -132,3 +133,20 @@ def test_comm_wire_smoke_on_the_cpu(tmp_path):
     assert ev["m1_b8"]["first_hop_independent"]
     assert ev["m2_b1"]["first_hop_independent"]
     assert not ev["m1_b1"]["first_hop_independent"]
+
+
+def test_tp_fusion_smoke_on_the_cpu(tmp_path):
+    """The twin at its quick size (four gloo ranks, 2 × 2, K = 2): the
+    relaxed PSA modes under their budgets and below full sync, the ring
+    accounting exact, no retrace, the trainer's windows stamped."""
+    out = tmp_path / "tp-fusion.json"
+    rc = tp_fusion_smoke.main(["--device", "cpu", "--quick", "--out",
+                               str(out)])
+    with open(out) as f:
+        res = json.load(f)
+    assert rc == 0 and res["ok"], {k: v["ok"] for k, v in
+                                   res["checks"].items()}
+    modes = res["checks"]["psa_wire_budget"]["modes"]
+    assert modes["full"]["measured"] == modes["full"]["budget"]
+    assert modes["int8_ef"]["reduction_vs_full"] < 0.3
+    assert res["checks"]["tp_ring_analytic"]["ok"]

@@ -7,6 +7,8 @@ plain version on both sides here (the CPU); the flash backward is held
 against JAX's Pallas kernels in ``test_torch_flash_attention.py`` and the
 CUDA kernels against their plain versions by ``chip_smoke.py``."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -165,24 +167,32 @@ def test_guard_nonfinite_skips_the_step():
     assert torch.isfinite(loss) and int(state.step) == 2
 
 
-@pytest.mark.parametrize("field,value", [
-    ("model", 2), ("seq", 2), ("psa", "ag")])
+@pytest.mark.parametrize("field,value", [("seq", 2)])
 def test_train_llm_dp_names_roadmap_for_what_it_does_not_run(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llm.train_llm_dp(LlamaConfig(**SMALL),
                          TrainConfig(**{field: value}), device="cpu")
 
 
-def test_train_llm_dp_ignores_stage_as_the_jax_trainer_does():
-    """The JAX DP trainer builds a ``data``-only mesh and reads ``stage``
-    nowhere (``train_llm_pp`` runs pipelines): so does the port's."""
+@functools.lru_cache(maxsize=None)
+def _dp_run(field=None, value=None):
     cfg = dict(dmodel=32, num_heads=2, n_layers=2, ctx_size=16)
-    runs = [llm.train_llm_dp(LlamaConfig(**cfg),
-                             TrainConfig(iters=2, batch_size=2, seq_len=16,
-                                         stage=stage),
-                             tokenizer=ByteTokenizer(), log_every=0,
-                             device="cpu") for stage in (1, 2)]
-    assert runs[0].losses == runs[1].losses and len(runs[0].losses) == 2
+    extra = {} if field is None else {field: value}
+    return llm.train_llm_dp(LlamaConfig(**cfg),
+                            TrainConfig(iters=2, batch_size=2, seq_len=16,
+                                        **extra),
+                            tokenizer=ByteTokenizer(), log_every=0,
+                            device="cpu").losses
+
+
+@pytest.mark.parametrize("field,value", [
+    ("stage", 2), ("model", 2), ("psa", "ag")])
+def test_train_llm_dp_ignores_stage_as_the_jax_trainer_does(field, value):
+    """The JAX DP trainer builds a ``data``-only mesh and reads ``stage``,
+    ``model`` and ``psa`` nowhere (``train_llm_pp`` runs pipelines,
+    ``train_llm_tp`` tensor parallelism): so does the port's."""
+    runs = [_dp_run(), _dp_run(field, value)]
+    assert runs[0] == runs[1] and len(runs[0]) == 2
 
 
 def test_eval_llm_reports_a_finite_loss():
