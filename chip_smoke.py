@@ -259,6 +259,32 @@ Phases, each of which raises on failure (exit code 1, no result line):
              ``data=2, model=2, overlap_microbatches=2, wire="int8_ef"``
              under zero1: losses finite and falling, the manifest's model
              axis, no retrace.
+17. sp/ep — sequence and expert parallelism, four ranks on the card over
+             gloo (``programs.phase17``): a. the fp32 SP forward and step
+             (one SGD step at lr 1024) of the canonical model at B=2,
+             T=1024 at ring 2, ring 4 and data=2 x seq=2 (B=4) against a
+             world of one (plain attention): logits within 1e-4, loss
+             within 1e-5, every gradient leaf within 1e-4 of its largest
+             entry, every rank's parameters bitwise the same; b. the bf16
+             SP step at ring 4 timed in turns with the world of one (plain
+             and flash attention), one ring hop of K and V, the
+             ``ring_kv_hop`` bytes per step exactly 14,155,776, each rank's
+             peak allocated bytes over one step at T=4096, ring 4, 2 and 1
+             (the ``sp_bench`` twin at full width), falling with the ring;
+             c. the fp32 MoE (8 experts, top-2, capacity factor 1.25) at
+             B=8 per data row x 256, expert 2, expert 4 and data=2 x
+             expert=2 against the unsharded model: ``ep_forward``'s logits
+             and aux, one step's loss and every gradient leaf (the bars of
+             a), the routing's digest equal on every rank of a row, the
+             dropped share of token slots; d. the bf16 EP step at expert 2
+             (``optimizer="pallas"``) timed in turns with the unsharded
+             step: launches 6/6/6/1 per rank per step, one combine sum and
+             the replicated-gradient sum (20,440,224 fp32) timed apart;
+             e. the ``longctx_bench`` twin at T=1024 (B=16) and T=4096
+             (B=4), flash and plain, each point in its own process: tok/s
+             and ms per step; K2, K5 and K6 at B=2, T=4096 against their
+             plain versions (phase 3's limits), timed beside SDPA and
+             their bounds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -2872,15 +2898,17 @@ TP_SHAPE = (32, 256, 3, 48)      # B, T, H per shard at model=2, Dh
 PSA_BYTES = {"full": 56_623_104, "defer:3": 9_437_184, "int8_ef": 28_311_600}
 
 
-def _tp_kernels(dev: torch.device, card: str) -> dict:
-    """Phase 16b: K2, K5 and K6 at the TP shape against their plain
-    versions (phase 3's limits), timed beside SDPA and their bounds."""
+def _attention_kernels(dev: torch.device, card: str, shape, seed: int,
+                       where: str) -> dict:
+    """K2, K5 and K6 at ``shape`` (B, T, H, Dh; bf16, dh-major, causal)
+    against their plain versions (phase 3's limits), timed beside SDPA and
+    their bounds; ``where`` names the phase's part in the lines."""
     from ddl25spring_tpu_torch.bench_utils import kernel_time_us as time_us
     from ddl25spring_tpu_torch.ops import flash_attention as fa
 
-    b, t, h, dh = TP_SHAPE
+    b, t, h, dh = shape
     gen = torch.Generator(device=dev)
-    gen.manual_seed(16)
+    gen.manual_seed(seed)
     q, k, v, do = (torch.randn(b, t, h, dh, generator=gen, device=dev
                                ).to(torch.bfloat16) for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True, dh_major=True)
@@ -2890,9 +2918,9 @@ def _tp_kernels(dev: torch.device, card: str) -> dict:
     lse_err = (lse - ref_lse).abs().max().item()
     tag = f"B={b} T={t} H={h} Dh={dh} bfloat16 dh_major=True causal=True"
     check(math.isfinite(err) and err <= TOL_OUT[torch.bfloat16],
-          f"16b flash_fwd out {tag}: max|d|={err:.3g}")
+          f"{where} flash_fwd out {tag}: max|d|={err:.3g}")
     check(math.isfinite(lse_err) and lse_err <= TOL_LSE,
-          f"16b flash_fwd lse {tag}: max|d|={lse_err:.3g}")
+          f"{where} flash_fwd lse {tag}: max|d|={lse_err:.3g}")
     ops = fa.kernel_operands(q, k, v, True)
     lse_buf = torch.empty(b * h, t, dtype=torch.float32, device=dev)
     fwd = {"max_abs_err": err, "lse_max_abs_err": lse_err,
@@ -2917,7 +2945,7 @@ def _tp_kernels(dev: torch.device, card: str) -> dict:
                                          .item() for g, r in zip(got, ref)]))
     for name, e in errs.items():
         check(math.isfinite(e) and e <= TOL_BWD[torch.bfloat16] * scale,
-              f"16b flash backward {name} {tag}: max|d|={e:.3g}")
+              f"{where} flash backward {name} {tag}: max|d|={e:.3g}")
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(
         b * h, t)
     bops = (q4, k4, v4, do.permute(0, 2, 1, 3))
@@ -2939,7 +2967,7 @@ def _tp_kernels(dev: torch.device, card: str) -> dict:
     for key, which in (("dq", "dq"), ("dkv", "dkv")):
         bwd[f"{key}_bound_us"], bwd[f"{key}_bound_by"] = \
             attention_bwd_bound_us(b, t, h, dh, torch.bfloat16, True, which)
-    print(f"16b K2 at the TP shape {tag}: max|d| out {err:.3g} lse "
+    print(f"{where} K2 {tag}: max|d| out {err:.3g} lse "
           f"{lse_err:.3g}; kernel {fwd['kernel_us']:.1f} us, plain "
           f"{fwd['plain_us']:.1f}, sdpa {fwd['sdpa_us']:.1f}, bound "
           f"{fwd['bound_us']:.2f} ({fwd['bound_by']}); K5 dq max|d| "
@@ -2949,7 +2977,7 @@ def _tp_kernels(dev: torch.device, card: str) -> dict:
           f"{bwd['dkv_bound_us']:.2f}); plain backward "
           f"{bwd['plain_us']:.1f} us, sdpa backward {bwd['sdpa_bwd_us']:.1f}"
           f" us {card}")
-    return {"shape": list(TP_SHAPE), "fwd": fwd, "bwd": bwd}
+    return {"shape": list(shape), "fwd": fwd, "bwd": bwd}
 
 
 def _world_of_one(dev: torch.device, tokens: torch.Tensor) -> tuple:
@@ -2988,7 +3016,7 @@ def tp_phase(dev: torch.device, card: str) -> dict:
     one_losses = train_llm_dp(None, TrainConfig(
         iters=20, batch_size=4, optimizer="pallas"), log_every=0,
         device=dev).losses
-    kernels = _tp_kernels(dev, card)
+    kernels = _attention_kernels(dev, card, TP_SHAPE, 16, "16b")
     with tempfile.TemporaryDirectory() as tmp:
         two = distributed.run_ranks(programs.phase16_two, 2,
                                     toks[:4].numpy(), tmp, timeout=900)
@@ -3144,6 +3172,174 @@ def tp_phase(dev: torch.device, card: str) -> dict:
                         "model2_plain": r0["trainer_plain"],
                         "data2": q0["trainer"], "world_of_one": one_losses,
                         "vs_world_of_one": vs_one, "int8_vs_plain": int8_rel}}
+
+
+# ------------------------------------------------------------- phase 17
+
+# Phase 17 (sequence and expert parallelism): the fp32 steps against a
+# world of one at JAX's SP bars (tests/test_sp.py), the same for EP; the
+# ring's bytes exact; K2, K5 and K6 at the long-context shape.
+TOL_SP_LOGITS = 1e-4
+TOL_SP_LOSS = 1e-5
+TOL_SP_GRAD = 1e-4
+TOL_EP_AUX = 1e-6
+RING_KV_BYTES = 14_155_776   # 2 x (2·256·288·2 B) x ring 4 x 6 layers
+LONGCTX_SHAPE = (2, 4096, 6, 48)
+LONGCTX_GRID = [(1024, 16), (4096, 4)]
+EP_LAUNCHES = {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+               "adam": 1}
+
+
+def _held(label: str, res: dict, card: str) -> None:
+    """Hold one fp32 SP or EP layout of phase 17a / 17c to its bars and
+    print it."""
+    if "logits_abs_err" in res:
+        check(res["logits_abs_err"] <= TOL_SP_LOGITS, f"{label}: logits "
+              f"vs the world of one max|d|={res['logits_abs_err']:.3g}")
+    if "aux_abs_err" in res:
+        check(res["aux_abs_err"] <= TOL_EP_AUX, f"{label}: aux vs the "
+              f"unsharded model |d|={res['aux_abs_err']:.3g}")
+    check(res["loss_abs_err"] <= TOL_SP_LOSS, f"{label}: loss vs the world "
+          f"of one |d|={res['loss_abs_err']:.3g}")
+    check(res["grad_rel_err"] <= TOL_SP_GRAD, f"{label}: gradient vs the "
+          f"world of one max|d|/max|ref|={res['grad_rel_err']:.3g}")
+    print(f"{label}: loss {res['loss']:.6f} vs {res['ref_loss']:.6f} |d| "
+          f"{res['loss_abs_err']:.3g}, gradient (one SGD step at lr 1024) "
+          f"max|d|/max|ref| {res['grad_rel_err']:.3g}"
+          + (f", logits max|d| {res['logits_abs_err']:.3g}"
+             if "logits_abs_err" in res else "")
+          + (f", aux |d| {res['aux_abs_err']:.3g}, routing as the "
+             f"unsharded model's: {res['route_equals_unsharded']}, dropped "
+             f"slots per layer {[round(x, 4) for x in res['dropped_share']]}"
+             if "aux_abs_err" in res else "") + f" {card}")
+
+
+def sp_ep_phase(dev: torch.device, card: str) -> dict:
+    """Phase 17: four ranks on the card (``programs.phase17``) for
+    sequence and expert parallelism against worlds of one computed in the
+    ranks, then the long-context twin and the kernels at T = 4096 here.
+    Raises on a failed check; returns the numbers for the JSON record."""
+    from ddl25spring_tpu_torch.experiments import longctx_bench
+    from ddl25spring_tpu_torch.parallel import distributed, programs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks and the longctx points share the card
+    g17 = torch.Generator()
+    g17.manual_seed(17)
+    sp_toks = torch.randint(0, 32000, (4, 1024), generator=g17)
+    ep_toks = torch.randint(0, 32000, (16, 256), generator=g17)
+    ranks = distributed.run_ranks(programs.phase17, 4, sp_toks.numpy(),
+                                  ep_toks.numpy(), timeout=900)
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    out = {"ranks_seconds": ranks_s,
+           "parts_seconds": {k: r0[f"{k}_seconds"] for k in (
+               "sp_check", "sp_time", "sp_peaks", "ep_check", "ep_time")}}
+
+    # a. SP fp32 against the world of one -----------------------------------
+    for name, res in r0["sp_check"].items():
+        for rk in ranks:
+            check(rk["sp_check"][name]["replicas_bitwise"], f"17a SP {name}: "
+                  f"rank {rk['rank']}'s parameters differ after the step")
+        _held(f"17a SP {name} fp32 T=1024", res, card)
+    out["sp_check"] = r0["sp_check"]
+
+    # b. SP bf16 ring 4: time, hop, bytes, peaks ----------------------------
+    grid = r0["sp_time"]["grid"]
+    cell = grid["sp ring 4"]
+    hop = cell["comm"]["collectives"]["ring_kv_hop"]
+    check(hop["payload_bytes"] == RING_KV_BYTES, f"17b ring_kv_hop bytes per "
+          f"step {hop['payload_bytes']}, analytic {RING_KV_BYTES}")
+    check(cell["replicas_bitwise"], "17b SP ring 4: the ranks' parameters "
+          "differ")
+    for name, c in grid.items():
+        check(math.isfinite(c["last_loss"]), f"17b {name}: loss "
+              f"{c['last_loss']}")
+        print(f"17b {name:>18} bf16 B=2 x 1024: {c['ms_per_step']:8.2f} ms "
+              f"per step ({[round(x, 2) for x in c['ms']]}, in turns), "
+              f"launches per rank per step {c['launches']} {card}")
+    one_ms = grid["world of one"]["ms_per_step"]
+    print(f"17b SP ring 4 {cell['ms_per_step'] / one_ms:.2f}x the plain "
+          f"world of one; ring_kv_hop {hop['payload_bytes']} B in "
+          f"{hop['calls']} sends per step per rank (exact); one hop of K and "
+          f"V ({r0['sp_time']['hop_bytes']} B bf16) "
+          f"{r0['sp_time']['hop_ms']:.3f} ms (median of 20), the fp32 "
+          f"gradient sum over the ring {r0['sp_time']['grad_sum_ms']:.2f} ms "
+          f"(median of 3) {card}")
+    peaks = {name: [rk["sp_peaks"][name]["peak_bytes"] for rk in ranks
+                    if name in rk["sp_peaks"]]
+             for name in ("ring1", "ring2", "ring4")}
+    top = {k: max(v) for k, v in peaks.items()}
+    check(top["ring4"] < top["ring2"] < top["ring1"], f"17b peak bytes per "
+          f"rank do not fall with the ring: {top}")
+    losses = [r0["sp_peaks"][k]["loss"] for k in ("ring1", "ring2", "ring4")]
+    print(f"17b sp_bench twin, full width bf16 T=4096 B=2: peak allocated per "
+          f"rank ring 1 {top['ring1'] / 1e9:.3f} GB, ring 2 "
+          f"{top['ring2'] / 1e9:.3f} GB, ring 4 {top['ring4'] / 1e9:.3f} GB "
+          f"(above the state: "
+          + ", ".join(f"{k} {max(rk['sp_peaks'][k]['step_bytes'] for rk in ranks if k in rk['sp_peaks']) / 1e9:.3f}"
+                      for k in ("ring1", "ring2", "ring4"))
+          + f" GB); losses {[round(x, 5) for x in losses]} {card}")
+    out.update(sp_time={"grid": grid, "hop_ms": r0["sp_time"]["hop_ms"],
+                        "hop_bytes": r0["sp_time"]["hop_bytes"],
+                        "grad_sum_ms": r0["sp_time"]["grad_sum_ms"],
+                        "ring_kv_hop_bytes": hop["payload_bytes"]},
+               sp_peaks={"peak_bytes": peaks, "losses": losses,
+                         "step_bytes": {k: [rk["sp_peaks"][k]["step_bytes"]
+                                            for rk in ranks
+                                            if k in rk["sp_peaks"]]
+                                        for k in peaks}})
+
+    # c. EP fp32 against the unsharded model --------------------------------
+    for name, res in r0["ep_check"].items():
+        rows = {}
+        for rk in ranks:
+            row = rk["rank"] // 2 if name == "d2e2" else 0
+            rows.setdefault(row, set()).add(rk["ep_check"][name]["route_digest"])
+        check(all(len(v) == 1 for v in rows.values()), f"17c EP {name}: "
+              f"the ranks of a row routed differently: {rows}")
+        _held(f"17c EP {name} fp32 B=8 per row x 256", res, card)
+    out["ep_check"] = r0["ep_check"]
+
+    # d. EP bf16 expert 2 ----------------------------------------------------
+    egrid = r0["ep_time"]["grid"]
+    for rk in ranks[:2]:
+        got = rk["ep_time"]["grid"]["ep expert 2"]["launches"]
+        check(got == EP_LAUNCHES, f"17d EP expert 2 rank {rk['rank']}: "
+              f"launches per step {got}, expected {EP_LAUNCHES}")
+    e2, un = egrid["ep expert 2"], egrid["unsharded"]
+    check(math.isfinite(e2["last_loss"]), f"17d EP loss {e2['last_loss']}")
+    print(f"17d EP expert 2 bf16 B=8 x 256 (pallas optimizer): "
+          f"{e2['ms_per_step']:.2f} ms per step ({[round(x, 2) for x in e2['ms']]}"
+          f") against the unsharded step's {un['ms_per_step']:.2f} "
+          f"({e2['ms_per_step'] / un['ms_per_step']:.2f}x, in turns); launches "
+          f"per rank per step {e2['launches']} (unsharded {un['launches']}); "
+          f"one combine sum ({r0['ep_time']['combine_bytes']} B bf16, staged "
+          f"in fp32) {r0['ep_time']['combine_ms']:.2f} ms, the replicated "
+          f"sum ({r0['ep_time']['replicated_elements']} fp32) "
+          f"{r0['ep_time']['replicated_sum_ms']:.2f} ms (medians) {card}")
+    out["ep_time"] = {k: v for k, v in r0["ep_time"].items()}
+
+    # e. long context ----------------------------------------------------------
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lc = longctx_bench.run(os.path.join(tmp, "longctx.json"),
+                               LONGCTX_GRID, list(longctx_bench.VARIANTS),
+                               steps=5)
+    for row in lc["rows"]:
+        check(row["tokens_per_sec"] > 0 and math.isfinite(row["step_ms"]),
+              f"17e longctx {row}")
+        print(f"17e longctx T={row['seq']} B={row['batch']} "
+              f"{row['variant']:5s}: {row['tokens_per_sec']:.0f} tok/s, "
+              f"{row['step_ms']:.2f} ms per step {card}")
+    out["longctx"] = lc["rows"]
+    out["longctx_seconds"] = time.perf_counter() - t1
+    out["kernels"] = _attention_kernels(dev, card, LONGCTX_SHAPE, 17, "17e")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"sp/ep phase: {out['seconds']:.1f} s (ranks {ranks_s:.1f}, "
+          f"longctx {out['longctx_seconds']:.1f}) {card}")
+    return out
 
 
 def main() -> int:
@@ -3737,6 +3933,9 @@ def main() -> int:
     # 16. tensor parallelism, 2 and 2 x 2 ranks --------------------------
     tp_report = tp_phase(dev, card)
 
+    # 17. sequence and expert parallelism, four ranks; long context -------
+    spep_report = sp_ep_phase(dev, card)
+
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
     path_counts = {"forward (phase 4)": {"flash_fwd": main_launches},
@@ -3792,6 +3991,12 @@ def main() -> int:
                        "launches"],
                    "train_llm_tp data=2 model=2 M=2 zero1 (phase 16f), per "
                    "rank per step": tp_report["trainer"]["data2"][
+                       "launches"],
+                   "sp ring 4 bf16 B=2 x 1024 (phase 17b), per rank per "
+                   "step": spep_report["sp_time"]["grid"]["sp ring 4"][
+                       "launches"],
+                   "ep expert=2 bf16 B=8 x 256 (phase 17d), per rank per "
+                   "step": spep_report["ep_time"]["grid"]["ep expert 2"][
                        "launches"]}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
@@ -3843,28 +4048,29 @@ def main() -> int:
         "design": DESIGN["adam"],
         "times_cover": f"one train step: {len(leaves)} leaves, "
                        f"{n_adam} elements, one launch"})
-    # K2, K5 and K6 at a TP shard's shape (phase 16b).
-    for kern, part in zip(kernels[:3], ("fwd", "dq", "dkv")):
-        k16 = tp_report["kernels"]
-        if part == "fwd":
-            f16 = k16["fwd"]
-            kern["tp_shape"] = {
-                "shape": k16["shape"], "ms": f16["kernel_us"] / 1e3,
-                "bound_ms": f16["bound_us"] / 1e3,
-                "bound_by": f16["bound_by"],
-                "plain_ms": f16["plain_us"] / 1e3,
-                "library_ms": f16["sdpa_us"] / 1e3,
-                "max_abs_err": f16["max_abs_err"],
-                "lse_max_abs_err": f16["lse_max_abs_err"]}
-        else:
-            b16 = k16["bwd"]
-            kern["tp_shape"] = {
-                "shape": k16["shape"], "ms": b16[f"{part}_us"] / 1e3,
-                "bound_ms": b16[f"{part}_bound_us"] / 1e3,
-                "bound_by": b16[f"{part}_bound_by"],
-                "plain_ms": b16["plain_us"] / 1e3,
-                "library_ms": b16["sdpa_bwd_us"] / 1e3,
-                "max_abs_err": b16["max_abs_err"]}
+    # K2, K5 and K6 at a TP shard's shape (phase 16b) and at the long
+    # context's (phase 17e).
+    for key, rep in (("tp_shape", tp_report), ("longctx_shape", spep_report)):
+        k16 = rep["kernels"]
+        f16, b16 = k16["fwd"], k16["bwd"]
+        for kern, part in zip(kernels[:3], ("fwd", "dq", "dkv")):
+            if part == "fwd":
+                kern[key] = {
+                    "shape": k16["shape"], "ms": f16["kernel_us"] / 1e3,
+                    "bound_ms": f16["bound_us"] / 1e3,
+                    "bound_by": f16["bound_by"],
+                    "plain_ms": f16["plain_us"] / 1e3,
+                    "library_ms": f16["sdpa_us"] / 1e3,
+                    "max_abs_err": f16["max_abs_err"],
+                    "lse_max_abs_err": f16["lse_max_abs_err"]}
+            else:
+                kern[key] = {
+                    "shape": k16["shape"], "ms": b16[f"{part}_us"] / 1e3,
+                    "bound_ms": b16[f"{part}_bound_us"] / 1e3,
+                    "bound_by": b16[f"{part}_bound_by"],
+                    "plain_ms": b16["plain_us"] / 1e3,
+                    "library_ms": b16["sdpa_bwd_us"] / 1e3,
+                    "max_abs_err": b16["max_abs_err"]}
     print(json.dumps({"kernels": kernels, "launches_by_path": path_counts,
                       "train_step": {
                           "tokens_per_sec_wall": tok_s,
@@ -3879,7 +4085,7 @@ def main() -> int:
                       "dp": dp_report, "serving_ext": ext_report,
                       "resilience": res_report, "pp": pp_report,
                       "fleet": fleet_report, "comm": comm_report,
-                      "tp": tp_report,
+                      "tp": tp_report, "sp_ep": spep_report,
                       "adam_paired": adam_pairs, "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

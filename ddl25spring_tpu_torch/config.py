@@ -1,12 +1,14 @@
 """Configuration: the port's own copies of ``FLConfig``, ``LlamaConfig``,
-``TrainConfig``, ``ResilienceConfig``, ``VFLConfig`` and ``VAEConfig``.
+``MoEConfig``, ``TrainConfig``, ``ResilienceConfig``, ``VFLConfig`` and
+``VAEConfig``.
 
 Same fields and defaults as the JAX package's ``config.FLConfig`` (the
 homework-1 federated setting: N=100, C=0.1, B=100, E=1, lr 0.01, 10
 rounds), ``config.LlamaConfig`` (the canonical tiny-Llama: vocab 32000,
-dmodel 288, 6 heads of dim 48, 6 layers, ctx 256) and
-``config.TrainConfig``, ``config.VFLConfig`` (homework 2's split learning:
-4 parties, 300 epochs, batch 64, lr 1e-3) and ``config.VAEConfig`` (the
+dmodel 288, 6 heads of dim 48, 6 layers, ctx 256), ``config.MoEConfig``
+(its Mixture-of-Experts variant: 8 experts, top-2, capacity factor 1.25)
+and ``config.TrainConfig``, ``config.VFLConfig`` (homework 2's split
+learning: 4 parties, 300 epochs, batch 64, lr 1e-3) and ``config.VAEConfig`` (the
 tabular VAE: hidden 50-12, latent 3, 200 epochs), so a config built for
 one package means the same model and run in the other. The port's trainer
 raises ``NotImplementedError`` for the ``TrainConfig`` fields it does not
@@ -16,7 +18,7 @@ run yet at a non-default value (``train.llm.unsupported_train_fields``).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import torch
@@ -85,6 +87,23 @@ class LlamaConfig:
         return self.ffn_hidden if self.ffn_hidden is not None else 4 * self.dmodel
 
     def replace(self, **kw) -> "LlamaConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-Experts tiny-Llama, field for field the JAX package's
+    ``MoEConfig``: every block's SwiGLU MLP becomes a bank of
+    ``n_experts`` routed top-``top_k``; attention and the embedding keep
+    ``base``'s shapes."""
+
+    base: LlamaConfig = field(default_factory=LlamaConfig)
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25  # expert capacity = ceil(N·k/E · factor)
+    aux_loss_coef: float = 0.01    # load-balance loss weight (Switch-style)
+
+    def replace(self, **kw) -> "MoEConfig":
         return dataclasses.replace(self, **kw)
 
 

@@ -1,7 +1,9 @@
 """Bridge between the JAX package's trees and the port's: the
 ``init_llama`` parameter tree and the port's ``Llama`` (a name-for-name
 copy of numpy arrays, with no transposes: both sides store weights
-``[in, out]`` with blocks stacked on ``[L]``), the MNIST CNN's tree (both
+``[in, out]`` with blocks stacked on ``[L]``), the MoE model's tree
+(``init_moe_llama``: the same, with the router and the expert bank; and
+an expert shard's slice of it), the MNIST CNN's tree (both
 sides store conv weights OIHW and dense weights ``[in, out]``), the
 tabular trees (the classifier, the VAE's parameters and BatchNorm state,
 VFL and VFL-VAE: the same lists and dicts of ``{"w" [in, out], "b" [out]}``
@@ -18,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import LlamaConfig
+from .config import LlamaConfig, MoEConfig
 from .device import resolve_device
 from .models.llama import Llama, as_tree
 from .ops.adam import FusedAdamState
@@ -33,6 +35,20 @@ def _expected_shapes(cfg: LlamaConfig) -> dict:
                   w_gate=(n, d, f), w_up=(n, d, f), w_down=(n, f, d))
     return {"embed": (v, d), "blocks": blocks, "final_norm": {"scale": (d,)},
             "lm_head": (d, v)}
+
+
+def _moe_expected_shapes(cfg: MoEConfig) -> dict:
+    base = cfg.base
+    d, f, e, n = base.dmodel, base.ffn_dim, cfg.n_experts, base.n_layers
+    shapes = _expected_shapes(base)
+    shapes["blocks"].update(router=(n, d, e), w_gate=(n, e, d, f),
+                            w_up=(n, e, d, f), w_down=(n, e, f, d))
+    return shapes
+
+
+# The expert bank's leaves: sliced on their ``[E]`` axis (dim 1 after the
+# stacked-layer dim) under expert parallelism.
+MOE_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 _MNIST_SHAPES = {
@@ -76,6 +92,36 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> Llama:
     dev = resolve_device(device)
     _check_tree(tree, _expected_shapes(cfg))
     return Llama(cfg, tree_map(lambda x: _to_torch(x).to(dev), tree))
+
+
+def moe_params_from_jax(tree: dict, cfg: MoEConfig, device=None, *,
+                        expert_shard=None) -> dict:
+    """JAX ``init_moe_llama`` tree (numpy arrays, or anything
+    ``np.asarray`` takes) → the port's MoE tree on ``device``, dtypes
+    kept. Raises on a tree that does not fit ``cfg`` (router ``[L, D,
+    E]``, experts ``[L, E, D, F]`` / ``[L, E, F, D]``). ``expert_shard =
+    (ep, index)``: the expert leaves keep shard ``index``'s ``E/ep``
+    experts only (expert parallelism's slice of the bank)."""
+    dev = resolve_device(device)
+    _check_tree(tree, _moe_expected_shapes(cfg))
+    out = tree_map(lambda x: _to_torch(x).to(dev), tree)
+    if expert_shard is not None:
+        ep, index = expert_shard
+        if cfg.n_experts % ep:
+            raise ValueError(f"{cfg.n_experts} experts do not split over an "
+                             f"expert axis of {ep}")
+        per = cfg.n_experts // ep
+        for name in MOE_EXPERT_LEAVES:
+            out["blocks"][name] = out["blocks"][name][
+                :, index * per:(index + 1) * per].clone()
+    return out
+
+
+def moe_params_to_numpy(params: dict, cfg: MoEConfig) -> dict:
+    """The port's whole MoE tree → nested dict of numpy arrays in the JAX
+    tree's layout, checked against ``cfg``."""
+    _check_tree(params, _moe_expected_shapes(cfg))
+    return tree_map(_to_numpy, params)
 
 
 def mnist_params_from_jax(tree: dict, device=None) -> dict:

@@ -197,12 +197,15 @@ def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention(block: dict, x: torch.Tensor, cfg: LlamaConfig,
               cos: torch.Tensor, sin: torch.Tensor,
-              tp_sum: Optional[Callable] = None) -> torch.Tensor:
+              tp_sum: Optional[Callable] = None,
+              attn_fn: Optional[Callable] = None) -> torch.Tensor:
     """Causal self-attention of ``x [B, T, D]``. Under tensor parallelism
     the block holds this shard's columns of wq/wk/wv and rows of wo: its
     ``H/tp`` heads run end to end and ``tp_sum`` (the JAX ``lax.psum(·,
     tp_axis)``: a differentiable sum over the model axis) adds up the
-    partial ``wo`` outputs."""
+    partial ``wo`` outputs. ``attn_fn(q, k, v) -> out`` (all ``[B, T, H,
+    Dh]``, after RoPE) replaces the inner attention: the hook sequence
+    parallelism swaps ring attention in through."""
     b, t, _ = x.shape
     dh = cfg.head_dim
     q, k, v = qkv_proj(block, x, dh)
@@ -212,8 +215,10 @@ def attention(block: dict, x: torch.Tensor, cfg: LlamaConfig,
     if impl not in ("xla", "pallas", "auto"):
         raise ValueError(f"attention_impl must be 'xla', 'pallas' or 'auto', "
                          f"got {impl!r}")
-    if impl == "pallas" or (impl == "auto" and q.is_cuda
-                            and t >= cfg.flash_min_seq):
+    if attn_fn is not None:
+        out = attn_fn(q, k, v)
+    elif impl == "pallas" or (impl == "auto" and q.is_cuda
+                              and t >= cfg.flash_min_seq):
         if not q.is_cuda:
             raise RuntimeError(
                 "attention_impl='pallas' runs the CUDA flash kernel, but the "
@@ -244,10 +249,11 @@ def mlp(block: dict, x: torch.Tensor,
 
 def block_apply(block: dict, x: torch.Tensor, cfg: LlamaConfig,
                 cos: torch.Tensor, sin: torch.Tensor,
-                tp_sum: Optional[Callable] = None) -> torch.Tensor:
+                tp_sum: Optional[Callable] = None,
+                attn_fn: Optional[Callable] = None) -> torch.Tensor:
     x = x + attention(block, nn.rmsnorm(block["attn_norm"], x,
                                         eps=cfg.norm_eps), cfg, cos, sin,
-                      tp_sum)
+                      tp_sum, attn_fn)
     x = x + mlp(block, nn.rmsnorm(block["mlp_norm"], x, eps=cfg.norm_eps),
                 tp_sum)
     return x
@@ -267,7 +273,8 @@ def embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig
 
 def blocks_apply(blocks: dict, h: torch.Tensor, cfg: LlamaConfig,
                  positions: Optional[torch.Tensor] = None,
-                 tp_sum: Optional[Callable] = None) -> torch.Tensor:
+                 tp_sum: Optional[Callable] = None,
+                 attn_fn: Optional[Callable] = None) -> torch.Tensor:
     """Apply the stacked blocks in order (the JAX ``lax.scan``).
 
     ``cfg.remat`` (with autograd recording): each block runs under
@@ -278,7 +285,8 @@ def blocks_apply(blocks: dict, h: torch.Tensor, cfg: LlamaConfig,
     those of the plain path: the recomputation repeats the same operations
     on the same inputs (under tensor parallelism its sums too, in the same
     order on every shard). ``tp_sum``: a tensor-parallel shard's sum over
-    the model axis (``attention``, ``mlp``)."""
+    the model axis (``attention``, ``mlp``); ``attn_fn``: the inner
+    attention of every block (``attention``)."""
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
@@ -288,9 +296,10 @@ def blocks_apply(blocks: dict, h: torch.Tensor, cfg: LlamaConfig,
             # The block draws no random numbers: no RNG state to replay.
             h = torch.utils.checkpoint.checkpoint(
                 block_apply, layer(blocks, i), h, cfg, cos, sin, tp_sum,
-                use_reentrant=False, preserve_rng_state=False)
+                attn_fn, use_reentrant=False, preserve_rng_state=False)
         else:
-            h = block_apply(layer(blocks, i), h, cfg, cos, sin, tp_sum)
+            h = block_apply(layer(blocks, i), h, cfg, cos, sin, tp_sum,
+                            attn_fn)
     return h
 
 

@@ -41,6 +41,12 @@ the bytes of its operand in its own dtype. ``hier_data_mesh`` lays the
 ranks out as ``{"dcn": D, "data": S}`` islands (rank ``d·S + s``) with a
 gloo group per island and one per column.
 
+Sequence and expert parallelism lay the ranks on ``{"data": D, "seq":
+S}`` and ``{"data": D, "expert": E}`` meshes (``axis_mesh``: rank ``d·S +
+s``, a gloo group per data row and one per column); ring attention shifts
+K and V around the seq group with ``ppermute_ad``, a differentiable ring
+shift whose backward shifts the cotangents back.
+
 Pipeline parallelism lays the ranks on a ``{"data": D, "stage": S}``
 mesh in the JAX mesh's order (``pipeline_mesh``: rank ``d·S + s``), with
 a gloo group per data row (its stages) and one per stage (its data
@@ -400,6 +406,83 @@ def tp_mesh(data: int, model: int) -> TPMesh:
     return _TP[key]
 
 
+@dataclass(frozen=True)
+class AxisMesh:
+    """A ``{"data": data, axis: size}`` layout of the process group, in the
+    JAX mesh's order (data before seq and expert): rank ``r = d·size + i``
+    is index ``i`` along ``axis`` in data row ``d``. ``group`` joins this
+    data row's ranks along ``axis`` (the ring of sequence parallelism, the
+    expert bank's shards), ``data_group`` this index's replicas in every
+    data row (the gradient mean)."""
+
+    axis: str
+    data: int
+    size: int
+    d: int
+    i: int
+    group: Group
+    data_group: Group
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, self.axis: self.size}
+
+    def row(self) -> "AxisMesh":
+        """This data row alone, as a mesh of one data row: the same
+        ``axis`` group, no data axis (every row runs on its own)."""
+        return AxisMesh(self.axis, 1, self.size, 0, self.i, self.group,
+                        Group("data", (get_rank(),), 0))
+
+
+_AXIS: Dict[Tuple[str, int, int, int], AxisMesh] = {}
+
+
+def axis_mesh(axis: str, data: int, size: int) -> AxisMesh:
+    """This process's place on a ``data × size`` mesh over the process
+    group whose inner axis is ``axis`` (a world of one without a group),
+    with one gloo group per data row and one per column, made once per
+    process and layout. Every rank must call it (``dist.new_group`` is
+    collective). Raises unless the group has ``data·size`` ranks."""
+    n, rank = world_size(), get_rank()
+    if data < 1 or size < 1 or n != data * size:
+        raise ValueError(f"a data={data} x {axis}={size} mesh needs "
+                         f"{data * size} ranks, the process group has {n}")
+    key = (axis, data, size, id(dist.group.WORLD) if is_initialized() else 0)
+    if key not in _AXIS:
+        rows = [tuple(d * size + i for i in range(size)) for d in range(data)]
+        cols = [tuple(d * size + i for d in range(data)) for i in range(size)]
+        pgs = {}
+        for ranks in rows + cols:      # the same order on every rank
+            if len(ranks) > 1:
+                pgs[ranks] = dist.new_group(list(ranks), backend=BACKEND,
+                                            timeout=GROUP_TIMEOUT)
+        d, i = divmod(rank, size)
+        _AXIS[key] = AxisMesh(axis, data, size, d, i,
+                              Group(axis, rows[d], i, pgs.get(rows[d])),
+                              Group("data", cols[i], d, pgs.get(cols[i])))
+    return _AXIS[key]
+
+
+def seq_mesh(data: int, seq: int) -> AxisMesh:
+    """``axis_mesh("seq", data, seq)``: sequence parallelism's layout."""
+    return axis_mesh("seq", data, seq)
+
+
+def expert_mesh(data: int, expert: int) -> AxisMesh:
+    """``axis_mesh("expert", data, expert)``: expert parallelism's
+    layout."""
+    return axis_mesh("expert", data, expert)
+
+
+def local_mesh(axis: str) -> AxisMesh:
+    """A world of one on ``axis`` inside any process group: groups of this
+    rank alone, whose collectives start nothing (a reference computation
+    beside a mesh's)."""
+    me = (get_rank(),)
+    return AxisMesh(axis, 1, 1, 0, 0, Group(axis, me, 0),
+                    Group("data", me, 0))
+
+
 def data_group() -> Group:
     """Every rank of the process group as one ``data`` axis (a group of one
     without a process group)."""
@@ -534,6 +617,26 @@ def _sum_over(x: torch.Tensor, group: Group) -> torch.Tensor:
     return host.to(device=x.device, dtype=x.dtype)
 
 
+def psum_each(tensors: List[torch.Tensor], group: Group, *,
+              label: str) -> List[torch.Tensor]:
+    """Each tensor's sum over ``group``, recorded as its own ``psum``
+    under ``label`` (the JAX package's per-leaf call), all carried by one
+    sum per dtype over their concatenation (``_sum_over``)."""
+    for x in tensors:
+        _record("psum", label, x, group)
+    if group.size == 1:
+        return list(tensors)
+    out: List[torch.Tensor] = [None] * len(tensors)
+    for dtype in dict.fromkeys(x.dtype for x in tensors):
+        ids = [i for i, x in enumerate(tensors) if x.dtype == dtype]
+        flat = _sum_over(torch.cat([tensors[i].reshape(-1) for i in ids]),
+                         group)
+        for i, piece in zip(ids, flat.split([tensors[i].numel()
+                                             for i in ids])):
+            out[i] = piece.view(tensors[i].shape)
+    return out
+
+
 class _PsumAD(torch.autograd.Function):
     """``lax.psum`` over a ``Group`` as autograd sees it under
     ``shard_map(check_vma=False)``: forward and backward are both the
@@ -648,10 +751,11 @@ def barrier(device) -> None:
 # (op ``ppermute``, the JAX package's, on the group's axis).
 
 def isend(x: torch.Tensor, to: int, *, tag: int, label: str,
-          group: Group) -> Callable[[], None]:
+          group: Group, record: bool = True) -> Callable[[], None]:
     """Post an asynchronous send of ``x`` to ``group.ranks[to]`` with
     ``tag``; returns the wait, which holds the staged copy alive."""
-    _record("ppermute", label, x, group)
+    if record:
+        _record("ppermute", label, x, group)
     host = x.detach().to("cpu").contiguous()
     work = dist.isend(host, group.ranks[to], group=group.pg, tag=tag)
 
@@ -708,6 +812,60 @@ def ppermute(x: torch.Tensor, *, label: str, group: Group) -> torch.Tensor:
                 group=group, device=x.device)()
     wait_send()
     return got.reshape(shape)
+
+
+def _ring_exchange(xs: Tuple[torch.Tensor, ...], group: Group, step: int,
+                   tag: int) -> Tuple[torch.Tensor, ...]:
+    """Send each of ``xs`` to index ``i + step`` of ``group`` and receive
+    the same shapes from ``i − step``, unrecorded: every send and receive
+    posted before any is waited on, tensor ``j`` under tag ``tag + j``."""
+    n, i = group.size, group.index
+    sends = [isend(x.reshape(-1), (i + step) % n, tag=tag + j, label="",
+                   group=group, record=False) for j, x in enumerate(xs)]
+    recvs = [irecv((i - step) % n, (x.numel(),), x.dtype, tag=tag + j,
+                   group=group, device=x.device) for j, x in enumerate(xs)]
+    got = tuple(wait().reshape(x.shape) for wait, x in zip(recvs, xs))
+    for wait in sends:
+        wait()
+    return got
+
+
+class _RingShiftAD(torch.autograd.Function):
+    """``lax.ppermute`` with ``perm = [(i, (i+1) % n)]`` as autograd sees
+    it: the forward shifts every tensor to the next index, the backward
+    shifts the cotangents back (the inverse permutation, ppermute's
+    transpose). The tensors travel in one node, so the backward's shifts
+    come in one order on every rank; the forward's and the backward's
+    hops carry tags of their own."""
+
+    @staticmethod
+    def forward(ctx, group, tag, *xs):
+        ctx.group, ctx.tag, ctx.n = group, tag, len(xs)
+        return _ring_exchange(xs, group, +1, tag)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        back = _ring_exchange(tuple(c.contiguous() for c in cts), ctx.group,
+                              -1, ctx.tag + ctx.n)
+        return (None, None) + back
+
+
+def ppermute_ad(xs: Tuple[torch.Tensor, ...], group: Group, *, label: str,
+                tag: int) -> Tuple[torch.Tensor, ...]:
+    """The ring shift of ``ppermute`` for several tensors at once,
+    differentiable: each tensor goes to index ``i + 1`` of ``group`` and
+    the tensors of ``i − 1`` come back; the gradient shifts the
+    cotangents the other way. Each forward send is recorded (op
+    ``ppermute``, its bytes in its own dtype, under ``label``); the
+    backward's never are, as the JAX package's trace-time accounting
+    cannot see autodiff's transposes. ``tag`` must differ between the
+    shifts of one step, by ``2·len(xs)`` at least: the forward uses ``tag
+    + j``, the backward ``tag + len(xs) + j``."""
+    for x in xs:
+        _record("ppermute", label, x, group)
+    if group.size == 1:
+        return tuple(xs)
+    return _RingShiftAD.apply(group, tag, *xs)
 
 
 class Hops:

@@ -987,16 +987,19 @@ def _replicas_equal(params, device) -> bool:
 
 def _time_cells(cells, batch, device, rounds: int = 3, steps: int = 3,
                 replicas: bool = True):
-    """Each cell ``name -> (state, step[, solo])`` warmed (its first call's
+    """Each cell ``name -> (state, step[, who])`` warmed (its first call's
     comm profile kept), then timed in turns: ``rounds`` rounds of
     ``steps`` steps per cell, the cell order rotating, each cell's
-    launches read per step. A ``solo`` cell (a world of one inside the
-    group) runs on rank 0 alone while the others wait. ``replicas``: each
+    launches read per step. ``who`` True makes a solo cell (a world of one
+    inside the group), run on rank 0 alone while the others wait; a tuple
+    of ranks runs the cell on those ranks alone. ``replicas``: each
     cell's parameters held bitwise across the ranks at the end. Returns
     ``(states, report)``."""
     names = list(cells)
-    solo = {k: len(cells[k]) > 2 and cells[k][2] for k in names}
-    mine = {k: dist.get_rank() == 0 or not solo[k] for k in names}
+    who = {k: cells[k][2] if len(cells[k]) > 2 else False for k in names}
+    solo = {k: who[k] is not False for k in names}
+    mine = {k: (dist.get_rank() in ((0,) if who[k] is True else who[k])
+                if solo[k] else True) for k in names}
     states = {k: cells[k][0] for k in names}
     report = {k: {"ms": [], "launches": None} for k in names}
     for k in names:
@@ -1653,4 +1656,454 @@ def phase16_four(tokens_check, directory: str, *, device) -> dict:
         iters=20, data=2, model=2, batch_size=4, overlap_microbatches=2,
         wire="int8_ef", optimizer="pallas"),
         os.path.join(directory, "tel16f4"), device, aggregation="zero1")
+    return out
+
+
+# ------------------------------------ sequence and expert parallelism
+
+def _axis_mesh(axis: str, data: int, size: int,
+               row: bool = False) -> dist.AxisMesh:
+    """The ``data × size`` mesh of ``axis``, or with ``row`` its data row
+    alone (every row runs on its own)."""
+    mesh = dist.axis_mesh(axis, data, size)
+    return mesh.row() if row else mesh
+
+
+def _case_mesh(case: dict) -> dist.AxisMesh:
+    return _axis_mesh(case["axis"], case["data"], case["size"],
+                      case.get("row", False))
+
+
+def _window(x, mesh: dist.AxisMesh, device) -> torch.Tensor:
+    """Seq shard ``mesh.i``'s window of a ``[B, T, ...]`` array, as a
+    tensor on ``device`` that requires grad."""
+    t = x.shape[1] // mesh.size
+    return torch.as_tensor(x[:, mesh.i * t:(mesh.i + 1) * t]).to(
+        device).requires_grad_()
+
+
+def _opt(case: dict):
+    name, lr = case.get("optimizer", "fused"), case.get("lr", 1e-3)
+    return sgd(lr) if name == "sgd" else make_optimizer(name, lr)
+
+
+def _steps(out: dict, state, step, mesh, case: dict, device):
+    """Run ``step`` over the case's global batches (this rank's data row
+    of each), keeping the losses and the first call's comm by label."""
+    from . import sp
+    out.update(losses=[], comm=None)
+    for batch in case["batches"]:
+        with collecting() as records:
+            state, loss = step(state, sp.shard_batch(mesh, batch, device))
+        if out["comm"] is None:
+            out["comm"] = CommProfile(list(records)).by_label()
+        out["losses"].append(float(loss))
+    out["params"] = convert.tree_to_numpy(state.params)
+    return out
+
+
+def _sp_case(case: dict, device) -> dict:
+    """One sequence-parallel case on this rank; see ``sp_cases``."""
+    from . import sp
+    mesh = _case_mesh(case)
+    out = {"rank": dist.get_rank(), "d": mesh.d, "i": mesh.i}
+    run = case["run"]
+    if run == "ring":
+        q, k, v = (_window(case[x], mesh, device) for x in "qkv")
+        with collecting() as records:
+            o = sp.ring_attention(q, k, v, mesh.group,
+                                  causal=case["causal"])
+        ct = torch.as_tensor(case["ct"][:, mesh.i * q.shape[1]:
+                                        (mesh.i + 1) * q.shape[1]])
+        grads = torch.autograd.grad(o, (q, k, v), ct.to(device))
+        out["out"] = o.detach().cpu().numpy()
+        out.update({f"d{x}": g.cpu().numpy() for x, g in zip("qkv", grads)})
+        out["comm"] = CommProfile(list(records)).by_label()
+        return out
+    cfg = LlamaConfig(**case["cfg"])
+    if run == "forward":
+        model = convert.params_from_jax(case["params"], cfg, device=device)
+        with torch.no_grad():
+            logits = sp.sp_forward(model, sp.shard_batch(
+                mesh, case["batches"][0], device), cfg, mesh)
+        out["logits"] = logits.cpu().numpy()
+        return out
+    opt = _opt(case)
+    state = sp.init_state(mesh, case["params"], opt, device)
+    return _steps(out, state, sp.make_sp_train_step(cfg, opt, mesh, device),
+                  mesh, case, device)
+
+
+def sp_cases(cases, *, device) -> list:
+    """Run each sequence-parallel case of ``cases`` on this rank and return
+    one dict per case, with this rank's data row ``d`` and seq index
+    ``i``. A case is a dict: ``axis`` "seq", ``data``, ``size``, ``row``
+    (optional: each data row on its own), ``run`` and its keys:
+    "ring" (``q``, ``k``, ``v``, ``ct`` global ``[B, T, H, Dh]`` arrays,
+    ``causal``) returns this shard's ``out`` and ``dq``/``dk``/``dv``
+    under the cotangent ``ct`` and the comm by label; "forward" (``cfg``,
+    ``params`` a JAX ``init_llama`` tree as numpy, ``batches``) returns
+    the row's logits of the first batch; "step" (also ``optimizer``,
+    ``lr``) runs ``make_sp_train_step`` over the batches and returns the
+    ``losses``, the first call's ``comm`` by label and the ``params``."""
+    return [_sp_case(case, device) for case in cases]
+
+
+def _ep_case(case: dict, device) -> dict:
+    """One expert-parallel case on this rank; see ``ep_cases``."""
+    from . import ep
+    from ..config import MoEConfig
+    mesh = _case_mesh(case)
+    out = {"rank": dist.get_rank(), "d": mesh.d, "i": mesh.i}
+    cfg = MoEConfig(base=LlamaConfig(**case["cfg"]), **case["moe"])
+    if case["run"] == "forward":
+        local = ep.shard_params(mesh, case["params"], device)
+        logits, aux = ep.ep_forward(local, torch.as_tensor(
+            case["batches"][0], device=device), cfg, mesh)
+        out.update(logits=logits.cpu().numpy(), aux=float(aux))
+        return out
+    opt = _opt(case)
+    state = ep.init_state(mesh, case["params"], opt, device)
+    return _steps(out, state, ep.make_ep_train_step(cfg, opt, mesh, device),
+                  mesh, case, device)
+
+
+def ep_cases(cases, *, device) -> list:
+    """Run each expert-parallel case of ``cases`` on this rank and return
+    one dict per case, with ``d`` and expert shard ``i``. A case is a
+    dict: ``axis`` "expert", ``data``, ``size``, ``row`` (optional),
+    ``cfg`` (``LlamaConfig`` fields of the base), ``moe`` (the other
+    ``MoEConfig`` fields), ``params`` (a JAX ``init_moe_llama`` tree as
+    numpy), ``batches``, ``run``: "forward" returns ``ep_forward``'s
+    ``logits`` and ``aux`` on the whole first batch; "step" (also
+    ``optimizer``, ``lr``) runs ``make_ep_train_step`` over the batches
+    (this rank's data row of each) and returns the ``losses``, the first
+    call's ``comm`` by label and this rank's ``params``."""
+    return [_ep_case(case, device) for case in cases]
+
+
+# --------------------------------------------- chip_smoke.py phase 17
+
+def _sgd_grads(step, state, batch, lr: float):
+    """One ``step`` (plain SGD at ``lr``) from ``state``: the loss and the
+    gradient leaves recovered from the update, and the new state."""
+    before = [p.detach().clone() for p in tree_leaves(state.params)]
+    state, loss = step(state, batch)
+    grads = [(b - a) / lr for b, a in zip(before,
+                                          tree_leaves(state.params))]
+    return float(loss), grads, state
+
+
+def _rel_errs(got, want) -> float:
+    """The largest of max|got − want| / max|want| over paired leaves."""
+    return max(float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max()) for g, w in zip(got, want))
+
+
+def _ref_grads(loss_fn, params, batches):
+    """The world of one's mean loss and gradient over equal-sized
+    ``batches`` (the data rows' mean)."""
+    leaves = tree_leaves(params)
+    loss, grads = 0.0, [torch.zeros_like(p) for p in leaves]
+    for b in batches:
+        l = loss_fn(params, b)
+        for acc, g in zip(grads, torch.autograd.grad(l, leaves)):
+            acc += g / len(batches)
+        loss += float(l.detach()) / len(batches)
+    return loss, grads
+
+
+def _timed_ms(fn, group_barrier, device, reps: int) -> float:
+    """The median host ms of ``reps`` calls of ``fn``, each started after
+    ``group_barrier()`` on an idle device and ended by a device sync."""
+    ms = []
+    for _ in range(reps):
+        group_barrier()
+        synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+# Phase 17's layouts over its four ranks: (data, size, each row alone).
+SP17_MESHES = {"ring2": (2, 2, True), "ring4": (1, 4, False),
+               "d2s2": (2, 2, False)}
+EP17_MESHES = {"expert2": (2, 2, True), "expert4": (1, 4, False),
+               "d2e2": (2, 2, False)}
+
+
+def _phase17_sp_check(tokens, device) -> dict:
+    """17a: the fp32 SP forward and step (SGD at lr 1024) of the canonical
+    model at T = 1024 on each layout against the world of one (plain
+    attention) computed here."""
+    from ..ops.losses import causal_lm_loss
+    from . import sp
+    cfg = LlamaConfig(ctx_size=tokens.shape[1], attention_impl="xla")
+    whole = llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                             device=device).tree()
+    toks = torch.as_tensor(tokens, device=device)
+    b = toks.shape[0] // 2
+    loss_fn = lambda p, x: causal_lm_loss(llama.forward(p, x, cfg), x)
+    out = {}
+    with fp32_products():
+        with torch.no_grad():
+            ref_logits = llama.forward(whole, toks[:b], cfg)
+        refs = {1: _ref_grads(loss_fn, whole, [toks[:b]]),
+                2: _ref_grads(loss_fn, whole, [toks[:b], toks[b:]])}
+        for name, spec in SP17_MESHES.items():
+            mesh = _axis_mesh("seq", *spec)
+            batch = toks[:b] if mesh.data == 1 else sp.shard_batch(mesh, toks,
+                                                                  device)
+            res = {}
+            if mesh.data == 1:
+                with torch.no_grad():
+                    logits = sp.sp_forward(whole, batch, cfg, mesh)
+                res["logits_abs_err"] = float((logits - ref_logits).abs()
+                                              .max())
+                del logits
+            opt = sgd(1024.0)
+            state = sp.init_state(mesh, whole, opt, device)
+            loss, grads, state = _sgd_grads(
+                sp.make_sp_train_step(cfg, opt, mesh, device), state, batch,
+                1024.0)
+            ref_loss, ref_grads = refs[mesh.data]
+            res.update(loss=loss, ref_loss=ref_loss,
+                       loss_abs_err=abs(loss - ref_loss),
+                       grad_rel_err=_rel_errs(grads, ref_grads),
+                       replicas_bitwise=_replicas_equal(state.params, device))
+            out[name] = res
+            del state, grads
+    return out
+
+
+def _phase17_sp_time(device) -> dict:
+    """17b: the bf16 SP step at ring 4 (B = 2, T = 1024, the "pallas"
+    optimizer) timed in turns with the world of one on rank 0 (plain and
+    flash attention), its launches and ``ring_kv_hop`` bytes per step, and
+    alone one ring hop of K and V and the fp32 gradient sum over the
+    ring."""
+    from . import sp
+    mesh = dist.seq_mesh(1, 4)
+    cfg = LlamaConfig(ctx_size=1024, dtype="bfloat16", attention_impl="xla")
+    whole = llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                             device="cpu").tree()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    batch = torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen,
+                          device=device)
+    cells = {}
+    for name, c in (("world of one", cfg),
+                    ("world of one flash", cfg.replace(
+                        attention_impl="pallas", flash_dh_major=True))):
+        if dist.get_rank() == 0:
+            one = llama.init_llama(c, torch.Generator().manual_seed(0),
+                                   device=device).tree()
+            opt = make_optimizer("pallas")
+            cells[name] = (dp.init_state(one, opt), _solo_step(c, opt), True)
+        else:
+            cells[name] = (None, None, True)
+    opt = make_optimizer("pallas")
+    cells["sp ring 4"] = (sp.init_state(mesh, whole, opt, device),
+                          sp.make_sp_train_step(cfg, opt, mesh, device))
+    states, grid = _time_cells(cells, batch, device, replicas=False)
+    params = states["sp ring 4"].params
+    grid["sp ring 4"]["replicas_bitwise"] = _replicas_equal(params, device)
+    barrier = lambda: dist.psum(torch.ones((), device=device), record=False,
+                                group=mesh.group)
+    ones = tree_unflatten(params, [torch.ones_like(p)
+                                   for p in tree_leaves(params)])
+    grad_sum_ms = _timed_ms(lambda: dist.psum_tree(ones, group=mesh.group),
+                            barrier, device, 3)
+    del states, cells, params, ones
+    # One hop: K and V of one layer's window, bf16 [2, 256, 6, 48] each.
+    k, v = (torch.randn(2, 256, cfg.num_heads, cfg.head_dim, generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+
+    def hop():
+        with torch.no_grad():
+            dist.ppermute_ad((k, v), mesh.group, label="ring_kv_hop",
+                             tag=900)
+
+    return {"grid": grid, "hop_ms": _timed_ms(hop, barrier, device, 20),
+            "hop_bytes": 2 * k.numel() * k.element_size(),
+            "grad_sum_ms": grad_sum_ms}
+
+
+def _phase17_sp_peaks(device) -> dict:
+    """17b: each rank's peak allocated bytes over one bf16 SP step at
+    T = 4096 (the ``sp_bench`` twin at full width), at ring 4, 2 (each
+    data row on its own) and 1 (rank 0 alone while the others wait)."""
+    from ..experiments.sp_bench import step_peak
+    cfg = LlamaConfig(ctx_size=4096, dtype="bfloat16", attention_impl="xla")
+    out = {}
+    for name, mesh in (("ring4", dist.seq_mesh(1, 4)),
+                       ("ring2", dist.seq_mesh(2, 2).row()),
+                       ("ring1", dist.local_mesh("seq"))):
+        dist.barrier(device)
+        if name != "ring1" or dist.get_rank() == 0:
+            out[name] = step_peak(cfg, 4096, mesh, 2, device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier(device)
+    return out
+
+
+def _leaf_copies(tree, device):
+    """A copy of a tree of tensors on ``device`` that requires grad."""
+    from ..tree import tree_map
+    return tree_map(lambda x: x.detach().to(device).clone().requires_grad_(),
+                    tree)
+
+
+def _digest_of(tensors) -> str:
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def _phase17_ep_check(tokens, device) -> dict:
+    """17c: the fp32 EP forward and step (SGD at lr 1024) of the canonical
+    MoE (8 experts, top-2, capacity factor 1.25) at B = 8 per data row ×
+    256 on each layout against the unsharded model computed here; the
+    routing's digest and dropped share."""
+    from ..config import MoEConfig
+    from ..models import moe
+    from ..ops.losses import causal_lm_loss
+    from . import ep
+    cfg = MoEConfig(base=LlamaConfig(attention_impl="pallas",
+                                     flash_dh_major=True))
+    whole = _leaf_copies(moe.init_moe_llama(
+        cfg, torch.Generator().manual_seed(0), device="cpu"), device)
+    toks = torch.as_tensor(tokens, device=device)
+    b = toks.shape[0] // 2
+
+    def loss_fn(p, x):
+        logits, aux = moe.forward(p, x, cfg)
+        return causal_lm_loss(logits, x) + cfg.aux_loss_coef * aux
+
+    out = {}
+    with fp32_products():
+        refs = {1: _ref_grads(loss_fn, whole, [toks[:b]]),
+                2: _ref_grads(loss_fn, whole, [toks[:b], toks[b:]])}
+        for name, spec in EP17_MESHES.items():
+            mesh = _axis_mesh("expert", *spec)
+            batch = toks[:b] if mesh.data == 1 else ep.shard_batch(
+                mesh, toks, device)
+            local = ep.shard_params(mesh, whole, device)
+            routes, ref_routes = [], []
+            logits, aux = ep.ep_forward(local, batch, cfg, mesh, routes)
+            with torch.no_grad():
+                ref_logits, ref_aux = moe.forward(whole, batch, cfg,
+                                                  routes=ref_routes)
+            n_assign = cfg.top_k * batch.numel()
+            dropped = [1.0 - float(d.sum()) / n_assign for d in routes]
+            res = {"logits_abs_err": float((logits - ref_logits).abs().max()),
+                   "aux_abs_err": abs(float(aux) - float(ref_aux)),
+                   "route_digest": _digest_of(routes),
+                   "route_equals_unsharded":
+                       _digest_of(routes) == _digest_of(ref_routes),
+                   "dropped_share": dropped}
+            del logits, ref_logits, routes, ref_routes
+            opt = sgd(1024.0)
+            state = ep.init_state(mesh, whole, opt, device)
+            loss, grads, state = _sgd_grads(
+                ep.make_ep_train_step(cfg, opt, mesh, device), state, batch,
+                1024.0)
+            ref_loss, ref_grads = refs[mesh.data]
+            mine = tree_leaves(ep.shard_params(
+                mesh, tree_unflatten(whole, ref_grads), device))
+            res.update(loss=loss, ref_loss=ref_loss,
+                       loss_abs_err=abs(loss - ref_loss),
+                       grad_rel_err=_rel_errs(grads, mine))
+            out[name] = res
+            del state, grads, mine, local
+    return out
+
+
+def _phase17_ep_time(device) -> dict:
+    """17d: the bf16 EP step at expert 2 (ranks 0 and 1; the "pallas"
+    optimizer, B = 8 × 256) timed in turns with the unsharded MoE step on
+    rank 0, its launches per step, one combine sum and the
+    replicated-gradient sum alone."""
+    from ..config import MoEConfig
+    from ..models import moe
+    from ..ops.adam import apply_optimizer
+    from ..ops.losses import causal_lm_loss
+    from . import ep
+    cfg = MoEConfig(base=LlamaConfig(dtype="bfloat16",
+                                     attention_impl="pallas",
+                                     flash_dh_major=True))
+    mesh = dist.expert_mesh(2, 2).row()
+    active = dist.get_rank() < 2
+    whole = moe.init_moe_llama(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+    batch = torch.randint(0, cfg.base.vocab_size, (8, 256), generator=gen,
+                          device=device)
+
+    def unsharded(state, x):
+        leaves = tree_leaves(state.params)
+        logits, aux = moe.forward(state.params, x, cfg)
+        loss = causal_lm_loss(logits, x) + cfg.aux_loss_coef * aux
+        grads = tree_unflatten(state.params,
+                               list(torch.autograd.grad(loss, leaves)))
+        params, opt_state = apply_optimizer(
+            opt, grads, state.opt_state, state.params)
+        return dp.TrainState(params, opt_state, state.step + 1), loss.detach()
+
+    opt = make_optimizer("pallas")
+    cells = {"unsharded": ((dp.init_state(_leaf_copies(whole, device), opt),
+                            unsharded, True) if dist.get_rank() == 0
+                           else (None, None, True))}
+    ep_opt = make_optimizer("pallas")
+    cells["ep expert 2"] = ((ep.init_state(mesh, whole, ep_opt, device),
+                             ep.make_ep_train_step(cfg, ep_opt, mesh, device),
+                             (0, 1)) if active else (None, None, (0, 1)))
+    states, grid = _time_cells(cells, batch, device, replicas=False)
+    out = {"grid": grid}
+    if active:
+        params = states["ep expert 2"].params
+        specs = tree_leaves(ep.param_specs(params))
+        reps = [torch.ones_like(p) for p, s in zip(tree_leaves(params), specs)
+                if s is None]
+        y = torch.randn(8 * 256, cfg.base.dmodel, generator=gen,
+                        device=device).to(torch.bfloat16)
+        barrier = lambda: dist.psum(torch.ones((), device=device),
+                                    record=False, group=mesh.group)
+        out.update(
+            combine_ms=_timed_ms(lambda: dist.psum_ad(y, mesh.group),
+                                 barrier, device, 10),
+            combine_bytes=y.numel() * y.element_size(),
+            replicated_sum_ms=_timed_ms(
+                lambda: dist.psum_each(reps, mesh.group, label="x"), barrier,
+                device, 5),
+            replicated_elements=sum(r.numel() for r in reps))
+    del states, cells
+    dist.barrier(device)
+    return out
+
+
+def phase17(sp_tokens, ep_tokens, *, device) -> dict:
+    """``chip_smoke.py`` phase 17 on each of four ranks on the one card:
+    a. the fp32 SP check on ``sp_tokens`` ``[4, 1024]`` at ring 2, ring 4
+    and data 2 × seq 2 (``_phase17_sp_check``); b. the bf16 SP step at
+    ring 4 in turns with the world of one, one hop, and the peaks at
+    T = 4096 over ring 4, 2 and 1; c. the fp32 EP check on ``ep_tokens``
+    ``[16, 256]`` at expert 2, expert 4 and data 2 × expert 2; d. the
+    bf16 EP step at expert 2 in turns with the unsharded step, one
+    combine sum and the replicated sum. Each part's seconds ride along."""
+    out = {"rank": dist.get_rank()}
+    for key, fn, args in (("sp_check", _phase17_sp_check, (sp_tokens,)),
+                          ("sp_time", _phase17_sp_time, ()),
+                          ("sp_peaks", _phase17_sp_peaks, ()),
+                          ("ep_check", _phase17_ep_check, (ep_tokens,)),
+                          ("ep_time", _phase17_ep_time, ())):
+        dist.barrier(device)
+        t0 = time.perf_counter()
+        out[key] = fn(*args, device)
+        out[f"{key}_seconds"] = time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     return out

@@ -99,20 +99,28 @@ def _slice(x, dim: Optional[int], tp: int, m: int):
     return x.narrow(dim, m * size, size)
 
 
+def local_slices(params, specs, n: int, index: int, device=None) -> dict:
+    """Slice ``index`` of ``n`` of each leaf of a whole tree (tensors or
+    numpy arrays) along the dimension its spec names (None: the whole
+    leaf), as fresh tensors on ``device`` (None: CUDA) that require grad."""
+    dev = dist.rank_device(device)
+
+    def take(x, s):
+        x = (torch.from_numpy(np.array(x)) if isinstance(x, np.ndarray)
+             else x.detach())
+        return _slice(x, s, n, index).to(dev).clone().requires_grad_()
+
+    return tree_map(take, params, specs)
+
+
 def shard_params(mesh: dist.TPMesh, params, device=None) -> dict:
     """Model shard ``mesh.m``'s slices of a whole JAX-layout tree (a
     ``Llama``, its tree, or ``convert.params_to_numpy``'s numpy tree), as
     fresh tensors on ``device`` (None: CUDA) that require grad: the weight
     bridge to tensor parallelism."""
-    dev = dist.rank_device(device)
     params = llama.as_tree(params)
-    def take(x, s):
-        x = (torch.from_numpy(np.array(x)) if isinstance(x, np.ndarray)
-             else x.detach())
-        return _slice(x, s, mesh.model, mesh.m).to(dev).clone() \
-            .requires_grad_()
-
-    return tree_map(take, params, param_specs(params))
+    return local_slices(params, param_specs(params), mesh.model, mesh.m,
+                        device)
 
 
 @dataclass(frozen=True)
@@ -374,18 +382,10 @@ def _sum_replicated(params: dict, grads: List[torch.Tensor],
     call); one host round trip per dtype carries them all."""
     mask = tree_leaves(_sharded_mask(params))
     idx = [i for i, s in enumerate(mask) if not s]
-    for i in idx:
-        dist._record("psum", "tp_replicated_grads", grads[i], group)
-    if group.size == 1:
-        return grads
     out = list(grads)
-    for dtype in dict.fromkeys(grads[i].dtype for i in idx):
-        ids = [i for i in idx if grads[i].dtype == dtype]
-        flat = dist._sum_over(torch.cat([grads[i].reshape(-1)
-                                         for i in ids]), group)
-        for i, piece in zip(ids, flat.split([grads[i].numel()
-                                             for i in ids])):
-            out[i] = piece.view(grads[i].shape)
+    for i, g in zip(idx, dist.psum_each([grads[i] for i in idx], group,
+                                        label="tp_replicated_grads")):
+        out[i] = g
     return out
 
 

@@ -86,10 +86,13 @@ class LLMTrainReport:
     resilience: ResilienceStats = field(default_factory=ResilienceStats)
 
 
-# TrainConfig fields the port does not run yet at a non-default value, with
-# the ROADMAP.md entry that ports each.
+# TrainConfig fields the port's trainers do not run at a non-default value,
+# with the ROADMAP.md entry that says where each runs instead.
 _QUEUED = {
-    "seq": "queue A item 8c (sequence parallelism)",
+    # The JAX trainer builds a data-only mesh and ignores ``seq``; the port
+    # refuses it rather than train without sequence parallelism.
+    "seq": "no trainer runs sequence parallelism: its entry point is "
+           "parallel.sp.make_sp_train_step (ROADMAP.md section C)",
 }
 
 

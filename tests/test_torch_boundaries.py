@@ -11,16 +11,17 @@ import pytest
 import torch
 
 from ddl25spring_tpu_torch import bench_utils, convert, fl
-from ddl25spring_tpu_torch.config import (FLConfig, LlamaConfig,
+from ddl25spring_tpu_torch.config import (FLConfig, LlamaConfig, MoEConfig,
                                           ResilienceConfig, TrainConfig)
 from ddl25spring_tpu_torch.experiments import (comm_wire_smoke, fleet_smoke,
-                                               memory_smoke, serving_bench,
+                                               longctx_bench, memory_smoke,
+                                               serving_bench, sp_bench,
                                                tp_fusion_smoke)
-from ddl25spring_tpu_torch.models import generate, llama, mnist_cnn
+from ddl25spring_tpu_torch.models import generate, llama, mnist_cnn, moe
 from ddl25spring_tpu_torch.ops import pallas_adam
 from ddl25spring_tpu_torch.ops.adam import fused_adam
-from ddl25spring_tpu_torch.parallel import (compress, distributed, pp,
-                                            programs, tp)
+from ddl25spring_tpu_torch.parallel import (compress, distributed, ep, pp,
+                                            programs, sp, tp)
 from ddl25spring_tpu_torch.resilience import (Autoscaler, AutoscalePolicy,
                                               FaultPlan, measure_overhead,
                                               router_ttft_p95)
@@ -69,6 +70,11 @@ def test_the_scan_sees_every_port_module():
                  "ddl25spring_tpu_torch/serving/engine.py",
                  "ddl25spring_tpu_torch/train/llm.py",
                  "ddl25spring_tpu_torch/parallel/tp.py",
+                 "ddl25spring_tpu_torch/parallel/sp.py",
+                 "ddl25spring_tpu_torch/parallel/ep.py",
+                 "ddl25spring_tpu_torch/models/moe.py",
+                 "ddl25spring_tpu_torch/experiments/sp_bench.py",
+                 "ddl25spring_tpu_torch/experiments/longctx_bench.py",
                  "ddl25spring_tpu_torch/experiments/tp_fusion_smoke.py",
                  "ddl25spring_tpu_torch/ops/pallas_adam.py",
                  "ddl25spring_tpu_torch/models/mnist_cnn.py",
@@ -115,6 +121,14 @@ def test_the_scan_sees_every_port_module():
 def _model():
     return llama.init_llama(CFG, torch.Generator().manual_seed(0),
                             device="cpu")
+
+
+MOE = MoEConfig(base=CFG, n_experts=2, top_k=1)
+
+
+def _moe():
+    return moe.init_moe_llama(MOE, torch.Generator().manual_seed(0),
+                              device="cpu")
 
 
 FL_CFG = FLConfig(nr_clients=2, client_fraction=0.5, batch_size=2, rounds=1)
@@ -194,6 +208,21 @@ ENTRY_POINTS = {
         CFG, TrainConfig(iters=1, model=2), tokenizer=ByteTokenizer()),
     "tp_fusion_smoke": lambda: tp_fusion_smoke.main(["--out", "unused.json"]),
     "pallas_adam.smoke_check": lambda: pallas_adam.smoke_check(),
+    "sp.init_state": lambda: sp.init_state(distributed.seq_mesh(1, 1),
+                                           _model(), fused_adam(1e-3)),
+    "make_sp_train_step": lambda: sp.make_sp_train_step(
+        CFG, fused_adam(1e-3), distributed.seq_mesh(1, 1)),
+    "init_moe_llama": lambda: moe.init_moe_llama(MOE, torch.Generator()),
+    "moe_params_from_jax": lambda: convert.moe_params_from_jax(
+        convert.moe_params_to_numpy(_moe(), MOE), MOE),
+    "ep.init_state": lambda: ep.init_state(distributed.expert_mesh(1, 1),
+                                           _moe(), fused_adam(1e-3)),
+    "make_ep_train_step": lambda: ep.make_ep_train_step(
+        MOE, fused_adam(1e-3), distributed.expert_mesh(1, 1)),
+    "sp_bench": lambda: sp_bench.main(["--seq", "16", "--out",
+                                       "unused.json"]),
+    "longctx_bench": lambda: longctx_bench.main(["--grid", "16:1", "--out",
+                                                 "unused.json"]),
     "mnist_cnn.init": lambda: mnist_cnn.init(torch.Generator()),
     "mnist_params_from_jax": lambda: convert.mnist_params_from_jax(
         convert.mnist_params_to_numpy(_fl_inputs()[0])),

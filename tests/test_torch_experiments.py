@@ -6,7 +6,10 @@ queue-wait ceiling, the fleet under its per-class SLOs) and export through
 ``experiments/trace_export.chrome_trace`` with one complete event per
 span, a ``deploy`` span among them after a hot swap; the memory twin's
 stream passes the monitor's headroom gate against a roomy budget and
-fails it against a tight one."""
+fails it against a tight one; the sequence-parallel memory twin's losses
+agree over rings 1, 2 and 4 (no memory number off the card); the
+long-context twin times its points in subprocesses and raises for a point
+that fails."""
 
 import json
 
@@ -15,7 +18,8 @@ import torch
 
 from ddl25spring_tpu.telemetry.events import read_events, validate_event
 from ddl25spring_tpu_torch.experiments import (comm_wire_smoke, fleet_smoke,
-                                               memory_smoke, serving_bench,
+                                               longctx_bench, memory_smoke,
+                                               serving_bench, sp_bench,
                                                tp_fusion_smoke)
 from ddl25spring_tpu_torch.serving import TrafficClass, class_slos
 from experiments import slo_monitor
@@ -150,3 +154,31 @@ def test_tp_fusion_smoke_on_the_cpu(tmp_path):
     assert modes["full"]["measured"] == modes["full"]["budget"]
     assert modes["int8_ef"]["reduction_vs_full"] < 0.3
     assert res["checks"]["tp_ring_analytic"]["ok"]
+
+
+def test_sp_bench_on_the_cpu(tmp_path):
+    """The twin's quick rings (1, 2, 4) at T = 128, one layer: one SP step
+    each, the losses equal across the rings, no memory number on the
+    CPU."""
+    out = tmp_path / "sp-bench.json"
+    rc = sp_bench.main(["--device", "cpu", "--quick", "--seq", "128",
+                        "--layers", "1", "--out", str(out)])
+    with open(out) as f:
+        res = json.load(f)
+    assert rc == 0 and res["ok"], res["checks"]
+    assert [r["n_seq"] for r in res["rows"]] == [1, 2, 4]
+    assert all(p is None for r in res["rows"]
+               for p in r["peak_bytes_per_rank"])
+
+
+def test_longctx_bench_on_the_cpu_and_a_failed_point_raises(tmp_path):
+    out = tmp_path / "longctx.json"
+    doc = longctx_bench.run(str(out), [(64, 2), (128, 1)], ["xla"],
+                            config="tiny", steps=2, device="cpu")
+    assert [(r["seq"], r["batch"]) for r in doc["rows"]] == [(64, 2),
+                                                             (128, 1)]
+    assert all(r["tokens_per_sec"] > 0 and r["step_ms"] > 0
+               for r in doc["rows"])
+    with pytest.raises(RuntimeError, match="T=64 flash failed"):
+        longctx_bench.run(str(out), [(64, 2)], ["flash"], config="tiny",
+                          steps=1, device="cpu")
