@@ -78,7 +78,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
              rows, 9.3% positive) split over 4 parties, the VFL forward
              logits and gradients on the card against the CPU (1e-5 of
              each leaf's largest entry); ``train_classifier`` at its
-             defaults; ``train_vfl`` at ``VFLConfig()`` in both modes;
+             defaults; ``train_vfl`` at ``VFLConfig()`` in both modes (the
+             faithful mode, held to a falling loss, for 100 epochs);
              ``train_vfl_vae`` for 1,000 epochs (total = recon + kl);
              ``train_vae`` and ``synthetic_data_eval`` at
              ``VAEConfig(input_dim=27)``: every loss falls, and the
@@ -285,6 +286,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
              and ms per step; K2, K5 and K6 at B=2, T=4096 against their
              plain versions (phase 3's limits), timed beside SDPA and
              their bounds.
+18. elastic — elastic data parallelism on a pool of four ranks on the
+             card over gloo (``programs.phase18``) at the canonical width
+             (vocab 259), bf16, flash dh-major, the pallas optimizer, B=8
+             x 256 per rank, 6 steps a run: a. with no fault the elastic
+             losses are bitwise the non-elastic run's (gradient at K=1,
+             ZeRO-1 at K=2); b. ``device_loss@2,device_return@5`` walks 4
+             -> 3 -> 4 on the mirror path, the post-grow losses bitwise a
+             fresh 4-rank run restored from the grow point, ``returned ==
+             lost``; c. an ``Autoscaler`` on a TTFT series resizes 4 -> 2
+             -> 4 through ``scale_hook`` with nothing replayed; d. b's walk
+             under the int8_ef ring, M=2, ZeRO-1. Each re-mesh prints its
+             seconds split into drain, rebuild, restore, persist and
+             replay (its span tree) and the mirror's bytes; every rank's
+             launches per step in every world are held at 6/6/6/1, and at
+             12/12/12/0 on d's ring (6·M flash launches; Adam 0 under
+             ZeRO-1).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
@@ -294,6 +311,7 @@ result when no CUDA device is available or the package is missing.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -303,6 +321,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -373,6 +392,7 @@ TAB_CE_ABS = 0.01
 TOL_VFL_DEVICE = 1e-5         # card vs CPU: VFL logits and gradients, VFL-VAE terms
 TOL_DP_DEVICE = 1e-4          # card vs CPU, one DP-FedAvg round, every leaf
 TOL_NOISE_STD = 0.01          # z = 1 round: empirical std vs σ, relative
+VFL_FAITHFUL_EPOCHS = 100     # the faithful-mode VFL run (a falling loss)
 # Phase 10 (two ranks against a world of one, fp32): the loss and every
 # averaged gradient leaf (of its largest entry) to the limits the CPU tests
 # hold the port's ranks to; the trajectories as phase 6's; a resumed run
@@ -814,13 +834,17 @@ def tabular_phase(dev: torch.device, card: str) -> dict:
           f"(13 minibatches) {card}")
 
     # 9.3 VFL at VFLConfig(), both modes; 2 epochs in the middle of the
-    # default run (26 minibatch steps) under the profiler.
+    # default run (26 minibatch steps) under the profiler. The faithful
+    # mode, held only to a falling loss, runs VFL_FAITHFUL_EPOCHS of them
+    # (the script's time limit).
     window = profile_step.Window(vcfg.epochs // 2, 2)
     for faithful in (False, True):
         name = "vfl_faithful" if faithful else "vfl_default"
         log = {} if faithful else dict(log_every=1, log_fn=window.tick)
+        run_cfg = (dataclasses.replace(vcfg, epochs=VFL_FAITHFUL_EPOCHS)
+                   if faithful else vcfg)
         (_, rep), wall = timed(lambda: train_vfl(
-            split(xtr), ytr, split(xte), yte, vcfg, faithful=faithful,
+            split(xtr), ytr, split(xte), yte, run_cfg, faithful=faithful,
             device=dev, **log))
         falls(rep.train_losses, f"train_vfl faithful={faithful}")
         line = (f"clean accuracy {rep.test_accuracy_clean:.4f}, reported "
@@ -833,10 +857,11 @@ def tabular_phase(dev: torch.device, card: str) -> dict:
                      "test_accuracy": rep.test_accuracy,
                      "losses_first_last": [rep.train_losses[0],
                                            rep.train_losses[-1]],
-                     "wall_ms_per_epoch": wall / vcfg.epochs * 1e3}
-        print(f"tabular train_vfl faithful={faithful} {vcfg.epochs} epochs: "
-              f"loss {rep.train_losses[0]:.4f} -> {rep.train_losses[-1]:.4f}, "
-              f"{line}; {wall / vcfg.epochs * 1e3:.2f} ms per epoch "
+                     "wall_ms_per_epoch": wall / run_cfg.epochs * 1e3}
+        print(f"tabular train_vfl faithful={faithful} {run_cfg.epochs} "
+              f"epochs: loss {rep.train_losses[0]:.4f} -> "
+              f"{rep.train_losses[-1]:.4f}, {line}; "
+              f"{wall / run_cfg.epochs * 1e3:.2f} ms per epoch "
               f"(13 minibatches) {card}")
 
     prof = window.result
@@ -3342,6 +3367,213 @@ def sp_ep_phase(dev: torch.device, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 18
+
+# Phase 18 (elastic data parallelism): four pool ranks on the card at the
+# canonical width (vocab 259), bf16, flash dh-major, the pallas optimizer,
+# B = 8 x 256 per rank. Launches per rank per step in every world: the
+# flash kernels 6 each and Adam 1 under gradient aggregation; on the int8_ef
+# ring at M = 2 microbatches the flash kernels 6·M = 12 each and Adam 0
+# (ZeRO-1's flat slices miss K7's eligibility gate, ROADMAP.md B7).
+ELASTIC_CFG = dict(dtype="bfloat16", attention_impl="pallas",
+                   flash_dh_major=True)
+ELASTIC_TCFG = dict(batch_size=8, seq_len=256, optimizer="pallas", iters=6)
+ELASTIC_LAUNCHES = {"gradient": {"flash_fwd": 6, "flash_bwd_dq": 6,
+                                 "flash_bwd_dkv": 6, "adam": 1},
+                    "ring_zero1_m2": {"flash_fwd": 12, "flash_bwd_dq": 12,
+                                     "flash_bwd_dkv": 12, "adam": 0}}
+
+
+def _world_steps(rep: dict, iters: int, probe: int) -> list:
+    """Steps each world of an elastic run trained, in order (``probe``:
+    the manifest's comm-probe step in the first world)."""
+    recs = rep["remeshes"]
+    starts = [0] + [r["resume_step"] for r in recs]
+    ends = [r["detected_at"] for r in recs] + [iters]
+    return [e - s + (probe if i == 0 else 0)
+            for i, (s, e) in enumerate(zip(starts, ends))]
+
+
+def _held_launches(leg: str, ranks, agg: str, iters: int,
+                   probe: int) -> list:
+    """Every rank's launches per step in each world of leg ``leg`` against
+    ELASTIC_LAUNCHES; returns rank 0's per world."""
+    steps = _world_steps(ranks[0][leg], iters, probe)
+    want = ELASTIC_LAUNCHES[agg]
+    per_rank = []
+    for rk in ranks:
+        segs = rk[leg]["worlds"]
+        check(len(segs) == len(steps), f"18{leg} rank {rk['rank']}: "
+              f"{len(segs)} launch segments for {len(steps)} worlds")
+        got = []
+        for seg, n in zip(segs, steps):
+            if seg["world"] == 0:     # outside the world: nothing runs
+                check(not any(seg["launches"].values()), f"18{leg} rank "
+                      f"{rk['rank']} launched outside the world: {seg}")
+                got.append(None)
+                continue
+            per = {k: v / n for k, v in seg["launches"].items()}
+            check(per == want, f"18{leg} rank {rk['rank']}: launches per "
+                  f"step {per} in a world of {seg['world']}, expected "
+                  f"{want}")
+            got.append(per)
+        per_rank.append(got)
+    return per_rank[0]
+
+
+def _held_reshards(leg: str, ranks) -> int:
+    """Every member of every new world of leg ``leg`` held the state it
+    resumed with against the mirror it came from
+    (``programs.reshard_differences``, on the mirror path): fails on a
+    missing audit or any misplaced coordinate; returns the audits."""
+    recs = ranks[0][leg]["remeshes"]
+    want = sorted((r["old_world"], r["new_world"]) for r in recs
+                  for _ in range(r["new_world"]))
+    got = sorted(tuple(a["worlds"]) for rk in ranks
+                 for a in rk[leg]["audit"])
+    check(got == want, f"18{leg}: re-mesh audits {got}, expected one per "
+          f"member of each new world {want}")
+    for rk in ranks:
+        for a in rk[leg]["audit"]:
+            check(a["path"] == "mirror" and a["differences"] == [],
+                  f"18{leg} rank {rk['rank']} {a['worlds']}: the resharded "
+                  f"state departs from its mirror: {a['differences']}")
+    return len(got)
+
+
+def _print_remeshes(leg: str, rep: dict, card: str) -> None:
+    spans = rep.get("spans") or [{}] * len(rep["remeshes"])
+    for rec, sp in zip(rep["remeshes"], spans):
+        parts = ", ".join(f"{k} {sp[k]:.3f} s" for k in (
+            "drain", "rebuild", "restore", "persist", "replay") if k in sp)
+        print(f"18{leg} {rec['direction']} {rec['old_world']} -> "
+              f"{rec['new_world']} at step {rec['detected_at']} (lost "
+              f"{rec['lost']}, returned {rec['returned']}) via "
+              f"{rec['path']}: {rec['seconds']:.3f} s"
+              + (f" ({parts})" if parts else "")
+              + f", {rec['steps_replayed']} steps replayed {card}")
+
+
+def elastic_phase(dev: torch.device, card: str) -> dict:
+    """Phase 18: four pool ranks on the card (``programs.phase18``). Raises
+    on a failed check; returns the numbers for the JSON record."""
+    from ddl25spring_tpu_torch.parallel import distributed, programs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()           # the four ranks share the card
+    tcfg = dict(ELASTIC_TCFG)
+    iters = tcfg["iters"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = distributed.run_ranks(programs.phase18, 4, ELASTIC_CFG, tcfg,
+                                      tmp, timeout=900)
+    out = {"ranks_seconds": time.perf_counter() - t0}
+    return _elastic_checks(ranks, card, iters, out)
+
+
+def _elastic_checks(ranks, card: str, iters: int, out: dict) -> dict:
+    r0 = ranks[0]
+    for rk in ranks[1:]:        # every rank returns the final world's run
+        for leg in ("a", "b", "c", "d"):
+            for name, rep in (r0[leg].items() if leg == "a"
+                              else [(leg, r0[leg])]):
+                other = (rk[leg][name] if leg == "a" else rk[leg])
+                check(other["losses"] == rep["losses"], f"18{leg} {name}: "
+                      f"rank {rk['rank']}'s losses differ from rank 0's")
+    a = r0["a"]
+    for agg in ("gradient", "zero1"):
+        ref, el = a[f"ref_{agg}"], a[f"elastic_{agg}"]
+        check(len(el["losses"]) == iters and all(
+            math.isfinite(x) for x in el["losses"]), f"18a {agg} losses")
+        check(el["losses"] == ref["losses"] and el["remeshes"] == [],
+              f"18a {agg}: elastic losses {el['losses']} are not the "
+              f"non-elastic run's {ref['losses']}")
+    print(f"18a no fault, 4 ranks, bf16 B=8 x 256 per rank: the elastic "
+          f"losses are bitwise the non-elastic run's (gradient K=1: "
+          f"{a['ref_gradient']['seconds']:.1f} s vs "
+          f"{a['elastic_gradient']['seconds']:.1f} s, ZeRO-1 K=2: "
+          f"{a['ref_zero1']['seconds']:.1f} s vs "
+          f"{a['elastic_zero1']['seconds']:.1f} s for {iters} steps, "
+          f"process start and builds included) {card}")
+    out["a"] = {k: {"losses": v["losses"], "seconds": v["seconds"]}
+                for k, v in a.items()}
+    for leg, agg in (("b", "gradient"), ("d", "ring_zero1_m2")):
+        rep, fresh = r0[leg], r0[f"{leg}_fresh"]
+        recs = rep["remeshes"]
+        check([(r["old_world"], r["new_world"]) for r in recs]
+              == [(4, 3), (3, 4)], f"18{leg} worlds {recs}")
+        check(recs[1]["returned"] == recs[0]["lost"], f"18{leg} returned "
+              f"{recs[1]['returned']} is not lost {recs[0]['lost']}")
+        m = recs[1]["resume_step"]
+        check(len(rep["losses"]) == iters and all(
+            math.isfinite(x) for x in rep["losses"]), f"18{leg} losses")
+        check(fresh["start_step"] == m and rep["losses"][m:]
+              == fresh["losses"], f"18{leg}: the post-grow losses "
+              f"{rep['losses'][m:]} are not the fresh 4-rank run's "
+              f"{fresh['losses']} from step {m}")
+        launches = _held_launches(leg, ranks, agg, iters, probe=1)
+        audits = _held_reshards(leg, ranks)
+        _print_remeshes(leg, rep, card)
+        mirror = sorted({(w, b) for _, w, b in rep["mirror_bytes"]
+                         if b is not None})
+        what = ("gradient K=1" if leg == "b"
+                else "int8_ef ring M=2 ZeRO-1 K=1")
+        print(f"18{leg} {what}, device_loss@2,device_return@5: post-grow "
+              f"losses bitwise a fresh 4-rank run from step {m}; each "
+              f"rank's resharded state against its mirror: {audits} "
+              f"re-mesh audits, no coordinate misplaced; launches "
+              f"per rank per step by world {launches}; mirror bytes (world, "
+              f"bytes) {mirror}; {rep['seconds']:.1f} s for the walk "
+              f"{card}")
+        out[leg] = {"remeshes": recs, "spans": rep["spans"],
+                    "mirror_bytes": mirror, "launches": launches,
+                    "losses": rep["losses"], "seconds": rep["seconds"]}
+    c = r0["c"]
+    recs = c["remeshes"]
+    check([(r["old_world"], r["new_world"]) for r in recs]
+          == [(4, 2), (2, 4)], f"18c worlds {recs}")
+    check(all(r["steps_replayed"] == 0 for r in recs) and len(c["losses"])
+          == iters and all(math.isfinite(x) for x in c["losses"]),
+          f"18c: a planned move replayed or lost steps: {recs}")
+    launches = _held_launches("c", ranks, "gradient", iters, probe=0)
+    audits = _held_reshards("c", ranks)
+    _print_remeshes("c", c, card)
+    print(f"18c scale_hook (Autoscaler on a TTFT series) 4 -> 2 -> 4: "
+          f"nothing replayed, {iters} losses, {audits} re-mesh audits "
+          f"clean; launches per rank per step by "
+          f"world {launches} {card}")
+    out["c"] = {"remeshes": recs, "launches": launches,
+                "losses": c["losses"], "seconds": c["seconds"]}
+    out["legs_seconds"] = {k: r0[f"{k}_seconds"] for k in "abcd"}
+    print(f"elastic phase: {out.get('ranks_seconds', 0.0):.1f} s (legs "
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["legs_seconds"].items())
+          + f" s) {card}")
+    return out
+
+
+def _build_in_background(ext):
+    """Start ``ext.build()`` on a thread (each ``nvcc`` is a child process)
+    and return a function that waits for it: its seconds, or what it
+    raised."""
+    out = {}
+
+    def run():
+        try:
+            out["s"] = ext.build()
+        except BaseException as e:          # re-raised by the waiter
+            out["e"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def wait() -> float:
+        t.join()
+        if "e" in out:
+            raise out["e"]
+        return out["s"]
+
+    return wait
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3378,9 +3610,44 @@ def main() -> int:
           f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
+    def zero_counts():
+        fa.launches = fa.dq_launches = fa.dkv_launches = padam.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                "flash_bwd_dkv": fa.dkv_launches, "adam": padam.launches}
+
     # 2. build ------------------------------------------------------------
-    build_s = _ext.build()
-    print(f"build: {build_s:.1f} s {card}")
+    # The kernels compile (nvcc child processes) while phases 8 and 9, which
+    # launch no port kernel, run: their host times share the CPU with nvcc.
+    wait_build = _build_in_background(_ext)
+    try:
+        # 8. horizontal FL (no port kernel on this path) -----------------
+        zero_counts()
+        t0 = time.perf_counter()
+        fl_report, mnist_arrays = fl_phase(dev, card)
+        fl_report["phase_s"] = time.perf_counter() - t0
+        fl_counts = read_counts()
+        check(not any(fl_counts.values()), f"the FL phase launched port "
+              f"kernels: {fl_counts}")
+        print(f"fl phase: {fl_report['phase_s']:.1f} s, port kernel "
+              f"launches {fl_counts} {card}")
+
+        # 9. tabular, VFL, DP-FedAvg, secure aggregation (no port kernel)
+        zero_counts()
+        t0 = time.perf_counter()
+        tab_report = tabular_phase(dev, card)
+        tab_report.update(private_fl_phase(dev, card, mnist_arrays))
+        tab_report["phase_s"] = time.perf_counter() - t0
+        tab_counts = read_counts()
+        check(not any(tab_counts.values()), f"phase 9 launched port "
+              f"kernels: {tab_counts}")
+        print(f"tabular/vfl/dp/secagg phase: {tab_report['phase_s']:.1f} s, "
+              f"port kernel launches {tab_counts} {card}")
+    finally:
+        build_s = wait_build()
+    print(f"build: {build_s:.1f} s, phases 8 and 9 beside it {card}")
     ptxas = {}
     for name in _ext.KERNELS:
         log = _ext.library_path(name).with_suffix(".so.log")
@@ -3730,14 +3997,6 @@ def main() -> int:
                        flash_dh_major=True, flash_block=512)
     tb, tseq, warm, timed = 64, tcfg.ctx_size, 2, 5
 
-    def zero_counts():
-        fa.launches = fa.dq_launches = fa.dkv_launches = padam.launches = 0
-
-    def read_counts():
-        torch.cuda.synchronize()
-        return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
-                "flash_bwd_dkv": fa.dkv_launches, "adam": padam.launches}
-
     zero_counts()
     tok_s = bench_utils.time_train_step(tcfg, tb, seq=tseq, opt_name="pallas",
                                         warmup=warm, timed_steps=timed,
@@ -3878,29 +4137,6 @@ def main() -> int:
           f"{rep.tokens_per_sec:.0f} tok/s after warmup; launches per step "
           f"{tper} {card}")
 
-    # 8. horizontal FL (no port kernel on this path) ---------------------
-    zero_counts()
-    t0 = time.perf_counter()
-    fl_report, mnist_arrays = fl_phase(dev, card)
-    fl_report["phase_s"] = time.perf_counter() - t0
-    fl_counts = read_counts()
-    check(not any(fl_counts.values()), f"the FL phase launched port kernels: "
-          f"{fl_counts}")
-    print(f"fl phase: {fl_report['phase_s']:.1f} s, port kernel launches "
-          f"{fl_counts} {card}")
-
-    # 9. tabular, VFL, DP-FedAvg, secure aggregation (no port kernel) ---
-    zero_counts()
-    t0 = time.perf_counter()
-    tab_report = tabular_phase(dev, card)
-    tab_report.update(private_fl_phase(dev, card, mnist_arrays))
-    tab_report["phase_s"] = time.perf_counter() - t0
-    tab_counts = read_counts()
-    check(not any(tab_counts.values()), f"phase 9 launched port kernels: "
-          f"{tab_counts}")
-    print(f"tabular/vfl/dp/secagg phase: {tab_report['phase_s']:.1f} s, port "
-          f"kernel launches {tab_counts} {card}")
-
     # 10. multi-process data parallelism, two ranks on the card ----------
     dp_report = dp_phase(dev, card, tok_s, step_wall_ms)
 
@@ -3935,6 +4171,9 @@ def main() -> int:
 
     # 17. sequence and expert parallelism, four ranks; long context -------
     spep_report = sp_ep_phase(dev, card)
+
+    # 18. elastic data parallelism, a pool of four ranks ----------------
+    elastic_report = elastic_phase(dev, card)
 
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
@@ -3997,7 +4236,15 @@ def main() -> int:
                        "launches"],
                    "ep expert=2 bf16 B=8 x 256 (phase 17d), per rank per "
                    "step": spep_report["ep_time"]["grid"]["ep expert 2"][
-                       "launches"]}
+                       "launches"],
+                   **{f"elastic train_llm_dp 4 -> 3 -> 4 {what} (phase "
+                      f"18{leg}), per rank per step, world by world":
+                      elastic_report[leg]["launches"]
+                      for leg, what in (("b", "gradient"),
+                                        ("d", "int8_ef ring zero1"))},
+                   "elastic train_llm_dp scale_hook 4 -> 2 -> 4 (phase "
+                   "18c), per rank per step, world by world":
+                       elastic_report["c"]["launches"]}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -4086,6 +4333,7 @@ def main() -> int:
                       "resilience": res_report, "pp": pp_report,
                       "fleet": fleet_report, "comm": comm_report,
                       "tp": tp_report, "sp_ep": spep_report,
+                      "elastic": elastic_report,
                       "adam_paired": adam_pairs, "card": smi, "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

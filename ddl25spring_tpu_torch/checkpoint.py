@@ -25,10 +25,11 @@ The JAX package's contract is kept:
   step is skipped for the newest one that verifies, counted in
   ``stats.ckpt_fallbacks``, and ``restored_step`` says which step won (an
   explicitly requested step does not fall back);
-- a step saved at another world size (a ZeRO-1 state saved at world N,
+- a step saved at another world size (a ZeRO-1 state, or the ring
+  step's state with its error-feedback residuals, saved at world N,
   restored at M) is placed through ``parallel.dp.reshard_state``
-  (``resize_zero_padded``; a non-zero truncated tail raises), counted in
-  ``stats.ckpt_reshards``;
+  (``resize_zero_padded`` and the ring-residual rule; a non-zero
+  truncated tail raises), counted in ``stats.ckpt_reshards``;
 - writes go through ``retry_call`` (retries counted in ``stats.retries``),
   and so do reads, on ``OSError``.
 
@@ -149,11 +150,14 @@ class Checkpointer:
 
     def save(self, step: int, state: Any, *, overwrite: bool = False) -> bool:
         """Write ``state`` (any tree of dicts, lists and tuples of tensors)
-        at ``step``; in a group every rank calls it. ``overwrite=True``
-        replaces an existing step (a resume after a corrupt-latest
-        fallback re-treads step indices of the dead lineage); without it
-        an existing step raises. Every call saves (the JAX method's
-        ``force`` has nothing to force here). Returns True."""
+        at ``step``; every rank of the process world calls it, and the
+        world's rank 0 writes (after an elastic re-mesh, the new world's).
+        ``overwrite=True`` replaces an existing step (a resume after a
+        corrupt-latest fallback re-treads step indices of the dead lineage;
+        an elastic re-mesh persists the new world's layout over the old
+        world's save at the same step); without it an existing step raises.
+        Every call saves (the JAX method's ``force`` has nothing to force
+        here). Returns True."""
         exists = step in self.all_steps()
         dist.barrier("cpu")     # every rank has looked before rank 0 writes
         if exists and not overwrite:

@@ -149,9 +149,11 @@ class TrainConfig:
 class ResilienceConfig:
     """Self-healing knobs for the training loops (``resilience/``), field
     for field the JAX package's. ``faults`` is a ``FaultPlan`` spec string
-    (empty: inject nothing). ``elastic=True`` (re-meshing over the
-    surviving ranks) is ROADMAP.md queue A item 8: the trainer raises
-    ``NotImplementedError`` for it."""
+    (empty: inject nothing). ``elastic=True`` re-meshes ``train_llm_dp``
+    over the surviving ranks and back (``resilience/elastic.py``);
+    ``mirror_every`` is its host mirror's cadence in chunk edges (0: no
+    mirror, recovery from the checkpoint). Elastic pipeline and tensor
+    parallelism are ROADMAP.md queue A item 8e-3."""
 
     guard: bool = True             # wrap the train step in a StepGuard
     # The skip fused into the step (parallel.dp ``guard_nonfinite``):
@@ -165,7 +167,7 @@ class ResilienceConfig:
     retry_base_delay: float = 0.1  # seconds; doubles per attempt, jittered
     faults: str = ""               # FaultPlan spec for injection runs
     fault_seed: int = 0            # drives every random fault choice
-    elastic: bool = False          # ROADMAP.md queue A item 8
+    elastic: bool = False          # elastic re-mesh (train_llm_dp)
     mirror_every: int = 1          # elastic host-RAM mirror cadence
 
     def fault_plan(self):

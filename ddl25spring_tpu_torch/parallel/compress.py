@@ -514,6 +514,8 @@ class OverlapEFState(NamedTuple):
     zero1: Optional[dp.Zero1Geometry] = None
 
     PER_RANK_FIELDS = ("ring_residual", "gather_residual")
+    # Both resize across worlds (``dp.reshard_state``: the elastic re-mesh).
+    RESIZABLE_FIELDS = ("ring_residual", "gather_residual")
 
 
 def _zero1_bucket_setup(optimizer, params, bm: BucketMap, mesh):

@@ -66,6 +66,7 @@ a host→device copy, as in the reference's gloo pipeline.
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import pickle
 import queue
@@ -145,13 +146,17 @@ def process_info() -> Dict[str, int]:
 
 # ------------------------------------------------------------------ launcher
 
-def _rank_main(fn, rank, world, init_method, device, args, results,
+def _rank_main(fn, rank, world, directory, device, args, results,
                threads) -> None:
     """A child's body: join the group, run ``fn(*args, device=...)``, put
     ``(rank, ok, pickled result or traceback)`` on ``results``."""
+    global _POOL
     try:
         torch.set_num_threads(threads)
-        dev = initialize(rank, world, init_method, device)
+        _POOL = Pool(rank, world, directory, members=tuple(range(world)))
+        dev = initialize(rank, world,
+                         "file://" + os.path.join(directory, "store"),
+                         device)
         payload = (rank, True, pickle.dumps(fn(*args, device=dev)))
     except BaseException:          # reported to the parent, which raises
         payload = (rank, False, traceback.format_exc())
@@ -185,6 +190,11 @@ def run_ranks(fn: Callable, world: int, *args, device=None,
     """Run ``fn(*args, device=rank_device)`` in ``world`` processes joined
     by a gloo group and return the results, rank 0's first.
 
+    The processes are the launch's pool (``Pool``): an elastic trainer
+    re-forms the process world over a subset of them and back
+    (``reform``); when ``fn`` returns, every rank is in the full pool's
+    world again.
+
     Processes start with the ``spawn`` method, so ``fn`` and ``args`` are
     pickled: ``fn`` must be a module-level function of an importable
     module (never a test file, whose imports a child would repeat), and it
@@ -208,8 +218,8 @@ def run_ranks(fn: Callable, world: int, *args, device=None,
     results = ctx.Queue()
     procs = [ctx.Process(
         target=_rank_main,
-        args=(fn, r, world, "file://" + os.path.join(tmp, "store"),
-              device, args, results, torch.get_num_threads()))
+        args=(fn, r, world, tmp, device, args, results,
+              torch.get_num_threads()))
         for r in range(world)]
     out: Dict[int, Any] = {}
     deadline = None if timeout is None else time.monotonic() + timeout
@@ -249,6 +259,96 @@ def run_ranks(fn: Callable, world: int, *args, device=None,
         results.close()
         shutil.rmtree(tmp, ignore_errors=True)
     return [out[r] for r in range(world)]
+
+
+# ---------------------------------------------------------- the pool
+
+@dataclass
+class Pool:
+    """This process's place in the pool of processes one ``run_ranks``
+    launch started: its pool ``rank`` (fixed for the process's life), the
+    pool's ``size``, the launch's rendezvous ``directory``, and the
+    current topology ``epoch`` with its ``members`` (the pool ranks of the
+    process world, in world-rank order).
+
+    The process world is the default process group, so every collective,
+    step factory and checkpoint of the package runs over the current world
+    unchanged. An elastic re-mesh moves the pool to the next epoch
+    (``reform``): the members leave the old group and join a fresh one
+    named by the epoch, rank ``i`` being ``members[i]``; a rank outside the
+    world holds no group and waits (``await_epoch``). Control records go
+    through a file store in the rendezvous directory, apart from the
+    process groups: ``post_epoch`` writes the next epoch's record (its
+    members and whatever the joining ranks must know), which the ranks
+    outside the world read in order."""
+
+    rank: int
+    size: int
+    directory: str
+    epoch: int = 0
+    members: Tuple[int, ...] = ()
+    _store: Any = None
+
+    @property
+    def store(self):
+        if self._store is None:
+            self._store = dist.FileStore(
+                os.path.join(self.directory, "pool"), -1)
+        return self._store
+
+    def post_epoch(self, record: dict) -> None:
+        """Write the record of epoch ``epoch + 1``; one rank posts it."""
+        self.store.set(f"epoch-{self.epoch + 1}", json.dumps(record))
+
+    def await_epoch(self, poll: float = 0.01) -> dict:
+        """The record of epoch ``epoch + 1``, once a rank has posted it."""
+        key = f"epoch-{self.epoch + 1}"
+        while not self.store.check([key]):
+            time.sleep(poll)
+        return json.loads(self.store.get(key))
+
+
+_POOL: Optional[Pool] = None
+
+
+def pool() -> Optional[Pool]:
+    """This process's ``Pool`` (None outside a ``run_ranks`` launch)."""
+    return _POOL
+
+
+def reform(members) -> None:
+    """Move this process to the next topology epoch, whose world is
+    ``members`` (pool ranks, in world-rank order): leave the current group
+    and, as a member of a world above one, join the epoch's fresh group as
+    rank ``members.index(pool rank)``. Every rank of the pool calls it for
+    every epoch, members or not, so the epochs stay in step; the layouts
+    made over the old group are dropped."""
+    p = _POOL
+    if p is None:
+        raise RuntimeError("reform needs the pool of a run_ranks launch")
+    members = tuple(int(m) for m in members)
+    if is_initialized():
+        dist.destroy_process_group()
+    for cache in (_MESHES, _HIER, _TP, _AXIS):
+        cache.clear()
+    p.epoch += 1
+    p.members = members
+    if p.rank in members and len(members) > 1:
+        dist.init_process_group(
+            BACKEND, init_method="file://" + os.path.join(
+                p.directory, f"world-{p.epoch}"),
+            rank=members.index(p.rank), world_size=len(members),
+            timeout=GROUP_TIMEOUT)
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """Rank ``src``'s ``obj`` (any picklable value) on every rank of the
+    process world (``obj`` itself at a world of one)."""
+    if world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src)
+    return box[0]
 
 
 # -------------------------------------------------------------- the mesh

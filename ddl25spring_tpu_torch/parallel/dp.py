@@ -46,10 +46,11 @@ programs return new arrays: ``TrainState.params`` is the model's own
 parameter tree, so the model a caller holds is the trained one. Each rank
 holds the full parameters; only ZeRO-1 splits the moments, and its state
 carries the slice geometry (``TrainState.zero1``). ``host_snapshot`` and
-``reshard_state`` move states to the host and back, across world sizes
-for ZeRO-1's flat moment vectors (``checkpoint.py``), and at the same world
-for the per-rank error-feedback residuals of ``parallel/compress.py``'s
-states, stacked ``[n, ...]`` in rank order as the JAX package shards them.
+``reshard_state`` move states to the host and back, per-rank leaves
+stacked ``[n, ...]`` in rank order as the JAX package shards them, and
+across world sizes (``checkpoint.py``, the elastic re-mesh of
+``resilience/elastic.py``): ZeRO-1's flat moment vectors and the ring
+step's error-feedback residuals resize to the new world.
 """
 
 from __future__ import annotations
@@ -484,16 +485,20 @@ def make_zero1_multi_step(loss_fn: Callable, optimizer, params, *,
 
 # ------------------------------------------------------ host snapshots
 
-def _slice_mask(state) -> List[bool]:
+def _slice_mask(state, *, resizable: bool = False) -> List[bool]:
     """Per ``nested_leaves(state)`` leaf: whether each rank holds its own
     block of it (stacked in rank order along dim 0 in a snapshot): a
     ZeRO-1 state's optimizer-state tensors of ndim >= 1 (its count stays
     replicated), and every tensor of the fields a state type names in
     ``PER_RANK_FIELDS`` (``compress.EFTrainState``'s and
-    ``compress.OverlapEFState``'s error-feedback residuals)."""
+    ``compress.OverlapEFState``'s error-feedback residuals).
+    ``resizable``: only those per-rank leaves ``reshard_state`` may bring
+    from another world, the ZeRO-1 slices and the fields a state type
+    names in ``RESIZABLE_FIELDS`` (the ring step's residuals)."""
     fields = getattr(state, "_fields", None)
     geom = getattr(state, "zero1", None)
-    per_rank = getattr(type(state), "PER_RANK_FIELDS", ())
+    per_rank = getattr(type(state), "RESIZABLE_FIELDS" if resizable
+                       else "PER_RANK_FIELDS", ())
     if fields is None or (geom is None and not per_rank):
         return [False] * len(nested_leaves(state))
     mask: List[bool] = []
@@ -541,37 +546,55 @@ def host_snapshot(state):
 
 def reshard_state(host_state, template_state):
     """Place a host snapshot (``host_snapshot``'s CPU tensors or numpy
-    arrays; a checkpoint's leaves) into ``template_state``'s layout, on its
-    devices and dtypes. A per-rank leaf takes this rank's block of the
-    saved stack. A plain ZeRO-1 ``TrainState`` may come from another world
-    size: its moment vectors pass through ``resize_zero_padded`` to the
-    template's ``n·local`` first (a non-zero truncated tail raises); the
-    per-rank leaves of any other state need the saved world (another is
-    the elastic path, ROADMAP.md queue A item 8e). Every other leaf must
-    keep its shape. Leaves that are no tensor in the template come from
-    the template. Returns a new state; the template is not changed."""
+    arrays; a checkpoint's leaves; an elastic mirror) into
+    ``template_state``'s layout, on its devices and dtypes. The snapshot
+    may come from another world size: this is the cross-topology reshard
+    of the elastic re-mesh and of a checkpoint restored at another world.
+
+    A per-rank leaf (``_slice_mask``) takes this rank's block of the saved
+    stack, after the stack is brought to the template's world:
+
+    - a flat vector (ZeRO-1 moment slices, the ring step's gather
+      residuals) passes through ``resize_zero_padded`` to the template's
+      ``n·local`` (the pad swap; a non-zero truncated tail raises);
+    - ``OverlapEFState.ring_residual`` (``[n, ring_len]`` stacked) goes
+      row by row through ``_resize_ring_residual``: surviving rows
+      pad-swap, each row's own chunk is re-zeroed in the new geometry and
+      new rows start at zero. At ``comm_buckets > 1`` the residuals are
+      per-bucket tuples and resize bucket by bucket; the bucket counts
+      must match, and every interior bucket must keep its coordinate span
+      across the worlds (the JAX package's "indivisible bucket×shard
+      factorization" error otherwise);
+    - any other per-rank leaf (the legacy int8 step's residual tree) must
+      come from the template's world, and raises otherwise.
+
+    Every other leaf must keep its shape. Leaves that are no tensor in the
+    template come from the template. Returns a new state; the template is
+    not changed. Every surviving coordinate is a bitwise copy, so a run
+    continued from the result is a fresh run of the new world restored
+    from the same snapshot."""
     geom = getattr(template_state, "zero1", None)
-    resizable = isinstance(template_state, TrainState) and geom is not None
     pos = (geom.position if geom is not None and geom.position is not None
            else dist.get_rank())
+    n = dist.world_size()
+    host_state = _resize_ring_residuals(host_state, template_state, n)
 
-    def place(h, t, is_slice):
+    def place(h, t, is_slice, resizable):
         if not isinstance(t, torch.Tensor):
             return t
         h = (h.detach().cpu() if isinstance(h, torch.Tensor)
              else torch.from_numpy(np.array(h)))
         if is_slice:
             rows = t.shape[0]
-            if resizable:
-                h = torch.from_numpy(resize_zero_padded(
-                    h.numpy(), geom.n * geom.local))
-            elif h.shape[0] != dist.world_size() * rows:
-                raise ValueError(
-                    f"a per-rank leaf saved as {tuple(h.shape)} does not "
-                    f"stack {dist.world_size()} blocks of the template's "
-                    f"{tuple(t.shape)}: restoring error-feedback state at "
-                    "another world is the elastic path (ROADMAP.md queue A "
-                    "item 8e)")
+            if h.shape[0] != n * rows:
+                if not resizable or h.dim() != 1:
+                    raise ValueError(
+                        f"a per-rank leaf saved as {tuple(h.shape)} does "
+                        f"not stack {n} blocks of the template's "
+                        f"{tuple(t.shape)}: only the ZeRO-1 moment slices "
+                        "and the ring step's error-feedback residuals "
+                        "resize across worlds")
+                h = torch.from_numpy(resize_zero_padded(h.numpy(), n * rows))
             h = h[pos * rows:(pos + 1) * rows]
         if tuple(h.shape) != tuple(t.shape):
             raise ValueError(f"leaf of shape {tuple(h.shape)} does not fit "
@@ -583,5 +606,71 @@ def reshard_state(host_state, template_state):
     if len(hs) != len(ts):
         raise ValueError(f"snapshot has {len(hs)} leaves, template {len(ts)}")
     return nested_unflatten(template_state, [
-        place(h, t, s) for h, t, s in zip(hs, ts,
-                                          _slice_mask(template_state))])
+        place(*args) for args in zip(
+            hs, ts, _slice_mask(template_state),
+            _slice_mask(template_state, resizable=True))])
+
+
+def _resize_ring_residuals(host_state, template_state, n: int):
+    """The ring-residual pre-pass of ``reshard_state``: a snapshot's
+    ``ring_residual`` (one ``[n_old, ring_len_old]`` stack, or a tuple of
+    per-bucket stacks) resized to the template's world ``n``, as the JAX
+    package's ``reshard_state`` does before its leaf pass. A per-rank slot
+    is ``[1, ring_len]`` (the composed layout's ``[ring_len]`` is one row
+    of a 1-D stack and takes the flat-vector rule instead)."""
+    h_rr = getattr(host_state, "ring_residual", None)
+    t_rr = getattr(template_state, "ring_residual", None)
+    if h_rr is None or t_rr is None:
+        return host_state
+    h_tup, t_tup = isinstance(h_rr, tuple), isinstance(t_rr, tuple)
+    if h_tup != t_tup or (h_tup and len(h_rr) != len(t_rr)):
+        raise ValueError(
+            f"comm_buckets mismatch: the snapshot carries "
+            f"{len(h_rr) if h_tup else 1} EF residual bucket(s), the "
+            f"template {len(t_rr) if t_tup else 1} — rebucketing a "
+            f"live EF state is not defined; rebuild the trainer with "
+            f"the snapshot's comm_buckets")
+    hs, ts = (list(h_rr), list(t_rr)) if h_tup else ([h_rr], [t_rr])
+    if ts[0].dim() != 2 or all(tuple(h.shape) == (n, int(t.shape[-1]))
+                               for h, t in zip(hs, ts)):
+        return host_state       # the composed layout, or the same world
+    if h_tup:
+        for b, (h, t) in enumerate(zip(hs[:-1], ts[:-1])):
+            if int(h.shape[-1]) != int(t.shape[-1]):
+                raise ValueError(
+                    f"indivisible bucket×shard factorization: "
+                    f"interior bucket {b} covers "
+                    f"{int(h.shape[-1])} coordinates in "
+                    f"the snapshot but {int(t.shape[-1])} in the "
+                    f"template — bucket boundaries move with the data "
+                    f"world unless the per-shard slice divides "
+                    f"evenly; resize via comm_buckets=1 or choose a "
+                    f"(world, comm_buckets) pair that preserves the "
+                    f"interior bucket spans")
+    out = [torch.from_numpy(_resize_ring_residual(
+        h.detach().cpu().numpy() if isinstance(h, torch.Tensor)
+        else np.asarray(h), (n, int(t.shape[-1])))) for h, t in zip(hs, ts)]
+    return host_state._replace(
+        ring_residual=tuple(out) if h_tup else out[0])
+
+
+def _resize_ring_residual(h: np.ndarray, new_shape) -> np.ndarray:
+    """Resize an int8-ring EF ``ring_residual`` ``[n_old, ring_len_old]``
+    to a new world's ``[n_new, ring_len_new]`` (the JAX package's rule).
+    Row r is shard r's pending quantization error over the flat padded
+    vector: each surviving row pad-swaps as a ZeRO-1 slice stack does (a
+    non-zero truncated tail raises), new rows (a grow) start at zero, and
+    each row's own chunk is re-zeroed in the new geometry (the owner never
+    quantizes its own chunk, and the chunk boundaries moved with ``n``).
+    Dropped rows (a shrink) leave with their shards."""
+    n_new, len_new = int(new_shape[0]), int(new_shape[1])
+    n_old, _ = h.shape
+    if len_new % n_new:
+        raise ValueError(f"ring_len {len_new} is not a multiple of the "
+                         f"data world {n_new} — not a flat-ring residual")
+    local_new = len_new // n_new
+    out = np.zeros((n_new, len_new), h.dtype)
+    for r in range(min(n_old, n_new)):
+        out[r] = resize_zero_padded(np.asarray(h[r]), len_new)
+        out[r, r * local_new:(r + 1) * local_new] = 0.0
+    return out

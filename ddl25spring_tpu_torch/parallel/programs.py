@@ -2107,3 +2107,356 @@ def phase17(sp_tokens, ep_tokens, *, device) -> dict:
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------- elastic data parallelism
+
+def prune_checkpoint(src: str, dst: str, step: int) -> None:
+    """Copy the checkpoint directory ``src`` to ``dst`` keeping only step
+    ``step``, so a fresh run resumes from exactly that recovery point."""
+    import shutil
+    shutil.copytree(src, dst)
+    for name in os.listdir(dst):
+        stem = name.partition(".")[0]
+        if stem.isdigit() and int(stem) != step:
+            os.unlink(os.path.join(dst, name))
+    dig = os.path.join(dst, "digests")
+    for name in os.listdir(dig):
+        if int(name.partition(".")[0]) != step:
+            os.unlink(os.path.join(dig, name))
+
+
+def _report_dict(rep) -> dict:
+    return {"losses": rep.losses, "steps": rep.steps,
+            "start_step": rep.start_step, "preempted": rep.preempted,
+            "remeshes": rep.remeshes,
+            "post_remesh_tokens_per_sec": rep.post_remesh_tokens_per_sec,
+            "tokens_per_sec": rep.tokens_per_sec,
+            "resilience": rep.resilience.as_dict()}
+
+
+def elastic_calls(calls, *, device) -> list:
+    """``train.llm.train_llm_dp`` calls on this launch's pool, in order;
+    returns one dict per call (``_report_dict`` of the report, the same on
+    every rank of the pool after an elastic call, or ``error``: the type
+    and text of what the call raised).
+
+    A call is a dict: ``cfg`` and ``train_cfg`` (``LlamaConfig`` and
+    ``TrainConfig`` fields), ``kwargs`` (``train_llm_dp``'s), and
+    optionally ``world`` (run on the first ``world`` pool ranks alone, the
+    others waiting; default the whole pool) and ``prune`` (``(src, dst,
+    call index, remesh index)``: before the call, ``prune_checkpoint(src,
+    dst, m)`` at that earlier call's re-mesh's resume step ``m``)."""
+    pool = dist.pool()
+    full = tuple(range(pool.size))
+    out = []
+    for call in calls:
+        if call.get("prune") is not None:
+            src, dst, ci, ri = call["prune"]
+            if pool.rank == 0:
+                prune_checkpoint(
+                    src, dst, out[ci]["remeshes"][ri]["resume_step"])
+            dist.barrier("cpu")
+        world = call.get("world", pool.size)
+        if world != pool.size:
+            dist.reform(full[:world])
+        res = None
+        if pool.rank < world:
+            try:
+                rep = train_llm_dp(LlamaConfig(**call["cfg"]),
+                                   TrainConfig(**call["train_cfg"]),
+                                   tokenizer=ByteTokenizer(), log_every=0,
+                                   device=device, **call.get("kwargs", {}))
+                res = _report_dict(rep)
+            except Exception as e:         # the bar of a refusal
+                res = {"error": [type(e).__name__, str(e)]}
+        if world != pool.size:
+            dist.reform(full)
+            res = dist.broadcast_object(res, 0)
+        out.append(res)
+    return out
+
+
+class SeriesScaleHook:
+    """A ``scale_hook`` that ticks an ``Autoscaler`` (``policy``: its
+    ``AutoscalePolicy`` fields) on a fixed series of p95 TTFT values, one
+    per call, and returns each decision's training world: the trainer's
+    side of the autoscaler without a serving fleet. The autoscaler is made
+    on the first call, in the process that calls it (the training world's
+    rank 0), and writes its ``scale`` events to ``events_path``."""
+
+    def __init__(self, series, policy: dict, *, train_world: int,
+                 serve_engines: int, events_path=None):
+        self.series = list(series)
+        self.policy = dict(policy)
+        self.train_world, self.serve_engines = train_world, serve_engines
+        self.events_path = events_path
+        self.scaler = None
+
+    def __call__(self, it: int, world: int):
+        from ..resilience import Autoscaler, AutoscalePolicy
+        from ..telemetry import EventLog
+        if self.scaler is None:
+            self.scaler = Autoscaler(
+                AutoscalePolicy(**self.policy), train_world=self.train_world,
+                serve_engines=self.serve_engines, log_fn=None,
+                events=(EventLog(self.events_path)
+                        if self.events_path else None))
+            self._k = 0
+        p95 = self.series[self._k] if self._k < len(self.series) else None
+        self._k += 1
+        d = self.scaler.tick(p95, it=it)
+        return None if d is None else d.train_world
+
+
+# --------------------------------------------- chip_smoke.py phase 18
+
+class _WorldLaunches:
+    """This process's kernel launches per world of an elastic run: the
+    counters are read whenever the process leaves a world (a re-mesh it
+    takes part in, or the start of a wait outside the world) and at the
+    end; each segment is ``{"world": size or 0 while outside, "launches":
+    {...}}``."""
+
+    def __init__(self, device):
+        from ..resilience.elastic import ElasticController
+        self.device, self.cls = device, ElasticController
+        self.segments, self._base = [], None
+
+    def _cut(self, world: int) -> None:
+        synchronize(self.device)
+        now = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+               "flash_bwd_dkv": fa.dkv_launches, "adam": padam.launches}
+        self.segments.append({"world": world, "launches": {
+            k: v - self._base[k] for k, v in now.items()}})
+        self._base = now
+
+    def __enter__(self):
+        cls = self.cls
+        self._move, self._wait = cls._move, cls.wait_rejoin
+        me = self
+
+        def move(ctl, new_mesh, **kw):
+            me._cut(ctl.mesh.devices.size)
+            return me._move(ctl, new_mesh, **kw)
+
+        def wait(ctl):
+            me._cut(0)
+            return me._wait(ctl)
+
+        cls._move, cls.wait_rejoin = move, wait
+        _zero_counts()
+        self._base = {"flash_fwd": 0, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0, "adam": 0}
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._move, self.cls.wait_rejoin = self._move, self._wait
+
+    def finish(self, world: int) -> list:
+        self._cut(world)
+        return self.segments
+
+
+def reshard_differences(pre, post) -> list:
+    """Where ``post`` (``dp.host_snapshot`` of the state an elastic
+    re-mesh resumed with) departs from the cross-world placement of
+    ``pre`` (the host mirror it was resharded from, taken at the old
+    world), as texts; empty when every coordinate is in place. The rule
+    is stated here in numpy, apart from ``dp.reshard_state``: parameters,
+    the step and every leaf of unchanged shape bitwise; a flat per-rank
+    stack (ZeRO-1 moment slices, the gather residual) equal on the
+    parameters' coordinates, its pad zero; ring-residual row ``r`` of the
+    new world row ``r`` of the old on the parameters' coordinates, its own
+    chunk in the new geometry and its pad zero, and a row the old world
+    did not have zero. One ring residual (``comm_buckets=1``)."""
+    import numpy as np
+    n_real = sum(x.numel() for x in tree_leaves(post.params))
+    out = []
+
+    def arr(x):
+        return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor)
+                          else x)
+
+    for name in post._fields:
+        a, b = getattr(pre, name), getattr(post, name)
+        if name == "ring_residual":
+            if isinstance(b, tuple):
+                raise ValueError("reshard_differences takes one ring "
+                                 "residual (comm_buckets=1)")
+            a, b = arr(a), arr(b)
+            n_new, local = b.shape[0], b.shape[1] // b.shape[0]
+            want = np.zeros_like(b)
+            for r in range(min(a.shape[0], n_new)):
+                want[r, :n_real] = a[r, :n_real]
+                want[r, r * local:(r + 1) * local] = 0
+            if not np.array_equal(b, want):
+                rows = [r for r in range(n_new)
+                        if not np.array_equal(b[r], want[r])]
+                out.append(f"ring_residual rows {rows} misplaced")
+            continue
+        pl, bl = nested_leaves(a), nested_leaves(b)
+        if len(pl) != len(bl):
+            out.append(f"{name}: {len(pl)} leaves before, {len(bl)} after")
+            continue
+        for i, (x, y) in enumerate(zip(pl, bl)):
+            if not isinstance(y, torch.Tensor):
+                continue
+            x, y = arr(x), arr(y)
+            if x.shape == y.shape:
+                ok = np.array_equal(x, y)
+            elif x.ndim == y.ndim == 1:        # a flat per-rank stack
+                ok = (np.array_equal(x[:n_real], y[:n_real])
+                      and not y[n_real:].any() and not x[n_real:].any())
+            else:
+                ok = False
+            if not ok:
+                out.append(f"{name} leaf {i}: {x.shape} -> {y.shape} "
+                           "misplaced")
+    return out
+
+
+class _ReshardAudit:
+    """Holds every re-mesh of an elastic run against
+    ``reshard_differences``: while active, each member of a new world
+    gathers the state it resumes with (``dp.host_snapshot``, after
+    ``ElasticController._remesh``) and compares it with the mirror it was
+    resharded from. ``found``: one entry per re-mesh this process took
+    part in, ``{"worlds": [old, new], "path", "differences"}``
+    (``differences`` None on the checkpoint path, which has no mirror)."""
+
+    def __init__(self):
+        from ..resilience.elastic import ElasticController
+        self.cls, self.found = ElasticController, []
+
+    def __enter__(self):
+        self._remesh = orig = self.cls._remesh
+        found = self.found
+
+        def remesh(ctl, new_mesh, old_mesh, **kw):
+            mirror = ctl._mirror
+            resume = orig(ctl, new_mesh, old_mesh, **kw)
+            post = dp.host_snapshot(resume.state)
+            found.append({
+                "worlds": [old_mesh.devices.size, new_mesh.devices.size],
+                "path": resume.record.path,
+                "differences": (reshard_differences(mirror[1], post)
+                                if resume.record.path == "mirror"
+                                else None)})
+            return resume
+
+        self.cls._remesh = remesh
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._remesh = self._remesh
+
+
+def _remesh_spans(path: str) -> list:
+    """Per ``remesh`` span of an event stream: its seconds and its
+    children's (drain, rebuild, restore, persist, replay)."""
+    from ..telemetry import read_events
+    spans = [e for e in read_events(path) if e["type"] == "span"]
+    out = []
+    for root in (s for s in spans if s["name"] == "remesh"):
+        kids = {s["name"]: s["dur_ns"] / 1e9 for s in spans
+                if s.get("parent_span_id") == root["span_id"]}
+        out.append({"seconds": root["dur_ns"] / 1e9, **kids})
+    return out
+
+
+def phase18(cfg: dict, tcfg: dict, directory: str, *, device) -> dict:
+    """``chip_smoke.py`` phase 18 on this rank of a pool of four on one
+    card: the elastic ``train_llm_dp`` at ``cfg`` (``LlamaConfig``
+    fields) and ``tcfg`` (``TrainConfig`` fields besides the per-leg
+    ones), each call on the whole pool:
+
+    a. no fault: elastic and non-elastic, gradient at K = 1 and ZeRO-1 at
+       K = 2 (losses to compare bitwise);
+    b. ``device_loss@2,device_return@5`` (gradient, K = 1, mirror path,
+       checkpoint and telemetry in ``directory``), then a fresh 4-rank run
+       restored from the grow point;
+    c. a ``SeriesScaleHook`` that resizes 4 → 2 → 4;
+    d. b's walk under ``wire="int8_ef"``, M = 2, ZeRO-1, and its fresh run.
+
+    Returns each call's report (``_report_dict``), this process's
+    launches per world (``_WorldLaunches``) and its re-meshes held against
+    their mirrors (``_ReshardAudit``, key ``audit``) for b, c and d, and
+    from b's and d's streams each re-mesh's span seconds and the mirror's
+    bytes per chunk edge (the ``memory`` events, on whichever rank wrote
+    them)."""
+    from ..telemetry import Telemetry, read_events
+    pool = dist.pool()
+    mcfg = LlamaConfig(**cfg)
+    walk = "device_loss@2,device_return@5"
+    iters = tcfg.pop("iters")
+
+    def train(agg="gradient", spd=1, res=None, ckpt=None, tel=None,
+              hook=None, **extra):
+        kw = dict(aggregation=agg, log_every=0, checkpoint_every=1000,
+                  resilience=res, scale_hook=hook, telemetry=tel)
+        if ckpt is not None:
+            kw["checkpoint_dir"] = os.path.join(directory, ckpt)
+        t0 = time.perf_counter()
+        rep = train_llm_dp(mcfg, TrainConfig(
+            **tcfg, iters=iters, data=pool.size, steps_per_dispatch=spd,
+            **extra), tokenizer=ByteTokenizer(), device=device, **kw)
+        return dict(_report_dict(rep), seconds=time.perf_counter() - t0)
+
+    def restored(src, dst, report, **kw):
+        if pool.rank == 0:
+            prune_checkpoint(os.path.join(directory, src),
+                             os.path.join(directory, dst),
+                             report["remeshes"][1]["resume_step"])
+        dist.barrier(device)
+        return train(ckpt=dst, **kw)
+
+    def walked(name, ckpt, **kw):
+        tel_dir = os.path.join(directory, f"{name}-tel")
+        tel = Telemetry(tel_dir, step_every=1)
+        with _WorldLaunches(device) as wl, _ReshardAudit() as audit:
+            rep = train(res=ResilienceConfig(
+                elastic=True, mirror_every=1, faults=walk), ckpt=ckpt,
+                tel=tel, **kw)
+            rep["worlds"] = wl.finish(pool.size)
+        rep["audit"] = audit.found
+        tel.close()
+        dist.barrier(device)
+        events = os.path.join(tel_dir, "events.jsonl")
+        if pool.rank == 0:
+            rep["spans"] = _remesh_spans(events)
+            rep["mirror_bytes"] = [
+                (e["it"], e.get("world"), e.get("mirror_bytes"))
+                for e in read_events(events) if e["type"] == "memory"]
+        return rep
+
+    out = {"rank": pool.rank}
+    t0 = time.perf_counter()
+    out["a"] = {
+        "ref_gradient": train(),
+        "elastic_gradient": train(res=ResilienceConfig(elastic=True)),
+        "ref_zero1": train(agg="zero1", spd=2),
+        "elastic_zero1": train(agg="zero1", spd=2,
+                               res=ResilienceConfig(elastic=True))}
+    out["a_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = walked("b", "b")
+    out["b_fresh"] = restored("b", "b-fresh", out["b"])
+    out["b_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hook = SeriesScaleHook(
+        [1.0, 1.0] + [0.1] * iters,
+        dict(ttft_slo_s=1.2, sustain=2, cooldown=0, step=2,
+             min_train_world=2, max_train_world=4, min_serve_engines=1,
+             max_serve_engines=3), train_world=4, serve_engines=1)
+    with _WorldLaunches(device) as wl, _ReshardAudit() as audit:
+        out["c"] = train(res=ResilienceConfig(elastic=True), hook=hook)
+        out["c"]["worlds"] = wl.finish(pool.size)
+    out["c"]["audit"] = audit.found
+    out["c_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ring = dict(agg="zero1", wire="int8_ef", overlap_microbatches=2)
+    out["d"] = walked("d", "d", **ring)
+    out["d_fresh"] = restored("d", "d-fresh", out["d"], **ring)
+    out["d_seconds"] = time.perf_counter() - t0
+    return out

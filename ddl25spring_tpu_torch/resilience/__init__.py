@@ -9,17 +9,23 @@
                    checkpoint, restoring the live tensors in place.
 - ``retry``      — exponential backoff with seeded jitter (checkpoint IO).
 - ``preemption`` — SIGTERM → force-saved resumable checkpoint → clean exit.
+- ``elastic``    — ``ElasticController``: the elastic re-mesh of data
+                   parallelism (drain, re-form the process world, reshard,
+                   re-split the stream, resume; shrink and grow), with
+                   ``RemeshRecord`` and ``Resume``.
 - ``autoscale``  — the SLO autoscaler's policy (``AutoscalePolicy``,
                    ``Autoscaler``, ``router_ttft_p95``); its decisions
-                   drive ``ServingFleet.set_active``.
+                   drive ``ServingFleet.set_active`` and, through
+                   ``train_llm_dp(scale_hook=)``, ``ElasticController.
+                   resize``.
 
 Counters land in ``metrics.ResilienceStats``, knobs in
-``config.ResilienceConfig``. The elastic re-mesh (``resilience/elastic.py``),
-which the autoscaler's training side needs, is ROADMAP.md queue A item 8e.
+``config.ResilienceConfig``.
 """
 
 from .autoscale import (Autoscaler, AutoscalePolicy,  # noqa: F401
                         ScaleDecision, router_ttft_p95)
+from .elastic import ElasticController, RemeshRecord, Resume  # noqa: F401
 from .faults import (FaultEvent, FaultPlan, ReplicaLossError,  # noqa: F401
                      ReplicaReturnSignal, corrupt_latest_checkpoint,
                      parse_spec)

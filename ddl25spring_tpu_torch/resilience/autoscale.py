@@ -26,10 +26,12 @@ The loop touches neither the trainer nor the fleet, so the same
 measurement sequence gives the same decisions. The caller applies them:
 ``ServingFleet.set_active(decision.serve_engines)`` on the serving side,
 with ``ServingFleet.pool_headroom`` of the post-move set as the headroom
-feed. The training side (``train_llm_dp(scale_hook=)``) needs the elastic
-re-mesh, ROADMAP.md queue A item 8e, and raises until then. Every decision
-emits one ``scale`` event with the post-move allocation, the signal and
-its value.
+feed. On the training side ``train_llm_dp(scale_hook=)`` polls a hook at
+every chunk edge on the world's rank 0, and a hook that returns
+``decision.train_world`` re-meshes the data world through
+``ElasticController.resize`` (``resilience/elastic.py``), with nothing
+replayed. Every decision emits one ``scale`` event with the post-move
+allocation, the signal and its value.
 """
 
 from __future__ import annotations

@@ -16,8 +16,7 @@ It can, at chosen steps/rounds:
   a step boundary;
 - kill data-parallel replicas (``device_loss``: the wrapped step raises
   ``ReplicaLossError`` instead of dispatching, modeling the dispatch dying
-  with the device; the elastic re-mesh that recovers from it is
-  ROADMAP.md queue A item 8);
+  with the device; ``resilience/elastic.py`` recovers from it);
 - return previously-lost replicas (``device_return``: the wrapped step
   raises ``ReplicaReturnSignal`` instead of dispatching, modeling the
   cluster scheduler handing capacity back at a dispatch boundary).
@@ -73,8 +72,9 @@ class ReplicaLossError(RuntimeError):
 
     Raised by ``FaultPlan.wrap_step`` in place of running the scheduled
     dispatch — the injection-side model of a device failure surfacing as a
-    failed dispatch. Without an elastic controller (ROADMAP.md queue A
-    item 8) it propagates and ends the run.
+    failed dispatch. Without an elastic controller
+    (``resilience.elastic.ElasticController``) it propagates and ends the
+    run.
 
     ``victims(n)`` picks WHICH of the ``n`` current devices died — a
     seeded deterministic choice (same (seed, step) → same victims, the
@@ -101,7 +101,8 @@ class ReplicaReturnSignal(RuntimeError):
     The scale-UP twin of ``ReplicaLossError``: raised by
     ``FaultPlan.wrap_step`` in place of running the scheduled dispatch,
     with the incoming state untouched. Without an elastic controller
-    (ROADMAP.md queue A item 8) it propagates and ends the run.
+    (``resilience.elastic.ElasticController``) it propagates and ends the
+    run.
 
     ``arrivals(lost)`` picks WHICH of the currently-lost replica slots
     come back — a seeded deterministic choice over the lost pool (same

@@ -124,10 +124,14 @@ class Tracer:
 
     def __init__(self, events: Optional[EventLog] = None, *,
                  clock_ns=time.monotonic_ns,
-                 phases: Optional["Spans"] = None):
+                 phases: Optional["Spans"] = None, prefix: str = ""):
         self.events = events
         self.clock_ns = clock_ns
         self.phases = phases
+        # Prepended to every span id: writers of one stream in several
+        # processes (the elastic trainer's successive rank 0s) keep their
+        # ids apart with a prefix of their own.
+        self.prefix = prefix
         self._lock = threading.Lock()
         self._n = 0
         with Tracer._instances_lock:
@@ -137,7 +141,7 @@ class Tracer:
     def _next_id(self) -> str:
         with self._lock:
             self._n += 1
-            return f"s{self._id}.{self._n}"
+            return f"{self.prefix}s{self._id}.{self._n}"
 
     def start(self, name: str, *, parent: Optional[SpanContext] = None,
               trace: Optional[str] = None, phase=None,

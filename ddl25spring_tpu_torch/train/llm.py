@@ -28,10 +28,13 @@ JAX trainer's does (``parallel/compress.py``): ``overlap_microbatches >=
 ZeRO-1; K steps per dispatch), ``dcn > 1`` lays ``dcn·data`` ranks out as
 islands and takes the two-level ring (``wire_dcn`` on the DCN tier), and a
 compressed ``wire`` without microbatches takes the legacy per-step steps.
-The rest of the JAX trainer (sequence parallelism, elastic mode and
-``scale_hook``) raises ``NotImplementedError`` naming its ROADMAP.md
-entry; ``TrainConfig.model`` and ``psa`` are the tensor-parallel
-trainer's, which the JAX DP and PP trainers do not read either. ``on_checkpoint`` is
+``ResilienceConfig.elastic`` runs the loop in elastic mode (``_run_loop``
+with ``resilience/elastic.py``'s controller): a lost rank leaves the
+process world, the survivors re-form it and reshard, returned capacity
+grows it back, and ``scale_hook`` lets the autoscaler resize it. ``TrainConfig.seq`` raises
+``NotImplementedError`` naming its ROADMAP.md entry; ``TrainConfig.model``
+and ``psa`` are the tensor-parallel trainer's, which the JAX DP and PP
+trainers do not read either. ``on_checkpoint`` is
 the checkpoint publication hook of the train→deploy conveyor
 (``serving/deploy.py``).
 
@@ -65,6 +68,7 @@ from ..models import llama
 from ..ops.adam import fused_adam
 from ..parallel import distributed as dist
 from ..parallel import compress, dp, pp, tp
+from ..resilience.faults import ReplicaLossError, ReplicaReturnSignal
 from ..resilience.preemption import PreemptionHandler
 from ..telemetry import introspect
 from ..telemetry.trace import Spans, Tracer
@@ -84,6 +88,11 @@ class LLMTrainReport:
     preempted: bool = False
     start_step: int = 0
     resilience: ResilienceStats = field(default_factory=ResilienceStats)
+    # Elastic mode (resilience/elastic.py): one dict per re-mesh
+    # (``RemeshRecord.as_dict``), and the throughput of the final world
+    # (0.0 when no re-mesh happened or too little ran after the last one).
+    remeshes: List[dict] = field(default_factory=list)
+    post_remesh_tokens_per_sec: float = 0.0
 
 
 # TrainConfig fields the port's trainers do not run at a non-default value,
@@ -182,20 +191,22 @@ def _emit_manifest(telemetry, *, measure: bool, model_cfg, train_cfg,
                    device: torch.device, steps_per_dispatch: int = 1,
                    preflight: Optional[dict] = None, trainer: str = "dp",
                    mesh: Optional[dict] = None,
-                   overlap_microbatches: int = 1) -> None:
+                   overlap_microbatches: int = 1,
+                   windowed: bool = False) -> None:
     """Open a telemetry run: one manifest event with the configuration,
     the step's communication profile (``telemetry.comm.measure_comm`` of
     one call of the unguarded step on a copy of the state and a batch of
     zeros) and the preflight. ``measure``: every rank of a group must run
     the probe, since its collectives are real; rank 0 alone (``telemetry``
-    not None) emits."""
+    not None) emits. ``windowed``: the step takes ``[K, B, T]`` windows
+    even at K = 1 (the elastic loop's)."""
     if not measure:
         return
     from ..telemetry import measure_comm
     comm_profile = None
     try:
         shape = (train_cfg.batch_size, train_cfg.seq_len)
-        if steps_per_dispatch > 1:
+        if steps_per_dispatch > 1 or windowed:
             shape = (steps_per_dispatch,) + shape
         batch = torch.zeros(shape, dtype=torch.long, device=device)
         # A copy: the step updates its state in place.
@@ -252,7 +263,8 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
               on_checkpoint=None, telemetry=None, numerics=None,
               numerics_every: int = 0, compile_watch=None,
               injit_guard: bool = False,
-              memory_meter=None) -> LLMTrainReport:
+              memory_meter=None, controller=None,
+              scale_hook=None) -> LLMTrainReport:
     """The training loop, the JAX ``_run_loop``'s. Iterations before
     ``start_step`` (a resume) only consume their batches, so the data order
     is an uninterrupted run's; step indices are stream positions, so a
@@ -265,12 +277,36 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
     of the loss after ``warmup_steps_excluded`` steps; a checkpoint every
     ``checkpoint_every`` steps and one at the end.
 
-    Windowed (K = ``steps_per_dispatch`` > 1): chunks end on multiples of K
-    (a resume from another step realigns with one shorter first chunk);
-    each chunk's ``[k, B, T]`` window goes to the device in one copy, the
-    next chunk's is staged on the host while the device runs this one, and
-    the step returns the ``[k]`` losses; warmup, sink flushes, checkpoints,
-    guard verdicts and fault indices fall on chunk edges.
+    Windowed (K = ``steps_per_dispatch`` > 1, or elastic mode): chunks end
+    on multiples of K (a resume from another step realigns with one
+    shorter first chunk); each chunk's ``[k, B, T]`` window goes to the
+    device in one copy, the next chunk's is staged on the host while the
+    device runs this one, and the step returns the ``[k]`` losses; warmup,
+    sink flushes, checkpoints, guard verdicts and fault indices fall on
+    chunk edges.
+
+    Elastic (``controller``, a ``resilience.elastic.ElasticController``;
+    the JAX ``_run_elastic_loop``'s): the windowed loop even at K = 1.
+    Every chunk edge feeds the controller's host mirror; a
+    ``ReplicaLossError`` (``ReplicaReturnSignal``) out of a dispatch hands
+    the world to ``ElasticController.recover`` (``grow``), and the loop
+    swaps in the new world, state, step and stream. Step indices stay
+    stream positions: a recovery that rewinds to position ``m`` truncates
+    the loss record to ``m`` and re-trains from there on the new world's
+    stream. ``scale_hook(it, world)`` is polled at every interior chunk
+    edge on the world's rank 0 and its answer broadcast over the world; a
+    target other than the current world re-meshes through
+    ``ElasticController.resize``, replaying nothing. ``telemetry``,
+    ``log_fn``, ``loss_sink`` and ``memory_meter`` are every rank's: the
+    current world's rank 0 uses them (a loss can make another rank the
+    writer). A rank that leaves the world waits
+    (``ElasticController.wait_rejoin``), and a grow that takes it back
+    hands it the loop's record so far; at the end every rank of the pool
+    returns the final world's rank 0's report
+    (``ElasticController.finish``). ``tokens_per_sec`` counts each world's
+    tokens at its own width, the first chunk of each world untimed;
+    ``post_remesh_tokens_per_sec`` times the final world after a re-mesh.
+    With no fault the losses are bitwise the non-elastic loop's.
 
     SIGTERM (``PreemptionHandler``) is honoured at the next step or chunk
     boundary: a checkpoint is force-saved (with a checkpoint directory)
@@ -283,9 +319,25 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
     ``on_checkpoint(step, state)`` follows every save that succeeded."""
     report = LLMTrainReport(start_step=start_step, resilience=stats)
     injit_step0 = int(state.step) if injit_guard else None
+    elastic = controller is not None
     spans = Spans()
-    tracer = Tracer(telemetry.events if telemetry is not None else None,
-                    phases=spans)
+    all_telemetry, all_log, all_sink = telemetry, log_fn, loss_sink
+    tracer = None
+
+    def _writers():
+        # In elastic mode the current world's rank 0 writes, logs and
+        # sinks; a re-mesh can hand these to another rank.
+        nonlocal telemetry, log_fn, loss_sink, tracer
+        if elastic:
+            lead = controller.leader
+            telemetry = all_telemetry if lead else None
+            log_fn = all_log if lead else _quiet
+            loss_sink = all_sink if lead else None
+        tracer = Tracer(telemetry.events if telemetry is not None else None,
+                        phases=spans,
+                        prefix=controller.span_prefix if elastic else "")
+
+    _writers()
 
     def _phase(name: str, parent, span_name: str):
         if parent is not None:
@@ -303,6 +355,10 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
     last_replay_beat = -math.inf
     prev_counters = report.resilience.as_dict()
     last_numerics_it = start_step - max(1, numerics_every)
+    # Windowed: the tokens after the warmup sync, each world's at its
+    # width; elastic: the current world's timer and tokens.
+    timed_tokens = 0.0
+    phase_t0, phase_tokens = None, 0.0
 
     def _emit_numerics(it, aux, index=None):
         nonlocal last_numerics_it
@@ -372,35 +428,43 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
 
     def _after_dispatch(last_it, loss_for_event, naux, t_iter, extra,
                         index=None, force_event=False):
-        """Telemetry after a step or chunk: registry, heartbeat, step
-        event and memory sample, numerics, fault event."""
+        """After a step or chunk: registry, heartbeat, step event and
+        memory sample, numerics and fault event, on the writer. Every rank
+        tracks the counters, so a new writer's (elastic) first fault event
+        holds only what moved since the last one."""
         nonlocal last_event_t, last_event_it, prev_counters
-        telemetry.registry.observe("host_iter_s",
-                                   time.perf_counter() - t_iter)
-        telemetry.heartbeat.beat(step=last_it)
-        if force_event:
-            now = time.perf_counter()
-            if t_start is None:
-                extra = {**extra, "warmup": True}
-            telemetry.events.step(it=last_it, loss=float(loss_for_event),
-                                  dt_s=now - last_event_t,
-                                  steps=last_it - last_event_it, **extra)
-            last_event_t, last_event_it = now, last_it
-            if memory_meter is not None:
-                memory_meter.sample(it=last_it)
-        if naux is not None and last_it - last_numerics_it >= numerics_every:
-            _emit_numerics(last_it, naux, index)
+        if telemetry is not None:
+            telemetry.registry.observe("host_iter_s",
+                                       time.perf_counter() - t_iter)
+            telemetry.heartbeat.beat(step=last_it)
+            if force_event:
+                now = time.perf_counter()
+                if t_start is None or (report.remeshes and phase_t0 is None):
+                    extra = {**extra, "warmup": True}   # a world's first
+                telemetry.events.step(it=last_it, loss=float(loss_for_event),
+                                      dt_s=now - last_event_t,
+                                      steps=last_it - last_event_it, **extra)
+                last_event_t, last_event_it = now, last_it
+                if memory_meter is not None:
+                    memory_meter.sample(it=last_it, **(dict(
+                        world=n_data, mirror_bytes=controller.mirror_bytes())
+                        if elastic else {}))
+            if naux is not None and \
+                    last_it - last_numerics_it >= numerics_every:
+                _emit_numerics(last_it, naux, index)
         delta = report.resilience.delta(prev_counters)
         if delta:
-            _emit_numerics(last_it, naux, index)
-            telemetry.events.fault(counters=delta, it=last_it,
-                                   **_fault_extra(step_fn))
+            if telemetry is not None:
+                _emit_numerics(last_it, naux, index)
+                telemetry.events.fault(counters=delta, it=last_it,
+                                       **_fault_extra(step_fn))
             prev_counters = report.resilience.as_dict()
 
     preempt = PreemptionHandler()
     last_it = start_step - 1
     K = steps_per_dispatch
-    if K <= 1:
+    present = True                  # elastic: this rank is in the world
+    if K <= 1 and not elastic:
         with preempt:
             for it in range(train_cfg.iters):
                 droot = (tracer.start("dispatch", trace="train", it=it,
@@ -441,60 +505,171 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
                 if droot is not None:
                     droot.end()
     else:
-        chunks = []
-        edge = start_step
-        while edge < train_cfg.iters:
-            nxt = min(train_cfg.iters, (edge // K + 1) * K)
-            chunks.append((edge, nxt))
-            edge = nxt
+        K = max(1, K)
 
         def _window(it0, it1, parent=None):
+            # Reads ``batches`` from the enclosing frame, so a re-mesh's
+            # rebinding re-points it at the new world's stream.
             with _phase("data", parent, "stage"):
                 return np.stack([next(batches).reshape(shape)
                                  for _ in range(it1 - it0)])
 
-        staged = None
+        staged = None               # (first step index, host window)
+        edge = start_step
         last_flush_edge = start_step
+        dispatch_idx = 0
+
+        def _drain_pending():
+            # Settle in-flight work as host copies: the old world's device
+            # values must not be read after the world changes.
+            pending[:] = [(i0, _host(ls)) for i0, ls in pending]
+
+        def _loop_state() -> dict:
+            """What a rank that joins in a grow takes over."""
+            _drain_pending()
+            return {"losses": list(report.losses),
+                    "start_step": report.start_step,
+                    "remeshes": list(report.remeshes),
+                    "pending": list(pending), "last_saved": last_saved,
+                    "dispatch_idx": dispatch_idx,
+                    "last_flush_edge": last_flush_edge,
+                    "t_start": t_start, "excluded_steps": excluded_steps,
+                    "timed_tokens": timed_tokens,
+                    "prev_counters": prev_counters}
+
+        def _take_loop_state(st: dict) -> None:
+            nonlocal last_saved, dispatch_idx, last_flush_edge, t_start, \
+                excluded_steps, timed_tokens, prev_counters
+            report.losses[:] = st["losses"]
+            report.start_step = st["start_step"]
+            report.remeshes[:] = st["remeshes"]
+            pending[:] = st["pending"]
+            last_saved, dispatch_idx = st["last_saved"], st["dispatch_idx"]
+            last_flush_edge = st["last_flush_edge"]
+            t_start, excluded_steps = st["t_start"], st["excluded_steps"]
+            timed_tokens = st["timed_tokens"]
+            prev_counters = st["prev_counters"]
+
+        def _swap(resume):
+            # Install a Resume's world: the fault paths and the resize
+            # share it. The record truncates to the resume point ``m`` and
+            # every cursor rewinds with it.
+            nonlocal n_data, state, step_fn, to_device, batches, last_it, \
+                last_flush_edge, last_event_t, last_event_it, phase_t0, \
+                phase_tokens, staged, edge
+            n_data = resume.n_data
+            state, step_fn = resume.state, resume.step_fn
+            to_device, batches = resume.window_shard_fn, resume.batches
+            m = resume.step
+            pending[:] = [p for p in pending if p[0] < m]
+            del report.losses[max(0, m - report.start_step):]
+            report.start_step = min(report.start_step, m)
+            report.remeshes.append(resume.record.as_dict())
+            last_it = m - 1
+            last_flush_edge = min(last_flush_edge, m)
+            last_event_t = time.perf_counter()
+            last_event_it = m - 1
+            phase_t0, phase_tokens = None, 0.0
+            staged = None           # old width, old stream
+            edge = m
+            _writers()
+
+        def _moved(resume) -> bool:
+            """Go on in ``resume``'s world; a rank that left the world
+            (None) waits outside it. False when the run ended while it
+            waited; True when a grow took it back, its loop state
+            installed."""
+            if resume is None:
+                got = controller.wait_rejoin()
+                if got is None:
+                    return False
+                resume, st = got
+                _take_loop_state(st)
+            _swap(resume)
+            return True
+
         with preempt:
             for rep in range(start_step):   # resume: replay the stream
                 next(batches)
                 _beat_replay(rep)
-            for ci, (it0, it1) in enumerate(chunks):
+            if elastic:
+                # Seed the mirror: a loss on the very first dispatch must
+                # be recoverable without a checkpoint.
+                controller.note_edge(start_step, state)
+            while edge < train_cfg.iters:
                 if preempt.requested:
-                    _force_save(it0)
+                    _force_save(edge)
                     break
+                it0, it1 = edge, min(train_cfg.iters, (edge // K + 1) * K)
                 droot = (tracer.start("dispatch", trace="train", it=it0,
                                       steps=it1 - it0, phase=False)
                          if telemetry is not None else None)
-                window = (staged if staged is not None
-                          else _window(it0, it1, droot))
+                window = (staged[1] if staged is not None
+                          and staged[0] == it0 else _window(it0, it1, droot))
                 staged = None
                 t_iter = time.perf_counter()
-                state, out = _compute(droot, (state, to_device(window)))
+                this_dispatch, dispatch_idx = dispatch_idx, dispatch_idx + 1
+                try:
+                    state, out = _compute(droot, (state, to_device(window)))
+                except (ReplicaLossError, ReplicaReturnSignal) as err:
+                    if not elastic:
+                        raise
+                    grow = isinstance(err, ReplicaReturnSignal)
+                    if droot is not None:
+                        droot.end(**{"replica_return" if grow
+                                     else "replica_loss": True})
+                    with spans("recover"):
+                        if grow:
+                            resume = controller.grow(
+                                err, failed_at=it0, dispatch=this_dispatch,
+                                loop_state=_loop_state())
+                        else:
+                            _drain_pending()
+                            resume = controller.recover(
+                                err, failed_at=it0, dispatch=this_dispatch)
+                    present = _moved(resume)
+                    if not present:
+                        break
+                    continue
                 losses, naux = introspect.split_step_output(out)
-                # Stage the next window while the device runs this one.
-                if ci + 1 < len(chunks):
-                    staged = _window(*chunks[ci + 1], droot)
+                tokens_per_step = (n_data * train_cfg.batch_size
+                                   * train_cfg.seq_len)
                 last_it = it1 - 1
                 first_chunk = t_start is None
                 pending.append((it0, losses))
+                if it1 < train_cfg.iters:
+                    # Stage the next window while the device runs this
+                    # one; a re-mesh discards it (wrong width and stream).
+                    nxt = min(train_cfg.iters, (it1 // K + 1) * K)
+                    staged = (it1, _window(it1, nxt, droot))
                 if log_every:
                     for i in range(it0, it1):
                         if i % log_every == 0:
                             log_fn(f"iter {i}: "
                                    f"loss {float(losses[i - it0]):.4f}")
-                if telemetry is not None:
-                    _after_dispatch(
-                        last_it, losses[-1], naux, t_iter,
-                        {"steps_per_dispatch": it1 - it0}, index=-1,
-                        force_event=(last_it - last_event_it
-                                     >= telemetry.step_every
-                                     or it1 == train_cfg.iters))
+                _after_dispatch(
+                    last_it, losses[-1], naux, t_iter,
+                    {"steps_per_dispatch": it1 - it0}, index=-1,
+                    force_event=(telemetry is not None and (
+                        last_it - last_event_it >= telemetry.step_every
+                        or it1 == train_cfg.iters)))
                 if first_chunk:
                     float(losses[-1])   # warmup quantized to the first chunk
                     t_start = time.perf_counter()
                     excluded_steps = it1 - it0
                     last_event_t, last_event_it = t_start, last_it
+                    if not report.remeshes:
+                        phase_t0 = t_start
+                elif phase_t0 is None:
+                    # The first chunk of a new world: its timer starts
+                    # after it.
+                    float(losses[-1])
+                    phase_t0 = time.perf_counter()
+                else:
+                    timed_tokens += (it1 - it0) * tokens_per_step
+                    phase_tokens += (it1 - it0) * tokens_per_step
+                if elastic:
+                    controller.note_edge(it1, state)   # last-good mirror
                 if (it1 - last_flush_edge >= sink_every
                         or it1 == train_cfg.iters):
                     with _phase("sink", droot, "sink"):
@@ -503,43 +678,89 @@ def _run_loop(step_fn, state, batches, train_cfg: TrainConfig,
                 if ckpt is not None and (it1 // checkpoint_every
                                          > it0 // checkpoint_every):
                     _checkpoint(it1, droot)
+                if scale_hook is not None and it1 < train_cfg.iters:
+                    # The capacity-change seam (resilience/autoscale.py):
+                    # the world's rank 0 asks the hook, every rank hears
+                    # the answer; a move re-meshes here, from this state.
+                    target = dist.broadcast_object(
+                        scale_hook(it1, n_data) if controller.leader
+                        else None)
+                    if target is not None and int(target) != n_data:
+                        with spans("recover"):
+                            _drain_pending()
+                            resume = controller.resize(
+                                int(target), state=state, at_step=it1,
+                                dispatch=dispatch_idx - 1,
+                                loop_state=(_loop_state() if int(target)
+                                            > n_data else None))
+                        if droot is not None:
+                            droot.end(scaled=True)
+                        present = _moved(resume)
+                        if not present:
+                            break
+                        continue
                 if droot is not None:
                     droot.end()
+                edge = it1
+    if not present:                 # the run ended outside the world
+        return controller.finish(report)
     if ckpt is not None:
         if not report.preempted and train_cfg.iters != last_saved:
             ckpt.save(train_cfg.iters, state, overwrite=True)
             _notify_checkpoint(on_checkpoint, train_cfg.iters, state, log_fn)
         ckpt.close()
     _flush_losses()
+    t_end = time.perf_counter()
+    # report.start_step: an elastic recovery from the checkpoint may have
+    # rewound the record's origin below the resumed-from step.
     report.steps = ((last_it + 1 if report.preempted else train_cfg.iters)
-                    - start_step)
+                    - report.start_step)
     if injit_step0 is not None:
         # Steps run minus step-counter advances: the fused guard's skips.
         good = int(state.step) - injit_step0
         report.resilience.skipped_steps += max(0, report.steps - good)
     if t_start is not None and report.steps > excluded_steps:
-        report.wall_time = time.perf_counter() - t_start
-        timed = report.steps - excluded_steps
-        report.tokens_per_sec = tokens_per_step * timed / report.wall_time
+        report.wall_time = t_end - t_start
+        if K <= 1 and not elastic:
+            timed_tokens = tokens_per_step * (report.steps - excluded_steps)
+        report.tokens_per_sec = timed_tokens / report.wall_time
+    if report.remeshes and phase_t0 is not None and phase_tokens > 0:
+        report.post_remesh_tokens_per_sec = (
+            phase_tokens / max(t_end - phase_t0, 1e-9))
     if telemetry is not None:
         telemetry.registry.absorb_spans(spans)
         telemetry.registry.absorb_resilience(report.resilience)
         telemetry.events.run_end(
-            steps=report.steps, start_step=start_step,
+            steps=report.steps, start_step=report.start_step,
             preempted=report.preempted,
             tokens_per_sec=report.tokens_per_sec, wall_s=report.wall_time,
-            metrics=telemetry.registry.snapshot())
+            metrics=telemetry.registry.snapshot(),
+            **(dict(remeshes=len(report.remeshes),
+                    post_remesh_tokens_per_sec=(
+                        report.post_remesh_tokens_per_sec))
+               if elastic else {}))
         telemetry.heartbeat.beat(step=last_it + 1, phase="done")
-    return report
+    return controller.finish(report) if elastic else report
+
+
+def _host(losses):
+    """Device losses as a host array (``pending``'s settled form)."""
+    if isinstance(losses, torch.Tensor):
+        return losses.detach().cpu().numpy()
+    return np.asarray(losses)
 
 
 def _apply_resilience(step_fn, resilience: Optional[ResilienceConfig],
                       fault_plan, ckpt, stats: ResilienceStats, *,
-                      group=None, shared=None, leaf_map=None):
+                      group=None, shared=None, leaf_map=None,
+                      start: int = 0):
     """The resilience layer around a step: fault injection innermost (the
     guard sees the faulted step), the StepGuard outermost. ``fault_plan``
     comes as an object or through ``resilience.faults``; fault step
-    indices are post-resume call indices. A pipeline stage passes its
+    indices are post-resume call indices, offset by ``start`` (the elastic
+    loop re-wraps a step rebuilt mid-run at the absolute dispatch index,
+    so faults already delivered never fire again; the guard starts
+    fresh). A pipeline stage passes its
     stage ``group`` (the guard's verdict covers every stage) and its
     ``leaf_map`` (``pp.global_leaf_map``: fault targets are leaves of the
     whole model); a tensor-parallel shard its model ``group`` and the
@@ -547,7 +768,8 @@ def _apply_resilience(step_fn, resilience: Optional[ResilienceConfig],
     if fault_plan is None and resilience is not None and resilience.faults:
         fault_plan = resilience.fault_plan()
     if fault_plan:
-        step_fn = fault_plan.wrap_step(step_fn, leaf_map=leaf_map)
+        step_fn = fault_plan.wrap_step(step_fn, leaf_map=leaf_map,
+                                       start=start)
     if resilience is not None and resilience.guard:
         from ..resilience.guard import StepGuard
         step_fn = StepGuard(
@@ -567,12 +789,7 @@ def _check_options(train_cfg: TrainConfig, aggregation: str,
     texts (the ring step's wire checks included: ``compress.
     check_wire``), all before any rank starts."""
     queued = unsupported_train_fields(train_cfg)
-    if resilience is not None and resilience.elastic:
-        queued.append("ResilienceConfig.elastic=True (queue A item 8e "
-                      "(elastic re-mesh))")
-    if scale_hook is not None:
-        queued.append("scale_hook (it requires resilience.elastic=True: "
-                      "queue A item 8e (elastic re-mesh))")
+    elastic = bool(resilience is not None and resilience.elastic)
     if queued:
         raise NotImplementedError(
             "train_llm_dp does not run these yet; see ROADMAP.md: "
@@ -613,6 +830,9 @@ def _check_options(train_cfg: TrainConfig, aggregation: str,
                 "per-step compressed paths (they own their collective "
                 "schedules) — overlap_microbatches >= 1 is the composing "
                 "path")
+        if elastic:
+            raise ValueError("numerics_every does not compose with "
+                             "elastic mode yet")
     if resilience is not None and resilience.injit_guard:
         if resilience.guard:
             raise ValueError(
@@ -620,6 +840,10 @@ def _check_options(train_cfg: TrainConfig, aggregation: str,
                 "mechanisms (the host StepGuard would double-count the "
                 "fused skip); set ResilienceConfig(guard=False) to use "
                 "the in-step guard")
+        if elastic:
+            raise ValueError("injit_guard does not compose with elastic "
+                             "mode (the remesh path rebuilds its own "
+                             "steps)")
         if aggregation not in ("gradient", "zero1"):
             raise ValueError("injit_guard requires gradient or zero1 "
                              f"aggregation (got {aggregation!r})")
@@ -628,6 +852,27 @@ def _check_options(train_cfg: TrainConfig, aggregation: str,
                 "injit_guard is not fused into the legacy per-step "
                 "compressed paths — overlap_microbatches >= 1 is the "
                 "composing path")
+    if scale_hook is not None and not elastic:
+        raise ValueError("scale_hook requires resilience.elastic=True — "
+                         "capacity changes ride the elastic re-mesh "
+                         "machinery")
+    if elastic:
+        if aggregation not in ("gradient", "zero1"):
+            raise ValueError("elastic mode supports gradient and zero1 "
+                             f"aggregation only (got {aggregation!r})")
+        if wire != "fp32" and ovl == 0:
+            raise ValueError(
+                f"elastic=True composes with wire={wire!r} only "
+                "through the overlap/ring driver, whose EF residual trees "
+                "(OverlapEFState.ring_residual/gather_residual) the remesh "
+                "path reshards N→M alongside the ZeRO-1 moments — the "
+                "legacy per-step compressed paths own collective schedules "
+                "nobody re-meshes. Set overlap_microbatches >= 1, or use "
+                "wire='fp32'")
+        if hier:
+            raise ValueError("elastic mode supports data-axis-only meshes "
+                             f"(got {{'dcn': {train_cfg.dcn}, 'data': "
+                             f"{train_cfg.data}}})")
     if ovl >= 1:
         if aggregation not in ("gradient", "zero1"):
             raise ValueError("overlap_microbatches supports gradient and "
@@ -749,9 +994,26 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
     returns ``report.preempted=True``; calling again resumes.
     ``telemetry`` (``telemetry.Telemetry``) writes the run's event stream
     and heartbeat (``_run_loop``); ``TrainConfig.numerics_every`` adds
-    ``numerics`` events. ``ResilienceConfig.elastic``, ``scale_hook`` and
-    the ``TrainConfig`` fields ``unsupported_train_fields`` names raise
-    ``NotImplementedError`` naming ROADMAP.md."""
+    ``numerics`` events. The ``TrainConfig`` fields
+    ``unsupported_train_fields`` names raise ``NotImplementedError``
+    naming ROADMAP.md.
+
+    ``resilience.elastic=True`` (gradient or zero1 aggregation; a
+    compressed ``wire`` through the ring step) survives the loss of ranks:
+    a ``device_loss`` fault (or any ``ReplicaLossError``) at dispatch k
+    drains the loop at the chunk edge, the survivors re-form the process
+    world, reshard the parameters, the ZeRO-1 moments and the ring's
+    residuals to the new world (host mirror, or checkpoint), re-split the
+    stream and resume; a ``device_return`` fault grows the world back.
+    Records land in ``report.remeshes`` and ``remesh`` events. The ranks
+    must be this call's own (called outside a group) or the whole pool of
+    a ``distributed.run_ranks`` launch; every rank returns the final
+    world's rank 0's report. ``scale_hook(it, world)`` (elastic only) is
+    polled at every interior chunk edge on the world's rank 0; a target
+    world other than the current one re-meshes there through
+    ``ElasticController.resize``, with nothing replayed. It must pickle
+    (a module-level function or an instance of a module-level class) when
+    the call starts its own ranks."""
     train_cfg = train_cfg or TrainConfig()
     _check_options(train_cfg, aggregation, resilience, scale_hook)
     hier = train_cfg.dcn > 1
@@ -765,7 +1027,7 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
                       checkpoint_every=checkpoint_every, loss_sink=loss_sink,
                       sink_every=sink_every, resilience=resilience,
                       fault_plan=fault_plan, telemetry=telemetry,
-                      on_checkpoint=on_checkpoint)
+                      on_checkpoint=on_checkpoint, scale_hook=scale_hook)
         return dist.run_ranks(_train_rank, world, model_cfg,
                               train_cfg, kwargs, device=device)[0]
     n_data = dist.world_size()
@@ -773,10 +1035,22 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
         raise ValueError(f"TrainConfig.data={train_cfg.data}"
                          + (f" x dcn={train_cfg.dcn}" if hier else "")
                          + f" but the process group has {n_data} ranks")
+    elastic = bool(resilience is not None and resilience.elastic)
+    pool = dist.pool()
+    if elastic and n_data > 1 and (pool is None or pool.members != tuple(
+            range(pool.size))):
+        raise ValueError(
+            "elastic mode re-forms the process world over the pool of one "
+            "distributed.run_ranks launch and must start with the whole "
+            "pool as its world (train_llm_dp starts the pool itself when "
+            "called outside a process group)")
     mesh = dist.hier_data_mesh(n_dcn, train_cfg.data) if hier else None
     dev = dist.rank_device(device)
     rank = dist.get_rank()
     measure = telemetry is not None     # every rank runs the comm probe
+    # The elastic loop hands the writers to whichever rank is the world's
+    # rank 0; elsewhere rank 0 alone writes.
+    run_log, run_sink, run_tel = log_fn, loss_sink, telemetry
     if rank != 0:
         log_fn, loss_sink, telemetry = _quiet, None, None
     tok = tokenizer or load_tokenizer()
@@ -802,7 +1076,40 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
         params, psum_axis="data" if (ovl or aggregation == "zero1")
         else None) if train_cfg.numerics_every > 0 else None)
     state = None
-    if ovl >= 1:
+
+    def _build_elastic(m):
+        """(template state, raw window step, window placement) over the
+        current process world: the first build and every re-mesh's go
+        through here, so they cannot drift."""
+        if ovl >= 1:
+            st, fn = compress.make_overlap_multi_step(
+                loss_fn, optimizer, params, microbatches=ovl, wire=wire,
+                aggregation=aggregation, comm_buckets=cb, device=dev)
+        elif aggregation == "zero1":
+            st, fn = dp.make_zero1_multi_step(loss_fn, optimizer, params)
+        else:
+            fn = dp.make_multi_step(loss_fn, optimizer,
+                                    accum_steps=train_cfg.accum_steps)
+            st = dp.init_state(params, optimizer)
+        # Each (re)build has its own compile watch, named by its world.
+        tel = run_tel if dist.get_rank() == 0 else None
+        fn = introspect.watch(
+            fn, name=f"train/dp-{aggregation}-elastic"
+                     + (f"-ring{wire}-m{ovl}" if ovl else "")
+                     + (f"-b{cb}" if cb > 1 else "")
+                     + f"-w{m.devices.size}",
+            max_caches=None,
+            events=(tel.events if tel is not None else None),
+            meta={"steps_per_dispatch": spd},
+            meta_fn=lambda st, w: {"steps_per_dispatch": int(w.shape[0])})
+        return st, fn, (lambda w: torch.as_tensor(w, dtype=torch.long,
+                                                  device=dev))
+
+    if elastic:
+        from ..parallel.mesh import data_mesh
+        mesh0 = data_mesh(pool.members if pool is not None else (0,))
+        state, step_fn, window_shard = _build_elastic(mesh0)
+    elif ovl >= 1:
         make = (compress.make_overlap_multi_step if spd > 1
                 else compress.make_overlap_step)
         state, step_fn = make(loss_fn, optimizer, params, mesh=mesh,
@@ -831,20 +1138,23 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
         state = dp.init_state(params, optimizer)
     # Each new call signature of the step is a ``compile`` record: one per
     # run per step (a tail window's shape adds one under K > 1). The name
-    # carries the JAX trainer's suffixes.
-    step_fn = introspect.watch(
-        step_fn, name=f"train/dp-{aggregation}"
-                      + (f"-k{spd}" if spd > 1 else "")
-                      + ((f"-hier{n_dcn}x{train_cfg.data}"
-                          f"-{wire}/{train_cfg.wire_dcn or 'fp32'}"
-                          f"-m{ovl}") if hier else
-                         (f"-ring{wire}-m{ovl}" if ovl else ""))
-                      + (f"-b{cb}" if cb > 1 else ""),
-        max_caches=(1 if spd == 1 else None),
-        events=(telemetry.events if telemetry is not None else None),
-        meta={"steps_per_dispatch": spd},
-        meta_fn=(None if spd == 1 else
-                 (lambda st, w: {"steps_per_dispatch": int(w.shape[0])})))
+    # carries the JAX trainer's suffixes. (The elastic build watches its
+    # own step.)
+    if not elastic:
+        step_fn = introspect.watch(
+            step_fn, name=f"train/dp-{aggregation}"
+                          + (f"-k{spd}" if spd > 1 else "")
+                          + ((f"-hier{n_dcn}x{train_cfg.data}"
+                              f"-{wire}/{train_cfg.wire_dcn or 'fp32'}"
+                              f"-m{ovl}") if hier else
+                             (f"-ring{wire}-m{ovl}" if ovl else ""))
+                          + (f"-b{cb}" if cb > 1 else ""),
+            max_caches=(1 if spd == 1 else None),
+            events=(telemetry.events if telemetry is not None else None),
+            meta={"steps_per_dispatch": spd},
+            meta_fn=(None if spd == 1 else
+                     (lambda st, w: {"steps_per_dispatch":
+                                     int(w.shape[0])})))
     compile_watch = step_fn
     stats = ResilienceStats()
     ckpt, state, start_step, done = _setup_checkpoint(
@@ -853,11 +1163,12 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
     if done:
         return LLMTrainReport(start_step=start_step, resilience=stats)
     pre = memory_meter = None
-    if telemetry is not None:
+    meter_tel = run_tel if elastic else telemetry
+    if meter_tel is not None:
         from ..telemetry import memory as memlib
         pre = memlib.preflight(model_cfg, train_cfg, n_data=n_data,
                                aggregation=aggregation, optimizer=optimizer)
-        memory_meter = memlib.MemoryMeter(telemetry.events, source="train",
+        memory_meter = memlib.MemoryMeter(meter_tel.events, source="train",
                                           device=dev)
         if pre is not None:
             memory_meter.note(params_bytes=pre["params_bytes"],
@@ -869,7 +1180,38 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
                    step_fn=compile_watch._fn, state=state, n_data=n_data,
                    device=dev, steps_per_dispatch=spd, preflight=pre,
                    mesh=(mesh.shape if hier else None),
-                   overlap_microbatches=max(1, ovl))
+                   overlap_microbatches=max(1, ovl), windowed=elastic)
+    if elastic:
+        from ..resilience.elastic import ElasticController
+        if fault_plan is None and resilience.faults:
+            # Resolved once: every rebuild re-wraps the same schedule.
+            fault_plan = resilience.fault_plan()
+
+        def _make_batches(n):
+            # This rank's shard at the new width (the reference's
+            # skip=rank·5000): a fresh n-rank run's data order.
+            return shard_batches(tok, train_cfg.batch_size,
+                                 train_cfg.seq_len, dist.get_rank(),
+                                 shard_skip=5000, seed=train_cfg.seed)
+
+        def _rewrap(fn, start=0):
+            return _apply_resilience(fn, resilience, fault_plan, ckpt,
+                                     stats, start=start)
+
+        controller = ElasticController(
+            mesh0, build=_build_elastic, rewrap=_rewrap,
+            make_batches=_make_batches, ckpt=ckpt,
+            mirror_every=resilience.mirror_every, stats=stats,
+            telemetry=run_tel, log_fn=run_log, device=dev)
+        return _run_loop(
+            _rewrap(step_fn), state, _make_batches(n_data), train_cfg,
+            window_shard, n_data=n_data, start_step=start_step, ckpt=ckpt,
+            checkpoint_every=checkpoint_every, loss_sink=run_sink,
+            sink_every=sink_every, log_every=log_every, log_fn=run_log,
+            warmup_steps_excluded=warmup_steps_excluded, stats=stats,
+            steps_per_dispatch=spd, on_checkpoint=on_checkpoint,
+            telemetry=run_tel, memory_meter=memory_meter,
+            controller=controller, scale_hook=scale_hook)
     step_fn = _apply_resilience(step_fn, resilience, fault_plan, ckpt, stats)
     batches = shard_batches(tok, train_cfg.batch_size, train_cfg.seq_len,
                             rank, shard_skip=5000, seed=train_cfg.seed)
@@ -951,12 +1293,13 @@ def _check_pp_options(train_cfg: TrainConfig, aggregation: str,
     if ovl >= 1:
         queued.append(f"overlap_microbatches={ovl} with aggregation="
                       f"{aggregation!r}, wire={train_cfg.wire!r}, "
-                      f"comm_buckets={cb} (queue A item 8e (the DP×PP ring "
-                      "drivers))")
+                      f"comm_buckets={cb} (queue A item 8e-2 (the DP×PP "
+                      "ring drivers))")
     if elastic:
         queued.append("ResilienceConfig.elastic=True"
                       + (" and scale_hook" if scale_hook is not None else "")
-                      + " (queue A item 8e (elastic re-mesh))")
+                      + " (queue A item 8e-3 (elastic PP: the stage "
+                      "re-partition))")
     if queued:
         raise NotImplementedError(
             "train_llm_pp does not run these yet; see ROADMAP.md: "
@@ -1176,7 +1519,7 @@ def _check_tp_options(model_cfg: LlamaConfig, train_cfg: TrainConfig,
             "train_llm_tp does not run these yet; see ROADMAP.md: "
             "ResilienceConfig.elastic=True"
             + (" and scale_hook" if scale_hook is not None else "")
-            + " (queue A item 8e (elastic re-mesh))")
+            + " (queue A item 8e-3 (elastic TP))")
 
 
 def _train_tp_rank(model_cfg, train_cfg, kwargs: dict, *, device):

@@ -13,7 +13,9 @@ import torch
 from ddl25spring_tpu_torch import bench_utils, convert, fl
 from ddl25spring_tpu_torch.config import (FLConfig, LlamaConfig, MoEConfig,
                                           ResilienceConfig, TrainConfig)
-from ddl25spring_tpu_torch.experiments import (comm_wire_smoke, fleet_smoke,
+from ddl25spring_tpu_torch.experiments import (autoscale_smoke,
+                                               comm_wire_smoke,
+                                               elastic_smoke, fleet_smoke,
                                                longctx_bench, memory_smoke,
                                                serving_bench, sp_bench,
                                                tp_fusion_smoke)
@@ -76,6 +78,10 @@ def test_the_scan_sees_every_port_module():
                  "ddl25spring_tpu_torch/experiments/sp_bench.py",
                  "ddl25spring_tpu_torch/experiments/longctx_bench.py",
                  "ddl25spring_tpu_torch/experiments/tp_fusion_smoke.py",
+                 "ddl25spring_tpu_torch/experiments/elastic_smoke.py",
+                 "ddl25spring_tpu_torch/experiments/autoscale_smoke.py",
+                 "ddl25spring_tpu_torch/resilience/elastic.py",
+                 "ddl25spring_tpu_torch/parallel/mesh.py",
                  "ddl25spring_tpu_torch/ops/pallas_adam.py",
                  "ddl25spring_tpu_torch/models/mnist_cnn.py",
                  "ddl25spring_tpu_torch/data/mnist.py",
@@ -193,6 +199,15 @@ ENTRY_POINTS = {
     "train_llm_dp ring": lambda: llm.train_llm_dp(
         CFG, TrainConfig(iters=1, wire="int8_ef", overlap_microbatches=1),
         tokenizer=ByteTokenizer()),
+    "train_llm_dp elastic": lambda: llm.train_llm_dp(
+        CFG, TrainConfig(iters=1), tokenizer=ByteTokenizer(),
+        resilience=ResilienceConfig(elastic=True)),
+    "train_llm_dp elastic data=2": lambda: llm.train_llm_dp(
+        CFG, TrainConfig(iters=1, data=2), tokenizer=ByteTokenizer(),
+        resilience=ResilienceConfig(elastic=True)),
+    "elastic_smoke": lambda: elastic_smoke.main(["--out", "unused.json"]),
+    "autoscale_smoke": lambda: autoscale_smoke.main(["--out",
+                                                     "unused.json"]),
     "train_llm_dp dcn=2": lambda: llm.train_llm_dp(
         CFG, TrainConfig(iters=1, dcn=2, wire_dcn="int8_ef",
                          overlap_microbatches=1),

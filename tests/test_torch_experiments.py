@@ -9,7 +9,10 @@ stream passes the monitor's headroom gate against a roomy budget and
 fails it against a tight one; the sequence-parallel memory twin's losses
 agree over rings 1, 2 and 4 (no memory number off the card); the
 long-context twin times its points in subprocesses and raises for a point
-that fails."""
+that fails; the elastic twin's three bitwise legs hold and its stream's
+``remesh`` event is JAX-valid; the autoscale twin's moves go both ways
+with nothing replayed, and its stream passes the monitor's TTFT gate at
+the twin's SLO."""
 
 import json
 
@@ -17,7 +20,9 @@ import pytest
 import torch
 
 from ddl25spring_tpu.telemetry.events import read_events, validate_event
-from ddl25spring_tpu_torch.experiments import (comm_wire_smoke, fleet_smoke,
+from ddl25spring_tpu_torch.experiments import (autoscale_smoke,
+                                               comm_wire_smoke,
+                                               elastic_smoke, fleet_smoke,
                                                longctx_bench, memory_smoke,
                                                serving_bench, sp_bench,
                                                tp_fusion_smoke)
@@ -182,3 +187,36 @@ def test_longctx_bench_on_the_cpu_and_a_failed_point_raises(tmp_path):
     with pytest.raises(RuntimeError, match="T=64 flash failed"):
         longctx_bench.run(str(out), [(64, 2)], ["flash"], config="tiny",
                           steps=1, device="cpu")
+
+
+def test_elastic_smoke_on_the_cpu(tmp_path):
+    out, tel = tmp_path / "elastic.json", tmp_path / "tel"
+    rc = elastic_smoke.main(["--device", "cpu", "--out", str(out),
+                             "--telemetry-dir", str(tel)])
+    with open(out) as f:
+        res = json.load(f)
+    assert rc == 0 and res["ok"]
+    assert res["zero_fault_bitwise"] and res["post_remesh_bitwise"]
+    assert res["round_trip_bitwise"] and res["steps_replayed"] == 0
+    events = read_events(str(tel / "events.jsonl"), strict=True)
+    remesh = [e for e in events if e["type"] == "remesh"]
+    assert len(remesh) == 1 and validate_event(remesh[0]) == []
+    assert (remesh[0]["old_world"], remesh[0]["new_world"]) == (4, 3)
+
+
+def test_autoscale_smoke_on_the_cpu(tmp_path):
+    out, tel = tmp_path / "autoscale.json", tmp_path / "tel"
+    rc = autoscale_smoke.main(["--device", "cpu", "--out", str(out),
+                               "--telemetry-dir", str(tel)])
+    with open(out) as f:
+        res = json.load(f)
+    assert rc == 0 and res["ok"], res["checks"]
+    assert all(res["checks"].values()) and len(res["checks"]) == 8
+    assert [d["direction"] for d in res["decisions"]] == [
+        "train_to_serve", "serve_to_train"]
+    assert all(r["steps_replayed"] == 0 for r in res["scale_remeshes"])
+    assert slo_monitor.main([str(tel), "--check", "--ttft-p99",
+                             str(res["ttft_slo_s"]), "--no-emit"]) == 0
+    events = read_events(str(tel / "events.jsonl"), strict=True)
+    scale = [e for e in events if e["type"] == "scale"]
+    assert len(scale) == 2 and all(validate_event(e) == [] for e in scale)
