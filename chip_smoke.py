@@ -200,7 +200,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
              secure aggregation at E=1 bitwise ``SecureAggFedAvgServer``'s
              round, DP at z=0 within 1e-6 of the clip-only round, at z=1
              the noise's std within 1% of σ, distinct streams per tier and
-             edge; c. ``experiments.fleet_smoke``: one round of 100,000
+             edge; c. ``experiments.fleet_smoke``: one round of 25,000
              synthetic clients (clients/s, wall, the host's share, device
              memory growth under four cohorts and the parameters beside
              the all-at-once bytes), its control slice and Krum probe, and
@@ -302,8 +302,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
              launches per step in every world are held at 6/6/6/1, and at
              12/12/12/0 on d's ring (6·M flash launches; Adam 0 under
              ZeRO-1).
+19. pp elastic — the DP×PP ring drivers, elastic PP and TP on a pool of
+             four ranks (``programs.phase19``): a. at the canonical width,
+             data 2 × stage 2 (3 layers per stage, GPipe, 2 pipeline
+             microbatches), fp32 B=4 per row, SGD: every wire × aggregation
+             × M against the plain DP×PP step (fp32 within 1e-5 / 1e-4,
+             bf16 and int8_ef within 1e-3 / 2e-3), data rows bitwise; each
+             stage's ring and gather bytes exactly K·M·(n−1)·chunk, the
+             int8_ef ZeRO-1 data-axis wire at most 0.27 of the plain
+             step's; K=2 and a checkpoint resume bitwise; the bf16 cells
+             (B=16 per row, the pallas optimizer) timed in turns with the
+             plain step, launches per stage per step; one fp32 ring hop
+             split into its copies and gloo. b. ``train_llm_pp`` at vocab
+             259, bf16, 6 steps a run: no fault bitwise non-elastic (plain
+             and the int8_ef ZeRO-1 ring at M=2); 1×3 -> 1×2 (a stage
+             re-partition), 1×3 -> 1×2 -> 1×3, 2×2 -> 1×2 on the ring, each
+             bitwise a fresh run from its recovery point, every new world's
+             state held against its mirror, launches per world, each
+             re-mesh's seconds by part. c. ``train_llm_tp`` at
+             ``psa="int8_ef"``: 2×2 -> 1×2 bitwise a fresh 1×2 run; a
+             model-axis loss on 1×2 raises ``ReplicaLossError``.
 
-The line before the last is the kernels' JSON record; the last line is
+Each phase's seconds print on a line of their own (``phase N: X s``) and
+ride in the record as ``phase_seconds``. The line before the last is the
+kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
 result when no CUDA device is available or the package is missing.
 """
@@ -312,6 +334,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -392,7 +415,7 @@ TAB_CE_ABS = 0.01
 TOL_VFL_DEVICE = 1e-5         # card vs CPU: VFL logits and gradients, VFL-VAE terms
 TOL_DP_DEVICE = 1e-4          # card vs CPU, one DP-FedAvg round, every leaf
 TOL_NOISE_STD = 0.01          # z = 1 round: empirical std vs σ, relative
-VFL_FAITHFUL_EPOCHS = 100     # the faithful-mode VFL run (a falling loss)
+VFL_FAITHFUL_EPOCHS = 25      # the faithful-mode VFL run (a falling loss)
 # Phase 10 (two ranks against a world of one, fp32): the loss and every
 # averaged gradient leaf (of its largest entry) to the limits the CPU tests
 # hold the port's ranks to; the trajectories as phase 6's; a resumed run
@@ -1556,9 +1579,10 @@ def serving_ext_phase(dev: torch.device, card: str, model, cfg,
                   "bytes_unchanged": True, "exact": cow_exact,
                   "near_tie": cow_near}
 
-    # 11e: gather narrowing, in turns with plain runs.
+    # 11e: gather narrowing, in turns with a plain run (one pair; two
+    # through PR 16).
     turns = {"narrowed": [], "plain": []}
-    for name in ("narrowed", "plain", "plain", "narrowed"):
+    for name in ("narrowed", "plain"):
         _, r = served({"gather_buckets": name == "narrowed"}, f"11e {name}")
         turns[name].append(r)
     e = turns["narrowed"][0]
@@ -1569,8 +1593,8 @@ def serving_ext_phase(dev: torch.device, card: str, model, cfg,
     tps = {k: [r["tok_s"] for r in v] for k, v in turns.items()}
     print(f"serving ext 11e, gather narrowing: {e['gather_bytes_saved']} of "
           f"{e['gather_bytes'] + e['gather_bytes_saved']} KV bytes not "
-          f"gathered ({share_saved:.3f}); in turns (narrowed, plain, plain, "
-          f"narrowed) decode ms per dispatch narrowed "
+          f"gathered ({share_saved:.3f}); in turns (narrowed, plain) "
+          f"decode ms per dispatch narrowed "
           f"{[round(x, 2) for x in dec['narrowed']]} plain "
           f"{[round(x, 2) for x in dec['plain']]} (phase 5's rerun "
           f"{base['ms_per']['decode']:.2f}); tok/s narrowed "
@@ -1811,11 +1835,12 @@ def resilience_phase(dev: torch.device, card: str, zero_counts, read_counts,
     g1.manual_seed(1)
     tokens = torch.randint(0, tcfg.vocab_size, (64, tcfg.ctx_size),
                            generator=g1, device=dev)
-    # Three calls, each four runs of fresh states in turns (unguarded,
-    # guarded, guarded, unguarded), so no side always runs first: the
-    # spread between calls says how far one call can be trusted.
+    # Two calls (three through PR 16), each four runs of fresh states in
+    # turns (unguarded, guarded, guarded, unguarded), so no side always
+    # runs first: the spread between calls says how far one call can be
+    # trusted.
     pairs = []
-    for _ in range(3):
+    for _ in range(2):
         times: dict = {}
         tax, tax_stats = measure_overhead(make_state_and_step, tokens,
                                           steps=10, warmup=3, device=dev,
@@ -1834,8 +1859,9 @@ def resilience_phase(dev: torch.device, card: str, zero_counts, read_counts,
           f"batch 3 x 256, optimizer pallas) bitwise the unguarded run "
           f"(losses {plain.losses[0]:.4f} -> {plain.losses[-1]:.4f}), no "
           f"counter moved; launches per step {gper}. Guard tax at phase 6's "
-          f"shape (B=64 x 256, bf16), 3 calls of 4 runs of 10 steps in "
-          f"turns (unguarded, guarded, guarded, unguarded), each side the "
+          f"shape (B=64 x 256, bf16), {len(pairs)} calls of 4 runs of 10 "
+          f"steps in turns (unguarded, guarded, guarded, unguarded), each "
+          f"side the "
           f"mean of its two: ms per step (unguarded, guarded) "
           f"{[(round(t['raw_ms_per_step'], 2), round(t['guarded_ms_per_step'], 2)) for t in pairs]}, "
           f"median tax {tax_ms:.2f} ms per step ({tax:+.1f}%) on "
@@ -2287,6 +2313,8 @@ FLEET_WIDTH = 4                # homework 1's 10 clients as cohorts of 4, 4, 2
 TOL_FLEET_RAGGED = 1e-6        # streamed vs vmapped, of each leaf's largest
 TOL_FLEET_DP = 1e-6            # z = 0 against the clip-only round, likewise
 FLEET_ROUNDS = 10
+# 14c's one round (100,000 through PR 16; cut for the 1,200-s limit).
+FLEET_SMOKE_CLIENTS = 25_000
 FLEET_KRUM = dict(n_malicious=2, k=6)
 FLEET_DP_CLIP = 1.0
 FLEET_PROFILE_CLIENTS = 2048   # the profiled slice of the 100k round
@@ -2334,7 +2362,7 @@ def cudnn_mode(*, enabled: bool = True, deterministic: bool = False):
 def fleet_phase(dev: torch.device, card: str, mnist_arrays) -> dict:
     """Phase 14 a-c: homework 1's FedAvg through the fleet engine (against
     ``FedAvgGradServer`` on the card), its tiers (edge Multi-Krum, secure
-    aggregation, DP), and ``fleet_smoke``'s 100,000-client round. Raises on
+    aggregation, DP), and ``fleet_smoke``'s 25,000-client round. Raises on
     a failed check; returns the numbers for the JSON record."""
     from ddl25spring_tpu_torch import fl, profile_step
     from ddl25spring_tpu_torch.config import FLConfig
@@ -2544,9 +2572,10 @@ def fleet_phase(dev: torch.device, card: str, mnist_arrays) -> dict:
           f"DPFedAvgServer's clip-only round, z=1 noise std {std:.5g} vs σ "
           f"{sigma}; tier and edge streams distinct {card}")
 
-    # 14c: fleet_smoke's 100,000-client round, and a profiled slice.
+    # 14c: fleet_smoke's 25,000-client round, and a profiled slice.
     t0 = time.perf_counter()
-    smoke = fleet_smoke.run(fleet_smoke.parse_args([]))
+    smoke = fleet_smoke.run(fleet_smoke.parse_args(
+        ["--clients", str(FLEET_SMOKE_CLIENTS)]))
     smoke["phase_s"] = time.perf_counter() - t0
     failed = [k for k, v in smoke["checks"].items() if not v]
     check(not failed, f"14c fleet_smoke failed {failed}: "
@@ -3550,6 +3579,270 @@ def _elastic_checks(ranks, card: str, iters: int, out: dict) -> dict:
     return out
 
 
+# Phase 19: the DP×PP ring drivers (19a, canonical width, data 2 × stage
+# 2), elastic train_llm_pp (19b) and train_llm_tp (19c) at vocab 259.
+PP19_TCFG = dict(batch_size=8, seq_len=256, optimizer="pallas", iters=6)
+TOL_PP_FP32 = (1e-5, 1e-4)      # ring vs plain step: loss, leaves of max
+TOL_PP_RELAXED = (1e-3, 2e-3)   # bf16, int8_ef wires (the CPU tests' bar)
+PP19_RING_BUDGET = 0.27
+
+
+def pp19_launches(layers: int, pmb: int, m: int, adam: int) -> dict:
+    """Launches per stage per step of a GPipe stage of ``layers`` layers:
+    K2, K5 and K6 once per layer per pipeline microbatch per sync
+    microbatch, K7 ``adam`` times."""
+    n = layers * pmb * m
+    return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "adam": adam}
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_chunks(vocab: int, data: int, stages: int) -> list:
+    """Each stage's ZeRO-1 slice at the canonical model and ``vocab`` on a
+    ``data × stages`` grid (``pp._pp_flat_geometry``)."""
+    from ddl25spring_tpu_torch.config import LlamaConfig
+    from ddl25spring_tpu_torch.models import llama
+    from ddl25spring_tpu_torch.parallel import distributed, pp
+    params = llama.init_llama(LlamaConfig(vocab_size=vocab),
+                              torch.Generator().manual_seed(0),
+                              device="cpu").tree()
+    return [pp._pp_flat_geometry(
+        distributed.PipelineMesh(data, stages, 0, s, None, None),
+        params)[2] for s in range(stages)]
+
+
+def _held_world_launches(name: str, ranks, want, iters: int,
+                         probe: int) -> list:
+    """Every rank's launches per step in each world it took part in
+    against ``want(world)``; a rank outside the call's world (all its
+    segments at world 0) launched nothing. Returns the per-world launches
+    of the first rank that ran."""
+    steps = _world_steps(ranks[0][name], iters, probe)
+    first = None
+    for rk in ranks:
+        segs = rk[name]["worlds"]
+        if all(seg["world"] == 0 for seg in segs):
+            check(not any(v for seg in segs for v in seg["launches"].values()),
+                  f"19 {name} rank {rk['rank']} launched outside the run")
+            continue
+        check(len(segs) == len(steps), f"19 {name} rank {rk['rank']}: "
+              f"{len(segs)} launch segments for {len(steps)} worlds")
+        got = []
+        for seg, n in zip(segs, steps):
+            if seg["world"] == 0:
+                check(not any(seg["launches"].values()), f"19 {name} rank "
+                      f"{rk['rank']} launched outside the world: {seg}")
+                got.append(None)
+                continue
+            per = {k: v / n for k, v in seg["launches"].items()}
+            check(per == want(seg["world"]), f"19 {name} rank {rk['rank']}: "
+                  f"launches per step {per} in a world of {seg['world']}, "
+                  f"expected {want(seg['world'])}")
+            got.append(per)
+        first = first or got
+    return first
+
+
+def pp_elastic_phase(dev: torch.device, card: str) -> dict:
+    """Phase 19: four pool ranks on the card (``programs.phase19``). Raises
+    on a failed check; returns the numbers for the JSON record."""
+    import numpy as np
+    from ddl25spring_tpu_torch.parallel import distributed, programs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()           # the four ranks share the card
+    rng = np.random.default_rng(19)
+    tokens_check = rng.integers(0, 32000, (4, 2 * 4, 256))
+    tokens_time = rng.integers(0, 32000, (2 * 16, 256))
+    wall0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = distributed.run_ranks(
+            programs.phase19, 4, tokens_check, tokens_time, ELASTIC_CFG,
+            PP19_TCFG, tmp, timeout=900)
+        wall1 = time.time()
+    out = {"ranks_seconds": time.perf_counter() - t0,
+           "spawn_seconds": min(r["wall"][0] for r in ranks) - wall0,
+           "exit_seconds": wall1 - max(r["wall"][1] for r in ranks),
+           "cleanup_seconds": time.time() - wall1}
+    _pp19_ring_checks(ranks, card, out)
+    _pp19_elastic_checks(ranks, card, out)
+    print(f"pp elastic phase: {out['ranks_seconds']:.1f} s (spawn "
+          f"{out['spawn_seconds']:.1f}, 19a {ranks[0]['a_seconds']:.1f}, 19b "
+          f"{ranks[0]['b_seconds']:.1f}, 19c {ranks[0]['c_seconds']:.1f}, "
+          f"exit {out['exit_seconds']:.1f}, directory cleanup "
+          f"{out['cleanup_seconds']:.1f} s) {card}")
+    return out
+
+
+def _k7_per_stage(vocab: int, data: int, stages: int) -> int:
+    """K7's launches per stage per step of a ZeRO-1 ring step on a ``data
+    × stages`` grid: 1 when every stage's slice passes the kernel's gate,
+    0 when none does (a grid whose stages disagree is refused here)."""
+    gate = {_k7_eligible(c) for c in _stage_chunks(vocab, data, stages)}
+    check(len(gate) == 1, f"the K7 gate differs across the stages of "
+          f"{data}x{stages} at vocab {vocab}")
+    return int(gate.pop())
+
+
+def _pp19_ring_checks(ranks, card: str, out: dict) -> None:
+    from ddl25spring_tpu_torch.parallel.programs import PHASE19_CELLS
+    a = {rk["rank"]: rk["a"] for rk in ranks}
+    plain = a[0]["plain"]["losses"]
+    check(len(plain) == 4 and all(math.isfinite(x) for x in plain),
+          f"19a plain losses {plain}")
+    cells = {}
+    for name in a[0]["cells"]:
+        wire = name.split()[0]
+        tol_loss, tol_leaf = (TOL_PP_FP32 if wire == "fp32"
+                              else TOL_PP_RELAXED)
+        losses = a[0]["cells"][name]["losses"]
+        loss_err = max(abs(x - y) for x, y in zip(losses, plain))
+        leaf_err = max(r["cells"][name]["leaf_err"] for r in a.values())
+        for r in a.values():
+            check(r["cells"][name]["losses"] == losses, f"19a {name}: the "
+                  "ranks' losses differ")
+            check(r["cells"][name]["replicas_bitwise"], f"19a {name}: the "
+                  "data rows' parameters differ")
+        check(all(math.isfinite(x) for x in losses) and loss_err <= tol_loss
+              and leaf_err <= tol_leaf, f"19a {name}: loss error {loss_err} "
+              f"(bar {tol_loss}), leaves {leaf_err} of their max (bar "
+              f"{tol_leaf}) against the plain DP×PP step")
+        cells[name] = {"loss_err": loss_err, "leaf_err": leaf_err}
+    print("19a canonical width fp32, data 2 x stage 2 (3 layers per stage, "
+          "GPipe, 2 pipeline microbatches), B=4 per row, SGD lr 0.02, 4 "
+          "steps, against the plain DP×PP step: " + "; ".join(
+              f"{k} loss {v['loss_err']:.2e} leaves {v['leaf_err']:.2e}"
+              for k, v in cells.items()) + f"; data rows bitwise {card}")
+    out["cells"] = cells
+    out["geometry"] = {f"stage{r['stage']}": r["geometry"]
+                       for r in a.values() if r["d"] == 0}
+    ratios, exact = {}, {}
+    for r in a.values():
+        if r["d"]:
+            continue
+        geo, K, M = r["geometry"], r["bytes"]["K"], r["bytes"]["M"]
+        chunk, n = geo["chunk"], geo["n"]
+        prof = r["bytes"]["profile"]
+        by = prof["collectives"]
+        got = {"ring": by["pp_ring_grad_int8"]["payload_bytes"],
+               "gather": by["pp_delta_gather_int8"]["wire_bytes_per_device"]}
+        want = {"ring": K * M * (n - 1) * chunk, "gather": K * (n - 1) * chunk}
+        check(got == want, f"19a stage {r['stage']}: ring and gather bytes "
+              f"{got}, expected K·M·(n−1)·chunk {want}")
+        base = r["plain"]["comm"]["axes"]["data"]["wire_bytes_per_device"]
+        ring = prof["axes"]["data"]["wire_bytes_per_device"] / K
+        ratios[f"stage{r['stage']}"] = ring / base
+        exact[f"stage{r['stage']}"] = got
+        check(ring / base <= PP19_RING_BUDGET, f"19a stage {r['stage']}: "
+              f"int8_ef ZeRO-1 data-axis wire {ring / base:.3f} of the plain "
+              f"step's, budget {PP19_RING_BUDGET}")
+    for r in a.values():
+        for what in ("kstep", "resume"):
+            check(r[what]["losses_bitwise"] and r[what]["state_bitwise"],
+                  f"19a rank {r['stage']}/{r['d']}: {what} not bitwise")
+    print(f"19a bytes per stage (K=2, M=1, int8_ef ZeRO-1): {exact}, exactly "
+          f"K·M·(n−1)·chunk; data-axis wire against the plain step "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ratios.items())
+          + f" (budget {PP19_RING_BUDGET}); K=2 and a checkpoint resume "
+          f"bitwise {card}")
+    out["wire_ratio"], out["bytes"] = ratios, exact
+    zero1_adam = _k7_per_stage(32000, 2, 2)
+    timing = {}
+    for r in a.values():
+        s = r["stage"]
+        for name, cell in r["timing"].items():
+            agg, _, m = (("gradient", "fp32", 1) if name == "plain"
+                         else PHASE19_CELLS[name])
+            adam = 1 if agg == "gradient" else zero1_adam
+            want = pp19_launches(3, 2, m, adam)
+            check(cell["launches"] == want, f"19a {name} stage {s} row "
+                  f"{r['d']}: launches per step {cell['launches']}, "
+                  f"expected {want}")
+            check(cell["replicas_bitwise"], f"19a timed {name}: data rows "
+                  "differ")
+            if r["d"] == 0 and s == 0:
+                timing[name] = {"ms_per_step": cell["ms_per_step"],
+                                "launches": cell["launches"]}
+    hop = a[0]["hop"]
+    print("19a bf16 B=16 per row, pallas Adam, timed in turns (2 rounds of "
+          "3 steps): " + "; ".join(
+              f"{k} {v['ms_per_step']:.1f} ms/step, launches "
+              f"{v['launches']}" for k, v in timing.items())
+          + f"; one fp32 ring hop of stage 0's chunk ({hop['bytes']} B) "
+          f"{hop['hop_ms']:.2f} ms: device->host {hop['d2h_ms']:.2f}, gloo "
+          f"{hop['gloo_ms']:.2f}, host->device {hop['h2d_ms']:.2f} {card}")
+    out["timing"], out["hop"] = timing, hop
+
+
+def _pp19_elastic_checks(ranks, card: str, out: dict) -> None:
+    iters = PP19_TCFG["iters"]
+    r0 = ranks[0]
+    for ref, el in (("b_plain", "b_plain_el"), ("b_ring", "b_ring_el")):
+        check(r0[el]["losses"] == r0[ref]["losses"] and len(r0[el]["losses"])
+              == iters and r0[el]["remeshes"] == [], f"19b {el}: the elastic "
+              f"losses {r0[el]['losses']} are not the non-elastic "
+              f"{r0[ref]['losses']}")
+    grids = {4: (2, 2), 3: (1, 3), 2: (1, 2)}     # world -> (data, stage)
+
+    def pp_want(ring: bool):
+        def want(world: int) -> dict:
+            d, stages = grids[world]
+            adam = _k7_per_stage(259, d, stages) if ring else 1
+            return pp19_launches(6 // stages, 2, 2 if ring else 1, adam)
+        return want
+
+    legs = {"b_stage": ([("stage", [1, 3], [1, 2])], 1, 2, False, 0),
+            "b_trip": ([("stage", [1, 3], [1, 2]), ("stage", [1, 2],
+                                                     [1, 3])], 1, 3, False, 1),
+            "b_rows": ([("data", [2, 2], [1, 2])], 1, 2, True, 0),
+            "c_rows": ([("data", [2, 2], [1, 2])], 1, 2, False, 0)}
+    for name, (shapes, d, s, ring, at) in legs.items():
+        rep, fresh = r0[name], r0[f"{name}_fresh"]
+        recs = rep["remeshes"]
+        check([(r["axis"], r["old_shape"], r["new_shape"]) for r in recs]
+              == shapes, f"19 {name}: re-meshes {recs}, expected {shapes}")
+        m = recs[at]["resume_step"]
+        check(len(rep["losses"]) == iters and all(
+            math.isfinite(x) for x in rep["losses"]), f"19 {name} losses")
+        check(fresh["start_step"] == m and rep["losses"][m:]
+              == fresh["losses"], f"19 {name}: losses after the re-mesh "
+              f"{rep['losses'][m:]} are not a fresh {d}x{s} run's "
+              f"{fresh['losses']} from step {m}")
+        want_audits = sum(r["new_world"] for r in recs)
+        audits = [a for rk in ranks for a in rk[name].get("audit", [])]
+        check(len(audits) == want_audits and all(
+            a["path"] == "mirror" and a["differences"] == [] for a in audits),
+            f"19 {name}: {len(audits)} audits (want {want_audits}): "
+            f"{[a['differences'] for a in audits]}")
+        want = (pp_want(ring) if name.startswith("b") else
+                (lambda world: pp19_launches(6, 1, 1, 1)))
+        launches = _held_world_launches(name, ranks, want, iters, probe=1)
+        spans = rep.get("spans") or [{}] * len(recs)
+        for rec, sp in zip(recs, spans):
+            parts = ", ".join(f"{k} {sp[k]:.3f} s" for k in (
+                "drain", "rebuild", "restore", "persist", "replay")
+                if k in sp)
+            print(f"19 {name} {rec['direction']} {rec['old_shape']} -> "
+                  f"{rec['new_shape']} ({rec['axis']}) at step "
+                  f"{rec['detected_at']} via {rec['path']}: "
+                  f"{rec['seconds']:.3f} s ({parts}) {card}")
+        print(f"19 {name}: losses after the re-mesh bitwise a fresh {d}x{s} "
+              f"run from step {m}; {len(audits)} audits clean; launches per "
+              f"rank per step by world {launches}; {rep['seconds']:.1f} s "
+              f"{card}")
+        out[name] = {"remeshes": recs, "spans": rep.get("spans"),
+                     "launches": launches, "losses": rep["losses"],
+                     "seconds": rep["seconds"]}
+    for rk in ranks[:2]:
+        err = rk["c_fatal"].get("error")
+        check(err is not None and err[0] == "ReplicaLossError", f"19c a "
+              f"model-axis loss on 1x2 ended with {err}, not "
+              f"ReplicaLossError")
+    print(f"19b no fault: elastic bitwise non-elastic (plain 2x2, int8_ef "
+          f"ZeRO-1 ring M=2); 19c a model-axis loss on 1x2 raises "
+          f"ReplicaLossError, nothing fabricated {card}")
+
+
 def _build_in_background(ext):
     """Start ``ext.build()`` on a thread (each ``nvcc`` is a child process)
     and return a function that waits for it: its seconds, or what it
@@ -3610,6 +3903,19 @@ def main() -> int:
           f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
+    t_mark = [time.perf_counter()]
+    phase_seconds = {}
+
+    def stamp(name: str) -> None:
+        """The seconds since the last stamp, as phase ``name``'s, on a line
+        of their own."""
+        now = time.perf_counter()
+        phase_seconds[name] = now - t_mark[0]
+        t_mark[0] = now
+        print(f"phase {name}: {phase_seconds[name]:.1f} s {card}")
+
+    stamp("1")
+
     def zero_counts():
         fa.launches = fa.dq_launches = fa.dkv_launches = padam.launches = 0
 
@@ -3633,6 +3939,7 @@ def main() -> int:
               f"kernels: {fl_counts}")
         print(f"fl phase: {fl_report['phase_s']:.1f} s, port kernel "
               f"launches {fl_counts} {card}")
+        stamp("8")
 
         # 9. tabular, VFL, DP-FedAvg, secure aggregation (no port kernel)
         zero_counts()
@@ -3645,9 +3952,11 @@ def main() -> int:
               f"kernels: {tab_counts}")
         print(f"tabular/vfl/dp/secagg phase: {tab_report['phase_s']:.1f} s, "
               f"port kernel launches {tab_counts} {card}")
+        stamp("9")
     finally:
         build_s = wait_build()
     print(f"build: {build_s:.1f} s, phases 8 and 9 beside it {card}")
+    stamp("2 (the build's wait after phases 8 and 9)")
     ptxas = {}
     for name in _ext.KERNELS:
         log = _ext.library_path(name).with_suffix(".so.log")
@@ -3728,6 +4037,7 @@ def main() -> int:
               f"bound {bound_us:.2f} us ({bound_by}) {card}")
 
 
+    stamp("3")
     # 3b. backward kernels vs plain --------------------------------------
     bwd = []
     for b, t, h, dh, dtype, dh_major, causal in [
@@ -3800,6 +4110,7 @@ def main() -> int:
               f"backward {sdpa_bwd_us:.1f} us {card}")
         del q, k, v, do, q4, k4, v4, out, lse, got, ref, lib_out
 
+    stamp("3b")
     # 3c. Adam kernel vs plain -------------------------------------------
     leaves = adam_ab.kernel_leaf_shapes()
     check(len(leaves) == 9, f"{len(leaves)} Adam kernel leaves at vocab "
@@ -3908,6 +4219,7 @@ def main() -> int:
           f"{adam_bound_us:.1f} us at 3.35 TB/s {card}")
     del state, cols
 
+    stamp("3c")
     # 4. forward at full width (the main path of the kernel) -------------
     cfg = LlamaConfig()
     wgen = torch.Generator()
@@ -3947,6 +4259,7 @@ def main() -> int:
               f"wall ({wall / 1e3:.3f} ms per forward), device "
               f"{device / 1e3:.3f} ms per forward {card}")
 
+    stamp("4")
     # 5. serving at full width -------------------------------------------
     paged = PagedKVConfig(num_blocks=129, block_len=16, max_blocks_per_seq=16)
     wl = synthetic_workload(seed=0, n_requests=32, rate_rps=50.0,
@@ -3992,6 +4305,7 @@ def main() -> int:
           f"dispatch {rep.tokens_per_dispatch:.2f}, flash_fwd launches "
           f"{serve_launches} (paged attention is plain PyTorch) {card}")
 
+    stamp("5")
     # 6. training step at full width (the training main path) ------------
     tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
                        flash_dh_major=True, flash_block=512)
@@ -4114,6 +4428,7 @@ def main() -> int:
           f"leaves {card}")
     del mb, leaves_b, gk, gp
 
+    stamp("6")
     # 7. the trainer entry point ------------------------------------------
     iters = 20
     zero_counts()
@@ -4137,20 +4452,25 @@ def main() -> int:
           f"{rep.tokens_per_sec:.0f} tok/s after warmup; launches per step "
           f"{tper} {card}")
 
+    stamp("7")
     # 10. multi-process data parallelism, two ranks on the card ----------
     dp_report = dp_phase(dev, card, tok_s, step_wall_ms)
 
+    stamp("10")
     # 11. serving extensions (no port kernel but the deploy trainer's) ---
     ext_report = serving_ext_phase(dev, card, model, cfg, zero_counts,
                                    read_counts)
 
+    stamp("11")
     # 12. resilience and telemetry, remat ---------------------------------
     res_report = resilience_phase(dev, card, zero_counts, read_counts,
                                   model, cfg, dp_report, mnist_arrays)
 
+    stamp("12")
     # 13. pipeline parallelism, three and six stage processes -------------
     pp_report = pp_phase(dev, card, dp_losses)
 
+    stamp("13")
     # 14. fleet-scale FL and the autoscaler's serving side (no port kernel)
     zero_counts()
     t0 = time.perf_counter()
@@ -4163,17 +4483,26 @@ def main() -> int:
     print(f"fleet/autoscale phase: {fleet_report['phase_s']:.1f} s, port "
           f"kernel launches {fleet_counts} {card}")
 
+    stamp("14")
     # 15. compressed and overlapped gradient sync, 2 and 2 x 2 ranks ------
     comm_report = comm_phase(dev, card)
 
+    stamp("15")
     # 16. tensor parallelism, 2 and 2 x 2 ranks --------------------------
     tp_report = tp_phase(dev, card)
 
+    stamp("16")
     # 17. sequence and expert parallelism, four ranks; long context -------
     spep_report = sp_ep_phase(dev, card)
 
+    stamp("17")
     # 18. elastic data parallelism, a pool of four ranks ----------------
     elastic_report = elastic_phase(dev, card)
+
+    stamp("18")
+    # 19. DP×PP ring drivers; elastic PP and TP, a pool of four ranks -----
+    pp19_report = pp_elastic_phase(dev, card)
+    stamp("19")
 
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
@@ -4244,7 +4573,12 @@ def main() -> int:
                                         ("d", "int8_ef ring zero1"))},
                    "elastic train_llm_dp scale_hook 4 -> 2 -> 4 (phase "
                    "18c), per rank per step, world by world":
-                       elastic_report["c"]["launches"]}
+                       elastic_report["c"]["launches"],
+                   **{f"pp 2x2 bf16 B=16 {k} (phase 19a), stage 0 per step":
+                      v["launches"] for k, v in pp19_report["timing"].items()},
+                   **{f"elastic {k} (phase 19{k[0]}), per rank per step, "
+                      f"world by world": pp19_report[k]["launches"]
+                      for k in ("b_stage", "b_trip", "b_rows", "c_rows")}}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -4334,7 +4668,10 @@ def main() -> int:
                       "fleet": fleet_report, "comm": comm_report,
                       "tp": tp_report, "sp_ep": spep_report,
                       "elastic": elastic_report,
-                      "adam_paired": adam_pairs, "card": smi, "ok": True}))
+                      "pp_elastic": pp19_report,
+                      "adam_paired": adam_pairs,
+                      "phase_seconds": phase_seconds, "card": smi,
+                      "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

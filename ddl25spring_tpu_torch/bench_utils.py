@@ -223,6 +223,71 @@ def time_tp_train_step(mesh, cfg: LlamaConfig, batch_size: int, *,
     return mesh.data * batch_size * seq * timed * K / dt
 
 
+def time_pp_train_step(mesh, cfg: LlamaConfig, batch_size: int, *,
+                       seq: Optional[int] = None, n_microbatches: int = 1,
+                       schedule: str = "gpipe", opt_name: str = "fused",
+                       wire: Optional[str] = None, warmup: int = 3,
+                       timed_steps: int = 20, steps_per_dispatch: int = 1,
+                       aggregation: str = "gradient",
+                       overlap_microbatches: int = 0, device=None) -> float:
+    """Total tokens/sec of the pipeline train step on ``mesh``
+    (``distributed.pipeline_mesh``; every rank of the group calls it):
+    ``time_train_step``'s contract, the JAX function's composition rules.
+    ``batch_size`` is per data row (it must divide by ``n_microbatches``),
+    and the return counts ``n_data · batch_size · seq`` tokens per step,
+    since the stages of a row share one batch. ``steps_per_dispatch`` = K
+    > 1 times the K-step drivers; ``overlap_microbatches`` = M >= 1 routes
+    the data-axis sync through the DP×PP ring (``wire``,
+    ``aggregation="zero1"``); at M = 0 a ``wire`` or zero1 raises."""
+    from .parallel import pp
+
+    dev = dist.rank_device(device)
+    seq = seq or cfg.ctx_size
+    K = max(1, int(steps_per_dispatch))
+    M = int(overlap_microbatches)
+    params = llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                              device="cpu").tree()
+    opt = make_optimizer(opt_name)
+    if M >= 1:
+        make = (pp.make_pipeline_overlap_multi_step if K > 1
+                else pp.make_pipeline_overlap_step)
+        state, step = make(cfg, opt, mesh, params,
+                           n_microbatches=n_microbatches, schedule=schedule,
+                           aggregation=aggregation, wire=wire or "fp32",
+                           overlap_microbatches=M, device=dev)
+    else:
+        if wire is not None or aggregation != "gradient":
+            raise ValueError("PP wire compression / zero1 route through "
+                             "the ring driver: pass "
+                             "overlap_microbatches >= 1")
+        state = pp.init_state(mesh, params, opt, device=dev)
+        make = (pp.make_pipeline_multi_step if K > 1
+                else pp.make_pipeline_step)
+        step = make(cfg, opt, mesh, n_microbatches=n_microbatches,
+                    schedule=schedule, device=dev)
+    del params
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (mesh.data * batch_size, seq),
+                           generator=gen, device=dev)
+    batch = pp.shard_batch(mesh, tokens, dev)
+    if K > 1:
+        batch = batch.expand(K, *batch.shape)
+    warm, timed = ((max(1, -(-warmup // K)), max(1, -(-timed_steps // K)))
+                   if K > 1 else (warmup, timed_steps))
+    for _ in range(warm):
+        state, loss = step(state, batch)
+    float(loss.reshape(-1)[-1])                  # hard sync before the timer
+    dist.barrier(dev)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, loss = step(state, batch)
+    float(loss.reshape(-1)[-1])                  # waits for the timed chain
+    dist.barrier(dev)
+    dt = time.perf_counter() - t0
+    return mesh.data * batch_size * seq * timed * K / dt
+
+
 def kernel_time_us(fn, reps: int = 100, burst: int = 10) -> float:
     """Median device time of one call, in microseconds: CUDA events around
     each call. Every burst of calls is queued behind a GPU sleep longer

@@ -112,10 +112,13 @@ class TrainConfig:
     """LLM training loop configuration (Adam lr 8e-4, 5000 iterations,
     batch 3 per data shard, seq 256), field for field the JAX package's.
     Parallelism, wire formats and dispatch fields are kept so configs carry
-    over; the port runs data parallelism (``data`` processes,
-    ``accum_steps``, ``steps_per_dispatch``, every ``optimizer``), pipeline
-    parallelism (``stage``, ``microbatches``: ``train.llm.train_llm_pp``)
-    and raises for the rest (``train.llm.unsupported_train_fields``)."""
+    over; the port runs data parallelism (``data`` processes, ``dcn``
+    islands, ``accum_steps``, ``steps_per_dispatch``, every ``optimizer``,
+    the ring fields ``wire``, ``wire_dcn``, ``overlap_microbatches``,
+    ``comm_buckets``), pipeline parallelism (``stage``, ``microbatches``,
+    the DP×PP ring fields: ``train.llm.train_llm_pp``) and tensor
+    parallelism (``model``, ``psa``: ``train.llm.train_llm_tp``), and
+    raises for the rest (``seq``: ``train.llm.unsupported_train_fields``)."""
 
     batch_size: int = 3            # per-data-shard batch
     seq_len: int = 256
@@ -149,11 +152,12 @@ class TrainConfig:
 class ResilienceConfig:
     """Self-healing knobs for the training loops (``resilience/``), field
     for field the JAX package's. ``faults`` is a ``FaultPlan`` spec string
-    (empty: inject nothing). ``elastic=True`` re-meshes ``train_llm_dp``
-    over the surviving ranks and back (``resilience/elastic.py``);
-    ``mirror_every`` is its host mirror's cadence in chunk edges (0: no
-    mirror, recovery from the checkpoint). Elastic pipeline and tensor
-    parallelism are ROADMAP.md queue A item 8e-3."""
+    (empty: inject nothing). ``elastic=True`` re-meshes ``train_llm_dp``,
+    ``train_llm_pp`` (a data-row drop, else a stage re-partition) and
+    ``train_llm_tp`` (a data-row drop; a model-axis loss is fatal) over the
+    surviving ranks and back (``resilience/elastic.py``); ``mirror_every``
+    is its host mirror's cadence in chunk edges (0: no mirror, recovery
+    from the checkpoint)."""
 
     guard: bool = True             # wrap the train step in a StepGuard
     # The skip fused into the step (parallel.dp ``guard_nonfinite``):

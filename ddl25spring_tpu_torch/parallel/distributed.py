@@ -7,8 +7,9 @@ parallelism: counterpart of the JAX package's ``parallel/distributed.py``
 The reference's DP homework runs one OS process per rank, joined by
 ``torch.distributed`` over gloo; the JAX package runs one SPMD program over
 a ``data`` mesh axis. The port goes back to processes: ``run_ranks`` starts
-``world`` processes with the ``spawn`` start method (CUDA forbids ``fork``
-once it is initialised), each joins the group through ``initialize`` and
+``world`` processes from a ``forkserver`` (CUDA forbids ``fork`` of a
+process that has initialised it; the server, which imports torch and the
+port once, never does), each joins the group through ``initialize`` and
 runs the given function, and the launcher returns each rank's result.
 Rank r drives ``cuda:(r % device_count)``, so on one card every rank
 shares it.
@@ -195,8 +196,10 @@ def run_ranks(fn: Callable, world: int, *args, device=None,
     (``reform``); when ``fn`` returns, every rank is in the full pool's
     world again.
 
-    Processes start with the ``spawn`` method, so ``fn`` and ``args`` are
-    pickled: ``fn`` must be a module-level function of an importable
+    Processes start with the ``forkserver`` method: a server process,
+    started on the first launch with torch and ``parallel.programs``
+    imported and no device touched, forks each rank, so ``fn`` and ``args``
+    are pickled: ``fn`` must be a module-level function of an importable
     module (never a test file, whose imports a child would repeat), and it
     should return host data (numbers, numpy arrays, CPU tensors). Each
     child runs with the caller's intra-op thread count. The rendezvous is
@@ -213,7 +216,12 @@ def run_ranks(fn: Callable, world: int, *args, device=None,
     if world < 1:
         raise ValueError(f"world must be >= 1 (got {world})")
     rank_device(device, 0)
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    # The server imports these once; every later launch of this process
+    # forks from it instead of importing torch and the port again (seconds
+    # per rank). Importing them initializes no device.
+    ctx.set_forkserver_preload(["torch", __name__.rsplit(".", 1)[0]
+                                + ".programs"])
     tmp = tempfile.mkdtemp(prefix="ddl-rendezvous-")
     results = ctx.Queue()
     procs = [ctx.Process(
@@ -384,6 +392,10 @@ class PipelineMesh:
     s: int
     stage_group: Group
     data_group: Group
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, "stage": self.stage}
 
 
 _MESHES: Dict[Tuple[int, int, int], PipelineMesh] = {}

@@ -674,3 +674,24 @@ def _resize_ring_residual(h: np.ndarray, new_shape) -> np.ndarray:
         out[r] = resize_zero_padded(np.asarray(h[r]), len_new)
         out[r, r * local_new:(r + 1) * local_new] = 0.0
     return out
+
+
+def _resize_act_residual(h: np.ndarray, new_shape) -> np.ndarray:
+    """Resize a PSA ``act_residual`` stack ``[n_data, tp, L, 2, B, T, D]``
+    (``tp.TPActState``) across a data-world resize (the JAX package's
+    rule). Row r is data row r's pending activation error over its own
+    fixed-size batch, so the data axis follows ``_resize_ring_residual``'s
+    row rule: surviving rows copy bitwise, new rows (a grow) start at zero,
+    dropped rows (a shrink) leave with their shards. Every other dimension
+    is topology-independent, and a change there raises."""
+    if h.shape[1:] != tuple(new_shape[1:]):
+        raise ValueError(
+            f"act_residual resize only moves the data axis: snapshot "
+            f"{h.shape} vs template {tuple(new_shape)} differ beyond "
+            f"dimension 0 — changing tp/layers/batch geometry across a "
+            f"re-mesh is not a resize")
+    n_new = int(new_shape[0])
+    out = np.zeros(tuple(new_shape), h.dtype)
+    n_keep = min(h.shape[0], n_new)
+    out[:n_keep] = h[:n_keep]
+    return out

@@ -1,6 +1,7 @@
 """Pipeline parallelism: counterpart of the JAX package's ``parallel/pp.py``
-plain path (GPipe, 1F1B and interleaved schedules, the steps, the layout
-of interleaved parameters and the stage-stacked numerics).
+(GPipe, 1F1B and interleaved schedules, the steps, the layout of
+interleaved parameters, the stage-stacked numerics, the DP×PP ring drivers
+and the stage re-partition of the elastic re-mesh).
 
 The JAX package runs one SPMD program over a ``stage`` mesh axis: a
 ``lax.scan`` over ticks, the activation hop a ``ppermute``, the backward
@@ -47,23 +48,34 @@ every update. A stage state is a ``dp.TrainState`` whose ``pp`` field (a
 ``StageGeometry``) says where it sits in the whole model: ``checkpoint``
 writes the merged JAX-layout state (``host_snapshot``, a gather over the
 stage group) and re-slices it on resume (``slice_state``).
+
+The DP×PP ring drivers (``make_pipeline_overlap_step``) sync the data axis
+through ``compress``'s ring instead of the mean: each stage rings the flat
+vector of its own leaves. Their per-rank state (ZeRO-1 moments, the int8
+residuals) goes to the host in the whole model's coordinates
+(``_stage_coord_ids``), so ``slice_state`` places it at any data × stage
+grid: the checkpoint's resume and the elastic re-mesh's stage
+re-partition (``repartition_stage_state``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import compress, dp
 from . import distributed as dist
+from .compress import BucketMap
 from .dp import TrainState, _loop
 from ..config import LlamaConfig, torch_dtype
 from ..models import llama
 from ..ops.adam import apply_optimizer
 from ..telemetry import introspect
-from ..tree import trainable, tree_leaves, tree_map, tree_unflatten
+from ..tree import (nested_leaves, nested_unflatten, trainable, tree_leaves,
+                    tree_map, tree_unflatten)
 
 _LAYOUT_KEY = "blocks_layout"
 _FWD, _BWD = 0, 1
@@ -176,14 +188,47 @@ def _layout_guarded(step: Callable, schedule: str, n_stages: int,
 # ------------------------------------------------------------ stage states
 
 @dataclass(frozen=True)
+class PPFlat:
+    """The flat geometry of a DP×PP ring state (``_pp_overlap_setup``):
+    this stage's padded flat vector of ``total`` coordinates and ``pad``
+    zeros over ``n`` data rows of ``local`` each, whether the optimizer
+    state is ZeRO-1 slices, and the bucket map (None at one bucket)."""
+
+    n: int
+    pad: int
+    local: int
+    total: int
+    zero1: bool
+    bm: Optional[BucketMap] = None
+
+
+@dataclass(frozen=True)
 class StageGeometry:
     """Where a stage state sits: the mesh, and ``skeleton``, the whole
     model's parameter tree (JAX layout, the layout tag included) as
     shapes on the ``meta`` device, from which ``host_snapshot`` sizes the
-    leaves this stage does not hold."""
+    leaves this stage does not hold. ``flat``: a ring state's flat
+    geometry (None for the plain step's state)."""
 
     mesh: dist.PipelineMesh
     skeleton: dict
+    flat: Optional[PPFlat] = None
+
+
+class PPOverlapEFState(NamedTuple):
+    """A stage's DP×PP ring state under ``wire="int8_ef"``: parameters,
+    optimizer state and step as ``dp.TrainState``'s, this rank's ring
+    residual (``[n·local]`` over its stage's flat vector; JAX's ``[n, S,
+    n·local]`` stack row) and second-leg residual (``[local]``), per-bucket
+    tuples at ``comm_buckets > 1``, and the stage geometry."""
+    params: Any
+    opt_state: Any
+    step: torch.Tensor
+    ring_residual: Any
+    gather_residual: Any
+    pp: StageGeometry
+
+    PER_RANK_FIELDS = ("ring_residual", "gather_residual")
 
 
 def _stage_tree(params: dict, n_stages: int, s: int) -> dict:
@@ -207,7 +252,7 @@ def init_state(mesh: dist.PipelineMesh, params, optimizer,
     params = llama.as_tree(params)
     skeleton = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
                                               device="meta"), params)
-    local = trainable(tree_map(lambda x: x.detach().to(dev),
+    local = trainable(tree_map(lambda x: x.detach().to(dev, copy=True),
                                _stage_tree(params, mesh.stage, mesh.s)))
     return TrainState(local, optimizer.init(local),
                       torch.zeros((), dtype=torch.int32, device=dev),
@@ -271,6 +316,8 @@ def host_snapshot(state: TrainState) -> TrainState:
     state of the same model has this structure, so one checkpoint file
     format serves both."""
     geom = state.pp
+    if geom.flat is not None:
+        return _ring_snapshot(state)
     keys = set(state.params)
 
     def merge(node):
@@ -296,6 +343,8 @@ def merged_template(state: TrainState) -> TrainState:
         return _whole(node, geom.skeleton, lambda shape, dt: torch.empty(
             shape, dtype=dt, device="meta"))
 
+    if geom.flat is not None:
+        return _ring_template(state, whole(state.params))
     return TrainState(whole(state.params),
                       _map_params_like(state.opt_state, keys, whole,
                                        lambda x: x),
@@ -308,6 +357,8 @@ def slice_state(host: TrainState, template: TrainState) -> TrainState:
     its devices and dtypes. Returns a new state."""
     mesh = template.pp.mesh
     keys = set(template.params)
+    if template.pp.flat is not None:
+        return repartition_stage_state(host, template)
 
     def place(h, t):
         h = (h.detach().cpu() if isinstance(h, torch.Tensor)
@@ -329,6 +380,18 @@ def slice_state(host: TrainState, template: TrainState) -> TrainState:
     return TrainState(walk(host.params, template.params),
                       walk(host.opt_state, template.opt_state),
                       walk(host.step, template.step), pp=template.pp)
+
+
+def _place_leaf(h, t):
+    """A host leaf (tensor or array) as a copy on ``t``'s device and
+    dtype, its shape checked."""
+    h = (h.detach().cpu() if isinstance(h, torch.Tensor)
+         else torch.from_numpy(np.array(h)))
+    if tuple(h.shape) != tuple(t.shape):
+        raise ValueError(f"leaf of shape {tuple(h.shape)} does not fit "
+                         f"the stage's {tuple(t.shape)}")
+    return h.to(device=t.device, dtype=t.dtype,
+                copy=True).requires_grad_(t.requires_grad)
 
 
 def global_leaf_map(state: TrainState) -> Dict[int, int]:
@@ -523,14 +586,15 @@ def _schedule_body(schedule: str, n_chunks: int) -> Callable:
                          "'1f1b' or 'interleaved'") from None
 
 
-def _reduce_loss_and_grads(loss, grads, mesh):
+def _reduce_loss_and_grads(loss, grads, mesh, data_sync: bool = True):
     """The loss from the last stage to every stage (a ``psum`` over the
-    stage group, zeros elsewhere); at ``data > 1`` the gradients and the
-    loss averaged over the data group, for every stage. Block gradients
-    need no reduction over stages, and the gradients of ``embed``,
-    ``final_norm`` and ``lm_head`` live on their one owner."""
+    stage group, zeros elsewhere); at ``data > 1`` (and ``data_sync``) the
+    gradients and the loss averaged over the data group, for every stage.
+    Block gradients need no reduction over stages, and the gradients of
+    ``embed``, ``final_norm`` and ``lm_head`` live on their one owner. The
+    ring drivers pass ``data_sync=False``: their ring is the data sync."""
     loss = dist.psum(loss, label="pp_loss_allreduce", group=mesh.stage_group)
-    if mesh.data > 1:
+    if mesh.data > 1 and data_sync:
         grads = dist.pmean_tree(grads, label="grad_allreduce",
                                 group=mesh.data_group)
         loss = dist.pmean(loss, label="loss_allreduce",
@@ -541,7 +605,7 @@ def _reduce_loss_and_grads(loss, grads, mesh):
 # ---------------------------------------------------------------- the steps
 
 def _loss_and_grad(body: Callable, params: dict, tokens, cfg, mesh,
-                   n_microbatches: int, device):
+                   n_microbatches: int, device, data_sync: bool = True):
     """One schedule over this stage's ``params``: the reduced loss and the
     stage's gradient tree (zeros for the layout tag), every hop done."""
     diff = {k: p for k, p in params.items() if k != _LAYOUT_KEY}
@@ -552,7 +616,7 @@ def _loss_and_grad(body: Callable, params: dict, tokens, cfg, mesh,
     grad_tree = tree_unflatten(diff, grads)
     if _LAYOUT_KEY in params:
         grad_tree[_LAYOUT_KEY] = torch.zeros_like(params[_LAYOUT_KEY])
-    return _reduce_loss_and_grads(loss, grad_tree, mesh)
+    return _reduce_loss_and_grads(loss, grad_tree, mesh, data_sync)
 
 
 def loss_and_grad(state: TrainState, tokens, cfg: LlamaConfig,
@@ -663,10 +727,567 @@ def shard_batch_window(mesh: dist.PipelineMesh, window,
     return shard_batch(mesh, window, device)
 
 
+# ------------------------------------------------- the DP×PP ring drivers
+# The JAX package's DP×PP composition: the data-axis gradient sync of a
+# pipeline step routed through PR 13's compressed and overlapped ring
+# (``compress._make_overlap_local_step``), with ZeRO-1 moments and the
+# int8 residuals per (data row, stage). The port keeps its own stage
+# layout: each stage rings the flat vector of the leaves it holds (its
+# block slice, ``embed`` on the first, ``final_norm`` and ``lm_head`` on
+# the last), where every JAX stage carries the stage-replicated leaves in
+# its vector and agrees its int8 scales over ``stage`` to keep those
+# replicas equal. Here nothing is replicated, so the scales are the
+# data row's alone, and the per-stage vectors differ in length.
+
+
+def _pp_flat_geometry(mesh: dist.PipelineMesh, params
+                      ) -> Tuple[int, int, int, int]:
+    """``(n, pad, local, total)`` of this stage's padded flat vector: the
+    stage's own leaves (the layout tag included) over ``n`` = the data
+    axis size. Unlike the JAX geometry, the length differs per stage."""
+    local = _stage_tree(llama.as_tree(params), mesh.stage, mesh.s)
+    total = sum(x.numel() for x in tree_leaves(local))
+    n = mesh.data
+    pad = (-total) % n
+    return n, pad, (total + pad) // n, total
+
+
+def _pp_bucket_map(mesh: dist.PipelineMesh, params, comm_buckets: int):
+    """The DP×PP ``BucketMap``: ``compress.make_bucket_map`` over this
+    stage's own leaves; None at ``comm_buckets == 1``."""
+    if int(comm_buckets) < 1:
+        raise ValueError(
+            f"comm_buckets must be >= 1 (got {comm_buckets})")
+    if int(comm_buckets) == 1:
+        return None
+    return compress.make_bucket_map(
+        _stage_tree(llama.as_tree(params), mesh.stage, mesh.s), mesh.data,
+        comm_buckets)
+
+
+def _pp_overlap_setup(optimizer, mesh: dist.PipelineMesh, params, wire: str,
+                      aggregation: str, schedule: str, n_chunks: int,
+                      comm_buckets: int = 1, device=None):
+    """This rank's DP×PP ring state, with JAX's validations in its order
+    and with its texts: the stage's leaves, the optimizer state (ZeRO-1:
+    over this data row's chunk of the stage's flat vector, per bucket at
+    ``comm_buckets > 1``; else over the stage's leaves), and under
+    ``int8_ef`` the ring residual ``[n·local]`` and second-leg residual
+    ``[local]`` of this (data row, stage), zero (JAX's ``[n, S, ·]``
+    stacks, one row each). The geometry rides in ``state.pp.flat``."""
+    if aggregation not in ("gradient", "zero1"):
+        raise ValueError("the DP×PP overlap driver supports gradient/zero1 "
+                         f"aggregation only (got {aggregation!r})")
+    if wire not in ("fp32", "bf16", "int8_ef"):
+        raise ValueError(f"unknown wire format {wire!r}")
+    if "data" not in mesh.shape:
+        raise ValueError("the DP×PP overlap driver needs a mesh with a "
+                         "'data' axis (size 1 is fine) — build it with "
+                         'make_mesh({"data": d, "stage": s})')
+    if mesh.shape.get("dcn", 1) > 1:
+        raise ValueError("the DP×PP overlap driver runs the flat data ring "
+                         "only; the hierarchical (dcn x data) tier is the "
+                         "DP trainer's (parallel/compress.py)")
+    params = llama.as_tree(params)
+    _check_layout(params.get(_LAYOUT_KEY), schedule, mesh.stage, n_chunks)
+    n, pad, local, total = _pp_flat_geometry(mesh, params)
+    bm = _pp_bucket_map(mesh, params, comm_buckets)
+    dev = dist.rank_device(device)
+    skeleton = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                              device="meta"), params)
+    mine = trainable(tree_map(lambda x: x.detach().to(dev, copy=True),
+                              _stage_tree(params, mesh.stage, mesh.s)))
+    d = mesh.d
+    if aggregation == "zero1":
+        if bm is None:
+            flat = dp._flat_fp32(tree_leaves(mine), pad)
+            opt_state = optimizer.init(
+                flat[d * local:(d + 1) * local].clone())
+        else:
+            vecs = compress._bucket_vectors(bm, mine)
+            opt_state = tuple(optimizer.init(
+                vecs[b][d * bm.sizes[b]:(d + 1) * bm.sizes[b]].clone())
+                for b in range(bm.nbuckets))
+    else:
+        opt_state = optimizer.init(mine)
+    geom = StageGeometry(mesh, skeleton, PPFlat(n, pad, local, total,
+                                                aggregation == "zero1", bm))
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if wire != "int8_ef":
+        return TrainState(mine, opt_state, step, pp=geom)
+
+    def zeros(k):
+        return torch.zeros(k, dtype=torch.float32, device=dev)
+
+    if bm is None:
+        ring, gather = zeros(n * local), zeros(local)
+    else:
+        ring = tuple(zeros(n * sz) for sz in bm.sizes)
+        gather = tuple(zeros(sz) for sz in bm.sizes)
+    return PPOverlapEFState(mine, opt_state, step, ring, gather, geom)
+
+
+def _make_pp_overlap_local_step(cfg: LlamaConfig, optimizer, body: Callable,
+                                mesh: dist.PipelineMesh, n_microbatches: int,
+                                device: torch.device, flat: PPFlat, *,
+                                microbatches: int, wire: str,
+                                aggregation: str, numerics=None) -> Callable:
+    """The stage's overlapped step, shared by ``make_pipeline_overlap_step``
+    and ``make_pipeline_overlap_multi_step`` (the JAX body, in eager
+    order): ``compress._make_overlap_local_step`` over the data group,
+    slice ``mesh.d``, labels ``pp_...``. The local batch splits into M
+    sync microbatches; each runs the whole pipeline schedule (its own
+    ``n_microbatches``) with the stage group's loss sum but without the
+    data-axis mean, and hands the stage's gradient to the ring thread,
+    which rings it over the data group while the next microbatch's
+    schedule runs. The reduced chunks feed the ZeRO-1 slice update and the
+    parameter gather (an int8 delta under ``int8_ef``), or the gradient
+    gather and the replicated update. The interleaved layout tag is put
+    back after the update."""
+
+    def grads(params, leaves, batch, ringer, m):
+        loss, grad_tree = _loss_and_grad(body, params, batch, cfg, mesh,
+                                         n_microbatches, device,
+                                         data_sync=False)
+        g = tree_leaves(grad_tree)
+        ringer.put(m, g)
+        return loss, g
+
+    inner = compress._make_overlap_local_step(
+        None, optimizer, flat.n, flat.pad, flat.local, flat.total,
+        microbatches=microbatches, wire=wire, aggregation=aggregation,
+        bucket_map=flat.bm, numerics=numerics, grads_fn=grads, prefix="pp_",
+        shard=mesh.d, data_group=mesh.data_group)
+
+    def local_step(state, tokens: torch.Tensor):
+        tag = state.params.get(_LAYOUT_KEY)
+        pinned = tag.detach().clone() if tag is not None else None
+        new_state, out = inner(state, tokens)
+        if pinned is not None:
+            with torch.no_grad():
+                new_state.params[_LAYOUT_KEY].copy_(pinned)
+        return new_state, out
+
+    return local_step
+
+
+def _overlap_driver(cfg, optimizer, mesh, params, *, n_microbatches,
+                    schedule, n_chunks, aggregation, wire,
+                    overlap_microbatches, comm_buckets, numerics, device):
+    dev = dist.rank_device(device)
+    body = _schedule_body(schedule, n_chunks)
+    state = _pp_overlap_setup(optimizer, mesh, params, wire, aggregation,
+                              schedule, n_chunks, comm_buckets, dev)
+    return state, dev, _make_pp_overlap_local_step(
+        cfg, optimizer, body, mesh, n_microbatches, dev, state.pp.flat,
+        microbatches=overlap_microbatches, wire=wire,
+        aggregation=aggregation, numerics=numerics)
+
+
+def make_pipeline_overlap_step(cfg: LlamaConfig, optimizer,
+                               mesh: dist.PipelineMesh, params, *,
+                               n_microbatches: int = 1,
+                               schedule: str = "gpipe", n_chunks: int = 2,
+                               aggregation: str = "zero1",
+                               wire: str = "fp32",
+                               overlap_microbatches: int = 1,
+                               comm_buckets: int = 1, numerics=None,
+                               device=None):
+    """The per-step DP×PP ring driver: ``(state, step)``, ``step(state,
+    tokens) -> (state, loss)`` on this rank's data row ``[B, T]``, with
+    the data-axis gradient sync through the compressed and overlapped ring
+    (semantics in ``_make_pp_overlap_local_step``; ``params`` the whole
+    JAX-layout tree, ``interleave_params``'s for the interleaved
+    schedule). The state is a ``PPOverlapEFState`` under
+    ``wire="int8_ef"``, a ``dp.TrainState`` otherwise, with ZeRO-1
+    moments per (data row, stage) under ``aggregation="zero1"``;
+    ``comm_buckets > 1``: per-bucket rings."""
+    state, dev, local = _overlap_driver(
+        cfg, optimizer, mesh, params, n_microbatches=n_microbatches,
+        schedule=schedule, n_chunks=n_chunks, aggregation=aggregation,
+        wire=wire, overlap_microbatches=overlap_microbatches,
+        comm_buckets=comm_buckets, numerics=numerics, device=device)
+
+    def step(state, tokens):
+        return local(state, torch.as_tensor(tokens, dtype=torch.long,
+                                            device=dev))
+
+    return state, step
+
+
+def make_pipeline_overlap_multi_step(cfg: LlamaConfig, optimizer,
+                                     mesh: dist.PipelineMesh, params, *,
+                                     n_microbatches: int = 1,
+                                     schedule: str = "gpipe",
+                                     n_chunks: int = 2,
+                                     aggregation: str = "zero1",
+                                     wire: str = "fp32",
+                                     overlap_microbatches: int = 1,
+                                     comm_buckets: int = 1, numerics=None,
+                                     device=None):
+    """``make_pipeline_overlap_step``'s body over a ``[K, B, T]`` window:
+    the losses and the final state (moments and residuals included) are
+    bitwise K per-step calls."""
+    state, dev, local = _overlap_driver(
+        cfg, optimizer, mesh, params, n_microbatches=n_microbatches,
+        schedule=schedule, n_chunks=n_chunks, aggregation=aggregation,
+        wire=wire, overlap_microbatches=overlap_microbatches,
+        comm_buckets=comm_buckets, numerics=numerics, device=device)
+    multi = _loop(local)
+
+    def step(state, window):
+        return multi(state, torch.as_tensor(window, dtype=torch.long,
+                                            device=dev))
+
+    return state, step
+
+
+# ------------------------------------- ring states on the host, any topology
+
+def _stage_coord_ids(skeleton: dict, n: int, n_stages: int, s: int,
+                     comm_buckets: int = 1):
+    """Stage ``s``'s slots in the global coordinate space, at ``n`` data
+    rows and ``n_stages`` stages. A coordinate's global id is its position
+    in the whole JAX-layout tree (``skeleton``), its leaves raveled in
+    ``tree_leaves`` order: topology-invariant. Returns ``(ids, owned,
+    sizes, total_coords)``: per ring bucket ``b``, ``ids[b]`` maps each
+    slot of the stage's ``[n·sizes[b]]`` bucket vector (the padded flat
+    vector at one bucket; row ``r`` owns ``[r·sizes[b], (r+1)·sizes[b])``)
+    to its id, ``-1`` on pad slots; ``owned[b]`` marks the slots whose
+    value this stage writes into a snapshot: all but the layout tag's off
+    stage 0 (every stage holds the tag). The port's stage holds no other
+    leaf another stage holds, so where JAX keeps "the highest surviving
+    stage's" residual for a stage-replicated leaf, a coordinate here has
+    exactly one owner."""
+    paths = introspect.leaf_paths(skeleton)
+    base, off = {}, 0
+    for p, x in zip(paths, tree_leaves(skeleton)):
+        base[p] = off
+        off += x.numel()
+    for p, x in zip(paths, tree_leaves(skeleton)):
+        if p.split("/")[0] == "blocks" and x.shape[0] % n_stages:
+            raise ValueError(f"blocks leaf of {x.numel()} elements does not "
+                             f"split over {n_stages} stages")
+    local = _stage_tree(skeleton, n_stages, s)
+    lids, own = [], []
+    for p, x in zip(introspect.leaf_paths(local), tree_leaves(local)):
+        top = p.split("/")[0]
+        start = base[p] + (s * x.numel() if top == "blocks" else 0)
+        lids.append(np.arange(start, start + x.numel(), dtype=np.int64))
+        own.append(top != _LAYOUT_KEY or s == 0)
+    if int(comm_buckets) == 1:
+        total = sum(len(a) for a in lids)
+        pad = (-total) % n
+        pieces = [[(li, 0, len(a)) for li, a in enumerate(lids)]]
+        sizes: Tuple[int, ...] = ((total + pad) // n,)
+    else:
+        bm = compress.make_bucket_map(local, n, comm_buckets)
+        pieces, pad, sizes = bm.pieces, bm.pad, bm.sizes
+    ids, owned = [], []
+    for b, pcs in enumerate(pieces):
+        parts = [lids[li][st:st + sz] for li, st, sz in pcs]
+        mask = [np.full(sz, own[li]) for li, st, sz in pcs]
+        if b == len(pieces) - 1 and pad:
+            parts.append(np.full(pad, -1, np.int64))
+            mask.append(np.zeros(pad, bool))
+        ids.append(np.concatenate(parts))
+        owned.append(np.concatenate(mask))
+    return ids, owned, sizes, off
+
+
+def _scatter(g: np.ndarray, vals: np.ndarray, ids: np.ndarray,
+             owned: np.ndarray, what: str) -> None:
+    """Write a bucket vector's values into the global vector ``g`` by id;
+    its pad slots must hold exactly zero."""
+    pad = ids < 0
+    if np.any(vals[pad] != 0):
+        raise ValueError(
+            f"nonzero {what} values in the flat pad tail — the snapshot "
+            "does not look like a zero-padded DP×PP stack")
+    keep = owned & ~pad
+    g[ids[keep]] = vals[keep]
+
+
+def _gather(g: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """A bucket vector read back from the global vector ``g`` by id, zero
+    on pad slots."""
+    return np.where(ids >= 0, g[np.clip(ids, 0, None)], 0).astype(g.dtype)
+
+
+def _tree_to_global(tree) -> np.ndarray:
+    return np.concatenate([np.asarray(x.detach().cpu() if
+                                      isinstance(x, torch.Tensor) else x,
+                                      dtype=np.float32).reshape(-1)
+                           for x in tree_leaves(tree)])
+
+
+def _global_to_tree(g: np.ndarray, skeleton: dict) -> dict:
+    leaves, off = [], 0
+    for x in tree_leaves(skeleton):
+        leaves.append(torch.from_numpy(
+            g[off:off + x.numel()].reshape(tuple(x.shape)).copy()))
+        off += x.numel()
+    return tree_unflatten(skeleton, leaves)
+
+
+def _vector_leaf(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.dim() >= 1
+
+
+def _ring_snapshot(state):
+    """``host_snapshot`` of a ring state (a collective over the world):
+    the parameters merged as the plain state's, and every per-rank flat
+    vector gathered over the data row and scattered by global id
+    (``_stage_coord_ids``) into the whole model's coordinates, summed over
+    the stages: each ZeRO-1 moment leaf a whole JAX-layout tree (so one
+    optimizer state, whatever the bucket count), the ring residual
+    ``[n, total_coords]`` (row r data row r's pending error), the second
+    leg's ``[total_coords]``; per-bucket tuples of residuals, each holding
+    its own bucket's coordinates. The form does not depend on the stage
+    count or the bucket boundaries, so ``slice_state`` places it at any
+    (data, stage) topology."""
+    geom = state.pp
+    mesh, flat = geom.mesh, geom.flat
+    nb = flat.bm.nbuckets if flat.bm is not None else 1
+    ids, owned, sizes, total = _stage_coord_ids(geom.skeleton, flat.n,
+                                                mesh.stage, mesh.s, nb)
+    keys = set(state.params)
+
+    def rows(x) -> np.ndarray:
+        g = dist.all_gather(x.detach().reshape(-1).contiguous(),
+                            group=mesh.data_group)
+        return g.reshape(mesh.data, -1).cpu().numpy()
+
+    def stage_sum(g: np.ndarray) -> torch.Tensor:
+        return dist.psum(torch.from_numpy(g), record=False,
+                         group=mesh.stage_group)
+
+    def chunks_global(per_bucket, what) -> torch.Tensor:
+        """Per-bucket per-rank chunks ``[sizes[b]]`` → the global vector."""
+        g = None
+        for b, x in enumerate(per_bucket):
+            r = rows(x)
+            if g is None:
+                g = np.zeros(total, r.dtype)
+            _scatter(g, r.reshape(-1), ids[b], owned[b], what)
+        return stage_sum(g)
+
+    params = tree_map(lambda x: x.detach().cpu().clone(),
+                      _merge_params_like(state.params, geom))
+    if flat.zero1:
+        opts = (list(state.opt_state) if flat.bm is not None
+                else [state.opt_state])
+        per_leaf = [nested_leaves(o) for o in opts]
+        merged = []
+        for j, x in enumerate(per_leaf[0]):
+            if _vector_leaf(x):
+                g = chunks_global([p[j] for p in per_leaf], "opt_state")
+                merged.append(_global_to_tree(g.numpy(), geom.skeleton))
+            else:
+                merged.append(x.detach().cpu().clone()
+                              if isinstance(x, torch.Tensor) else x)
+        opt_state = nested_unflatten(opts[0], merged)
+    else:
+        opt_state = _map_params_like(
+            state.opt_state, keys,
+            lambda node: tree_map(lambda x: x.detach().cpu().clone(),
+                                  _merge_params_like(node, geom)),
+            lambda x: x.detach().cpu().clone()
+            if isinstance(x, torch.Tensor) else x)
+    out = TrainState(params, opt_state, state.step.detach().cpu().clone())
+    if not isinstance(state, PPOverlapEFState):
+        return out
+    ring_in = (list(state.ring_residual) if flat.bm is not None
+               else [state.ring_residual])
+    gather_in = (list(state.gather_residual) if flat.bm is not None
+                 else [state.gather_residual])
+    ring_out, gather_out = [], []
+    for b in range(nb):
+        r = rows(ring_in[b])          # [n, n·sizes[b]]: row r's residual
+        g = np.zeros((mesh.data, total), np.float32)
+        for row in range(mesh.data):
+            _scatter(g[row], r[row], ids[b], owned[b], "ring_residual")
+        ring_out.append(stage_sum(g))
+        gv = np.zeros(total, np.float32)
+        _scatter(gv, rows(gather_in[b]).reshape(-1), ids[b], owned[b],
+                 "gather_residual")
+        gather_out.append(stage_sum(gv))
+    pack = (lambda xs: tuple(xs)) if flat.bm is not None else \
+        (lambda xs: xs[0])
+    return PPOverlapEFState(out.params, out.opt_state, out.step,
+                            pack(ring_out), pack(gather_out), None)
+
+
+def _ring_template(state, whole_params):
+    """``merged_template`` of a ring state: ``_ring_snapshot``'s structure
+    and shapes on the ``meta`` device."""
+    geom = state.pp
+    flat = geom.flat
+    keys = set(state.params)
+    total = sum(x.numel() for x in tree_leaves(geom.skeleton))
+    meta = geom.skeleton
+
+    def whole32(_):
+        return tree_map(lambda x: torch.empty(x.shape, dtype=torch.float32,
+                                              device="meta"), meta)
+
+    if flat.zero1:
+        first = state.opt_state[0] if flat.bm is not None else state.opt_state
+        opt_state = nested_unflatten(first, [
+            whole32(x) if _vector_leaf(x) else x
+            for x in nested_leaves(first)])
+    else:
+        opt_state = _map_params_like(
+            state.opt_state, keys,
+            lambda node: _whole(node, meta, lambda shape, dt: torch.empty(
+                shape, dtype=dt, device="meta")), lambda x: x)
+    if not isinstance(state, PPOverlapEFState):
+        return TrainState(whole_params, opt_state, state.step)
+    nb = flat.bm.nbuckets if flat.bm is not None else 1
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    ring = [empty(flat.n, total) for _ in range(nb)]
+    gather = [empty(total) for _ in range(nb)]
+    pack = (lambda xs: tuple(xs)) if flat.bm is not None else \
+        (lambda xs: xs[0])
+    return PPOverlapEFState(whole_params, opt_state, state.step, pack(ring),
+                            pack(gather), None)
+
+
+def _host_nodes(like, host) -> list:
+    """``host``'s nodes at the leaf positions of ``like`` (a per-rank
+    optimizer state against its merged form, whose vector leaves are whole
+    trees)."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in _host_nodes(like[k],
+                                                             host[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for a, b in zip(like, host) for x in _host_nodes(a, b)]
+    return [host]
+
+
+def repartition_stage_state(host_state, template_state):
+    """A ring state's host snapshot (``_ring_snapshot``'s form, taken at
+    any ``(n, S)`` data × stage topology) placed at ``template_state``'s
+    ``(n', S')`` rank: the stage re-partition and data reshard of the
+    elastic re-mesh, and a checkpoint restored at another topology.
+
+    Mechanism: every coordinate has a topology-invariant global id
+    (``_stage_coord_ids``); the snapshot already holds every field in
+    those coordinates (the old per-rank slices scattered by id), and the
+    template's slices gather by id. The parameters re-slice as the plain
+    state's. JAX's rules hold: values in pad slots must be exactly zero (a
+    hard error, in the scatter); ring rows beyond the new data world are
+    dropped, new rows start at zero, and each row's own chunk re-zeros in
+    the new geometry; a bucket-count mismatch, an interleaved layout across
+    a stage-count change, and an ``S'`` that does not divide ``n_layers``
+    raise JAX's errors. The port's rule for a stage-replicated leaf: there
+    is none, each coordinate has one owner (the layout tag's is stage 0,
+    and the tag is pinned), so no "highest surviving stage" choice
+    arises."""
+    geom = template_state.pp
+    mesh, flat = geom.mesh, geom.flat
+    keys = set(template_state.params)
+    params = llama.as_tree(host_state.params)
+    n_layers = tree_leaves(params["blocks"])[0].shape[0]
+    if n_layers % mesh.stage:
+        raise ValueError(
+            f"stage re-partition: the template's stage count {mesh.stage} "
+            f"does not divide n_layers={n_layers} — layers shard as equal "
+            "[n_layers/S] blocks, so S' must divide n_layers")
+    tag = params.get(_LAYOUT_KEY)
+    if tag is not None and int(float(tag) // 1000) != mesh.stage:
+        raise ValueError(
+            "stage re-partition of an interleaved layout is unsupported: "
+            "the chunk-major layer order breaks the blocked [L/S] stage "
+            "slices the re-partition re-slices — run elastic PP with "
+            "schedule='gpipe' or '1f1b'")
+    nb = flat.bm.nbuckets if flat.bm is not None else 1
+    ef = isinstance(template_state, PPOverlapEFState)
+    if ef:
+        h_rr = getattr(host_state, "ring_residual", None)
+        h_n = (0 if h_rr is None else len(h_rr) if isinstance(h_rr, tuple)
+               else 1)
+        t_n = nb if flat.bm is not None else 1
+        if h_n != t_n or isinstance(h_rr, tuple) != (flat.bm is not None):
+            raise ValueError(
+                f"comm_buckets mismatch: the snapshot carries {h_n} EF "
+                f"residual bucket(s), the template {t_n} — rebucketing a "
+                "live EF state is not defined; rebuild the trainer with "
+                "the snapshot's comm_buckets")
+    ids, _, sizes, total = _stage_coord_ids(geom.skeleton, flat.n,
+                                            mesh.stage, mesh.s, nb)
+    d = mesh.d
+
+    def mine(g: np.ndarray, b: int) -> np.ndarray:
+        return _gather(g, ids[b])[d * sizes[b]:(d + 1) * sizes[b]]
+
+    def walk(h, t):
+        if _params_like(t, keys):
+            return tree_map(_place_leaf, _stage_tree(h, mesh.stage, mesh.s),
+                            t)
+        if isinstance(t, tuple):
+            items = [walk(a, b) for a, b in zip(h, t)]
+            return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
+        return _place_leaf(h, t) if isinstance(t, torch.Tensor) else t
+
+    new_params = walk(host_state.params, template_state.params)
+    if flat.zero1:
+        opts = (list(template_state.opt_state) if flat.bm is not None
+                else [template_state.opt_state])
+        placed = []
+        for b, o in enumerate(opts):
+            leaves = []
+            for h, t in zip(_host_nodes(o, host_state.opt_state),
+                            nested_leaves(o)):
+                if _vector_leaf(t):
+                    leaves.append(_place_leaf(mine(_tree_to_global(h), b),
+                                              t))
+                else:
+                    leaves.append(_place_leaf(h, t)
+                                  if isinstance(t, torch.Tensor) else t)
+            placed.append(nested_unflatten(o, leaves))
+        opt_state = tuple(placed) if flat.bm is not None else placed[0]
+    else:
+        opt_state = walk(host_state.opt_state, template_state.opt_state)
+    step = _place_leaf(host_state.step, template_state.step)
+    if not ef:
+        return TrainState(new_params, opt_state, step, pp=geom)
+
+    def pooled(x) -> np.ndarray:
+        xs = list(x) if isinstance(x, tuple) else [x]
+        return sum(np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
+                              else v, dtype=np.float32) for v in xs)
+
+    ring_g, gather_g = pooled(host_state.ring_residual), \
+        pooled(host_state.gather_residual)
+    t_ring = (list(template_state.ring_residual) if flat.bm is not None
+              else [template_state.ring_residual])
+    t_gather = (list(template_state.gather_residual) if flat.bm is not None
+                else [template_state.gather_residual])
+    ring, gather = [], []
+    for b in range(nb):
+        if d < ring_g.shape[0]:
+            row = _gather(ring_g[d], ids[b])
+            # The owner never quantizes its own chunk; the chunk
+            # boundaries moved with (n', S').
+            row[d * sizes[b]:(d + 1) * sizes[b]] = 0.0
+        else:
+            row = np.zeros(flat.n * sizes[b], np.float32)
+        ring.append(_place_leaf(row, t_ring[b]))
+        gather.append(_place_leaf(mine(gather_g, b), t_gather[b]))
+    pack = (lambda xs: tuple(xs)) if flat.bm is not None else \
+        (lambda xs: xs[0])
+    return PPOverlapEFState(new_params, opt_state, step, pack(ring),
+                            pack(gather), geom)
+
+
 # --------------------------------------------------- stage-stacked numerics
 
-def make_pp_numerics(params, mesh: dist.PipelineMesh
-                     ) -> introspect.NumericsHandle:
+def make_pp_numerics(params, mesh: dist.PipelineMesh, *,
+                     psum_data: bool = False) -> introspect.NumericsHandle:
     """The numerics summarizer of a stage process, JAX's
     ``make_pp_numerics``: group statistics stacked ``[S, G]`` over the
     stages, on the geometry of one stage's template (its ``[L/S]`` block
@@ -675,7 +1296,9 @@ def make_pp_numerics(params, mesh: dist.PipelineMesh
     the second stage's first local layer) and the other groups come once,
     from row 0. Each rank fills its own row for its block groups and row
     0 for the other leaves it holds; a ``psum`` over the stage group then
-    gives every rank the whole stack."""
+    gives every rank the whole stack. ``psum_data=True`` also sums the
+    gradient statistics and the finite mask over the data group (the ring
+    drivers, whose local gradients differ per data row; JAX's rule)."""
     params = llama.as_tree(params)
     n = mesh.stage
     template = {k: (tree_map(lambda x: x[: x.shape[0] // n], v)
@@ -726,6 +1349,10 @@ def make_pp_numerics(params, mesh: dist.PipelineMesh
                     sq[k, row, col[path[0]]] += (x ** 2).sum()
         sq = dist.psum(sq, record=False, group=mesh.stage_group)
         bad = dist.psum(bad, record=False, group=mesh.stage_group)
+        if psum_data:
+            sq = torch.cat([dist.psum(sq[:1], record=False,
+                                      group=mesh.data_group), sq[1:]])
+            bad = dist.psum(bad, record=False, group=mesh.data_group)
         return introspect.NumericsSummary(grad_sq=sq[0], param_sq=sq[1],
                                           update_sq=sq[2],
                                           grad_finite=bad == 0)

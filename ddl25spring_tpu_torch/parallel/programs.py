@@ -13,6 +13,7 @@ and optimizer state as numpy.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import statistics
@@ -501,6 +502,98 @@ def pp_trainer_calls(calls, *, device) -> list:
     return out
 
 
+class _RingSpy:
+    """While active, records every ``compress.ring_reduce_scatter`` call of
+    this process under a label starting with ``prefix``: its input vector,
+    residual in and out, and owned chunk (numpy), for a check against
+    ``ring_spec``."""
+
+    def __init__(self, prefix: str):
+        self.prefix, self.calls = prefix, []
+
+    def __enter__(self):
+        self._orig = orig = compress.ring_reduce_scatter
+        calls, prefix = self.calls, self.prefix
+
+        def spy(x, group, *, wire="fp32", residual=None, label=None, **kw):
+            red, res = orig(x, group, wire=wire, residual=residual,
+                            label=label, **kw)
+            if label is not None and label.startswith(prefix):
+                host = (lambda t: None if t is None
+                        else t.detach().cpu().numpy().copy())
+                calls.append({"label": label, "x": host(x),
+                              "res_in": host(residual), "owned": host(red),
+                              "res_out": host(res)})
+            return red, res
+
+        compress.ring_reduce_scatter = spy
+        return self
+
+    def __exit__(self, *exc):
+        compress.ring_reduce_scatter = self._orig
+
+
+def _pp_overlap_case(case: dict, device) -> dict:
+    """One DP×PP ring-driver run on this rank; see ``pp_overlap_cases``."""
+    cfg = LlamaConfig(**case["cfg"])
+    mesh = dist.pipeline_mesh(case["data"], case["stage"])
+    params = convert.params_from_jax(case["params"], cfg,
+                                     device=device).tree()
+    name, lr = case.get("optimizer", "sgd"), case.get("lr", 1.0)
+    opt = sgd(lr) if name == "sgd" else make_optimizer(name, lr)
+    if case.get("plain"):
+        state = pp.init_state(mesh, params, opt, device=device)
+        step = pp.make_pipeline_step(cfg, opt, mesh, case["microbatches"],
+                                     case.get("schedule", "gpipe"),
+                                     device=device)
+    else:
+        make = (pp.make_pipeline_overlap_multi_step if case.get("window")
+                else pp.make_pipeline_overlap_step)
+        state, step = make(
+            cfg, opt, mesh, params, n_microbatches=case["microbatches"],
+            schedule=case.get("schedule", "gpipe"),
+            aggregation=case["aggregation"], wire=case["wire"],
+            overlap_microbatches=case.get("overlap", 1),
+            comm_buckets=case.get("comm_buckets", 1), device=device)
+    out = {"rank": dist.get_rank(), "d": mesh.d, "s": mesh.s, "losses": [],
+           "comm": None, "ring": None}
+    spy = _RingSpy("pp_ring_grad")
+    for i, batch in enumerate(case["batches"]):
+        with collecting() as records, spy:
+            state, loss = step(state, pp.shard_batch(mesh, batch, device))
+        if out["comm"] is None:
+            out["comm"] = CommProfile(list(records)).as_dict()
+        out["losses"] += loss.reshape(-1).tolist()
+    if case.get("spy"):
+        out["ring"] = spy.calls
+    snap = pp.host_snapshot(state)
+    out["params"] = convert.tree_to_numpy(snap.params)
+    out["step"] = int(state.step)
+    if case.get("snapshot"):
+        out["snapshot"] = [x.numpy() if isinstance(x, torch.Tensor) else x
+                           for x in nested_leaves(snap)]
+    return out
+
+
+def pp_overlap_cases(cases, *, device) -> list:
+    """Each DP×PP ring-driver case on this rank (a rank of a ``data ×
+    stage`` group); returns per case: ``losses``, the whole model's
+    ``params`` after the run (``pp.host_snapshot``, numpy, the same on the
+    ranks of a data row), ``step``, the first step's communication
+    profile (``comm``), with ``spy`` every ``pp_ring_grad`` ring call of
+    the run (``_RingSpy``), and with ``snapshot`` the snapshot's leaves.
+
+    A case is a dict: ``cfg`` (``LlamaConfig`` fields), ``params`` (a JAX
+    ``init_llama`` tree as numpy), ``data``, ``stage``, ``microbatches``
+    (the pipeline's), ``aggregation``, ``wire``, ``batches`` (global ``[D·B,
+    T]`` batches, or with ``window`` set ``[K, D·B, T]`` windows), and
+    optionally ``schedule``, ``overlap`` (M, default 1), ``comm_buckets``,
+    ``optimizer`` ("sgd", the default, or a ``make_optimizer`` name),
+    ``lr`` (default 1.0) and ``plain`` (the plain DP×PP step instead, the
+    ring's reference)."""
+    return [_pp_overlap_case(case, device) for case in cases]
+
+
 # --------------------------------------------- chip_smoke.py phase 10
 
 def _zero_counts() -> None:
@@ -985,7 +1078,7 @@ def _replicas_equal(params, device) -> bool:
     return bool(torch.equal(dist.broadcast(mine, 0), mine))
 
 
-def _time_cells(cells, batch, device, rounds: int = 3, steps: int = 3,
+def _time_cells(cells, batch, device, rounds: int = 2, steps: int = 3,
                 replicas: bool = True):
     """Each cell ``name -> (state, step[, who])`` warmed (its first call's
     comm profile kept), then timed in turns: ``rounds`` rounds of
@@ -2135,18 +2228,37 @@ def _report_dict(rep) -> dict:
             "resilience": rep.resilience.as_dict()}
 
 
+_TRAINERS = {"dp": train_llm_dp, "pp": train_llm_pp, "tp": train_llm_tp}
+
+
+def _follow_epochs(pool) -> None:
+    """On a pool rank outside a call's world: take part in every topology
+    epoch the call's elastic run posts (``distributed.reform``, as a
+    non-member) until the record that ends the call, which re-forms the
+    whole pool."""
+    while True:
+        rec = pool.await_epoch()
+        dist.reform(rec["members"])
+        if rec.get("call_done"):
+            return
+
+
 def elastic_calls(calls, *, device) -> list:
-    """``train.llm.train_llm_dp`` calls on this launch's pool, in order;
-    returns one dict per call (``_report_dict`` of the report, the same on
-    every rank of the pool after an elastic call, or ``error``: the type
-    and text of what the call raised).
+    """Trainer calls (``train.llm.train_llm_dp``, ``train_llm_pp`` or
+    ``train_llm_tp``) on this launch's pool, in order; returns one dict per
+    call (``_report_dict`` of the report, the same on every rank of the
+    call's world after an elastic call, or ``error``: the type and text of
+    what the call raised).
 
     A call is a dict: ``cfg`` and ``train_cfg`` (``LlamaConfig`` and
-    ``TrainConfig`` fields), ``kwargs`` (``train_llm_dp``'s), and
-    optionally ``world`` (run on the first ``world`` pool ranks alone, the
-    others waiting; default the whole pool) and ``prune`` (``(src, dst,
-    call index, remesh index)``: before the call, ``prune_checkpoint(src,
-    dst, m)`` at that earlier call's re-mesh's resume step ``m``)."""
+    ``TrainConfig`` fields), ``kwargs`` (the trainer's; a ``fault_plan``
+    spec string becomes a ``FaultPlan``), and optionally ``trainer`` ("dp",
+    the default, "pp" or "tp"), ``world`` (run on the first ``world`` pool
+    ranks alone, the others following the run's topology epochs; default
+    the whole pool), ``audit`` (hold every re-mesh against its mirror:
+    ``_ReshardAudit``, key ``audit``) and ``prune`` (``(src, dst, call
+    index, remesh index)``: before the call, ``prune_checkpoint(src, dst,
+    m)`` at that earlier call's re-mesh's resume step ``m``)."""
     pool = dist.pool()
     full = tuple(range(pool.size))
     out = []
@@ -2161,20 +2273,53 @@ def elastic_calls(calls, *, device) -> list:
         if world != pool.size:
             dist.reform(full[:world])
         res = None
+        audit = _ReshardAudit() if call.get("audit") else None
         if pool.rank < world:
+            kwargs = dict(call.get("kwargs", {}))
+            if isinstance(kwargs.get("fault_plan"), str):
+                kwargs["fault_plan"] = FaultPlan.from_spec(
+                    kwargs["fault_plan"])
+            train = _TRAINERS[call.get("trainer", "dp")]
             try:
-                rep = train_llm_dp(LlamaConfig(**call["cfg"]),
-                                   TrainConfig(**call["train_cfg"]),
-                                   tokenizer=ByteTokenizer(), log_every=0,
-                                   device=device, **call.get("kwargs", {}))
+                with audit or contextlib.nullcontext():
+                    rep = train(LlamaConfig(**call["cfg"]),
+                                TrainConfig(**call["train_cfg"]),
+                                tokenizer=ByteTokenizer(), log_every=0,
+                                device=device, **kwargs)
                 res = _report_dict(rep)
             except Exception as e:         # the bar of a refusal
                 res = {"error": [type(e).__name__, str(e)]}
+        own = None if audit is None else audit.found
         if world != pool.size:
-            dist.reform(full)
+            if pool.rank == 0:
+                pool.post_epoch({"members": list(full), "call_done": True})
+            if pool.rank < world:
+                dist.reform(full)
+            else:
+                _follow_epochs(pool)
             res = dist.broadcast_object(res, 0)
+        if own is not None:     # each rank's own audits
+            res = dict(res, audit=own)
         out.append(res)
     return out
+
+
+class KeepWorldHook:
+    """A ``scale_hook`` that asks for no change of world at every poll."""
+
+    def __call__(self, it: int, world: int):
+        return None
+
+
+class PlanScaleHook:
+    """A ``scale_hook`` that asks for ``plan[it]`` data rows at the chunk
+    edge ``it`` (no change elsewhere)."""
+
+    def __init__(self, plan: dict):
+        self.plan = dict(plan)
+
+    def __call__(self, it: int, world: int):
+        return self.plan.get(it)
 
 
 class SeriesScaleHook:
@@ -2221,7 +2366,7 @@ class _WorldLaunches:
     def __init__(self, device):
         from ..resilience.elastic import ElasticController
         self.device, self.cls = device, ElasticController
-        self.segments, self._base = [], None
+        self.segments, self._base, self._waiting = [], None, False
 
     def _cut(self, world: int) -> None:
         synchronize(self.device)
@@ -2242,7 +2387,9 @@ class _WorldLaunches:
 
         def wait(ctl):
             me._cut(0)
-            return me._wait(ctl)
+            got = me._wait(ctl)
+            me._waiting = got is None     # the run ended outside the world
+            return got
 
         cls._move, cls.wait_rejoin = move, wait
         _zero_counts()
@@ -2254,22 +2401,59 @@ class _WorldLaunches:
         self.cls._move, self.cls.wait_rejoin = self._move, self._wait
 
     def finish(self, world: int) -> list:
-        self._cut(world)
+        if not self._waiting:     # a rank that ends waiting cut at the wait
+            self._cut(world)
         return self.segments
 
 
-def reshard_differences(pre, post) -> list:
-    """Where ``post`` (``dp.host_snapshot`` of the state an elastic
-    re-mesh resumed with) departs from the cross-world placement of
-    ``pre`` (the host mirror it was resharded from, taken at the old
-    world), as texts; empty when every coordinate is in place. The rule
-    is stated here in numpy, apart from ``dp.reshard_state``: parameters,
-    the step and every leaf of unchanged shape bitwise; a flat per-rank
-    stack (ZeRO-1 moment slices, the gather residual) equal on the
-    parameters' coordinates, its pad zero; ring-residual row ``r`` of the
-    new world row ``r`` of the old on the parameters' coordinates, its own
-    chunk in the new geometry and its pad zero, and a row the old world
-    did not have zero. One ring residual (``comm_buckets=1``)."""
+def _own_chunks(params, n: int, stages: int):
+    """``[n, coordinates]`` booleans: row r marks, on every stage of an
+    ``n × stages`` pipeline grid, the coordinates of the whole tree
+    ``params`` (its leaves raveled in sorted-key order) in data row r's
+    own chunk of that stage's flat vector. A stage holds its ``[L/S]``
+    rows of every block leaf, ``embed`` on the first, ``final_norm`` and
+    ``lm_head`` on the last, the layout tag on every one, in the whole
+    tree's order; its vector is padded to a multiple of n."""
+    import numpy as np
+    paths = introspect.leaf_paths(params)
+    leaves = tree_leaves(params)
+    starts = np.cumsum([0] + [x.numel() for x in leaves])
+    mask = np.zeros((n, int(starts[-1])), bool)
+    for s in range(stages):
+        ids = []
+        for p, x, b in zip(paths, leaves, starts):
+            top = p.split("/")[0]
+            if top == "blocks":
+                per = x.numel() // stages
+                ids.append(np.arange(b + s * per, b + (s + 1) * per))
+            elif (top == "embed" and s == 0
+                  or top in ("final_norm", "lm_head") and s == stages - 1
+                  or top not in ("embed", "final_norm", "lm_head")):
+                ids.append(np.arange(b, b + x.numel()))
+        ids = np.concatenate(ids)
+        local = -(-len(ids) // n)
+        for r in range(n):
+            mask[r, ids[r * local:(r + 1) * local]] = True
+    return mask
+
+
+def reshard_differences(pre, post, stages=None) -> list:
+    """Where ``post`` (the host form, ``elastic.snapshot_state``, of the
+    state an elastic re-mesh resumed with) departs from the cross-world
+    placement of ``pre`` (the host mirror it was resharded from, taken at
+    the old world), as texts; empty when every coordinate is in place.
+    The rule is stated here in numpy, apart from the reshard code:
+    parameters, the step and every leaf of unchanged shape bitwise; a
+    flat per-rank stack (ZeRO-1 moment slices, the gather residual) equal
+    on the parameters' coordinates, its pad zero; ring-residual row ``r``
+    of the new world row ``r`` of the old on the parameters' coordinates,
+    its own chunk in the new geometry and its pad zero, and a row the old
+    world did not have zero; an ``act_residual`` stack (``[n_data, tp,
+    ...]``) row ``r`` row ``r`` of the old, a new row zero. ``stages``:
+    the new grid's stage count when the forms are a pipeline's (every
+    field in the whole model's coordinates, ``pp.host_snapshot``), whose
+    ring rows' own chunks follow the new stage layout (``_own_chunks``).
+    One ring residual (``comm_buckets=1``)."""
     import numpy as np
     n_real = sum(x.numel() for x in tree_leaves(post.params))
     out = []
@@ -2285,15 +2469,31 @@ def reshard_differences(pre, post) -> list:
                 raise ValueError("reshard_differences takes one ring "
                                  "residual (comm_buckets=1)")
             a, b = arr(a), arr(b)
-            n_new, local = b.shape[0], b.shape[1] // b.shape[0]
+            n_new = b.shape[0]
             want = np.zeros_like(b)
+            if stages is None:
+                local = b.shape[1] // n_new
+                own = np.zeros(b.shape, bool)
+                for r in range(n_new):
+                    own[r, r * local:(r + 1) * local] = True
+                own[:, n_real:] = True
+            else:
+                own = _own_chunks(post.params, n_new, stages)
             for r in range(min(a.shape[0], n_new)):
                 want[r, :n_real] = a[r, :n_real]
-                want[r, r * local:(r + 1) * local] = 0
+            want[own] = 0
             if not np.array_equal(b, want):
                 rows = [r for r in range(n_new)
                         if not np.array_equal(b[r], want[r])]
                 out.append(f"ring_residual rows {rows} misplaced")
+            continue
+        if name == "act_residual":
+            a, b = arr(a), arr(b)
+            want = np.zeros_like(b)
+            keep = min(a.shape[0], b.shape[0])
+            want[:keep] = a[:keep]
+            if not np.array_equal(b, want):
+                out.append(f"act_residual {a.shape} -> {b.shape} misplaced")
             continue
         pl, bl = nested_leaves(a), nested_leaves(b)
         if len(pl) != len(bl):
@@ -2319,7 +2519,7 @@ def reshard_differences(pre, post) -> list:
 class _ReshardAudit:
     """Holds every re-mesh of an elastic run against
     ``reshard_differences``: while active, each member of a new world
-    gathers the state it resumes with (``dp.host_snapshot``, after
+    gathers the state it resumes with (``elastic.snapshot_state``, after
     ``ElasticController._remesh``) and compares it with the mirror it was
     resharded from. ``found``: one entry per re-mesh this process took
     part in, ``{"worlds": [old, new], "path", "differences"}``
@@ -2330,17 +2530,24 @@ class _ReshardAudit:
         self.cls, self.found = ElasticController, []
 
     def __enter__(self):
+        from ..resilience.elastic import snapshot_state
         self._remesh = orig = self.cls._remesh
         found = self.found
 
         def remesh(ctl, new_mesh, old_mesh, **kw):
             mirror = ctl._mirror
             resume = orig(ctl, new_mesh, old_mesh, **kw)
-            post = dp.host_snapshot(resume.state)
+            post = snapshot_state(resume.state)
             found.append({
                 "worlds": [old_mesh.devices.size, new_mesh.devices.size],
+                "shapes": [list(old_mesh.devices.shape),
+                           list(new_mesh.devices.shape)],
                 "path": resume.record.path,
-                "differences": (reshard_differences(mirror[1], post)
+                "differences": (reshard_differences(
+                    mirror[1], post,
+                    stages=new_mesh.shape.get("stage")
+                    if getattr(resume.state, "pp", None) is not None
+                    else None)
                                 if resume.record.path == "mirror"
                                 else None)})
             return resume
@@ -2459,4 +2666,300 @@ def phase18(cfg: dict, tcfg: dict, directory: str, *, device) -> dict:
     out["d"] = walked("d", "d", **ring)
     out["d_fresh"] = restored("d", "d-fresh", out["d"], **ring)
     out["d_seconds"] = time.perf_counter() - t0
+    return out
+
+
+# --------------------------------------------- chip_smoke.py phase 19
+
+PHASE19_WIRES = ("fp32", "bf16", "int8_ef")
+PHASE19_CELLS = {                   # (aggregation, wire, M): timed at bf16
+    "gradient fp32 M=1": ("gradient", "fp32", 1),
+    "zero1 fp32 M=2": ("zero1", "fp32", 2),
+    "zero1 int8_ef M=1": ("zero1", "int8_ef", 1),
+    "zero1 int8_ef M=2": ("zero1", "int8_ef", 2)}
+PHASE19_LR = 0.02                   # SGD, the CPU tests' relaxed-wire lr
+
+
+def _own_leaf_err(a: dict, b: dict) -> float:
+    """Max over the leaves of max |a − b| / max |a| (a stage's own
+    leaves, on its process)."""
+    return max(float((x.detach().float() - y.detach().float()).abs().max()
+                     / x.detach().float().abs().max().clamp_min(1e-30))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _row_replicas_equal(params, mesh, device) -> bool:
+    """This stage's parameters bitwise equal on every data row."""
+    mine = _digest(params, device)
+    got = dist.all_gather(mine, group=mesh.data_group)
+    return bool(torch.equal(got.reshape(mesh.data, -1),
+                            mine.expand(mesh.data, -1)))
+
+
+def _ring_hop_ms(mesh, length: int, device, reps: int = 5) -> dict:
+    """One fp32 ring hop of ``length`` coordinates (a stage's chunk)
+    between data rows 0 and 1 of this stage: the round trip's median
+    halved, and its device→host and host→device copies alone (row 0's
+    medians); the rest of the hop is gloo's."""
+    x = torch.randn(length, device=device)
+    g = mesh.data_group
+    trips, d2h, h2d = [], [], []
+    for k in range(reps):
+        if mesh.d == 0:
+            synchronize(device)
+            t0 = time.perf_counter()
+            dist.send(x, 1, tag=k, label="pp_ring_hop", group=g)
+            y = dist.recv(1, x.shape, x.dtype, tag=k, group=g, device=device)
+            synchronize(device)
+            trips.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            host = x.to("cpu")
+            d2h.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            y = host.to(device)
+            synchronize(device)
+            h2d.append((time.perf_counter() - t0) * 1e3)
+        else:
+            y = dist.recv(0, x.shape, x.dtype, tag=k, group=g, device=device)
+            dist.send(y, 0, tag=k, label="pp_ring_hop", group=g)
+    dist.barrier(device)
+    if mesh.d != 0:
+        return {}
+    hop, a, b = (statistics.median(trips) / 2, statistics.median(d2h),
+                 statistics.median(h2d))
+    return {"hop_ms": hop, "d2h_ms": a, "h2d_ms": b,
+            "gloo_ms": hop - a - b, "bytes": length * 4}
+
+
+def _phase19_ring(tokens_check, tokens_time, directory: str, device) -> dict:
+    """19a on this rank of ``pipeline_mesh(2, 2)`` at the canonical width
+    (vocab 32000, 3 layers per stage, GPipe, 2 pipeline microbatches):
+    the fp32 check on ``tokens_check`` ``[4, 2·4, T]`` (SGD, lr 0.02, 4
+    steps) of the plain step and of every ring cell, {fp32, bf16, int8_ef}
+    × {gradient, zero1} × M {1, 2}: each cell's losses, its stage leaves'
+    error against the plain step's, its data rows bitwise; the int8_ef
+    ZeRO-1 M=1 K=2 window's comm profile and the plain step's; at M = 2,
+    K = 2 bitwise two per-step calls and a checkpoint resume bitwise the
+    uninterrupted run (fused Adam); the bf16 cells of ``PHASE19_CELLS``
+    and the plain step on ``tokens_time`` ``[2·16, T]`` timed in turns
+    with launches per step; one fp32 ring hop of this stage's chunk."""
+    mesh = dist.pipeline_mesh(2, 2)
+    cfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    whole = llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                             device="cpu").tree()
+    out = {"stage": mesh.s, "d": mesh.d}
+    n, pad, local, total = pp._pp_flat_geometry(mesh, whole)
+    out["geometry"] = {"n": n, "pad": pad, "chunk": local,
+                       "coordinates": total}
+    batches = [pp.shard_batch(mesh, b, device) for b in tokens_check]
+    opt = sgd(PHASE19_LR)
+
+    def run(state, step, batches):
+        losses = []
+        for b in batches:
+            state, loss = step(state, b)
+            losses.append(float(loss))
+        return state, losses
+
+    with fp32_products():
+        state = pp.init_state(mesh, whole, opt, device=device)
+        step = pp.make_pipeline_step(cfg, opt, mesh, 2, device=device)
+        with collecting() as records:
+            state, first = step(state, batches[0])
+        plain_prof = CommProfile(list(records))
+        plain, losses = run(state, step, batches[1:])
+        out["plain"] = {"losses": [float(first)] + losses,
+                        "comm": plain_prof.as_dict()}
+        out["cells"] = {}
+        for wire in PHASE19_WIRES:
+            for agg in ("gradient", "zero1"):
+                for m in (1, 2):
+                    state, step = pp.make_pipeline_overlap_step(
+                        cfg, opt, mesh, whole, n_microbatches=2,
+                        aggregation=agg, wire=wire, overlap_microbatches=m,
+                        device=device)
+                    state, losses = run(state, step, batches)
+                    out["cells"][f"{wire} {agg} M={m}"] = {
+                        "losses": losses,
+                        "leaf_err": _own_leaf_err(plain.params,
+                                                  state.params),
+                        "replicas_bitwise": _row_replicas_equal(
+                            state.params, mesh, device)}
+                    del state, step
+        del plain
+
+        # Bytes: the int8_ef ZeRO-1 M=1 window of K = 2.
+        adam = make_optimizer("fused", 1e-3)
+        state, step = pp.make_pipeline_overlap_multi_step(
+            cfg, adam, mesh, whole, n_microbatches=2, aggregation="zero1",
+            wire="int8_ef", overlap_microbatches=1, device=device)
+        window = torch.stack(batches[:2])
+        with collecting() as records:
+            step(state, window)
+        out["bytes"] = {"K": 2, "M": 1,
+                        "profile": CommProfile(list(records)).as_dict(
+                            steps_per_dispatch=2)}
+        del state, step
+
+        # Replay: K = 2 against two per-step calls (M = 2); a resume.
+        state, step = pp.make_pipeline_overlap_multi_step(
+            cfg, adam, mesh, whole, n_microbatches=2, aggregation="zero1",
+            wire="int8_ef", overlap_microbatches=2, device=device)
+        k2, k2_losses = step(state, window)
+
+        state, one = pp.make_pipeline_overlap_step(
+            cfg, adam, mesh, whole, n_microbatches=2, aggregation="zero1",
+            wire="int8_ef", overlap_microbatches=2, device=device)
+        state, per_step = run(state, one, batches[:2])
+        out["kstep"] = {
+            "losses_bitwise": [float(x) for x in k2_losses] == per_step,
+            "state_bitwise": all(
+                torch.equal(a, b) for a, b in zip(nested_leaves(k2),
+                                                  nested_leaves(state))
+                if isinstance(a, torch.Tensor))}
+        ck = os.path.join(directory, "pp19")
+        Checkpointer(ck).save(2, state, overwrite=True)
+        straight, rest = run(state, one, batches[2:])
+        template, one = pp.make_pipeline_overlap_step(
+            cfg, adam, mesh, whole, n_microbatches=2, aggregation="zero1",
+            wire="int8_ef", overlap_microbatches=2, device=device)
+        resumed, again = run(Checkpointer(ck).restore(template), one,
+                             batches[2:])
+        out["resume"] = {
+            "losses_bitwise": rest == again,
+            "state_bitwise": all(
+                torch.equal(a, b) for a, b in zip(nested_leaves(straight),
+                                                  nested_leaves(resumed))
+                if isinstance(a, torch.Tensor))}
+        del k2, state, straight, resumed, template
+    del whole
+
+    tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                       flash_dh_major=True)
+    whole = llama.init_llama(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu").tree()
+    popt = make_optimizer("pallas")
+    cells = {"plain": (pp.init_state(mesh, whole, popt, device=device),
+                       pp.make_pipeline_step(tcfg, popt, mesh, 2,
+                                             device=device))}
+    for name, (agg, wire, m) in PHASE19_CELLS.items():
+        cells[name] = pp.make_pipeline_overlap_step(
+            tcfg, popt, mesh, whole, n_microbatches=2, aggregation=agg,
+            wire=wire, overlap_microbatches=m, device=device)
+    del whole
+    batch = pp.shard_batch(mesh, tokens_time, device)
+    states, out["timing"] = _time_cells(cells, batch, device,
+                                        replicas=False)
+    for name, st in states.items():
+        out["timing"][name]["replicas_bitwise"] = _row_replicas_equal(
+            st.params, mesh, device)
+    del states, cells
+    out["hop"] = _ring_hop_ms(mesh, local, device)
+    return out
+
+
+def _phase19_trainers(cfg: dict, tcfg: dict, directory: str,
+                      device) -> dict:
+    """19b and 19c on this rank of the pool: the elastic ``train_llm_pp``
+    and ``train_llm_tp`` runs at ``cfg`` (``LlamaConfig`` fields) and
+    ``tcfg`` (``TrainConfig`` fields), each a call of ``elastic_calls`` (a
+    world below the pool's runs on its first ranks), with the launches of
+    each world (``_WorldLaunches``), the re-meshes held against their
+    mirrors (``audit``) and each re-mesh's span seconds."""
+    from ..telemetry import Telemetry
+    pool = dist.pool()
+    iters = tcfg.pop("iters")
+    ring = dict(aggregation="zero1")
+    ring_tc = dict(wire="int8_ef", overlap_microbatches=2)
+    loss, trip = "device_loss@2", "device_loss@2,device_return@4:3"
+
+    def call(trainer, d, second, *, name=None, res=None, tel=False,
+             kw=None, tc=None):
+        kwargs = dict(kw or {}, checkpoint_every=1000,
+                      resilience=(ResilienceConfig(**res)
+                                  if res is not None else None))
+        if name is not None:
+            kwargs["checkpoint_dir"] = os.path.join(directory, name)
+        if tel:
+            kwargs["telemetry"] = Telemetry(
+                os.path.join(directory, f"{name}-tel"), step_every=1)
+        grid = (dict(stage=second, microbatches=2) if trainer == "pp"
+                else dict(model=second))
+        return dict(trainer=trainer, cfg=cfg, world=d * second,
+                    audit=res is not None and "faults" in res,
+                    train_cfg=dict(tcfg, **(tc or {}), iters=iters, data=d,
+                                   **grid),
+                    kwargs=kwargs)
+
+    def fresh(trainer, src, rep, d, second, remesh, **kw):
+        dst = f"{src}-fresh"
+        if pool.rank == 0:
+            prune_checkpoint(os.path.join(directory, src),
+                             os.path.join(directory, dst),
+                             rep["remeshes"][remesh]["resume_step"])
+        dist.barrier(device)
+        return calls(call(trainer, d, second, name=dst, **kw))
+
+    def calls(c):
+        t0 = time.perf_counter()
+        with _WorldLaunches(device) as wl:
+            rep, = elastic_calls([c], device=device)
+            final = (rep["remeshes"][-1]["new_world"]
+                     if rep.get("remeshes") else c["world"])
+            rep["worlds"] = wl.finish(final if pool.rank < c["world"]
+                                      else 0)
+        rep["seconds"] = time.perf_counter() - t0
+        tel = c["kwargs"].get("telemetry")
+        if tel is not None:
+            tel.close()
+            dist.barrier(device)
+            if pool.rank == 0:
+                rep["spans"] = _remesh_spans(
+                    os.path.join(tel.out_dir, "events.jsonl"))
+        return rep
+
+    el = dict(elastic=True, mirror_every=1)
+    out = {"rank": pool.rank}
+    t0 = time.perf_counter()
+    out["b_plain"] = calls(call("pp", 2, 2))
+    out["b_plain_el"] = calls(call("pp", 2, 2, res=dict(elastic=True)))
+    out["b_ring"] = calls(call("pp", 2, 2, kw=ring, tc=ring_tc))
+    out["b_ring_el"] = calls(call("pp", 2, 2, kw=ring, tc=ring_tc,
+                                  res=dict(elastic=True)))
+    out["b_stage"] = calls(call("pp", 1, 3, name="b_stage", tel=True,
+                                res=dict(el, faults=loss)))
+    out["b_stage_fresh"] = fresh("pp", "b_stage", out["b_stage"], 1, 2, 0)
+    out["b_trip"] = calls(call("pp", 1, 3, name="b_trip", tel=True,
+                               res=dict(el, faults=trip)))
+    out["b_trip_fresh"] = fresh("pp", "b_trip", out["b_trip"], 1, 3, 1)
+    out["b_rows"] = calls(call("pp", 2, 2, name="b_rows", tel=True, kw=ring,
+                               tc=ring_tc, res=dict(el, faults=loss)))
+    out["b_rows_fresh"] = fresh("pp", "b_rows", out["b_rows"], 1, 2, 0,
+                                kw=ring, tc=ring_tc)
+    out["b_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    psa = dict(psa="int8_ef")
+    out["c_rows"] = calls(call("tp", 2, 2, name="c_rows", tel=True, tc=psa,
+                               res=dict(el, faults=loss)))
+    out["c_rows_fresh"] = fresh("tp", "c_rows", out["c_rows"], 1, 2, 0,
+                                tc=psa)
+    out["c_fatal"] = calls(call("tp", 1, 2, tc=psa,
+                                res=dict(el, faults="device_loss@1")))
+    out["c_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase19(tokens_check, tokens_time, cfg: dict, tcfg: dict,
+            directory: str, *, device) -> dict:
+    """``chip_smoke.py`` phase 19 on this rank of a pool of four on one
+    card: a. the DP×PP ring drivers at data 2 × stage 2
+    (``_phase19_ring``); b. elastic ``train_llm_pp`` and c. elastic
+    ``train_llm_tp`` (``_phase19_trainers``). Returns the numbers; the
+    caller checks them."""
+    t0, wall0 = time.perf_counter(), time.time()
+    out = {"a": _phase19_ring(tokens_check, tokens_time, directory, device)}
+    out["a_seconds"] = time.perf_counter() - t0
+    dist.barrier(device)
+    out.update(_phase19_trainers(cfg, dict(tcfg), directory, device))
+    out["wall"] = [wall0, time.time()]     # the parent's spawn and exit
     return out

@@ -156,6 +156,9 @@ class TPActState(NamedTuple):
     tp: TPGeometry
 
     PER_RANK_FIELDS = ("act_residual",)
+    # Resizes across data worlds (``dp._resize_act_residual``, in
+    # ``slice_state``): the elastic re-mesh of a data row.
+    RESIZABLE_FIELDS = ("act_residual",)
 
 
 class TPOverlapEFState(NamedTuple):
@@ -802,7 +805,8 @@ def host_snapshot(state):
     every rank calls it): the parameters and every parameter-shaped part
     of the optimizer state with their model slices joined (an all-gather
     over the model group), each per-rank leaf stacked ``[n_data, tp,
-    ...]`` over the whole group in rank order (JAX's shard order)."""
+    ...]`` over the whole group in rank order (JAX's shard order). The
+    geometry stays behind (``tp`` None)."""
     mesh = state.tp.mesh
     specs = param_specs(state.params)
 
@@ -821,7 +825,9 @@ def host_snapshot(state):
         return g.reshape((mesh.data, mesh.model) + tuple(x.shape)
                          ).cpu().clone()
 
-    return _map_state(state, merge, stack, _host)
+    # The geometry (its process groups) stays behind: a snapshot travels
+    # between processes (the elastic re-mesh's mirror).
+    return _map_state(state, merge, stack, _host)._replace(tp=None)
 
 
 def merged_template(state):
@@ -848,10 +854,19 @@ def slice_state(host, template):
     """A merged host state (``host_snapshot``'s) re-sliced to
     ``template``'s rank, on its devices and dtypes: its model slices of
     the parameter-shaped trees, its ``[d, m]`` block of each per-rank
-    stack. Returns a new state."""
+    stack. A ``RESIZABLE_FIELDS`` stack saved at another data world is
+    first brought to the template's (``dp._resize_act_residual``). Returns
+    a new state."""
     from ..tree import nested_leaves, nested_unflatten
     mesh = template.tp.mesh
     merged = merged_template(template)
+    for name in getattr(type(template), "RESIZABLE_FIELDS", ()):
+        h, want = getattr(host, name), getattr(merged, name)
+        if tuple(h.shape) != tuple(want.shape):
+            h = (h.detach().cpu().numpy() if isinstance(h, torch.Tensor)
+                 else np.asarray(h))
+            host = host._replace(**{name: torch.from_numpy(
+                dp._resize_act_residual(h, tuple(want.shape)))})
     h_leaves = nested_leaves(host)
     m_leaves = nested_leaves(merged)
     if len(h_leaves) != len(m_leaves):

@@ -53,7 +53,17 @@ goes on numbering the events), the log and the loss sink. When the run
 ends on a smaller world, the pool re-forms whole and the final world's
 rank 0 broadcasts its report, so every rank returns it.
 
-Correctness bar (tests/test_torch_elastic.py): bitwise. With no fault the
+The pipeline and tensor-parallel trainers re-mesh 2-axis meshes
+(``parallel.mesh``: a data-row drop, else a stage re-partition over
+``layer_divisor`` layers; a model-axis loss re-raises). Their states go
+through ``snapshot_state`` / ``place_state``, which pick the layout's own
+host form: a stage state's merged JAX-layout tree (``pp.host_snapshot``,
+re-sliced at any stage count by ``pp.slice_state``), a tensor-parallel
+state's stacks (``tp.host_snapshot`` / ``tp.slice_state``), else
+``dp.host_snapshot`` / ``dp.reshard_state``.
+
+Correctness bar (tests/test_torch_elastic.py, tests/test_torch_elastic_pp.py):
+bitwise. With no fault the
 elastic loop's losses are the non-elastic run's; after N → M (or M → N)
 the continued losses are a fresh M- (N-) rank run's restored from the same
 state.
@@ -69,11 +79,41 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
+
 from ..parallel import distributed as dist
-from ..parallel import dp
-from ..parallel.mesh import PoolMesh, data_mesh, rejoin_mesh, survivor_submesh
+from ..parallel import dp, pp, tp
+from ..parallel.mesh import PoolMesh, rejoin_mesh, survivor_submesh
 from ..telemetry.trace import Tracer
 from .faults import ReplicaLossError, ReplicaReturnSignal
+
+
+def snapshot_state(state):
+    """The host form of any trainer's state (a collective: every rank of
+    the world calls it): ``pp.host_snapshot`` for a pipeline stage,
+    ``tp.host_snapshot`` for a tensor-parallel rank, else
+    ``dp.host_snapshot``."""
+    if getattr(state, "pp", None) is not None:
+        return pp.host_snapshot(state)
+    if tp._is_state(state):
+        return tp.host_snapshot(state)
+    return dp.host_snapshot(state)
+
+
+def place_state(host_state, template):
+    """``snapshot_state``'s inverse at ``template``'s topology, which may
+    differ from the snapshot's: ``pp.slice_state`` (any stage count and
+    data world), ``tp.slice_state`` (any data world), else
+    ``dp.reshard_state``."""
+    if getattr(template, "pp", None) is not None:
+        return pp.slice_state(host_state, template)
+    if tp._is_state(template):
+        return tp.slice_state(host_state, template)
+    return dp.reshard_state(host_state, template)
+
+
+def _pool_mesh(members, shape, axes) -> PoolMesh:
+    return PoolMesh(np.asarray(list(members)).reshape(tuple(shape)), axes)
 
 
 @dataclass
@@ -140,8 +180,11 @@ class ElasticController:
     - ``make_batches(n_shards) -> iterator`` is this rank's stream at the
       new width, which the controller replays to the recovery position.
 
-    ``mesh`` is the run's data world, the whole pool (pool rank ``i`` at
-    world rank ``i``); ``device`` the rank's device (the drain's barrier).
+    ``mesh`` is the run's world (pool rank ``i`` at world rank ``i``): a
+    data mesh, or a ``(data, stage)`` / ``(data, model)`` grid, whose
+    shape a full rejoin restores; ``layer_divisor`` (the model's
+    ``n_layers``) lets a stage mesh re-partition its layers; ``device``
+    the rank's device (the drain's barrier).
     ``telemetry`` and ``log_fn`` are every rank's: the current world's
     rank 0 writes and logs. ``recover``, ``grow`` and ``resize`` return a
     ``Resume``, or None on a rank that left the world, which then waits in
@@ -149,12 +192,15 @@ class ElasticController:
 
     def __init__(self, mesh: PoolMesh, *, build: Callable, rewrap: Callable,
                  make_batches: Callable, ckpt=None, mirror_every: int = 1,
-                 stats=None, telemetry=None, log_fn: Callable = print,
-                 device=None):
+                 layer_divisor: Optional[int] = None, stats=None,
+                 telemetry=None, log_fn: Callable = print, device=None):
         self.mesh = mesh
         # The run's pool: a grow restores only capacity the run started
         # with, and pool order lands every rank back in its slot.
         self._pool = list(mesh.members)
+        self._pool_shape = tuple(int(s) for s in mesh.devices.shape)
+        self._layer_divisor = (int(layer_divisor)
+                               if layer_divisor is not None else None)
         self._build = build
         self._rewrap = rewrap
         self._make_batches = make_batches
@@ -203,7 +249,7 @@ class ElasticController:
         if self.mirror_every <= 0:
             return
         if self._mirror is None or self._edges % self.mirror_every == 0:
-            self._mirror = (step, dp.host_snapshot(state))
+            self._mirror = (step, snapshot_state(state))
         self._edges += 1
 
     @property
@@ -244,7 +290,8 @@ class ElasticController:
         if not lost:
             raise err
         try:
-            new_mesh = survivor_submesh(self.mesh, lost)
+            new_mesh = survivor_submesh(self.mesh, lost,
+                                        layer_divisor=self._layer_divisor)
         except ValueError as e:
             raise err from e
         self._log(f"replica loss at step {failed_at} (dispatch {dispatch}): "
@@ -271,7 +318,9 @@ class ElasticController:
                 f"absent (world {old_world}, pool {len(self._pool)}) — a "
                 "return must follow a loss; fix the chaos spec") from sig
         returned = [self._pool[i] for i in arrivals]
-        new_mesh = rejoin_mesh(self.mesh, returned, pool=self._pool)
+        new_mesh = rejoin_mesh(self.mesh, returned, pool=self._pool,
+                               pool_shape=self._pool_shape,
+                               layer_divisor=self._layer_divisor)
         self._log(f"replica return at step {failed_at} "
                   f"(dispatch {dispatch}): pool slots {arrivals} rejoin; "
                   f"re-meshing onto {new_mesh.devices.size} devices")
@@ -292,7 +341,7 @@ class ElasticController:
         new_world = int(new_world)
         if new_world == old_data:
             return None
-        self._mirror = (at_step, dp.host_snapshot(state))
+        self._mirror = (at_step, snapshot_state(state))
         if new_world < 1:
             raise ValueError(f"resize to {new_world} replicas: the training "
                              "mesh cannot shrink below 1")
@@ -302,7 +351,8 @@ class ElasticController:
                              f"({len(self._pool)})")
         if new_world < old_data:
             lost = list(range(new_world * s2, old_data * s2))
-            new_mesh = survivor_submesh(self.mesh, lost)
+            new_mesh = survivor_submesh(self.mesh, lost,
+                                        layer_divisor=self._layer_divisor)
             self._log(f"resize at step {at_step}: releasing data rows "
                       f"{list(range(new_world, old_data))} "
                       f"({old_data} -> {new_world})")
@@ -319,7 +369,9 @@ class ElasticController:
                              f"{len(arrivals)} pool slots are absent "
                              f"(need {(new_world - old_data) * s2})")
         returned = [self._pool[i] for i in arrivals]
-        new_mesh = rejoin_mesh(self.mesh, returned, pool=self._pool)
+        new_mesh = rejoin_mesh(self.mesh, returned, pool=self._pool,
+                               pool_shape=self._pool_shape,
+                               layer_divisor=self._layer_divisor)
         self._log(f"resize at step {at_step}: pool slots {arrivals} "
                   f"rejoin ({old_data} -> {new_world})")
         return self._move(new_mesh, failed_at=at_step, dispatch=dispatch,
@@ -348,6 +400,10 @@ class ElasticController:
         source = min(set(old.members) & set(new_mesh.members))
         if p.rank == source:
             p.post_epoch({"members": list(new_mesh.members),
+                          "axes": list(new_mesh.axis_names),
+                          "shape": list(new_mesh.devices.shape),
+                          "old_members": list(old.members),
+                          "old_shape": list(old.devices.shape),
                           "failed_at": failed_at, "dispatch": dispatch,
                           "lost": lost, "returned": returned,
                           "direction": direction, "source": source})
@@ -398,9 +454,9 @@ class ElasticController:
                 self._done_leader = int(rec["leader"])
                 return None
             t0 = time.monotonic_ns()
-            new_mesh = data_mesh(rec["members"])
-            old = data_mesh([m for m in rec["members"]
-                             if m not in rec["returned"]])
+            axes = tuple(rec["axes"])
+            new_mesh = _pool_mesh(rec["members"], rec["shape"], axes)
+            old = _pool_mesh(rec["old_members"], rec["old_shape"], axes)
             loop_state = self._sync(new_mesh, int(rec["source"]), None)
             resume = self._remesh(
                 new_mesh, old, failed_at=int(rec["failed_at"]),
@@ -487,7 +543,7 @@ class ElasticController:
         if self._mirror is not None:
             resume_step, host_state = self._mirror
             with _span("restore"):
-                state = dp.reshard_state(host_state, template)
+                state = place_state(host_state, template)
             path = "mirror"
         elif self._ckpt is not None:
             try:

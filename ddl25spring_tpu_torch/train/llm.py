@@ -41,12 +41,16 @@ the checkpoint publication hook of the train→deploy conveyor
 ``train_llm_pp`` runs the pipeline(-and-data)-parallel trainer on the same
 loop: ``data·stage`` stage processes (``parallel.pp``), each holding its
 stage's leaves and reading its data row's stream, under the GPipe, 1F1B
-or interleaved schedule.
+or interleaved schedule; ``overlap_microbatches >= 1`` takes the DP×PP
+ring drivers (``wire``, ``comm_buckets``, gradient or ZeRO-1), and elastic
+mode re-meshes the (data, stage) grid: a data-row drop, else a stage
+re-partition.
 
 ``train_llm_tp`` runs the tensor(-and-data)-parallel trainer on the same
 loop: ``data·model`` ranks (``parallel.tp``), each holding its model
 shard's slices and reading its data row's stream, with the PSA modes, the
-K-step drivers and the DP×TP ring drivers.
+K-step drivers and the DP×TP ring drivers; elastic mode re-meshes its
+data rows.
 """
 
 from __future__ import annotations
@@ -1232,8 +1236,8 @@ def train_llm_dp(model_cfg: Optional[LlamaConfig] = None,
 def _check_pp_options(train_cfg: TrainConfig, aggregation: str,
                       schedule: str, resilience: Optional[ResilienceConfig],
                       scale_hook) -> None:
-    """The JAX ``train_llm_pp``'s errors, in its order, then the ROADMAP.md
-    entries of what the port's pipeline trainer does not run."""
+    """The JAX ``train_llm_pp``'s errors, in its order and with its texts,
+    before any rank starts."""
     spd = train_cfg.steps_per_dispatch
     ovl = train_cfg.overlap_microbatches
     cb = train_cfg.comm_buckets
@@ -1289,21 +1293,6 @@ def _check_pp_options(train_cfg: TrainConfig, aggregation: str,
                          "bodies — use the host StepGuard "
                          "(ResilienceConfig.guard), which works at "
                          "dispatch granularity under steps_per_dispatch")
-    queued = []
-    if ovl >= 1:
-        queued.append(f"overlap_microbatches={ovl} with aggregation="
-                      f"{aggregation!r}, wire={train_cfg.wire!r}, "
-                      f"comm_buckets={cb} (queue A item 8e-2 (the DP×PP "
-                      "ring drivers))")
-    if elastic:
-        queued.append("ResilienceConfig.elastic=True"
-                      + (" and scale_hook" if scale_hook is not None else "")
-                      + " (queue A item 8e-3 (elastic PP: the stage "
-                      "re-partition))")
-    if queued:
-        raise NotImplementedError(
-            "train_llm_pp does not run these yet; see ROADMAP.md: "
-            + "; ".join(queued))
 
 
 def _train_pp_rank(model_cfg, train_cfg, kwargs: dict, *, device):
@@ -1353,12 +1342,28 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
     ``numerics_every`` (stage-qualified groups, ``pp.make_pp_numerics``)
     and ``remat``.
 
-    Refused as the JAX trainer refuses them (``ValueError``): ``dcn`` /
-    ``wire_dcn``, ``accum_steps``, ``injit_guard`` and the other option
-    checks of ``_check_pp_options``. The DP×PP ring steps
-    (``overlap_microbatches`` with ``aggregation="zero1"``, ``wire``,
-    ``comm_buckets``) and elastic mode (``scale_hook``) raise
-    ``NotImplementedError`` naming ROADMAP.md."""
+    ``overlap_microbatches`` = M >= 1 routes the data-axis gradient sync
+    through the DP×PP ring drivers (``pp.make_pipeline_overlap_step`` /
+    ``_multi_step``: ``wire`` fp32, bf16 or int8_ef, ``comm_buckets``,
+    ``aggregation`` "gradient" or "zero1"), as the JAX trainer routes it;
+    ZeRO-1 and a compressed ``wire`` need it.
+
+    ``resilience.elastic=True`` (GPipe or 1F1B) survives the loss of
+    stage processes: the ``(data, stage)`` grid drops the victims' data
+    rows when a complete row survives, else re-partitions the layers over
+    the survivors (the largest stage count that divides ``n_layers``);
+    the survivors re-form the process world, each builds its new stage,
+    re-slices the state from the host mirror (or the checkpoint) and
+    replays its data row's stream; ``device_return`` grows the grid back
+    to its original shape, and ``scale_hook`` resizes its data rows. The
+    run must start on the first ``data·stage`` ranks of one
+    ``distributed.run_ranks`` launch (the trainer starts them itself when
+    called outside a group).
+
+    Refused as the JAX trainer refuses them (``ValueError``, its texts):
+    ``dcn`` / ``wire_dcn``, ``accum_steps``, ``injit_guard``, elastic mode
+    with the interleaved schedule or ``numerics_every``, and the other
+    option checks of ``_check_pp_options``."""
     train_cfg = train_cfg or TrainConfig()
     _check_pp_options(train_cfg, aggregation, schedule, resilience,
                       scale_hook)
@@ -1372,12 +1377,15 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
                       checkpoint_every=checkpoint_every, loss_sink=loss_sink,
                       sink_every=sink_every, resilience=resilience,
                       fault_plan=fault_plan, telemetry=telemetry,
-                      on_checkpoint=on_checkpoint)
+                      on_checkpoint=on_checkpoint, scale_hook=scale_hook)
         return dist.run_ranks(_train_pp_rank, world, model_cfg, train_cfg,
                               kwargs, device=device)[0]
+    elastic = bool(resilience is not None and resilience.elastic)
+    pool = _elastic_pool(world) if elastic else None
     dev = dist.rank_device(device)
     mesh = dist.pipeline_mesh(train_cfg.data, train_cfg.stage)
     measure = telemetry is not None     # every rank runs the comm probe
+    run_log, run_sink, run_tel = log_fn, loss_sink, telemetry
     if dist.get_rank() != 0:
         log_fn, loss_sink, telemetry = _quiet, None, None
     tok = tokenizer or load_tokenizer()
@@ -1391,23 +1399,84 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
     optimizer = _make_trainer_optimizer(train_cfg)
     if schedule == "interleaved":
         params = pp.interleave_params(params, mesh.stage, n_chunks=2)
-    numerics = (pp.make_pp_numerics(params, mesh)
-                if train_cfg.numerics_every > 0 else None)
-    state = pp.init_state(mesh, params, optimizer, device=dev)
-    del params
     spd = train_cfg.steps_per_dispatch
-    make = pp.make_pipeline_multi_step if spd > 1 else pp.make_pipeline_step
-    step_fn = make(model_cfg, optimizer, mesh,
-                   n_microbatches=train_cfg.microbatches, schedule=schedule,
-                   numerics=numerics, device=dev)
-    step_fn = introspect.watch(
-        step_fn, name=f"train/pp-{schedule}" + (f"-k{spd}" if spd > 1
-                                                else ""),
-        max_caches=(1 if spd == 1 else None),
-        events=(telemetry.events if telemetry is not None else None),
-        meta={"steps_per_dispatch": spd},
-        meta_fn=(None if spd == 1 else
-                 (lambda st, w: {"steps_per_dispatch": int(w.shape[0])})))
+    ovl = train_cfg.overlap_microbatches
+    cb = train_cfg.comm_buckets
+    wire = train_cfg.wire
+    numerics = (pp.make_pp_numerics(params, mesh, psum_data=ovl >= 1)
+                if train_cfg.numerics_every > 0 else None)
+    ring = dict(n_microbatches=train_cfg.microbatches, schedule=schedule,
+                aggregation=aggregation, wire=wire,
+                overlap_microbatches=ovl, comm_buckets=cb, device=dev)
+    # The current world's layout and stage state (an elastic re-mesh
+    # replaces both).
+    cur = {"mesh": mesh, "state": None}
+
+    def _build_elastic(m):
+        """(template state, raw window step, window placement) on the
+        ``(data, stage)`` grid ``m``: the first build and every re-mesh's
+        (at a re-partitioned stage count too) go through here."""
+        pm = dist.pipeline_mesh(m.shape["data"], m.shape["stage"])
+        if ovl >= 1:
+            st, fn = pp.make_pipeline_overlap_multi_step(
+                model_cfg, optimizer, pm, params, **ring)
+        else:
+            st = pp.init_state(pm, params, optimizer, device=dev)
+            fn = pp.make_pipeline_multi_step(
+                model_cfg, optimizer, pm,
+                n_microbatches=train_cfg.microbatches, schedule=schedule,
+                device=dev)
+        cur.update(mesh=pm, state=st)
+        # Each (re)build has its own compile watch, named by its grid.
+        tel = run_tel if dist.get_rank() == 0 else None
+        fn = introspect.watch(
+            fn, name=f"train/pp-{schedule}-elastic"
+                     + (f"-{aggregation}" if aggregation != "gradient"
+                        else "")
+                     + (f"-ring{wire}-m{ovl}" if ovl else "")
+                     + (f"-b{cb}" if cb > 1 else "")
+                     + f"-d{pm.data}s{pm.stage}",
+            max_caches=None,
+            events=(tel.events if tel is not None else None),
+            meta={"steps_per_dispatch": spd},
+            meta_fn=lambda st, w: {"steps_per_dispatch": int(w.shape[0])})
+        return st, fn, (lambda w: torch.as_tensor(w, dtype=torch.long,
+                                                  device=dev))
+
+    if elastic:
+        from ..parallel.mesh import PoolMesh
+        mesh0 = PoolMesh(np.asarray(pool.members if pool is not None
+                                    else (0,)).reshape(mesh.data,
+                                                       mesh.stage),
+                         ("data", "stage"))
+        state, step_fn, window_shard = _build_elastic(mesh0)
+    elif ovl >= 1:
+        make = (pp.make_pipeline_overlap_multi_step if spd > 1
+                else pp.make_pipeline_overlap_step)
+        state, step_fn = make(model_cfg, optimizer, mesh, params,
+                              numerics=numerics, **ring)
+    else:
+        state = pp.init_state(mesh, params, optimizer, device=dev)
+        make = (pp.make_pipeline_multi_step if spd > 1
+                else pp.make_pipeline_step)
+        step_fn = make(model_cfg, optimizer, mesh,
+                       n_microbatches=train_cfg.microbatches,
+                       schedule=schedule, numerics=numerics, device=dev)
+    if not elastic:
+        del params
+        step_fn = introspect.watch(
+            step_fn, name=f"train/pp-{schedule}"
+                          + (f"-{aggregation}" if aggregation != "gradient"
+                             else "")
+                          + (f"-k{spd}" if spd > 1 else "")
+                          + (f"-ring{wire}-m{ovl}" if ovl else "")
+                          + (f"-b{cb}" if cb > 1 else ""),
+            max_caches=(1 if spd == 1 else None),
+            events=(telemetry.events if telemetry is not None else None),
+            meta={"steps_per_dispatch": spd},
+            meta_fn=(None if spd == 1 else
+                     (lambda st, w: {"steps_per_dispatch":
+                                     int(w.shape[0])})))
     compile_watch = step_fn
     stats = ResilienceStats()
     ckpt, state, start_step, done = _setup_checkpoint(
@@ -1420,14 +1489,45 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
                    step_fn=compile_watch._fn, state=state,
                    n_data=mesh.data, device=dev, steps_per_dispatch=spd,
                    trainer="pp",
-                   mesh={"data": mesh.data, "stage": mesh.stage})
-    step_fn = _apply_resilience(step_fn, resilience, fault_plan, ckpt, stats,
-                                group=mesh.stage_group,
-                                leaf_map=pp.global_leaf_map(state))
-    batches = shard_batches(tok, train_cfg.batch_size, train_cfg.seq_len,
-                            mesh.d, shard_skip=5000, seed=train_cfg.seed)
+                   mesh={"data": mesh.data, "stage": mesh.stage},
+                   overlap_microbatches=max(1, ovl), windowed=elastic)
+    if fault_plan is None and resilience is not None and resilience.faults:
+        # Resolved once: every rebuild re-wraps the same schedule.
+        fault_plan = resilience.fault_plan()
+
+    def _rewrap(fn, start=0):
+        return _apply_resilience(fn, resilience, fault_plan, ckpt, stats,
+                                 group=cur["mesh"].stage_group,
+                                 leaf_map=pp.global_leaf_map(
+                                     cur["state"] if cur["state"] is not None
+                                     else state), start=start)
+
+    def _make_batches(n):
+        # This rank's data row at the current grid (skip d·5000): a
+        # fresh run's data order.
+        return shard_batches(tok, train_cfg.batch_size, train_cfg.seq_len,
+                             cur["mesh"].d, shard_skip=5000,
+                             seed=train_cfg.seed)
+
+    if elastic:
+        from ..resilience.elastic import ElasticController
+        controller = ElasticController(
+            mesh0, build=_build_elastic, rewrap=_rewrap,
+            make_batches=_make_batches, ckpt=ckpt,
+            mirror_every=resilience.mirror_every,
+            layer_divisor=model_cfg.n_layers, stats=stats,
+            telemetry=run_tel, log_fn=run_log, device=dev)
+        return _run_loop(
+            _rewrap(step_fn), state, _make_batches(mesh.data), train_cfg,
+            window_shard, n_data=mesh.data, start_step=start_step,
+            ckpt=ckpt, checkpoint_every=checkpoint_every, loss_sink=run_sink,
+            sink_every=sink_every, log_every=log_every, log_fn=run_log,
+            warmup_steps_excluded=warmup_steps_excluded, stats=stats,
+            steps_per_dispatch=spd, on_checkpoint=on_checkpoint,
+            telemetry=run_tel, controller=controller,
+            scale_hook=scale_hook)
     return _run_loop(
-        step_fn, state, batches, train_cfg,
+        _rewrap(step_fn), state, _make_batches(mesh.data), train_cfg,
         lambda b: torch.as_tensor(b, dtype=torch.long, device=dev),
         n_data=mesh.data, start_step=start_step, ckpt=ckpt,
         checkpoint_every=checkpoint_every, loss_sink=loss_sink,
@@ -1439,14 +1539,28 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
         compile_watch=compile_watch)
 
 
+def _elastic_pool(world: int):
+    """The pool of an elastic pipeline or tensor-parallel run, which
+    starts on the first ``world`` ranks of one ``distributed.run_ranks``
+    launch, in order (None at a world of one)."""
+    pool = dist.pool()
+    if world > 1 and (pool is None
+                      or pool.members != tuple(range(world))):
+        raise ValueError(
+            "elastic mode re-forms the process world over the pool of one "
+            "distributed.run_ranks launch and must start on its first "
+            f"{world} ranks as its world (the trainer starts the pool "
+            "itself when called outside a process group)")
+    return pool
+
+
 def _check_tp_options(model_cfg: LlamaConfig, train_cfg: TrainConfig,
                       aggregation: str,
                       resilience: Optional[ResilienceConfig],
                       scale_hook) -> None:
     """The JAX ``train_llm_tp``'s errors, in its order and with its texts
-    (the factories' PSA and ring checks included), then the ROADMAP.md
-    entries of what the port's TP trainer does not run, all before any
-    rank starts."""
+    (the factories' PSA and ring checks included), all before any rank
+    starts."""
     spd = train_cfg.steps_per_dispatch
     ovl = train_cfg.overlap_microbatches
     psa = train_cfg.psa
@@ -1514,12 +1628,6 @@ def _check_tp_options(model_cfg: LlamaConfig, train_cfg: TrainConfig,
                                      "model": train_cfg.model})
     else:
         tp._parse_psa(psa, model_cfg.n_layers)
-    if elastic:
-        raise NotImplementedError(
-            "train_llm_tp does not run these yet; see ROADMAP.md: "
-            "ResilienceConfig.elastic=True"
-            + (" and scale_hook" if scale_hook is not None else "")
-            + " (queue A item 8e-3 (elastic TP))")
 
 
 def _train_tp_rank(model_cfg, train_cfg, kwargs: dict, *, device):
@@ -1570,9 +1678,18 @@ def train_llm_tp(model_cfg: Optional[LlamaConfig] = None,
     Refused as the JAX trainer refuses them (``ValueError``, its texts):
     ``model < 2``, ``dcn``/``wire_dcn``, ``accum_steps``, a ``wire``
     without a ring, zero1 without a ring, ``comm_buckets`` without a ring,
-    ``injit_guard``, a bad ``psa`` and the ring's own checks. Elastic mode
-    (and ``scale_hook`` with it) raises ``NotImplementedError`` naming
-    ROADMAP.md."""
+    ``injit_guard``, a bad ``psa``, the ring's own checks, and elastic
+    mode with the ring or ``numerics_every``.
+
+    ``resilience.elastic=True`` (the shared-body K-step driver,
+    ``tp.make_tp_multi_step``, every ``psa``) survives the loss of ranks
+    whose data rows leave a complete row: the grid drops the victims' rows,
+    the survivors re-form the process world and re-slice the state (the
+    ``psa="int8_ef"`` activation residual by ``dp._resize_act_residual``'s
+    row rule); a model-axis loss, which leaves no complete row, ends the
+    run with the ``ReplicaLossError``. ``device_return`` grows the rows
+    back and ``scale_hook`` resizes them. The run must start on the first
+    ``data·model`` ranks of one ``distributed.run_ranks`` launch."""
     model_cfg = model_cfg or LlamaConfig()
     train_cfg = train_cfg or TrainConfig()
     _check_tp_options(model_cfg, train_cfg, aggregation, resilience,
@@ -1586,12 +1703,15 @@ def train_llm_tp(model_cfg: Optional[LlamaConfig] = None,
                       checkpoint_every=checkpoint_every, loss_sink=loss_sink,
                       sink_every=sink_every, resilience=resilience,
                       fault_plan=fault_plan, telemetry=telemetry,
-                      on_checkpoint=on_checkpoint)
+                      on_checkpoint=on_checkpoint, scale_hook=scale_hook)
         return dist.run_ranks(_train_tp_rank, world, model_cfg, train_cfg,
                               kwargs, device=device)[0]
+    elastic = bool(resilience is not None and resilience.elastic)
+    pool = _elastic_pool(world) if elastic else None
     dev = dist.rank_device(device)
     mesh = dist.tp_mesh(train_cfg.data, train_cfg.model)
     measure = telemetry is not None     # every rank runs the comm probe
+    run_log, run_sink, run_tel = log_fn, loss_sink, telemetry
     if dist.get_rank() != 0:
         log_fn, loss_sink, telemetry = _quiet, None, None
     tok = tokenizer or load_tokenizer()
@@ -1608,7 +1728,40 @@ def train_llm_tp(model_cfg: Optional[LlamaConfig] = None,
     psa = train_cfg.psa
     numerics = (tp.make_tp_numerics(params, mesh, psum_data=ovl >= 1)
                 if train_cfg.numerics_every > 0 else None)
-    if ovl >= 1:
+    batch_shape = (train_cfg.batch_size, train_cfg.seq_len)
+    # The current world's layout and state (an elastic re-mesh replaces
+    # both).
+    cur = {"mesh": mesh, "state": None}
+
+    def _build_elastic(m):
+        """(template state, raw window step, window placement) on the
+        ``(data, model)`` grid ``m``: the first build and every re-mesh's
+        go through here."""
+        tm = dist.tp_mesh(m.shape["data"], m.shape["model"])
+        st, fn = tp.make_tp_multi_step(model_cfg, optimizer, tm, params,
+                                       psa=psa, batch_shape=batch_shape,
+                                       device=dev)
+        cur.update(mesh=tm, state=st)
+        tel = run_tel if dist.get_rank() == 0 else None
+        fn = introspect.watch(
+            fn, name="train/tp-elastic"
+                     + (f"-psa-{psa.replace(':', '')}" if psa else "")
+                     + f"-d{tm.data}x{tm.model}",
+            max_caches=None,
+            events=(tel.events if tel is not None else None),
+            meta={"steps_per_dispatch": spd},
+            meta_fn=lambda st, w: {"steps_per_dispatch": int(w.shape[0])})
+        return st, fn, (lambda w: torch.as_tensor(w, dtype=torch.long,
+                                                  device=dev))
+
+    if elastic:
+        from ..parallel.mesh import PoolMesh
+        mesh0 = PoolMesh(np.asarray(pool.members if pool is not None
+                                    else (0,)).reshape(mesh.data,
+                                                       mesh.model),
+                         ("data", "model"))
+        state, step_fn, window_shard = _build_elastic(mesh0)
+    elif ovl >= 1:
         make = (tp.make_tp_overlap_multi_step if spd > 1
                 else tp.make_tp_overlap_step)
         state, step_fn = make(model_cfg, optimizer, mesh, params,
@@ -1619,23 +1772,24 @@ def train_llm_tp(model_cfg: Optional[LlamaConfig] = None,
     else:
         make = tp.make_tp_multi_step if spd > 1 else tp.make_tp_step
         state, step_fn = make(model_cfg, optimizer, mesh, params, psa=psa,
-                              batch_shape=(train_cfg.batch_size,
-                                           train_cfg.seq_len),
-                              numerics=numerics, device=dev)
-    del params
-    step_fn = introspect.watch(
-        step_fn,
-        name="train/tp"
-             + (f"-psa-{psa.replace(':', '')}" if psa else "")
-             + (f"-{aggregation}" if aggregation != "gradient" else "")
-             + (f"-k{spd}" if spd > 1 else "")
-             + (f"-ring{train_cfg.wire}-m{ovl}" if ovl else "")
-             + (f"-b{cb}" if cb > 1 else ""),
-        max_caches=(1 if spd == 1 else None),
-        events=(telemetry.events if telemetry is not None else None),
-        meta={"steps_per_dispatch": spd},
-        meta_fn=(None if spd == 1 else
-                 (lambda st, w: {"steps_per_dispatch": int(w.shape[0])})))
+                              batch_shape=batch_shape, numerics=numerics,
+                              device=dev)
+    if not elastic:
+        del params
+        step_fn = introspect.watch(
+            step_fn,
+            name="train/tp"
+                 + (f"-psa-{psa.replace(':', '')}" if psa else "")
+                 + (f"-{aggregation}" if aggregation != "gradient" else "")
+                 + (f"-k{spd}" if spd > 1 else "")
+                 + (f"-ring{train_cfg.wire}-m{ovl}" if ovl else "")
+                 + (f"-b{cb}" if cb > 1 else ""),
+            max_caches=(1 if spd == 1 else None),
+            events=(telemetry.events if telemetry is not None else None),
+            meta={"steps_per_dispatch": spd},
+            meta_fn=(None if spd == 1 else
+                     (lambda st, w: {"steps_per_dispatch":
+                                     int(w.shape[0])})))
     compile_watch = step_fn
     stats = ResilienceStats()
     ckpt, state, start_step, done = _setup_checkpoint(
@@ -1648,14 +1802,41 @@ def train_llm_tp(model_cfg: Optional[LlamaConfig] = None,
                    step_fn=compile_watch._fn, state=state,
                    n_data=mesh.data, device=dev, steps_per_dispatch=spd,
                    trainer="tp", mesh=mesh.shape,
-                   overlap_microbatches=max(1, ovl))
-    step_fn = _apply_resilience(
-        step_fn, resilience, fault_plan, ckpt, stats, group=mesh.model_group,
-        shared=[not s for s in tree_leaves(tp._sharded_mask(state.params))])
-    batches = shard_batches(tok, train_cfg.batch_size, train_cfg.seq_len,
-                            mesh.d, shard_skip=5000, seed=train_cfg.seed)
+                   overlap_microbatches=max(1, ovl), windowed=elastic)
+    if fault_plan is None and resilience is not None and resilience.faults:
+        fault_plan = resilience.fault_plan()
+
+    def _rewrap(fn, start=0):
+        st = cur["state"] if cur["state"] is not None else state
+        return _apply_resilience(
+            fn, resilience, fault_plan, ckpt, stats,
+            group=cur["mesh"].model_group,
+            shared=[not x for x in tree_leaves(tp._sharded_mask(st.params))],
+            start=start)
+
+    def _make_batches(n):
+        return shard_batches(tok, train_cfg.batch_size, train_cfg.seq_len,
+                             cur["mesh"].d, shard_skip=5000,
+                             seed=train_cfg.seed)
+
+    if elastic:
+        from ..resilience.elastic import ElasticController
+        controller = ElasticController(
+            mesh0, build=_build_elastic, rewrap=_rewrap,
+            make_batches=_make_batches, ckpt=ckpt,
+            mirror_every=resilience.mirror_every, stats=stats,
+            telemetry=run_tel, log_fn=run_log, device=dev)
+        return _run_loop(
+            _rewrap(step_fn), state, _make_batches(mesh.data), train_cfg,
+            window_shard, n_data=mesh.data, start_step=start_step,
+            ckpt=ckpt, checkpoint_every=checkpoint_every, loss_sink=run_sink,
+            sink_every=sink_every, log_every=log_every, log_fn=run_log,
+            warmup_steps_excluded=warmup_steps_excluded, stats=stats,
+            steps_per_dispatch=spd, on_checkpoint=on_checkpoint,
+            telemetry=run_tel, controller=controller,
+            scale_hook=scale_hook)
     return _run_loop(
-        step_fn, state, batches, train_cfg,
+        _rewrap(step_fn), state, _make_batches(mesh.data), train_cfg,
         lambda b: torch.as_tensor(b, dtype=torch.long, device=dev),
         n_data=mesh.data, start_step=start_step, ckpt=ckpt,
         checkpoint_every=checkpoint_every, loss_sink=loss_sink,

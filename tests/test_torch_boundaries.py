@@ -17,6 +17,7 @@ from ddl25spring_tpu_torch.experiments import (autoscale_smoke,
                                                comm_wire_smoke,
                                                elastic_smoke, fleet_smoke,
                                                longctx_bench, memory_smoke,
+                                               pp_fusion_smoke,
                                                serving_bench, sp_bench,
                                                tp_fusion_smoke)
 from ddl25spring_tpu_torch.models import generate, llama, mnist_cnn, moe
@@ -78,6 +79,7 @@ def test_the_scan_sees_every_port_module():
                  "ddl25spring_tpu_torch/experiments/sp_bench.py",
                  "ddl25spring_tpu_torch/experiments/longctx_bench.py",
                  "ddl25spring_tpu_torch/experiments/tp_fusion_smoke.py",
+                 "ddl25spring_tpu_torch/experiments/pp_fusion_smoke.py",
                  "ddl25spring_tpu_torch/experiments/elastic_smoke.py",
                  "ddl25spring_tpu_torch/experiments/autoscale_smoke.py",
                  "ddl25spring_tpu_torch/resilience/elastic.py",
@@ -222,6 +224,24 @@ ENTRY_POINTS = {
     "train_llm_tp": lambda: llm.train_llm_tp(
         CFG, TrainConfig(iters=1, model=2), tokenizer=ByteTokenizer()),
     "tp_fusion_smoke": lambda: tp_fusion_smoke.main(["--out", "unused.json"]),
+    "make_pipeline_overlap_step": lambda: pp.make_pipeline_overlap_step(
+        CFG, fused_adam(1e-3), distributed.pipeline_mesh(1, 1), _model()),
+    "make_pipeline_overlap_multi_step":
+        lambda: pp.make_pipeline_overlap_multi_step(
+            CFG, fused_adam(1e-3), distributed.pipeline_mesh(1, 1),
+            _model(), wire="int8_ef"),
+    "time_pp_train_step": lambda: bench_utils.time_pp_train_step(
+        distributed.pipeline_mesh(1, 1), CFG, 1),
+    "train_llm_pp ring": lambda: llm.train_llm_pp(
+        CFG, TrainConfig(iters=1, overlap_microbatches=1),
+        tokenizer=ByteTokenizer(), aggregation="zero1"),
+    "train_llm_pp elastic": lambda: llm.train_llm_pp(
+        CFG, TrainConfig(iters=1), tokenizer=ByteTokenizer(),
+        resilience=ResilienceConfig(elastic=True)),
+    "train_llm_tp elastic": lambda: llm.train_llm_tp(
+        CFG, TrainConfig(iters=1, model=2), tokenizer=ByteTokenizer(),
+        resilience=ResilienceConfig(elastic=True)),
+    "pp_fusion_smoke": lambda: pp_fusion_smoke.main(["--out", "unused.json"]),
     "pallas_adam.smoke_check": lambda: pallas_adam.smoke_check(),
     "sp.init_state": lambda: sp.init_state(distributed.seq_mesh(1, 1),
                                            _model(), fused_adam(1e-3)),

@@ -245,17 +245,25 @@ def test_mesh_refusals_have_jax_texts(devices, case):
 
 @pytest.mark.parametrize("axis", ["stage", "model"])
 @pytest.mark.parametrize("fn", ["survivor_submesh", "rejoin_mesh"])
-def test_stage_and_model_re_mesh_wait_for_their_trainers(axis, fn):
-    """A real stage or model axis is refused until the elastic PP and TP
-    trainers bring its rules; a size-1 one re-meshes as data alone."""
-    grid = mesh.PoolMesh(np.arange(4).reshape(2, 2), ("data", axis))
-    call = {"survivor_submesh": lambda m: mesh.survivor_submesh(m, [0]),
-            "rejoin_mesh": lambda m: mesh.rejoin_mesh(m, [9])}[fn]
-    with pytest.raises(NotImplementedError, match="8e-3"):
-        call(grid)
-    flat = mesh.PoolMesh(np.arange(3).reshape(3, 1), ("data", axis))
-    assert list(call(flat).members) == {"survivor_submesh": [1, 2],
-                                        "rejoin_mesh": [0, 1, 2, 9]}[fn]
+def test_stage_and_model_re_mesh_wait_for_their_trainers(devices, axis, fn):
+    """A real stage or model axis re-meshes by JAX's 2-axis rules (the
+    elastic PP and TP trainers): a data-row drop keeps the other rows in
+    order, a rejoin with the pool rebuilds the original grid; a size-1
+    axis re-meshes as JAX's does."""
+    for d, s in ((2, 2), (3, 1)):
+        grid = mesh.PoolMesh(np.arange(d * s).reshape(d, s), ("data", axis))
+        jgrid = make_mesh({"data": d, axis: s}, devices=devices[:d * s])
+        p = mesh.survivor_submesh(grid, [d * s - 1], layer_divisor=4)
+        j = jmesh.survivor_submesh(jgrid, [d * s - 1], layer_divisor=4)
+        if fn == "rejoin_mesh":
+            back = [r for r in range(d * s) if r not in p.members]
+            p = mesh.rejoin_mesh(p, back, pool=list(range(d * s)),
+                                 pool_shape=(d, s), layer_divisor=4)
+            j = jmesh.rejoin_mesh(j, [devices[i] for i in back],
+                                  pool=devices[:d * s], pool_shape=(d, s),
+                                  layer_divisor=4)
+        assert list(p.members) == _jax_ids(j, devices)
+        assert p.shape == dict(j.shape) and p.axis_names == j.axis_names
 
 
 def test_victims_and_arrivals_are_jax_choices():

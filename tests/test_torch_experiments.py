@@ -24,6 +24,7 @@ from ddl25spring_tpu_torch.experiments import (autoscale_smoke,
                                                comm_wire_smoke,
                                                elastic_smoke, fleet_smoke,
                                                longctx_bench, memory_smoke,
+                                               pp_fusion_smoke,
                                                serving_bench, sp_bench,
                                                tp_fusion_smoke)
 from ddl25spring_tpu_torch.serving import TrafficClass, class_slos
@@ -161,6 +162,25 @@ def test_tp_fusion_smoke_on_the_cpu(tmp_path):
     assert res["checks"]["tp_ring_analytic"]["ok"]
 
 
+def test_pp_fusion_smoke_on_the_cpu(tmp_path):
+    """The twin at its quick size (four gloo ranks, 2 × 2, K = 2): each
+    stage's int8_ef ZeRO-1 data-axis wire at most 0.27 of the plain step's,
+    the ring and gather bytes exact per stage, no retrace, the trainer's
+    windows stamped."""
+    out = tmp_path / "pp-fusion.json"
+    rc = pp_fusion_smoke.main(["--device", "cpu", "--quick", "--out",
+                               str(out)])
+    with open(out) as f:
+        res = json.load(f)
+    assert rc == 0 and res["ok"], {k: v["ok"] for k, v in
+                                   res["checks"].items()}
+    stages = res["checks"]["pp_data_wire_ratio"]["stages"]
+    assert set(stages) == {"stage0", "stage1"}
+    assert all(v["value"] <= 0.27 for v in stages.values())
+    for v in res["checks"]["pp_ring_analytic"]["stages"].values():
+        assert v["got"] == v["want"]
+
+
 def test_sp_bench_on_the_cpu(tmp_path):
     """The twin's quick rings (1, 2, 4) at T = 128, one layer: one SP step
     each, the losses equal across the rings, no memory number on the
@@ -198,6 +218,10 @@ def test_elastic_smoke_on_the_cpu(tmp_path):
     assert rc == 0 and res["ok"]
     assert res["zero_fault_bitwise"] and res["post_remesh_bitwise"]
     assert res["round_trip_bitwise"] and res["steps_replayed"] == 0
+    assert res["pp_data_shrink_ok"] and res["pp_stage_repartition_bitwise"]
+    assert [(r["axis"], r["old_shape"], r["new_shape"])
+            for r in res["pp_remeshes"]] == [("data", [2, 2], [1, 2]),
+                                             ("stage", [1, 4], [1, 2])]
     events = read_events(str(tel / "events.jsonl"), strict=True)
     remesh = [e for e in events if e["type"] == "remesh"]
     assert len(remesh) == 1 and validate_event(remesh[0]) == []

@@ -24,7 +24,9 @@ full depth (dmodel 144, 6 heads, 6 layers, ctx 256). Held:
   ``model`` axis) and the compile events (JAX's name, one program per
   window size);
 - every error of ``tests/test_tp.py``'s two error tests with JAX's type
-  and text, and elastic mode and ``scale_hook`` named in ROADMAP.md."""
+  and text;
+- elastic mode, with and without a ``scale_hook``, bitwise the plain run
+  at no fault."""
 
 import os
 
@@ -105,6 +107,9 @@ def model2(dirs):
                               resilience=ResilienceConfig(),
                               fault_plan=f"nan_grad@1:{WQ}"),
                         fault_ranks=[1]),
+        "elastic": _call(TCFG, resilience=ResilienceConfig(elastic=True)),
+        "elastic_hook": _call(TCFG, resilience=ResilienceConfig(elastic=True),
+                              scale_hook=programs.KeepWorldHook()),
     }
     ranks = distributed.run_ranks(programs.tp_cases, 2, list(calls.values()),
                                   device="cpu", timeout=600)
@@ -277,9 +282,10 @@ def test_refuses_what_jax_refuses(tcfg, aggregation, extra):
 
 
 @pytest.mark.parametrize("hook", [False, True])
-def test_elastic_and_scale_hook_name_roadmap(hook):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8e"):
-        llm.train_llm_tp(LlamaConfig(**MCFG), TrainConfig(**TCFG),
-                         resilience=ResilienceConfig(elastic=True),
-                         scale_hook=(lambda *a: None) if hook else None,
-                         device="cpu")
+def test_elastic_and_scale_hook_name_roadmap(model2, hook):
+    """Elastic mode (and a ``scale_hook`` that asks for no change) with no
+    fault: bitwise the plain run, no re-mesh."""
+    for e, u in zip(model2["elastic_hook" if hook else "elastic"],
+                    model2["plain"]):
+        assert e["losses"] == u["losses"] and len(e["losses"]) == 3
+        assert e["resilience"]["remeshes"] == 0
