@@ -281,9 +281,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
              (``optimizer="pallas"``) timed in turns with the unsharded
              step: launches 6/6/6/1 per rank per step, one combine sum and
              the replicated-gradient sum (20,440,224 fp32) timed apart;
-             e. the ``longctx_bench`` twin at T=1024 (B=16) and T=4096
-             (B=4), flash and plain, each point in its own process: tok/s
-             and ms per step; K2, K5 and K6 at B=2, T=4096 against their
+             e. the ``longctx_bench`` twin at T=4096 (B=4), flash and
+             plain, each point in its own process: tok/s and ms per step; K2, K5 and K6 at B=2, T=4096 against their
              plain versions (phase 3's limits), timed beside SDPA and
              their bounds.
 18. elastic — elastic data parallelism on a pool of four ranks on the
@@ -322,6 +321,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
              re-mesh's seconds by part. c. ``train_llm_tp`` at
              ``psa="int8_ef"``: 2×2 -> 1×2 bitwise a fresh 1×2 run; a
              model-axis loss on 1×2 raises ``ReplicaLossError``.
+20. pp x tp — DP×PP×TP: the pipeline over a (data, stage, model) grid
+             of ranks, Megatron TP inside each stage, at the canonical
+             width (3 layers per stage, 3 heads per model shard, GPipe, 2
+             pipeline microbatches): a. four ranks on 1 × 2 × 2
+             (``programs.phase20_four``): GPipe and 1F1B in fp32 at B=4
+             (SGD) against the world of one, loss within 1e-5 and every
+             gradient leaf within 1e-4 of its largest entry; at bf16, B=16,
+             the pallas optimizer, timed in turns with the plain DP×PP
+             step at 1 × 2 and with TP at 1 × 2, launches per rank per step
+             (6/6/6/1 each), one activation sum over the model group. b.
+             eight ranks on 2 × 2 × 2 (``programs.phase20_eight``): the
+             fp32 gradient ring within 1e-5 / 1e-4 of the plain step; the
+             int8_ef ZeRO-1 ring at M=1: data rows and model replicas
+             bitwise, ring and gather bytes exactly K·M·(n−1)·chunk per
+             (stage, model) cell, a K=2 window bitwise two steps; both
+             rings at bf16 timed in turns with the plain step, K7 per cell
+             as its ZeRO-1 slice's gate says; ``train_llm_pp(mesh={"data":
+             2, "stage": 2, "model": 2})`` at vocab 259, 3 steps, bitwise
+             the step driver's losses. c. ``bench_utils.time_decode``:
+             greedy ``generate`` tokens/s at B=1 and B=64, fp32 and bf16
+             weights.
 
 Each phase's seconds print on a line of their own (``phase N: X s``) and
 ride in the record as ``phase_seconds``. The line before the last is the
@@ -3239,7 +3259,7 @@ TOL_SP_GRAD = 1e-4
 TOL_EP_AUX = 1e-6
 RING_KV_BYTES = 14_155_776   # 2 x (2·256·288·2 B) x ring 4 x 6 layers
 LONGCTX_SHAPE = (2, 4096, 6, 48)
-LONGCTX_GRID = [(1024, 16), (4096, 4)]
+LONGCTX_GRID = [(4096, 4)]     # one point: the T=1024 row was cut for time
 EP_LAUNCHES = {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
                "adam": 1}
 
@@ -3841,6 +3861,198 @@ def _pp19_elastic_checks(ranks, card: str, out: dict) -> None:
     print(f"19b no fault: elastic bitwise non-elastic (plain 2x2, int8_ef "
           f"ZeRO-1 ring M=2); 19c a model-axis loss on 1x2 raises "
           f"ReplicaLossError, nothing fabricated {card}")
+
+
+# ------------------------------------------------------------- phase 20
+# Phase 20: DP×PP×TP, the pipeline over a (data, stage, model) grid of
+# ranks with Megatron TP inside each stage, at the canonical width (3 heads
+# per model shard): 20a on 1 × 2 × 2 (four ranks), 20b on 2 × 2 × 2 (eight
+# ranks, the ring drivers and train_llm_pp(mesh=...)), and 20c the decode
+# rate of generate (bench_utils.time_decode).
+TOL_PPTP = (1e-5, 1e-4)        # loss, leaves of their max: fp32 checks
+PPTP_DECODE = [(1, False), (1, True), (64, False), (64, True)]
+
+
+def _held_cell_launches(part: str, ranks, cells: dict) -> dict:
+    """Every rank's launches per step in each timed cell of ``part``
+    against ``cells[name] = (want, ranks that run it or None for all)``;
+    a rank outside a cell launched nothing there. Returns rank 0's."""
+    for r in ranks:
+        for name, (want, who) in cells.items():
+            got = r["timing"][name]["launches"]
+            if who is not None and r["rank"] not in who:
+                want_here = {k: 0 for k in want}
+            else:
+                want_here = want
+            check(got == want_here, f"{part} {name} rank {r['rank']}: "
+                  f"launches per step {got}, expected {want_here}")
+    return {name: ranks[0]["timing"][name]["launches"] for name in cells}
+
+
+def pp_tp_phase(dev: torch.device, card: str) -> dict:
+    """Phase 20: four, then eight ranks on the card (``programs.
+    phase20_four``, ``phase20_eight``), then the decode rates here. Raises
+    on a failed check; returns the numbers for the JSON record."""
+    import numpy as np
+    from ddl25spring_tpu_torch import bench_utils
+    from ddl25spring_tpu_torch.config import LlamaConfig
+    from ddl25spring_tpu_torch.parallel import distributed, programs
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()           # the ranks share the card
+    rng = np.random.default_rng(20)
+    out = {}
+
+    # a. 1 x 2 x 2 -----------------------------------------------------------
+    ranks = distributed.run_ranks(programs.phase20_four, 4,
+                                  rng.integers(0, 32000, (4, 256)),
+                                  rng.integers(0, 32000, (16, 256)),
+                                  timeout=600)
+    out["a_seconds"] = time.perf_counter() - t0
+    for r in ranks:
+        for sched, c in r["check"].items():
+            check(c["loss_err"] <= TOL_PPTP[0]
+                  and c["grad_rel_err"] <= TOL_PPTP[1], f"20a {sched} rank "
+                  f"{r['rank']} (stage {r['s']}, model {r['m']}): loss "
+                  f"error {c['loss_err']}, gradient {c['grad_rel_err']} of "
+                  f"the leaf max against the world of one (bars "
+                  f"{TOL_PPTP})")
+    worst = {sched: {k: max(r["check"][sched][k] for r in ranks)
+                     for k in ("loss_err", "grad_rel_err")}
+             for sched in ranks[0]["check"]}
+    print("20a canonical width fp32, 1 x 2 x 2 (3 layers per stage, 3 "
+          "heads per model shard), B=4, M=2, against the world of one: "
+          + "; ".join(f"{k} loss {v['loss_err']:.2e} gradient "
+                      f"{v['grad_rel_err']:.2e}" for k, v in worst.items())
+          + f" {card}")
+    step = pp19_launches(3, 2, 1, 1)
+    launches = _held_cell_launches("20a", ranks, {
+        "pp x tp 1x2x2": (step, None), "pp 1x2": (step, (0, 2)),
+        "tp 1x2": (pp19_launches(6, 1, 1, 1), (0, 1))})
+    check(ranks[0]["timing"]["pp x tp 1x2x2"]["replicas_bitwise"] and all(
+        r["timing"]["pp x tp 1x2x2"]["replicas_bitwise"] for r in ranks),
+        "20a: the model shards' replicated leaves differ")
+    timing = {k: v["ms_per_step"] for k, v in ranks[0]["timing"].items()}
+    for k, v in ranks[0]["timing"].items():
+        check(math.isfinite(v["last_loss"]), f"20a {k}: loss "
+              f"{v['last_loss']}")
+    print("20a bf16 B=16, GPipe M=2, pallas Adam, timed in turns (2 rounds "
+          "of 3 steps): " + "; ".join(
+              f"{k} {ms:.1f} ms/step ({[round(x, 1) for x in ranks[0]['timing'][k]['ms']]}), "
+              f"launches per rank {launches[k]}" for k, ms in timing.items())
+          + f"; one activation sum ({ranks[0]['act_sum_bytes']} B bf16, "
+          f"staged in fp32) {ranks[0]['act_sum_ms']:.2f} ms (median of 10) "
+          f"{card}")
+    out["a"] = {"check": worst, "timing": timing, "launches": launches,
+                "act_sum_ms": ranks[0]["act_sum_ms"],
+                "check_seconds": ranks[0]["check_seconds"],
+                "time_seconds": ranks[0]["time_seconds"]}
+
+    # b. 2 x 2 x 2 -----------------------------------------------------------
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = distributed.run_ranks(
+            programs.phase20_eight, 8, rng.integers(0, 32000, (3, 8, 256)),
+            rng.integers(0, 32000, (32, 256)), tmp, timeout=900)
+    out["b_seconds"] = time.perf_counter() - t1
+    exact, loss_err, leaf_err = {}, 0.0, 0.0
+    for r in ranks:
+        c = r["check"]
+        err = max(abs(x - y) for x, y in zip(c["ring_losses"],
+                                             c["plain_losses"]))
+        loss_err, leaf_err = max(loss_err, err), max(leaf_err,
+                                                     c["ring_leaf_err"])
+        check(err <= TOL_PPTP[0] and c["ring_leaf_err"] <= TOL_PPTP[1],
+              f"20b rank {r['rank']}: the fp32 ring's loss error {err}, "
+              f"leaves {c['ring_leaf_err']} of their max against the plain "
+              f"2x2x2 step (bars {TOL_PPTP})")
+        check(c["ring_replicas_bitwise"] and c["int8_replicas_bitwise"],
+              f"20b rank {r['rank']}: data rows or model replicas differ")
+        check(c["kstep"]["losses_bitwise"] and c["kstep"]["state_bitwise"],
+              f"20b rank {r['rank']}: the K=2 window is not two steps")
+        geo, K, M = c["geometry"], c["bytes"]["K"], c["bytes"]["M"]
+        by = c["bytes"]["profile"]["collectives"]
+        got = {"ring": by["pp_ring_grad_int8"]["payload_bytes"],
+               "gather": by["pp_delta_gather_int8"]["wire_bytes_per_device"]}
+        want = {"ring": K * M * (geo["n"] - 1) * geo["chunk"],
+                "gather": K * (geo["n"] - 1) * geo["chunk"]}
+        check(got == want, f"20b rank {r['rank']}: ring and gather bytes "
+              f"{got}, expected K·M·(n−1)·chunk {want}")
+        if r["d"] == 0:
+            exact[f"stage{r['s']}/model{r['m']}"] = dict(got, chunk=geo[
+                "chunk"])
+    print(f"20b canonical width fp32, 2 x 2 x 2, B=4 per row, SGD lr 0.02, "
+          f"3 steps: fp32 gradient ring against the plain step, loss "
+          f"{loss_err:.2e}, leaves {leaf_err:.2e}; int8_ef ZeRO-1 M=1 K=2 "
+          f"bitwise two steps; data rows and model replicas bitwise; bytes "
+          f"per cell (K=2, M=1) {exact}, exactly K·M·(n−1)·chunk {card}")
+    k7 = {r["rank"]: int(_k7_eligible(r["check"]["geometry"]["chunk"]))
+          for r in ranks}
+    for r in ranks:
+        want = {"plain": pp19_launches(3, 2, 1, 1),
+                "gradient fp32 M=1": pp19_launches(3, 2, 1, 1),
+                "zero1 int8_ef M=1": pp19_launches(3, 2, 1, k7[r["rank"]])}
+        for name, w in want.items():
+            cell = r["timing"][name]
+            check(cell["launches"] == w, f"20b {name} rank {r['rank']}: "
+                  f"launches per step {cell['launches']}, expected {w}")
+            check(cell["replicas_bitwise"], f"20b timed {name}: replicas "
+                  "differ")
+            check(math.isfinite(cell["last_loss"]), f"20b {name} loss")
+    timing_b = {k: v["ms_per_step"] for k, v in ranks[0]["timing"].items()}
+    print("20b bf16 B=16 per row, pallas Adam, timed in turns (2 rounds of "
+          "3 steps): " + "; ".join(
+              f"{k} {ms:.1f} ms/step ({[round(x, 1) for x in ranks[0]['timing'][k]['ms']]}), "
+              f"launches per rank {ranks[0]['timing'][k]['launches']}"
+              for k, ms in timing_b.items())
+          + f"; K7 per cell on the ZeRO-1 ring {k7} {card}")
+    tr = [r["trainer"] for r in ranks]
+    for r, t in zip(ranks, tr):
+        check(len(t["losses"]) == 3 and all(math.isfinite(x)
+                                            for x in t["losses"])
+              and t["losses"] == t["driver_losses"] == tr[0]["losses"],
+              f"20b rank {r['rank']}: train_llm_pp(mesh=2x2x2) losses "
+              f"{t['losses']}, the step driver's {t['driver_losses']}")
+        check(t["launches"] == pp19_launches(3, 2, 1, 1), f"20b trainer "
+              f"rank {r['rank']}: launches per step {t['launches']}")
+    print(f"20b train_llm_pp(mesh={{data 2, stage 2, model 2}}) vocab 259, "
+          f"B=4 x 256 per row, pallas Adam: losses {tr[0]['losses']}, "
+          f"bitwise the step driver's on every rank; launches per rank per "
+          f"step {tr[0]['launches']}; {tr[0]['seconds']:.1f} s {card}")
+    out["b"] = {"fp32_loss_err": loss_err, "fp32_leaf_err": leaf_err,
+                "bytes": exact, "timing": timing_b,
+                "launches": {k: ranks[0]["timing"][k]["launches"]
+                             for k in timing_b},
+                "k7_zero1": k7, "trainer": {
+                    "losses": tr[0]["losses"],
+                    "launches": tr[0]["launches"]},
+                "check_seconds": ranks[0]["check_seconds"],
+                "time_seconds": ranks[0]["time_seconds"],
+                "trainer_seconds": ranks[0]["trainer_seconds"]}
+
+    # c. decode ---------------------------------------------------------------
+    t1 = time.perf_counter()
+    cfg = LlamaConfig()
+    decode = {}
+    for b, bf16 in PPTP_DECODE:
+        rate = bench_utils.time_decode(cfg, b, bf16_params=bf16, reps=2,
+                                       device=dev)
+        check(math.isfinite(rate) and rate > 0, f"20c decode rate {rate}")
+        decode[f"B={b} {'bf16' if bf16 else 'fp32'} weights"] = rate
+    print("20c time_decode (generate, greedy, prompt 64, 128 new tokens, 2 "
+          "reps): " + "; ".join(f"{k} {v:.0f} tok/s"
+                                for k, v in decode.items()) + f" {card}")
+    out["decode"] = decode
+    out["c_seconds"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    print(f"pp x tp phase: {out['seconds']:.1f} s (20a {out['a_seconds']:.1f}"
+          f": check {out['a']['check_seconds']:.1f}, timing "
+          f"{out['a']['time_seconds']:.1f}; 20b {out['b_seconds']:.1f}: "
+          f"check {out['b']['check_seconds']:.1f}, timing "
+          f"{out['b']['time_seconds']:.1f}, trainer "
+          f"{out['b']['trainer_seconds']:.1f}; 20c {out['c_seconds']:.1f}) "
+          f"{card}")
+    return out
 
 
 def _build_in_background(ext):
@@ -4503,6 +4715,9 @@ def main() -> int:
     # 19. DP×PP ring drivers; elastic PP and TP, a pool of four ranks -----
     pp19_report = pp_elastic_phase(dev, card)
     stamp("19")
+    # 20. DP×PP×TP on 1 x 2 x 2 and 2 x 2 x 2 ranks; decode -----------
+    pptp_report = pp_tp_phase(dev, card)
+    stamp("20")
 
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
@@ -4578,7 +4793,14 @@ def main() -> int:
                       v["launches"] for k, v in pp19_report["timing"].items()},
                    **{f"elastic {k} (phase 19{k[0]}), per rank per step, "
                       f"world by world": pp19_report[k]["launches"]
-                      for k in ("b_stage", "b_trip", "b_rows", "c_rows")}}
+                      for k in ("b_stage", "b_trip", "b_rows", "c_rows")},
+                   **{f"{k} bf16 B=16 (phase 20a), rank 0 per step": v
+                      for k, v in pptp_report["a"]["launches"].items()},
+                   **{f"pp 2x2x2 {k} bf16 B=16 (phase 20b), rank 0 per "
+                      f"step": v
+                      for k, v in pptp_report["b"]["launches"].items()},
+                   "train_llm_pp mesh 2x2x2 (phase 20b), per rank per step":
+                       pptp_report["b"]["trainer"]["launches"]}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ddl25spring_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -4668,7 +4890,7 @@ def main() -> int:
                       "fleet": fleet_report, "comm": comm_report,
                       "tp": tp_report, "sp_ep": spep_report,
                       "elastic": elastic_report,
-                      "pp_elastic": pp19_report,
+                      "pp_elastic": pp19_report, "pp_tp": pptp_report,
                       "adam_paired": adam_pairs,
                       "phase_seconds": phase_seconds, "card": smi,
                       "ok": True}))

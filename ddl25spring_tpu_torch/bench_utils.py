@@ -288,6 +288,42 @@ def time_pp_train_step(mesh, cfg: LlamaConfig, batch_size: int, *,
     return mesh.data * batch_size * seq * timed * K / dt
 
 
+def time_decode(cfg: LlamaConfig, batch: int, prompt_len: int = 64,
+                new_tokens: int = 128, bf16_params: bool = False,
+                kv_dtype: Optional[str] = None, reps: int = 3,
+                device=None) -> float:
+    """Generated tokens/sec of the KV-cache decode loop
+    (``models.generate.generate``, greedy), the JAX function's contract:
+    one warm call, then ``reps`` timed calls. The two serving levers:
+    ``bf16_params`` casts a copy of the fp32 weights to bf16 (the weight
+    bytes dominate at batch 1), ``kv_dtype="bfloat16"`` halves the cache
+    bytes (they dominate once the batch amortizes the weights). The
+    weights and the prompt come from explicit generators (seeds 0 and 1)
+    on ``device`` (None: CUDA, raising without a card)."""
+    from .device import resolve_device, synchronize
+    from .models import generate as gen
+    from .tree import tree_map
+
+    dev = resolve_device(device)
+    params = tree_map(
+        lambda a: (a.to(torch.bfloat16) if bf16_params
+                   and a.dtype == torch.float32 else a).to(dev),
+        llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                         device="cpu").tree())
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=g).to(dev)
+    out = gen.generate(params, prompt, cfg, new_tokens, kv_dtype=kv_dtype,
+                       device=dev)
+    synchronize(dev)                                 # warm
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = gen.generate(params, prompt, cfg, new_tokens,
+                           kv_dtype=kv_dtype, device=dev)
+    int(out[0, -1])                                  # waits for the chain
+    return batch * new_tokens * reps / (time.perf_counter() - t0)
+
+
 def kernel_time_us(fn, reps: int = 100, burst: int = 10) -> float:
     """Median device time of one call, in microseconds: CUDA events around
     each call. Every burst of calls is queued behind a GPU sleep longer

@@ -213,3 +213,59 @@ def generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int, *,
         tok = _sample(generator, logits, temperature, top_k, top_p)
         out.append(tok)
     return torch.stack(out, dim=1)
+
+
+@torch.inference_mode()
+def speculative_stream(params, draft_params, prompt, cfg: LlamaConfig,
+                       max_new_tokens: int, *, k: int,
+                       draft_cfg: Optional[LlamaConfig] = None,
+                       device=None):
+    """The reference greedy speculative decoding (the JAX function of the
+    same name): the draft proposes ``k`` tokens by argmax over its own full
+    forward, the target scores the whole window in one forward, and the
+    accepted prefix plus one correction or bonus token extends the stream.
+    Each round re-runs full forwards (no cache): a hand-checkable twin of
+    the serving engine's draft-propose and verify round
+    (``serving/speculate.py``), not a fast path.
+
+    Greedy speculation emits the greedy stream exactly: every emitted token
+    is the target's own argmax, so the tokens equal ``generate(params,
+    prompt, cfg, max_new_tokens)``'s at any ``k`` and any draft. Returns
+    ``(tokens, stats)``; ``stats`` counts the proposed and accepted draft
+    tokens and the target rounds, with the horizon rule: only ``min(k,
+    remaining)`` proposals of a round count as proposed, so truncation at
+    ``max_new_tokens`` never reads as rejection. ``prompt`` is one
+    sequence; ``device`` (None: CUDA) must hold both models."""
+    dcfg = draft_cfg or cfg
+    if k < 1 or max_new_tokens < 1:
+        raise ValueError(f"k={k}, max_new_tokens={max_new_tokens}")
+    dev = resolve_device(device)
+    params, draft_params = llama.as_tree(params), llama.as_tree(draft_params)
+    check_on_device(params["embed"], dev, "params")
+    check_on_device(draft_params["embed"], dev, "draft_params")
+    seq = torch.as_tensor(prompt, device=dev).long().reshape(1, -1)
+    out = []
+    stats = {"proposed": 0, "accepted": 0, "rounds": 0, "k": k}
+    while len(out) < max_new_tokens:
+        d_seq = seq
+        drafts = []
+        for _ in range(k):
+            d_tok = torch.argmax(
+                llama.forward(draft_params, d_seq, dcfg)[:, -1, :], dim=-1)
+            drafts.append(int(d_tok[0]))
+            d_seq = torch.cat([d_seq, d_tok[:, None]], dim=1)
+        window = torch.cat([seq, torch.tensor([drafts], device=dev)], dim=1)
+        t_log = llama.forward(params, window, cfg)[0]          # [T, V]
+        base = seq.shape[1] - 1
+        targets = torch.argmax(t_log[base:base + k + 1], dim=-1).tolist()
+        a = 0
+        while a < k and targets[a] == drafts[a]:
+            a += 1
+        remaining = max_new_tokens - len(out)
+        emit = targets[:a + 1][:remaining]
+        stats["proposed"] += min(k, remaining)
+        stats["accepted"] += min(a, len(emit))
+        stats["rounds"] += 1
+        out.extend(emit)
+        seq = torch.cat([seq, torch.tensor([emit], device=dev)], dim=1)
+    return out, stats

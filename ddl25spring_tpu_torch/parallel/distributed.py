@@ -51,7 +51,11 @@ shift whose backward shifts the cotangents back.
 Pipeline parallelism lays the ranks on a ``{"data": D, "stage": S}``
 mesh in the JAX mesh's order (``pipeline_mesh``: rank ``d·S + s``), with
 a gloo group per data row (its stages) and one per stage (its data
-rows); the collectives take such a ``Group`` as ``group=``. Tensor
+rows); the collectives take such a ``Group`` as ``group=``. With a model
+axis the mesh is ``{"data": D, "stage": S, "model": T}`` (rank ``(d·S +
+s)·T + m``): Megatron tensor parallelism inside each stage, with the
+stage and data groups per model shard and ``TPMesh``'s two model groups
+per (data row, stage). Tensor
 parallelism lays them on a ``{"data": D, "model": M}`` mesh the same way
 (``tp_mesh``: rank ``d·M + m``), with a gloo group per data row (its model
 shards), one per model column (its data rows) and a second per data row for
@@ -66,6 +70,7 @@ a host→device copy, as in the reference's gloo pipeline.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import os
@@ -92,6 +97,21 @@ BACKEND = "gloo"
 ROUTE = "gloo on the tensors' device (gloo stages CUDA tensors through host)"
 # A collective that waits longer than this raises instead of hanging.
 GROUP_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+@contextlib.contextmanager
+def _named(group, what: str):
+    """Re-raise a failed or timed-out gloo wait (``GROUP_TIMEOUT``) naming
+    the ``Group`` it waited on: with several groups per rank, a stuck
+    schedule then says which axis and which ranks."""
+    try:
+        yield
+    except RuntimeError as e:
+        if group is None:
+            raise
+        raise RuntimeError(f"{what} on the {group.axis} group (ranks "
+                           f"{list(group.ranks)}) failed or waited longer "
+                           f"than {GROUP_TIMEOUT}: {e}") from e
 
 
 def initialize(rank: int, world: int, init_method: str,
@@ -380,11 +400,16 @@ class Group:
 
 @dataclass(frozen=True)
 class PipelineMesh:
-    """A ``{"data": data, "stage": stage}`` layout of the process group,
-    in the JAX mesh's order: rank ``r = d·stage + s`` runs stage ``s`` of
-    data row ``d``. ``stage_group`` joins this data row's stages (the
-    point-to-point hops and the loss broadcast), ``data_group`` this
-    stage's replicas in every data row (the gradient mean)."""
+    """A ``{"data": data, "stage": stage[, "model": model]}`` layout of the
+    process group, in the JAX mesh's order: rank ``r = (d·stage + s)·model
+    + m`` runs model shard ``m`` of stage ``s`` of data row ``d`` (``d·stage
+    + s`` at ``model = 1``). ``stage_group`` joins this data row's stages
+    at this model shard (the point-to-point hops and the loss broadcast),
+    ``data_group`` this cell's replicas in every data row (the gradient
+    mean, the ring), ``model_group`` this (data row, stage)'s model shards
+    (the activation and replicated-gradient sums), and
+    ``ring_model_group`` the same ranks on a gloo group of their own (the
+    ring thread's int8 scale maxima, ``TPMesh``'s reason)."""
 
     data: int
     stage: int
@@ -392,13 +417,20 @@ class PipelineMesh:
     s: int
     stage_group: Group
     data_group: Group
+    model: int = 1
+    m: int = 0
+    model_group: Optional[Group] = None
+    ring_model_group: Optional[Group] = None
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": self.data, "stage": self.stage}
+        out = {"data": self.data, "stage": self.stage}
+        if self.model > 1:
+            out["model"] = self.model
+        return out
 
 
-_MESHES: Dict[Tuple[int, int, int], PipelineMesh] = {}
+_MESHES: Dict[Tuple[int, int, int, int], PipelineMesh] = {}
 
 
 @dataclass(frozen=True)
@@ -603,32 +635,54 @@ def data_group() -> Group:
                  dist.group.WORLD if n > 1 else None)
 
 
-def pipeline_mesh(data: int, stage: int) -> PipelineMesh:
-    """This process's place on a ``data × stage`` mesh over the process
-    group (a world of one without a group), with one gloo group per data
-    row and one per stage, made once per process and layout. Every rank
-    must call it (``dist.new_group`` is collective). Raises unless the
-    group has ``data·stage`` ranks."""
+def pipeline_mesh(data: int, stage: int, model: int = 1) -> PipelineMesh:
+    """This process's place on a ``data × stage [× model]`` mesh over the
+    process group (a world of one without a group), made once per process
+    and layout. Every rank must call it (``dist.new_group`` is collective),
+    and every rank makes the groups in one order: one per (data row, model
+    shard) along ``stage``, one per (stage, model shard) along ``data``,
+    then, above ``model = 1`` only, one per (data row, stage) along
+    ``model`` and a second such set for the ring thread. So a 2-axis
+    layout makes exactly the groups it always did. Raises unless the group
+    has ``data·stage·model`` ranks."""
     n, rank = world_size(), get_rank()
-    if data < 1 or stage < 1 or n != data * stage:
-        raise ValueError(f"a data={data} x stage={stage} mesh needs "
-                         f"{data * stage} ranks, the process group has {n}")
-    key = (data, stage, id(dist.group.WORLD) if is_initialized() else 0)
+    if data < 1 or stage < 1 or model < 1 or n != data * stage * model:
+        axes = f"data={data} x stage={stage}" + (
+            f" x model={model}" if model != 1 else "")
+        raise ValueError(f"a {axes} mesh needs {data * stage * model} "
+                         f"ranks, the process group has {n}")
+    key = (data, stage, model,
+           id(dist.group.WORLD) if is_initialized() else 0)
     if key not in _MESHES:
-        rows = [tuple(d * stage + s for s in range(stage))
-                for d in range(data)]
-        cols = [tuple(d * stage + s for d in range(data))
-                for s in range(stage)]
-        pgs = {}
-        for ranks in rows + cols:      # the same order on every rank
+        def at(d, s, m):
+            return (d * stage + s) * model + m
+
+        rows = {(d, m): tuple(at(d, s, m) for s in range(stage))
+                for d in range(data) for m in range(model)}
+        cols = {(s, m): tuple(at(d, s, m) for d in range(data))
+                for s in range(stage) for m in range(model)}
+        shards = {(d, s): tuple(at(d, s, m) for m in range(model))
+                  for d in range(data) for s in range(stage)}
+        pgs, ring = {}, {}
+        # The same order on every rank.
+        for ranks in list(rows.values()) + list(cols.values()):
             if len(ranks) > 1:
                 pgs[ranks] = dist.new_group(list(ranks), backend=BACKEND,
                                             timeout=GROUP_TIMEOUT)
-        d, s = divmod(rank, stage)
+        for table in (pgs, ring):
+            for ranks in shards.values():
+                if len(ranks) > 1:
+                    table[ranks] = dist.new_group(
+                        list(ranks), backend=BACKEND, timeout=GROUP_TIMEOUT)
+        cell, m = divmod(rank, model)
+        d, s = divmod(cell, stage)
+        mine = shards[(d, s)]
         _MESHES[key] = PipelineMesh(
             data, stage, d, s,
-            Group("stage", rows[d], s, pgs.get(rows[d])),
-            Group("data", cols[s], d, pgs.get(cols[s])))
+            Group("stage", rows[(d, m)], s, pgs.get(rows[(d, m)])),
+            Group("data", cols[(s, m)], d, pgs.get(cols[(s, m)])),
+            model, m, Group("model", mine, m, pgs.get(mine)),
+            Group("model", mine, m, ring.get(mine)))
     return _MESHES[key]
 
 
@@ -655,7 +709,8 @@ def _all_reduce_sum(x: torch.Tensor,
     if _size(group) == 1:
         return x
     y = x.detach().clone()
-    dist.all_reduce(y, group=None if group is None else group.pg)
+    with _named(group, "all_reduce"):
+        dist.all_reduce(y, group=None if group is None else group.pg)
     return y
 
 
@@ -706,7 +761,8 @@ def _reduce_tree(tree, group: Optional[Group], mean: bool):
     for dtype in dict.fromkeys(x.dtype for x in leaves):
         idx = [i for i, x in enumerate(leaves) if x.dtype == dtype]
         flat = torch.cat([leaves[i].detach().reshape(-1) for i in idx])
-        dist.all_reduce(flat, group=None if group is None else group.pg)
+        with _named(group, "all_reduce"):
+            dist.all_reduce(flat, group=None if group is None else group.pg)
         if mean:
             flat /= n
         for i, piece in zip(idx, flat.split([leaves[i].numel()
@@ -725,7 +781,8 @@ def _sum_over(x: torch.Tensor, group: Group) -> torch.Tensor:
     if x.dtype == torch.float32:
         return _all_reduce_sum(x, group)
     host = x.detach().to("cpu", torch.float32)
-    dist.all_reduce(host, group=group.pg)
+    with _named(group, "all_reduce"):
+        dist.all_reduce(host, group=group.pg)
     return host.to(device=x.device, dtype=x.dtype)
 
 
@@ -788,8 +845,9 @@ def pmax(x: torch.Tensor, *, label: Optional[str] = None,
     if _size(group) == 1:
         return x
     host = x.detach().to("cpu", copy=True)
-    dist.all_reduce(host, op=dist.ReduceOp.MAX,
-                    group=None if group is None else group.pg)
+    with _named(group, "all_reduce(max)"):
+        dist.all_reduce(host, op=dist.ReduceOp.MAX,
+                        group=None if group is None else group.pg)
     return host.to(x.device)
 
 
@@ -820,7 +878,8 @@ def all_gather(piece: torch.Tensor, *, label: Optional[str] = None,
             return piece
         host = piece.detach().to("cpu").contiguous()
         parts = [torch.empty_like(host) for _ in range(group.size)]
-        dist.all_gather(parts, host, group=group.pg)
+        with _named(group, "all_gather"):
+            dist.all_gather(parts, host, group=group.pg)
         return torch.cat([p.reshape(-1) for p in parts]).to(piece.device)
     _comm.record("all_gather", label, piece)
     n, r = world_size(), get_rank()
@@ -872,7 +931,8 @@ def isend(x: torch.Tensor, to: int, *, tag: int, label: str,
     work = dist.isend(host, group.ranks[to], group=group.pg, tag=tag)
 
     def wait(staged: torch.Tensor = host) -> None:
-        work.wait(GROUP_TIMEOUT)
+        with _named(group, f"send (tag {tag}) to index {to}"):
+            work.wait(GROUP_TIMEOUT)
 
     return wait
 
@@ -885,7 +945,8 @@ def irecv(frm: int, shape, dtype: torch.dtype, *, tag: int, group: Group,
     work = dist.irecv(host, group.ranks[frm], group=group.pg, tag=tag)
 
     def wait() -> torch.Tensor:
-        work.wait(GROUP_TIMEOUT)
+        with _named(group, f"receive (tag {tag}) from index {frm}"):
+            work.wait(GROUP_TIMEOUT)
         return host.to(device)
 
     return wait

@@ -49,9 +49,22 @@ every update. A stage state is a ``dp.TrainState`` whose ``pp`` field (a
 writes the merged JAX-layout state (``host_snapshot``, a gather over the
 stage group) and re-slices it on resume (``slice_state``).
 
+With a ``model`` axis (``pipeline_mesh(D, S, T)``: rank ``(d·S + s)·T +
+m``) each stage runs Megatron tensor parallelism inside (``parallel/tp.py``'s
+layout and sums, JAX's ``pp.py`` at ``tp > 1``): a (stage, model) cell holds
+its stage's leaves with the column leaves (``wq wk wv w_gate w_up``) sliced
+on their last dimension and the row leaves (``wo w_down``) on their middle
+one (``_cell_tree``); the blocks sum their partial outputs over
+``model_group`` (``tp._model_sum``), each model shard seeds ``loss / tp``,
+and the replicated leaves' gradients (norm scales, and the owner stage's
+``embed`` / ``final_norm`` / ``lm_head``) are summed over ``model_group``
+(``tp_replicated_grads``) before the data sync. Every model shard of a
+stage issues the same hops and sums in the same order, so their gloo
+groups never wait on each other crosswise.
+
 The DP×PP ring drivers (``make_pipeline_overlap_step``) sync the data axis
-through ``compress``'s ring instead of the mean: each stage rings the flat
-vector of its own leaves. Their per-rank state (ZeRO-1 moments, the int8
+through ``compress``'s ring instead of the mean: each (stage, model) cell
+rings the flat vector of its own leaves. Their per-rank state (ZeRO-1 moments, the int8
 residuals) goes to the host in the whole model's coordinates
 (``_stage_coord_ids``), so ``slice_state`` places it at any data × stage
 grid: the checkpoint's resume and the elastic re-mesh's stage
@@ -66,7 +79,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from . import compress, dp
+from . import compress, dp, tp
 from . import distributed as dist
 from .compress import BucketMap
 from .dp import TrainState, _loop
@@ -242,18 +255,60 @@ def _stage_tree(params: dict, n_stages: int, s: int) -> dict:
     return local
 
 
+def _take(x, dim: Optional[int], n: int, index: int):
+    """Slice ``index`` of ``n`` of ``x`` (a tensor or numpy array) along
+    ``dim`` (None: ``x`` itself), as a view."""
+    if dim is None or n == 1:
+        return x
+    size = x.shape[dim] // n
+    return x[(slice(None),) * dim + (slice(index * size,
+                                           (index + 1) * size),)]
+
+
+def _model_specs(local: dict) -> dict:
+    """``tp.param_specs`` of a stage tree: the sliced dimension of each
+    column and row block leaf, None elsewhere (the layout tag too)."""
+    return {k: (tp.param_specs({"blocks": v})["blocks"] if k == "blocks"
+                else tree_map(lambda _: None, v)) for k, v in local.items()}
+
+
+def _cell_tree(params: dict, mesh: dist.PipelineMesh) -> dict:
+    """This (stage, model) cell's slice of a whole tree: ``_stage_tree``,
+    then model shard ``mesh.m``'s slice of each column leaf (last dim) and
+    row leaf (middle dim), JAX's ``P("stage", None, "model")`` /
+    ``P("stage", "model", None)``; views."""
+    local = _stage_tree(params, mesh.stage, mesh.s)
+    if mesh.model == 1:
+        return local
+    specs = _model_specs(local)
+    for x, d in zip(tree_leaves(local), tree_leaves(specs)):
+        if d is not None and x.shape[d] % mesh.model:
+            raise ValueError(f"a block leaf of shape {tuple(x.shape)} does "
+                             f"not split over model={mesh.model} on dim {d}")
+    return tree_map(lambda x, d: _take(x, d, mesh.model, mesh.m), local,
+                    specs)
+
+
+def _replicated(local: dict) -> list:
+    """Per leaf of a stage tree (``tree_leaves`` order): whether every
+    model shard holds it whole."""
+    return [d is None for d in tree_leaves(_model_specs(local))]
+
+
 def init_state(mesh: dist.PipelineMesh, params, optimizer,
                device=None) -> TrainState:
     """This rank's stage state from the whole parameter tree (a ``Llama``
     or its tree, JAX layout; ``interleave_params``'s for the interleaved
-    schedule): its stage's leaves as fresh tensors on ``device`` (None:
-    CUDA, raising without a card), the optimizer state for them alone."""
+    schedule): its cell's leaves (``_cell_tree``: the stage's, model-sliced
+    on a model axis) as fresh tensors on ``device`` (None: CUDA, raising
+    without a card), the optimizer state for them alone."""
     dev = dist.rank_device(device)
     params = llama.as_tree(params)
     skeleton = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
                                               device="meta"), params)
-    local = trainable(tree_map(lambda x: x.detach().to(dev, copy=True),
-                               _stage_tree(params, mesh.stage, mesh.s)))
+    local = trainable(tree_map(
+        lambda x: x.detach().to(dev, copy=True).contiguous(),
+        _cell_tree(params, mesh)))
     return TrainState(local, optimizer.init(local),
                       torch.zeros((), dtype=torch.int32, device=dev),
                       pp=StageGeometry(mesh, skeleton))
@@ -288,23 +343,40 @@ def _whole(local: dict, skeleton: dict, make: Callable) -> dict:
     return out
 
 
+def _sum_cells(x, mesh: dist.PipelineMesh):
+    """A tree or tensor summed over the stage group, then over the model
+    group (a collective over the data row)."""
+    summed = (dist.psum_tree if isinstance(x, dict) else
+              lambda t, **kw: dist.psum(t, **kw))
+    x = summed(x, record=False, group=mesh.stage_group)
+    if mesh.model > 1:
+        x = summed(x, record=False, group=mesh.model_group)
+    return x
+
+
 def _merge_params_like(local: dict, geom: StageGeometry) -> dict:
-    """The whole tree from every stage's ``local`` (a collective over the
-    stage group): each rank writes the rows and leaves it holds into a
-    zero tree of the skeleton's shapes, and the trees are summed."""
+    """The whole tree from every cell's ``local`` (a collective over the
+    data row): each rank writes the rows, model slices and leaves it holds
+    into a zero tree of the skeleton's shapes (a replicated leaf from model
+    shard 0 only, the layout tag from cell (0, 0) only), and the trees are
+    summed over the stages and the model shards."""
     mesh = geom.mesh
     device = tree_leaves(local["blocks"])[0].device
     whole = _whole(local, geom.skeleton, lambda shape, dt: torch.zeros(
         shape, dtype=dt, device=device))
+    specs = _model_specs(local)
     with torch.no_grad():
         for key, sub in local.items():
             if key == "blocks":
                 per = tree_leaves(sub)[0].shape[0]
                 rows = slice(mesh.s * per, (mesh.s + 1) * per)
-                tree_map(lambda w, x: w[rows].copy_(x), whole[key], sub)
-            elif key != _LAYOUT_KEY or mesh.s == 0:
+                tree_map(lambda w, x, d: _take(w[rows], d, mesh.model,
+                                               mesh.m).copy_(x)
+                         if d is not None or mesh.m == 0 else None,
+                         whole[key], sub, specs[key])
+            elif (key != _LAYOUT_KEY or mesh.s == 0) and mesh.m == 0:
                 tree_map(lambda w, x: w.copy_(x), whole[key], sub)
-    return dist.psum_tree(whole, record=False, group=mesh.stage_group)
+    return _sum_cells(whole, mesh)
 
 
 def host_snapshot(state: TrainState) -> TrainState:
@@ -358,7 +430,7 @@ def slice_state(host: TrainState, template: TrainState) -> TrainState:
     mesh = template.pp.mesh
     keys = set(template.params)
     if template.pp.flat is not None:
-        return repartition_stage_state(host, template)
+        return _place_ring_state(host, template)
 
     def place(h, t):
         h = (h.detach().cpu() if isinstance(h, torch.Tensor)
@@ -371,7 +443,7 @@ def slice_state(host: TrainState, template: TrainState) -> TrainState:
 
     def walk(h, t):
         if _params_like(t, keys):
-            return tree_map(place, _stage_tree(h, mesh.stage, mesh.s), t)
+            return tree_map(place, _cell_tree(h, mesh), t)
         if isinstance(t, tuple):
             items = [walk(a, b) for a, b in zip(h, t)]
             return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
@@ -412,12 +484,14 @@ def _tag(lap: int, i: int, direction: int, n_microbatches: int) -> int:
 
 
 def _run_stage(p: dict, x, tok, cfg: LlamaConfig, *, first: bool,
-               last: bool, blocks=None):
+               last: bool, blocks=None, tp_sum=None):
     """One stage on one microbatch: embeds ``tok`` if first (``x`` is
-    then unused), runs ``blocks`` (default the stage's), and returns the
-    head's loss if last, else the activations."""
+    then unused), runs ``blocks`` (default the stage's; ``tp_sum``, the
+    model-axis sum of a tensor-parallel cell), and returns the head's loss
+    if last, else the activations."""
     h = llama.embed(p, tok, cfg) if first else x
-    h = llama.blocks_apply(p["blocks"] if blocks is None else blocks, h, cfg)
+    h = llama.blocks_apply(p["blocks"] if blocks is None else blocks, h, cfg,
+                           tp_sum=tp_sum)
     return llama.head_loss(p, h, tok, cfg) if last else h
 
 
@@ -436,19 +510,23 @@ def _backward(out, seed, x, leaves, acc, hops, to: int, tag: int):
 
 class _Step:
     """What a schedule needs for one call: the stage's place, the
-    microbatches, the hop shape and dtype, the loss seed."""
+    microbatches, the hop shape and dtype, the loss seed (``1/(M·tp)``:
+    every model shard seeds its replica of the loss, JAX's ``loss_sum /
+    n_microbatches / tp``) and the model-axis sum."""
 
     def __init__(self, mesh, tokens, cfg: LlamaConfig, n_microbatches: int):
         b, t = tokens.shape
         assert b % n_microbatches == 0, (b, n_microbatches)
         self.s, self.n = mesh.s, mesh.stage
         self.first, self.last = self.s == 0, self.s == self.n - 1
-        self.m = n_microbatches
+        self.m, self.tp = n_microbatches, mesh.model
+        self.tp_sum = (tp._model_sum(mesh.model_group) if mesh.model > 1
+                       else None)
         self.mbs = tokens.reshape(n_microbatches, b // n_microbatches, t)
         self.shape = (b // n_microbatches, t, cfg.dmodel)
         self.dtype = torch_dtype(cfg.dtype)
-        self.seed = torch.tensor(1.0 / n_microbatches, dtype=torch.float32,
-                                 device=tokens.device)
+        self.seed = torch.tensor(1.0 / (n_microbatches * self.tp),
+                                 dtype=torch.float32, device=tokens.device)
         self.loss_sum = torch.zeros((), dtype=torch.float32,
                                     device=tokens.device)
 
@@ -460,15 +538,15 @@ class _Step:
 def _pipeline_loss_and_grad(params: dict, leaves: list, tokens, cfg,
                             mesh, n_microbatches: int, hops):
     """GPipe: every microbatch forward with its graph kept, then backward
-    in reverse. Returns this stage's loss (the microbatch mean on the
-    last stage, 0 elsewhere) and its gradients, one per ``leaves``."""
+    in reverse. Returns this stage's loss (the microbatch mean over tp on
+    the last stage, 0 elsewhere) and its gradients, one per ``leaves``."""
     st = _Step(mesh, tokens, cfg, n_microbatches)
     tape = []
     for i in range(st.m):
         x = None if st.first else st.recv(hops, st.s - 1,
                                           _tag(0, i, _FWD, st.m))
         out = _run_stage(params, x, st.mbs[i], cfg, first=st.first,
-                         last=st.last)
+                         last=st.last, tp_sum=st.tp_sum)
         if st.last:
             st.loss_sum = st.loss_sum + out.detach()
         else:
@@ -482,7 +560,7 @@ def _pipeline_loss_and_grad(params: dict, leaves: list, tokens, cfg,
             st.s + 1, st.shape, st.dtype, tag=_tag(0, i, _BWD, st.m))
         grads = _backward(out, seed, x, leaves, grads, hops, st.s - 1,
                           _tag(0, i, _BWD, st.m))
-    return st.loss_sum / st.m, grads
+    return st.loss_sum / st.m / st.tp, grads
 
 
 def _pipeline_1f1b_loss_and_grad(params: dict, leaves: list, tokens, cfg,
@@ -506,7 +584,7 @@ def _pipeline_1f1b_loss_and_grad(params: dict, leaves: list, tokens, cfg,
                 # The last stage's output goes nowhere (JAX's program
                 # runs it alike): its blocks only, no head.
                 h = _run_stage(params, x, st.mbs[i_f], cfg, first=st.first,
-                               last=False)
+                               last=False, tp_sum=st.tp_sum)
             if not st.last:
                 hops.send(h, st.s + 1, tag=_tag(0, i_f, _FWD, st.m),
                           label="pp_activation_hop")
@@ -516,7 +594,7 @@ def _pipeline_1f1b_loss_and_grad(params: dict, leaves: list, tokens, cfg,
             if x is not None:
                 x = x.detach().requires_grad_()
             out = _run_stage(params, x, st.mbs[i_b], cfg, first=st.first,
-                             last=st.last)
+                             last=st.last, tp_sum=st.tp_sum)
             if st.last:
                 st.loss_sum = st.loss_sum + out.detach()
                 seed = st.seed
@@ -525,7 +603,7 @@ def _pipeline_1f1b_loss_and_grad(params: dict, leaves: list, tokens, cfg,
                                  tag=_tag(0, i_b, _BWD, st.m))
             grads = _backward(out, seed, x, leaves, grads, hops, st.s - 1,
                               _tag(0, i_b, _BWD, st.m))
-    return st.loss_sum / st.m, grads
+    return st.loss_sum / st.m / st.tp, grads
 
 
 def _pipeline_interleaved_loss_and_grad(params: dict, leaves: list, tokens,
@@ -554,7 +632,7 @@ def _pipeline_interleaved_loss_and_grad(params: dict, leaves: list, tokens,
         x = None if embeds else st.recv(
             hops, prev, _tag(c if st.s else c - 1, i, _FWD, st.m))
         out = _run_stage(params, x, st.mbs[i], cfg, first=embeds,
-                         last=exits, blocks=chunks[c])
+                         last=exits, blocks=chunks[c], tp_sum=st.tp_sum)
         if exits:
             st.loss_sum = st.loss_sum + out.detach()
         else:
@@ -569,7 +647,7 @@ def _pipeline_interleaved_loss_and_grad(params: dict, leaves: list, tokens,
             tag=_tag(c if not st.last else c + 1, i, _BWD, st.m))
         grads = _backward(out, seed, x, leaves, grads, hops, prev,
                           _tag(c, i, _BWD, st.m))
-    return st.loss_sum / st.m, grads
+    return st.loss_sum / st.m / st.tp, grads
 
 
 def _schedule_body(schedule: str, n_chunks: int) -> Callable:
@@ -586,14 +664,23 @@ def _schedule_body(schedule: str, n_chunks: int) -> Callable:
                          "'1f1b' or 'interleaved'") from None
 
 
-def _reduce_loss_and_grads(loss, grads, mesh, data_sync: bool = True):
+def _reduce_loss_and_grads(loss, grads, params, mesh,
+                           data_sync: bool = True):
     """The loss from the last stage to every stage (a ``psum`` over the
-    stage group, zeros elsewhere); at ``data > 1`` (and ``data_sync``) the
-    gradients and the loss averaged over the data group, for every stage.
-    Block gradients need no reduction over stages, and the gradients of
-    ``embed``, ``final_norm`` and ``lm_head`` live on their one owner. The
-    ring drivers pass ``data_sync=False``: their ring is the data sync."""
-    loss = dist.psum(loss, label="pp_loss_allreduce", group=mesh.stage_group)
+    stage group, zeros elsewhere, times tp to undo the seed's 1/tp); on a
+    model axis the replicated leaves' gradients summed over the model
+    group (``tp_replicated_grads``, one record per leaf, JAX's per-leaf
+    psum; ``params`` gives their places); at ``data > 1`` (and
+    ``data_sync``) the gradients and the loss averaged over the data
+    group, for every stage. Block gradients need no reduction over stages,
+    and the gradients of ``embed``, ``final_norm`` and ``lm_head`` live on
+    their one owner stage. The ring drivers pass ``data_sync=False``: their
+    ring is the data sync."""
+    loss = dist.psum(loss, label="pp_loss_allreduce",
+                     group=mesh.stage_group) * mesh.model
+    if mesh.model > 1:
+        grads = tree_unflatten(grads, tp._sum_replicated(
+            params, tree_leaves(grads), mesh.model_group))
     if mesh.data > 1 and data_sync:
         grads = dist.pmean_tree(grads, label="grad_allreduce",
                                 group=mesh.data_group)
@@ -616,7 +703,7 @@ def _loss_and_grad(body: Callable, params: dict, tokens, cfg, mesh,
     grad_tree = tree_unflatten(diff, grads)
     if _LAYOUT_KEY in params:
         grad_tree[_LAYOUT_KEY] = torch.zeros_like(params[_LAYOUT_KEY])
-    return _reduce_loss_and_grads(loss, grad_tree, mesh, data_sync)
+    return _reduce_loss_and_grads(loss, grad_tree, params, mesh, data_sync)
 
 
 def loss_and_grad(state: TrainState, tokens, cfg: LlamaConfig,
@@ -736,16 +823,23 @@ def shard_batch_window(mesh: dist.PipelineMesh, window,
 # block slice, ``embed`` on the first, ``final_norm`` and ``lm_head`` on
 # the last), where every JAX stage carries the stage-replicated leaves in
 # its vector and agrees its int8 scales over ``stage`` to keep those
-# replicas equal. Here nothing is replicated, so the scales are the
-# data row's alone, and the per-stage vectors differ in length.
+# replicas equal. Here nothing is replicated over stages, so at model 1 the
+# scales are the data row's alone, and the per-stage vectors differ in
+# length. On a model axis each (stage, model) cell rings its own flat
+# vector (column and row leaves at 1/tp, JAX's ``[n, S, tp, ·]`` layout
+# rule), and the cells of a stage carry the model-replicated leaves (norm
+# scales, the owner's embed and head), so their int8 scales are agreed
+# over the model group (JAX agrees them over ``("stage", "model")``; the
+# stage part has nothing to protect here).
 
 
 def _pp_flat_geometry(mesh: dist.PipelineMesh, params
                       ) -> Tuple[int, int, int, int]:
-    """``(n, pad, local, total)`` of this stage's padded flat vector: the
-    stage's own leaves (the layout tag included) over ``n`` = the data
-    axis size. Unlike the JAX geometry, the length differs per stage."""
-    local = _stage_tree(llama.as_tree(params), mesh.stage, mesh.s)
+    """``(n, pad, local, total)`` of this cell's padded flat vector: the
+    stage's own leaves (the layout tag included; column and row leaves at
+    1/tp on a model axis, JAX's count) over ``n`` = the data axis size.
+    Unlike the JAX geometry, the length differs per stage."""
+    local = _cell_tree(llama.as_tree(params), mesh)
     total = sum(x.numel() for x in tree_leaves(local))
     n = mesh.data
     pad = (-total) % n
@@ -754,27 +848,27 @@ def _pp_flat_geometry(mesh: dist.PipelineMesh, params
 
 def _pp_bucket_map(mesh: dist.PipelineMesh, params, comm_buckets: int):
     """The DP×PP ``BucketMap``: ``compress.make_bucket_map`` over this
-    stage's own leaves; None at ``comm_buckets == 1``."""
+    cell's own leaves; None at ``comm_buckets == 1``."""
     if int(comm_buckets) < 1:
         raise ValueError(
             f"comm_buckets must be >= 1 (got {comm_buckets})")
     if int(comm_buckets) == 1:
         return None
-    return compress.make_bucket_map(
-        _stage_tree(llama.as_tree(params), mesh.stage, mesh.s), mesh.data,
-        comm_buckets)
+    return compress.make_bucket_map(_cell_tree(llama.as_tree(params), mesh),
+                                    mesh.data, comm_buckets)
 
 
 def _pp_overlap_setup(optimizer, mesh: dist.PipelineMesh, params, wire: str,
                       aggregation: str, schedule: str, n_chunks: int,
                       comm_buckets: int = 1, device=None):
     """This rank's DP×PP ring state, with JAX's validations in its order
-    and with its texts: the stage's leaves, the optimizer state (ZeRO-1:
-    over this data row's chunk of the stage's flat vector, per bucket at
-    ``comm_buckets > 1``; else over the stage's leaves), and under
+    and with its texts: the cell's leaves, the optimizer state (ZeRO-1:
+    over this data row's chunk of the cell's flat vector, per bucket at
+    ``comm_buckets > 1``; else over the cell's leaves), and under
     ``int8_ef`` the ring residual ``[n·local]`` and second-leg residual
-    ``[local]`` of this (data row, stage), zero (JAX's ``[n, S, ·]``
-    stacks, one row each). The geometry rides in ``state.pp.flat``."""
+    ``[local]`` of this (data row, stage[, model shard]), zero (JAX's
+    ``[n, S(, tp), ·]`` stacks, one row each). The geometry rides in
+    ``state.pp.flat``."""
     if aggregation not in ("gradient", "zero1"):
         raise ValueError("the DP×PP overlap driver supports gradient/zero1 "
                          f"aggregation only (got {aggregation!r})")
@@ -795,8 +889,9 @@ def _pp_overlap_setup(optimizer, mesh: dist.PipelineMesh, params, wire: str,
     dev = dist.rank_device(device)
     skeleton = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
                                               device="meta"), params)
-    mine = trainable(tree_map(lambda x: x.detach().to(dev, copy=True),
-                              _stage_tree(params, mesh.stage, mesh.s)))
+    mine = trainable(tree_map(
+        lambda x: x.detach().to(dev, copy=True).contiguous(),
+        _cell_tree(params, mesh)))
     d = mesh.d
     if aggregation == "zero1":
         if bm is None:
@@ -843,7 +938,10 @@ def _make_pp_overlap_local_step(cfg: LlamaConfig, optimizer, body: Callable,
     schedule runs. The reduced chunks feed the ZeRO-1 slice update and the
     parameter gather (an int8 delta under ``int8_ef``), or the gradient
     gather and the replicated update. The interleaved layout tag is put
-    back after the update."""
+    back after the update. On a model axis the int8 scales are agreed over
+    the model group (the ring thread's on ``ring_model_group``, the gather
+    leg's on ``model_group``), so every model shard decodes the replicated
+    leaves alike and their replicas stay bitwise equal."""
 
     def grads(params, leaves, batch, ringer, m):
         loss, grad_tree = _loss_and_grad(body, params, batch, cfg, mesh,
@@ -857,7 +955,9 @@ def _make_pp_overlap_local_step(cfg: LlamaConfig, optimizer, body: Callable,
         None, optimizer, flat.n, flat.pad, flat.local, flat.total,
         microbatches=microbatches, wire=wire, aggregation=aggregation,
         bucket_map=flat.bm, numerics=numerics, grads_fn=grads, prefix="pp_",
-        shard=mesh.d, data_group=mesh.data_group)
+        shard=mesh.d, data_group=mesh.data_group,
+        scale_sync_groups=((mesh.ring_model_group, mesh.model_group)
+                           if mesh.model > 1 else (None, None)))
 
     def local_step(state, tokens: torch.Tensor):
         tag = state.params.get(_LAYOUT_KEY)
@@ -945,20 +1045,21 @@ def make_pipeline_overlap_multi_step(cfg: LlamaConfig, optimizer,
 # ------------------------------------- ring states on the host, any topology
 
 def _stage_coord_ids(skeleton: dict, n: int, n_stages: int, s: int,
-                     comm_buckets: int = 1):
-    """Stage ``s``'s slots in the global coordinate space, at ``n`` data
-    rows and ``n_stages`` stages. A coordinate's global id is its position
-    in the whole JAX-layout tree (``skeleton``), its leaves raveled in
-    ``tree_leaves`` order: topology-invariant. Returns ``(ids, owned,
-    sizes, total_coords)``: per ring bucket ``b``, ``ids[b]`` maps each
-    slot of the stage's ``[n·sizes[b]]`` bucket vector (the padded flat
-    vector at one bucket; row ``r`` owns ``[r·sizes[b], (r+1)·sizes[b])``)
-    to its id, ``-1`` on pad slots; ``owned[b]`` marks the slots whose
-    value this stage writes into a snapshot: all but the layout tag's off
-    stage 0 (every stage holds the tag). The port's stage holds no other
+                     comm_buckets: int = 1, model: int = 1, m: int = 0):
+    """Cell ``(s, m)``'s slots in the global coordinate space, at ``n``
+    data rows, ``n_stages`` stages and ``model`` model shards. A
+    coordinate's global id is its position in the whole JAX-layout tree
+    (``skeleton``), its leaves raveled in ``tree_leaves`` order:
+    topology-invariant. Returns ``(ids, owned, sizes, total_coords)``: per
+    ring bucket ``b``, ``ids[b]`` maps each slot of the cell's
+    ``[n·sizes[b]]`` bucket vector (the padded flat vector at one bucket;
+    row ``r`` owns ``[r·sizes[b], (r+1)·sizes[b])``) to its id, ``-1`` on
+    pad slots; ``owned[b]`` marks the slots whose value this cell writes
+    into a snapshot: all but the layout tag's off cell (0, 0) and a
+    model-replicated leaf's off model shard 0. The port's stage holds no
     leaf another stage holds, so where JAX keeps "the highest surviving
     stage's" residual for a stage-replicated leaf, a coordinate here has
-    exactly one owner."""
+    one owning stage."""
     paths = introspect.leaf_paths(skeleton)
     base, off = {}, 0
     for p, x in zip(paths, tree_leaves(skeleton)):
@@ -968,13 +1069,26 @@ def _stage_coord_ids(skeleton: dict, n: int, n_stages: int, s: int,
         if p.split("/")[0] == "blocks" and x.shape[0] % n_stages:
             raise ValueError(f"blocks leaf of {x.numel()} elements does not "
                              f"split over {n_stages} stages")
-    local = _stage_tree(skeleton, n_stages, s)
+    cell = dist.PipelineMesh(n, n_stages, 0, s, None, None, model, m)
+    local = _cell_tree(skeleton, cell)
+    dims = tree_leaves(_model_specs(_stage_tree(skeleton, n_stages, s)))
+    by_path = dict(zip(paths, tree_leaves(skeleton)))
     lids, own = [], []
-    for p, x in zip(introspect.leaf_paths(local), tree_leaves(local)):
+    for p, x, dim in zip(introspect.leaf_paths(local), tree_leaves(local),
+                         dims):
         top = p.split("/")[0]
-        start = base[p] + (s * x.numel() if top == "blocks" else 0)
-        lids.append(np.arange(start, start + x.numel(), dtype=np.int64))
-        own.append(top != _LAYOUT_KEY or s == 0)
+        whole = by_path[p]
+        if top != "blocks":
+            lids.append(np.arange(base[p], base[p] + x.numel(),
+                                  dtype=np.int64))
+        else:
+            per = whole.shape[0] // n_stages
+            idx = np.arange(whole.numel(), dtype=np.int64).reshape(
+                tuple(whole.shape))[s * per:(s + 1) * per]
+            lids.append(base[p] + np.ascontiguousarray(
+                _take(idx, dim, model, m)).reshape(-1))
+        own.append((top != _LAYOUT_KEY or s == 0)
+                   and (dim is not None or m == 0))
     if int(comm_buckets) == 1:
         total = sum(len(a) for a in lids)
         pad = (-total) % n
@@ -1039,18 +1153,18 @@ def _ring_snapshot(state):
     the parameters merged as the plain state's, and every per-rank flat
     vector gathered over the data row and scattered by global id
     (``_stage_coord_ids``) into the whole model's coordinates, summed over
-    the stages: each ZeRO-1 moment leaf a whole JAX-layout tree (so one
+    the stages and the model shards: each ZeRO-1 moment leaf a whole JAX-layout tree (so one
     optimizer state, whatever the bucket count), the ring residual
     ``[n, total_coords]`` (row r data row r's pending error), the second
     leg's ``[total_coords]``; per-bucket tuples of residuals, each holding
     its own bucket's coordinates. The form does not depend on the stage
     count or the bucket boundaries, so ``slice_state`` places it at any
-    (data, stage) topology."""
+    (data, stage) topology, and back at its own on a model axis."""
     geom = state.pp
     mesh, flat = geom.mesh, geom.flat
     nb = flat.bm.nbuckets if flat.bm is not None else 1
-    ids, owned, sizes, total = _stage_coord_ids(geom.skeleton, flat.n,
-                                                mesh.stage, mesh.s, nb)
+    ids, owned, sizes, total = _stage_coord_ids(
+        geom.skeleton, flat.n, mesh.stage, mesh.s, nb, mesh.model, mesh.m)
     keys = set(state.params)
 
     def rows(x) -> np.ndarray:
@@ -1059,8 +1173,7 @@ def _ring_snapshot(state):
         return g.reshape(mesh.data, -1).cpu().numpy()
 
     def stage_sum(g: np.ndarray) -> torch.Tensor:
-        return dist.psum(torch.from_numpy(g), record=False,
-                         group=mesh.stage_group)
+        return _sum_cells(torch.from_numpy(g), mesh)
 
     def chunks_global(per_bucket, what) -> torch.Tensor:
         """Per-bucket per-rank chunks ``[sizes[b]]`` → the global vector."""
@@ -1181,12 +1294,24 @@ def repartition_stage_state(host_state, template_state):
     state's. JAX's rules hold: values in pad slots must be exactly zero (a
     hard error, in the scatter); ring rows beyond the new data world are
     dropped, new rows start at zero, and each row's own chunk re-zeros in
-    the new geometry; a bucket-count mismatch, an interleaved layout across
-    a stage-count change, and an ``S'`` that does not divide ``n_layers``
-    raise JAX's errors. The port's rule for a stage-replicated leaf: there
-    is none, each coordinate has one owner (the layout tag's is stage 0,
-    and the tag is pinned), so no "highest surviving stage" choice
-    arises."""
+    the new geometry; a model axis in the template, a bucket-count
+    mismatch, an interleaved layout across a stage-count change, and an
+    ``S'`` that does not divide ``n_layers`` raise JAX's errors. The port's
+    rule for a stage-replicated leaf: there is none, each coordinate has
+    one owning stage (the layout tag's is stage 0, and the tag is pinned),
+    so no "highest surviving stage" choice arises."""
+    if template_state.pp.mesh.model > 1:
+        raise ValueError(
+            "elastic re-mesh of the DP×PP×TP overlap state is unsupported "
+            "— the (data, stage, model) stacks have no reshard rule; run "
+            "elastic DP×PP at model=1")
+    return _place_ring_state(host_state, template_state)
+
+
+def _place_ring_state(host_state, template_state):
+    """``repartition_stage_state``'s placement, at any template (a
+    checkpoint's resume on a model axis comes here through ``slice_state``,
+    at its own topology)."""
     geom = template_state.pp
     mesh, flat = geom.mesh, geom.flat
     keys = set(template_state.params)
@@ -1217,8 +1342,8 @@ def repartition_stage_state(host_state, template_state):
                 f"residual bucket(s), the template {t_n} — rebucketing a "
                 "live EF state is not defined; rebuild the trainer with "
                 "the snapshot's comm_buckets")
-    ids, _, sizes, total = _stage_coord_ids(geom.skeleton, flat.n,
-                                            mesh.stage, mesh.s, nb)
+    ids, _, sizes, total = _stage_coord_ids(
+        geom.skeleton, flat.n, mesh.stage, mesh.s, nb, mesh.model, mesh.m)
     d = mesh.d
 
     def mine(g: np.ndarray, b: int) -> np.ndarray:
@@ -1226,8 +1351,7 @@ def repartition_stage_state(host_state, template_state):
 
     def walk(h, t):
         if _params_like(t, keys):
-            return tree_map(_place_leaf, _stage_tree(h, mesh.stage, mesh.s),
-                            t)
+            return tree_map(_place_leaf, _cell_tree(h, mesh), t)
         if isinstance(t, tuple):
             items = [walk(a, b) for a, b in zip(h, t)]
             return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
@@ -1286,6 +1410,15 @@ def repartition_stage_state(host_state, template_state):
 
 # --------------------------------------------------- stage-stacked numerics
 
+NUMERICS_MODEL_AXIS = (
+    "make_pp_numerics supports model=1 meshes: its per-group "
+    "summaries are not model-axis psum-agreed, so stats would "
+    "differ per TP shard. The overlap/ring drivers themselves DO "
+    "compose with model>1 now (DP×PP×TP, see _pp_overlap_setup); "
+    "for model-axis-agreed numerics use a TP mesh with "
+    "tp.make_tp_numerics.")
+
+
 def make_pp_numerics(params, mesh: dist.PipelineMesh, *,
                      psum_data: bool = False) -> introspect.NumericsHandle:
     """The numerics summarizer of a stage process, JAX's
@@ -1298,7 +1431,11 @@ def make_pp_numerics(params, mesh: dist.PipelineMesh, *,
     0 for the other leaves it holds; a ``psum`` over the stage group then
     gives every rank the whole stack. ``psum_data=True`` also sums the
     gradient statistics and the finite mask over the data group (the ring
-    drivers, whose local gradients differ per data row; JAX's rule)."""
+    drivers, whose local gradients differ per data row; JAX's rule). A
+    mesh with a model axis raises JAX's error, which names
+    ``tp.make_tp_numerics``."""
+    if mesh.model > 1:
+        raise ValueError(NUMERICS_MODEL_AXIS)
     params = llama.as_tree(params)
     n = mesh.stage
     template = {k: (tree_map(lambda x: x[: x.shape[0] // n], v)

@@ -14,6 +14,7 @@ and optimizer state as numpy.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import os
 import statistics
@@ -425,10 +426,31 @@ def sgd(lr: float):
             tree_map(lambda g: -lr * g, grads), state))
 
 
+def _pp_case_mesh(case: dict) -> dist.PipelineMesh:
+    """A case's pipeline mesh: ``pipeline_mesh(data, stage, model)``, or
+    with ``view`` a part of the ``grid`` mesh (``pipeline_mesh(*grid)``)
+    that runs on its own: ``"row"`` each data row as a ``1 × S × T`` mesh,
+    ``"column"`` each model shard's ranks as a ``D × S`` mesh (the groups
+    of one model shard, no model axis)."""
+    view = case.get("view")
+    if view is None:
+        return dist.pipeline_mesh(case["data"], case["stage"],
+                                  case.get("model", 1))
+    full = dist.pipeline_mesh(*case["grid"])
+    me = (dist.get_rank(),)
+    if view == "row":
+        return dataclasses.replace(full, data=1, d=0,
+                                   data_group=dist.Group("data", me, 0))
+    assert view == "column", view
+    alone = dist.Group("model", me, 0)
+    return dataclasses.replace(full, model=1, m=0, model_group=alone,
+                               ring_model_group=alone)
+
+
 def _pp_case(case: dict, device) -> dict:
     """One pipeline run on this rank; see ``pp_cases``."""
     cfg = LlamaConfig(**case["cfg"])
-    mesh = dist.pipeline_mesh(case["data"], case["stage"])
+    mesh = _pp_case_mesh(case)
     sched, v = case["schedule"], case.get("n_chunks", 2)
     params = convert.params_from_jax(case["params"], cfg,
                                      device=device).tree()
@@ -443,8 +465,10 @@ def _pp_case(case: dict, device) -> dict:
             else pp.make_pipeline_step)
     step = make(cfg, opt, mesh, case["microbatches"], sched, v,
                 numerics=numerics, device=device)
-    out = {"rank": dist.get_rank(), "d": mesh.d, "s": mesh.s, "losses": [],
-           "comm": None, "numerics": None}
+    out = {"rank": dist.get_rank(), "d": mesh.d, "s": mesh.s, "m": mesh.m,
+           "losses": [], "comm": None, "numerics": None}
+    if case.get("init"):
+        out["init"] = convert.tree_to_numpy(state.params)
     for batch in case["batches"]:
         with collecting() as records:
             state, loss = step(state, pp.shard_batch(mesh, batch, device))
@@ -458,6 +482,10 @@ def _pp_case(case: dict, device) -> dict:
         out["losses"] += loss.reshape(-1).tolist()
     out["params"] = convert.tree_to_numpy(state.params)
     out["step"] = int(state.step)
+    if case.get("merged"):
+        out["merged"] = convert.tree_to_numpy(pp.host_snapshot(state).params)
+    if case.get("checkpoint"):
+        Checkpointer(case["checkpoint"]).save(int(state.step), state)
     return out
 
 
@@ -474,10 +502,14 @@ def pp_cases(cases, *, device) -> list:
     "interleaved"`` here), ``data``, ``stage``, ``schedule``,
     ``microbatches``, ``batches`` (global ``[D·B, T]`` batches, or with
     ``window`` set ``[K, D·B, T]`` windows for the K-step loop; row d
-    takes its B rows), and optionally ``n_chunks``, ``optimizer`` ("sgd",
-    the default, or a ``make_optimizer`` name), ``lr`` (default 1024:
-    SGD's update is then far above the parameters' rounding, so update /
-    lr recovers the gradient) and ``numerics``."""
+    takes its B rows), and optionally ``model`` (a model axis) or
+    ``view`` and ``grid`` (``_pp_case_mesh``), ``n_chunks``,
+    ``optimizer`` ("sgd", the default, or a ``make_optimizer`` name),
+    ``lr`` (default 1024: SGD's update is then far above the parameters'
+    rounding, so update / lr recovers the gradient), ``numerics``,
+    ``init`` (also return the cell's parameters before the first step),
+    ``merged`` (also return ``pp.host_snapshot``'s whole parameters) and
+    ``checkpoint`` (a directory the final state is saved to)."""
     return [_pp_case(case, device) for case in cases]
 
 
@@ -500,6 +532,15 @@ def pp_trainer_calls(calls, *, device) -> list:
                     "start_step": rep.start_step,
                     "resilience": rep.resilience.as_dict()})
     return out
+
+
+def pp_bench_calls(calls, *, device) -> list:
+    """``bench_utils.time_pp_train_step`` on ``pipeline_mesh(*grid)`` for
+    each ``(grid, cfg fields, batch, keyword arguments)`` of ``calls``;
+    returns each call's tokens/s."""
+    return [bench_utils.time_pp_train_step(
+        dist.pipeline_mesh(*grid), LlamaConfig(**cfg), batch, device=device,
+        **kwargs) for grid, cfg, batch, kwargs in calls]
 
 
 class _RingSpy:
@@ -536,7 +577,7 @@ class _RingSpy:
 def _pp_overlap_case(case: dict, device) -> dict:
     """One DP×PP ring-driver run on this rank; see ``pp_overlap_cases``."""
     cfg = LlamaConfig(**case["cfg"])
-    mesh = dist.pipeline_mesh(case["data"], case["stage"])
+    mesh = _pp_case_mesh(case)
     params = convert.params_from_jax(case["params"], cfg,
                                      device=device).tree()
     name, lr = case.get("optimizer", "sgd"), case.get("lr", 1.0)
@@ -555,8 +596,8 @@ def _pp_overlap_case(case: dict, device) -> dict:
             aggregation=case["aggregation"], wire=case["wire"],
             overlap_microbatches=case.get("overlap", 1),
             comm_buckets=case.get("comm_buckets", 1), device=device)
-    out = {"rank": dist.get_rank(), "d": mesh.d, "s": mesh.s, "losses": [],
-           "comm": None, "ring": None}
+    out = {"rank": dist.get_rank(), "d": mesh.d, "s": mesh.s, "m": mesh.m,
+           "losses": [], "comm": None, "ring": None}
     spy = _RingSpy("pp_ring_grad")
     for i, batch in enumerate(case["batches"]):
         with collecting() as records, spy:
@@ -568,6 +609,7 @@ def _pp_overlap_case(case: dict, device) -> dict:
         out["ring"] = spy.calls
     snap = pp.host_snapshot(state)
     out["params"] = convert.tree_to_numpy(snap.params)
+    out["local"] = convert.tree_to_numpy(state.params)
     out["step"] = int(state.step)
     if case.get("snapshot"):
         out["snapshot"] = [x.numpy() if isinstance(x, torch.Tensor) else x
@@ -589,8 +631,10 @@ def pp_overlap_cases(cases, *, device) -> list:
     T]`` batches, or with ``window`` set ``[K, D·B, T]`` windows), and
     optionally ``schedule``, ``overlap`` (M, default 1), ``comm_buckets``,
     ``optimizer`` ("sgd", the default, or a ``make_optimizer`` name),
-    ``lr`` (default 1.0) and ``plain`` (the plain DP×PP step instead, the
-    ring's reference)."""
+    ``lr`` (default 1.0), ``plain`` (the plain DP×PP step instead, the
+    ring's reference) and ``model`` / ``view`` / ``grid``
+    (``_pp_case_mesh``). Each result also holds this cell's own parameters
+    (``local``)."""
     return [_pp_overlap_case(case, device) for case in cases]
 
 
@@ -2962,4 +3006,259 @@ def phase19(tokens_check, tokens_time, cfg: dict, tcfg: dict,
     dist.barrier(device)
     out.update(_phase19_trainers(cfg, dict(tcfg), directory, device))
     out["wall"] = [wall0, time.time()]     # the parent's spawn and exit
+    return out
+
+
+# ------------------------------------------------ chip_smoke.py phase 20
+
+PHASE20_LR = 0.02                   # SGD in the fp32 checks
+PHASE20_CELLS = {                   # 20b's ring cells: (aggregation, wire, M)
+    "gradient fp32 M=1": ("gradient", "fp32", 1),
+    "zero1 int8_ef M=1": ("zero1", "int8_ef", 1)}
+
+
+def _cell_replicas_equal(params, mesh, device) -> bool:
+    """This cell's parameters bitwise equal on every data row, and every
+    leaf the model shards hold whole bitwise equal across them."""
+    rows = _row_replicas_equal(params, mesh, device)
+    shared = [x for x, whole in zip(tree_leaves(params),
+                                    pp._replicated(params)) if whole]
+    mine = _digest(shared, device)
+    got = dist.all_gather(mine, group=mesh.model_group)
+    return rows and bool(torch.equal(got.reshape(mesh.model, -1),
+                                     mine.expand(mesh.model, -1)))
+
+
+def _act_sum_ms(group, shape, device, reps: int = 10) -> float:
+    """The median ms of one activation sum (``psum_ad``) of a bf16
+    ``shape`` over ``group``, staged through the host in fp32."""
+    act = torch.randn(*shape, device=device).to(torch.bfloat16)
+    ms = []
+    for _ in range(reps):
+        dist.barrier(device)
+        synchronize(device)
+        t0 = time.perf_counter()
+        dist.psum_ad(act, group)
+        synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def phase20_four(tokens_check, tokens_time, *, device) -> dict:
+    """``chip_smoke.py`` phase 20a on this rank of ``pipeline_mesh(1, 2,
+    2)`` at the canonical width (vocab 32000, 3 layers per stage, 3 heads
+    per model shard): the fp32 check of GPipe and 1F1B at M = 2 on
+    ``tokens_check`` ``[4, T]`` (this cell's gradient, from
+    ``pp.loss_and_grad``, against the world of one's sliced to the cell,
+    and the loss); then at bf16, B = 16 (``tokens_time``), the 1 × 2 × 2
+    step timed in turns with the plain DP×PP step at 1 × 2 (model shard
+    0's ranks) and with TP at 1 × 2 (stage 0's ranks), with launches per
+    step, and one activation sum over the model group timed alone."""
+    mesh = dist.pipeline_mesh(1, 2, 2)
+    out = {"rank": dist.get_rank(), "s": mesh.s, "m": mesh.m}
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    whole = llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                             device="cpu").tree()
+    tokens = torch.as_tensor(tokens_check, dtype=torch.long, device=device)
+    with fp32_products():
+        full = _leaf_copies(whole, device)
+        ref_loss = llama.forward_loss(full, tokens, cfg)
+        ref = tree_unflatten(full, list(torch.autograd.grad(
+            ref_loss, tree_leaves(full))))
+        ref = pp._cell_tree(ref, mesh)
+        out["check"] = {}
+        for sched in ("gpipe", "1f1b"):
+            state = pp.init_state(mesh, whole, sgd(1.0), device=device)
+            loss, grads = pp.loss_and_grad(state, tokens, cfg, mesh, 2,
+                                           sched, device=device)
+            out["check"][sched] = {
+                "loss_err": abs(float(loss.detach())
+                                - float(ref_loss.detach())),
+                "grad_rel_err": _own_leaf_err(ref, grads)}
+        del full, ref, state, grads
+    out["check_seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                       flash_dh_major=True)
+    whole = llama.init_llama(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu").tree()
+    popt = make_optimizer("pallas")
+    me = (dist.get_rank(),)
+    pp_ranks = (0, 2)                    # model shard 0: stages 0 and 1
+    tp_ranks = (0, 1)                    # stage 0: model shards 0 and 1
+    cells = {"pp x tp 1x2x2": (pp.init_state(mesh, whole, popt,
+                                             device=device),
+                               pp.make_pipeline_step(tcfg, popt, mesh, 2,
+                                                     device=device), False)}
+    if dist.get_rank() in pp_ranks:
+        pmesh = dataclasses.replace(
+            mesh, model=1, m=0, model_group=dist.Group("model", me, 0),
+            ring_model_group=dist.Group("model", me, 0))
+        cells["pp 1x2"] = (pp.init_state(pmesh, whole, popt, device=device),
+                           pp.make_pipeline_step(tcfg, popt, pmesh, 2,
+                                                 device=device), pp_ranks)
+    else:
+        cells["pp 1x2"] = (None, None, pp_ranks)
+    if dist.get_rank() in tp_ranks:
+        tmesh = dist.TPMesh(1, 2, 0, mesh.m, mesh.model_group,
+                            dist.Group("data", me, 0),
+                            mesh.ring_model_group)
+        cells["tp 1x2"] = tp.make_tp_step(tcfg, popt, tmesh, whole,
+                                          device=device) + (tp_ranks,)
+    else:
+        cells["tp 1x2"] = (None, None, tp_ranks)
+    del whole
+    batch = torch.as_tensor(tokens_time, dtype=torch.long, device=device)
+    states, out["timing"] = _time_cells(cells, batch, device,
+                                        replicas=False)
+    out["timing"]["pp x tp 1x2x2"]["replicas_bitwise"] = \
+        _cell_replicas_equal(states["pp x tp 1x2x2"].params, mesh, device)
+    del states, cells
+    out["act_sum_ms"] = _act_sum_ms(mesh.model_group,
+                                    (16, tcfg.ctx_size, tcfg.dmodel), device)
+    out["act_sum_bytes"] = 16 * tcfg.ctx_size * tcfg.dmodel * 2
+    out["time_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _phase20_check(mesh, tokens_check, device) -> dict:
+    """20b's fp32 check on this rank: the plain 2 × 2 × 2 step and the
+    fp32 gradient ring (M = 1) over ``tokens_check`` ``[3, 2·4, T]`` (SGD
+    at ``PHASE20_LR``): both losses, the ring cell's leaves against the
+    plain step's (relative to each leaf's max), the data rows and model
+    replicas bitwise; the int8_ef ZeRO-1 M = 1 window of K = 2 (fused
+    Adam): its comm profile, bitwise two per-step calls, and its replicas."""
+    cfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    whole = llama.init_llama(cfg, torch.Generator().manual_seed(0),
+                             device="cpu").tree()
+    batches = [pp.shard_batch(mesh, b, device) for b in tokens_check]
+    opt = sgd(PHASE20_LR)
+    out = {}
+
+    def run(state, step, batches):
+        losses = []
+        for b in batches:
+            state, loss = step(state, b)
+            losses.append(float(loss))
+        return state, losses
+
+    with fp32_products():
+        plain, out["plain_losses"] = run(
+            pp.init_state(mesh, whole, opt, device=device),
+            pp.make_pipeline_step(cfg, opt, mesh, 2, device=device), batches)
+        state, step = pp.make_pipeline_overlap_step(
+            cfg, opt, mesh, whole, n_microbatches=2, aggregation="gradient",
+            wire="fp32", overlap_microbatches=1, device=device)
+        state, out["ring_losses"] = run(state, step, batches)
+        out["ring_leaf_err"] = _own_leaf_err(plain.params, state.params)
+        out["ring_replicas_bitwise"] = _cell_replicas_equal(
+            state.params, mesh, device)
+        del plain, state, step
+
+        adam = make_optimizer("fused", 1e-3)
+        state, step = pp.make_pipeline_overlap_multi_step(
+            cfg, adam, mesh, whole, n_microbatches=2, aggregation="zero1",
+            wire="int8_ef", overlap_microbatches=1, device=device)
+        window = torch.stack(batches[:2])
+        with collecting() as records:
+            k2, k2_losses = step(state, window)
+        out["bytes"] = {"K": 2, "M": 1,
+                        "profile": CommProfile(list(records)).as_dict(
+                            steps_per_dispatch=2)}
+        state, one = pp.make_pipeline_overlap_step(
+            cfg, adam, mesh, whole, n_microbatches=2, aggregation="zero1",
+            wire="int8_ef", overlap_microbatches=1, device=device)
+        state, per_step = run(state, one, batches[:2])
+        out["kstep"] = {
+            "losses_bitwise": [float(x) for x in k2_losses] == per_step,
+            "state_bitwise": all(
+                torch.equal(a, b) for a, b in zip(nested_leaves(k2),
+                                                  nested_leaves(state))
+                if isinstance(a, torch.Tensor))}
+        out["int8_replicas_bitwise"] = _cell_replicas_equal(
+            state.params, mesh, device)
+    n, pad, local, total = pp._pp_flat_geometry(mesh, whole)
+    out["geometry"] = {"n": n, "pad": pad, "chunk": local,
+                       "coordinates": total}
+    return out
+
+
+def _phase20_trainer(directory: str, device) -> dict:
+    """20b's ``train_llm_pp(mesh={"data": 2, "stage": 2, "model": 2})`` at
+    vocab 259 (the byte tokenizer), batch 4 × 256 per row, 3 steps, the
+    "pallas" optimizer, with launches per step; then the same steps driven
+    by hand through ``pp.make_pipeline_step`` from the same weights and
+    this row's stream (``shard_batches``, skip d·5000): both losses."""
+    from ..data.tokens import shard_batches
+    tcfg = TrainConfig(batch_size=4, seq_len=256, iters=3, data=2, stage=2,
+                       microbatches=2, optimizer="pallas")
+    cfg = LlamaConfig(attention_impl="pallas", flash_dh_major=True)
+    shape = {"data": 2, "stage": 2, "model": 2}
+    _zero_counts()
+    t0 = time.perf_counter()
+    rep = train_llm_pp(cfg, tcfg, mesh=shape, tokenizer=ByteTokenizer(),
+                       log_every=0, device=device)
+    out = {"losses": rep.losses, "launches": _counts(device, tcfg.iters),
+           "seconds": time.perf_counter() - t0}
+    mesh = dist.pipeline_mesh(2, 2, 2)
+    tok = ByteTokenizer()
+    mcfg = cfg.replace(vocab_size=tok.vocab_size)
+    whole = llama.init_llama(mcfg, torch.Generator().manual_seed(tcfg.seed),
+                             device="cpu").tree()
+    opt = make_optimizer(tcfg.optimizer, tcfg.lr)
+    state = pp.init_state(mesh, whole, opt, device=device)
+    step = pp.make_pipeline_step(mcfg, opt, mesh, tcfg.microbatches,
+                                 device=device)
+    stream = shard_batches(tok, tcfg.batch_size, tcfg.seq_len, mesh.d,
+                           shard_skip=5000, seed=tcfg.seed)
+    out["driver_losses"] = []
+    for _ in range(tcfg.iters):
+        state, loss = step(state, torch.as_tensor(next(stream),
+                                                  dtype=torch.long,
+                                                  device=device))
+        out["driver_losses"].append(float(loss))
+    return out
+
+
+def phase20_eight(tokens_check, tokens_time, directory: str, *,
+                  device) -> dict:
+    """``chip_smoke.py`` phase 20b on this rank of ``pipeline_mesh(2, 2,
+    2)`` at the canonical width: the fp32 checks (``_phase20_check``),
+    the bf16 cells of ``PHASE20_CELLS`` and the plain step at B = 16 per
+    row (``tokens_time`` ``[2·16, T]``), timed in turns with launches per
+    step and the replicas held, and the trainer route
+    (``_phase20_trainer``)."""
+    mesh = dist.pipeline_mesh(2, 2, 2)
+    out = {"rank": dist.get_rank(), "d": mesh.d, "s": mesh.s, "m": mesh.m}
+    t0 = time.perf_counter()
+    out["check"] = _phase20_check(mesh, tokens_check, device)
+    out["check_seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tcfg = LlamaConfig(dtype="bfloat16", attention_impl="pallas",
+                       flash_dh_major=True)
+    whole = llama.init_llama(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu").tree()
+    popt = make_optimizer("pallas")
+    cells = {"plain": (pp.init_state(mesh, whole, popt, device=device),
+                       pp.make_pipeline_step(tcfg, popt, mesh, 2,
+                                             device=device))}
+    for name, (agg, wire, m) in PHASE20_CELLS.items():
+        cells[name] = pp.make_pipeline_overlap_step(
+            tcfg, popt, mesh, whole, n_microbatches=2, aggregation=agg,
+            wire=wire, overlap_microbatches=m, device=device)
+    del whole
+    batch = pp.shard_batch(mesh, tokens_time, device)
+    states, out["timing"] = _time_cells(cells, batch, device,
+                                        replicas=False)
+    for name, st in states.items():
+        out["timing"][name]["replicas_bitwise"] = _cell_replicas_equal(
+            st.params, mesh, device)
+    del states, cells
+    out["time_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["trainer"] = _phase20_trainer(directory, device)
+    out["trainer_seconds"] = time.perf_counter() - t0
     return out

@@ -31,9 +31,11 @@ def to_bf16(x: np.ndarray) -> np.ndarray:
     return b.astype(np.uint32).view(F32)
 
 
-def int8_encode(c: np.ndarray) -> Tuple[np.ndarray, np.float32, np.ndarray]:
-    """``(q, s, c − s·q)``: symmetric int8 quantization around max|c|."""
-    m = np.max(np.abs(c)).astype(F32)
+def int8_encode(c: np.ndarray, peak=None
+                ) -> Tuple[np.ndarray, np.float32, np.ndarray]:
+    """``(q, s, c − s·q)``: symmetric int8 quantization around max|c|, or
+    around ``peak`` (an agreed maximum) when given."""
+    m = np.max(np.abs(c)).astype(F32) if peak is None else F32(peak)
     s = np.maximum(m / F32(127.0), TINY).astype(F32)
     q = np.clip(np.rint(c / s), -127, 127).astype(np.int8)
     return q, s, fma(c, -s, q)
@@ -50,33 +52,56 @@ def ring(xs: Sequence[np.ndarray], wire: str = "fp32",
          ) -> Tuple[List[np.ndarray], Optional[List[np.ndarray]]]:
     """Every rank's ``(owned chunk, new residual)`` of the ring over the n
     ranks' flat fp32 vectors ``xs`` (residuals: int8_ef only)."""
-    n = len(xs)
+    owned, res = agreed_rings([xs], wire,
+                              None if residuals is None else [residuals])
+    return owned[0], (None if res is None else res[0])
+
+
+def agreed_rings(xss: Sequence[Sequence[np.ndarray]], wire: str = "fp32",
+                 residualss=None):
+    """Several rings of the same length and rank count in lockstep, rank r
+    of every ring agreeing its int8 scale per hop: the maximum over the
+    rings of each one's max|c| (``compress._int8_encode``'s
+    ``scale_sync_group`` joining the rings' rank r, e.g. the model shards
+    of one (data row, stage)). Returns ``(owned, residuals)``, each a list
+    per ring of ``ring``'s per-rank lists; one ring is ``ring``."""
+    g_n, n = len(xss), len(xss[0])
     if n == 1:
-        return [np.asarray(xs[0], F32)], (None if residuals is None
-                                          else [np.asarray(residuals[0])])
-    chunk = len(xs[0]) // n
-    chunks = [np.asarray(x, F32).reshape(n, chunk) for x in xs]
-    res = (None if residuals is None else
-           [np.asarray(r, F32).reshape(n, chunk).copy() for r in residuals])
-    partial = [chunks[r][(r - 1) % n].copy() for r in range(n)]
+        return ([[np.asarray(xs[0], F32)] for xs in xss],
+                None if residualss is None else
+                [[np.asarray(rs[0])] for rs in residualss])
+    chunk = len(xss[0][0]) // n
+    chunks = [[np.asarray(x, F32).reshape(n, chunk) for x in xs]
+              for xs in xss]
+    res = (None if residualss is None else
+           [[np.asarray(r, F32).reshape(n, chunk).copy() for r in rs]
+            for rs in residualss])
+    partial = [[chunks[g][r][(r - 1) % n].copy() for r in range(n)]
+               for g in range(g_n)]
     for t in range(n - 1):
-        sent = []
-        for r in range(n):
-            c_idx = (r - 1 - t) % n
-            if wire == "int8_ef":
-                c = (partial[r] + res[r][c_idx]).astype(F32)
-                q, s, err = int8_encode(c)
-                res[r][c_idx] = err
-                sent.append((s, q))
-            elif wire == "bf16":
-                sent.append(to_bf16(partial[r]))
-            else:
-                sent.append(partial[r])
-        partial = [fma(chunks[r][(r - 2 - t) % n], *sent[(r - 1) % n])
-                   if wire == "int8_ef" else
-                   (sent[(r - 1) % n] + chunks[r][(r - 2 - t) % n])
-                   .astype(F32) for r in range(n)]
-    return partial, (None if res is None else [x.reshape(-1) for x in res])
+        c_idx = [(r - 1 - t) % n for r in range(n)]
+        if wire == "int8_ef":
+            cs = [[(partial[g][r] + res[g][r][c_idx[r]]).astype(F32)
+                   for r in range(n)] for g in range(g_n)]
+            peaks = [max(np.max(np.abs(cs[g][r])).astype(F32)
+                         for g in range(g_n)) for r in range(n)]
+        sent = [[None] * n for _ in range(g_n)]
+        for g in range(g_n):
+            for r in range(n):
+                if wire == "int8_ef":
+                    q, s, err = int8_encode(cs[g][r], peaks[r])
+                    res[g][r][c_idx[r]] = err
+                    sent[g][r] = (s, q)
+                elif wire == "bf16":
+                    sent[g][r] = to_bf16(partial[g][r])
+                else:
+                    sent[g][r] = partial[g][r]
+        partial = [[fma(chunks[g][r][(r - 2 - t) % n], *sent[g][(r - 1) % n])
+                    if wire == "int8_ef" else
+                    (sent[g][(r - 1) % n] + chunks[g][r][(r - 2 - t) % n])
+                    .astype(F32) for r in range(n)] for g in range(g_n)]
+    return partial, (None if res is None else
+                     [[x.reshape(-1) for x in rs] for rs in res])
 
 
 def hier(xs: Sequence[np.ndarray], D: int, S: int, wire_ici: str = "fp32",

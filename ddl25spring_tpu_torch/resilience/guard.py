@@ -57,12 +57,16 @@ def _verdict(old_params, new_params, loss, group=None,
              shared=None) -> Tuple[bool, float]:
     """``(all finite, update L2 norm)``: one pass over the leaves, one host
     read. ``group`` (a ``distributed.Group``: the stage group of a
-    pipeline, the model group of a tensor-parallel shard): this rank holds
-    only its part of the model, so the count of non-finite values and the
-    squared norm are summed over the group, and every rank takes the same
-    decision on the whole model's update. ``shared``: per leaf, whether
-    every rank of the group holds it whole (a replicated leaf), whose
-    square then counts once in the sum."""
+    pipeline, the model group of a tensor-parallel shard; or a tuple of
+    groups, a pipeline stage's and then its model shards'): this rank
+    holds only its part of the model, so the count of non-finite values
+    and the squared norm are summed over the group (each in turn), and
+    every rank takes the same decision on the whole model's update.
+    ``shared``: per leaf, whether every rank of the (last) group holds it
+    whole (a replicated leaf), whose square then counts once in the
+    sum."""
+    groups = (() if group is None else tuple(group)
+              if isinstance(group, (tuple, list)) else (group,))
     finite = torch.isfinite(loss).all()
     sq = torch.zeros((), dtype=torch.float32, device=loss.device)
     for i, (o, n) in enumerate(zip(tree_leaves(old_params),
@@ -70,12 +74,14 @@ def _verdict(old_params, new_params, loss, group=None,
         d = (n - o).float()
         finite = finite & torch.isfinite(n).all()
         term = (d * d).sum()
-        sq = sq + (term / group.size if shared is not None and shared[i]
-                   else term)
-    if group is not None:
+        sq = sq + (term / groups[-1].size
+                   if shared is not None and shared[i] else term)
+    if groups:
         from ..parallel import distributed as dist
-        bad, sq = dist.psum(torch.stack([(~finite).float(), sq]),
-                            record=False, group=group)
+        verdict = torch.stack([(~finite).float(), sq])
+        for g in groups:
+            verdict = dist.psum(verdict, record=False, group=g)
+        bad, sq = verdict
         finite = bad == 0
     ok, norm = torch.stack([finite.float(), sq.sqrt()]).tolist()
     return bool(ok), norm

@@ -59,7 +59,7 @@ import dataclasses
 import math
 import time
 from dataclasses import dataclass, field, fields
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -1295,6 +1295,24 @@ def _check_pp_options(train_cfg: TrainConfig, aggregation: str,
                          "dispatch granularity under steps_per_dispatch")
 
 
+def _pp_mesh_shape(mesh, train_cfg: TrainConfig) -> Dict[str, int]:
+    """``train_llm_pp``'s ``mesh=``: a dict of axis sizes (JAX's ``mesh``
+    object's ``shape``); default ``{"data": train_cfg.data, "stage":
+    train_cfg.stage}``, as the JAX trainer builds it. Returns ``data``,
+    ``stage`` and ``model`` (1 when absent)."""
+    shape = dict(mesh) if mesh is not None else {"data": train_cfg.data,
+                                                 "stage": train_cfg.stage}
+    for name, size in shape.items():
+        if name not in ("data", "stage", "model") and int(size) > 1:
+            raise ValueError(f"train_llm_pp runs a (data, stage, model) "
+                             f"mesh; axis {name!r} has size {size}")
+    if "stage" not in shape:
+        raise ValueError(f"train_llm_pp needs a 'stage' axis in mesh= "
+                         f"(got {shape})")
+    return {"data": int(shape.get("data", 1)), "stage": int(shape["stage"]),
+            "model": int(shape.get("model", 1))}
+
+
 def _train_pp_rank(model_cfg, train_cfg, kwargs: dict, *, device):
     """One rank of a ``train_llm_pp`` call that started its own ranks."""
     return train_llm_pp(model_cfg, train_cfg, device=device, **kwargs)
@@ -1302,6 +1320,7 @@ def _train_pp_rank(model_cfg, train_cfg, kwargs: dict, *, device):
 
 def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
                  train_cfg: Optional[TrainConfig] = None, *,
+                 mesh=None,
                  tokenizer=None,
                  schedule: str = "gpipe",
                  aggregation: str = "gradient",
@@ -1348,6 +1367,15 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
     ``aggregation`` "gradient" or "zero1"), as the JAX trainer routes it;
     ZeRO-1 and a compressed ``wire`` need it.
 
+    ``mesh``: JAX's keyword, as a dict of axis sizes (default ``{"data":
+    train_cfg.data, "stage": train_cfg.stage}``). A ``model`` axis runs
+    Megatron tensor parallelism inside each stage (``pipeline_mesh(D, S,
+    T)``, ``D·S·T`` ranks), on every route above, checkpoints and resume
+    included; ``numerics_every > 0`` and elastic mode refuse it with
+    JAX's texts (``pp.make_pp_numerics``, ``mesh.survivor_submesh``; the
+    JAX trainer meets the second at its first loss, the port before any
+    rank starts).
+
     ``resilience.elastic=True`` (GPipe or 1F1B) survives the loss of
     stage processes: the ``(data, stage)`` grid drops the victims' data
     rows when a complete row survives, else re-partitions the layers over
@@ -1367,9 +1395,21 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
     train_cfg = train_cfg or TrainConfig()
     _check_pp_options(train_cfg, aggregation, schedule, resilience,
                       scale_hook)
-    world = train_cfg.data * train_cfg.stage
+    shape = _pp_mesh_shape(mesh, train_cfg)
+    n_data, n_stage, n_model = shape["data"], shape["stage"], shape["model"]
+    elastic = bool(resilience is not None and resilience.elastic)
+    if n_model > 1:
+        if train_cfg.numerics_every > 0:
+            raise ValueError(pp.NUMERICS_MODEL_AXIS)
+        if elastic:
+            from ..parallel.mesh import PoolMesh, _elastic_second_axis
+            _elastic_second_axis(PoolMesh(np.arange(
+                n_data * n_stage * n_model).reshape(
+                    n_data, n_stage, n_model), ("data", "stage", "model")),
+                "survivor_submesh")
+    world = n_data * n_stage * n_model
     if world > 1 and not dist.is_initialized():
-        kwargs = dict(tokenizer=tokenizer, schedule=schedule,
+        kwargs = dict(mesh=shape, tokenizer=tokenizer, schedule=schedule,
                       aggregation=aggregation, log_every=log_every,
                       log_fn=log_fn,
                       warmup_steps_excluded=warmup_steps_excluded,
@@ -1380,10 +1420,9 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
                       on_checkpoint=on_checkpoint, scale_hook=scale_hook)
         return dist.run_ranks(_train_pp_rank, world, model_cfg, train_cfg,
                               kwargs, device=device)[0]
-    elastic = bool(resilience is not None and resilience.elastic)
     pool = _elastic_pool(world) if elastic else None
     dev = dist.rank_device(device)
-    mesh = dist.pipeline_mesh(train_cfg.data, train_cfg.stage)
+    mesh = dist.pipeline_mesh(n_data, n_stage, n_model)
     measure = telemetry is not None     # every rank runs the comm probe
     run_log, run_sink, run_tel = log_fn, loss_sink, telemetry
     if dist.get_rank() != 0:
@@ -1470,7 +1509,8 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
                              else "")
                           + (f"-k{spd}" if spd > 1 else "")
                           + (f"-ring{wire}-m{ovl}" if ovl else "")
-                          + (f"-b{cb}" if cb > 1 else ""),
+                          + (f"-b{cb}" if cb > 1 else "")
+                          + (f"-tp{n_model}" if n_model > 1 else ""),
             max_caches=(1 if spd == 1 else None),
             events=(telemetry.events if telemetry is not None else None),
             meta={"steps_per_dispatch": spd},
@@ -1488,19 +1528,24 @@ def train_llm_pp(model_cfg: Optional[LlamaConfig] = None,
                    train_cfg=train_cfg, start_step=start_step,
                    step_fn=compile_watch._fn, state=state,
                    n_data=mesh.data, device=dev, steps_per_dispatch=spd,
-                   trainer="pp",
-                   mesh={"data": mesh.data, "stage": mesh.stage},
+                   trainer="pp", mesh=mesh.shape,
                    overlap_microbatches=max(1, ovl), windowed=elastic)
     if fault_plan is None and resilience is not None and resilience.faults:
         # Resolved once: every rebuild re-wraps the same schedule.
         fault_plan = resilience.fault_plan()
 
     def _rewrap(fn, start=0):
+        st = cur["state"] if cur["state"] is not None else state
+        m = cur["mesh"]
+        # On a model axis the guard's verdict covers the stages and then
+        # the model shards, a replicated leaf counted once.
+        group, shared = ((m.stage_group, m.model_group),
+                         pp._replicated(st.params)) if m.model > 1 else (
+                             m.stage_group, None)
         return _apply_resilience(fn, resilience, fault_plan, ckpt, stats,
-                                 group=cur["mesh"].stage_group,
-                                 leaf_map=pp.global_leaf_map(
-                                     cur["state"] if cur["state"] is not None
-                                     else state), start=start)
+                                 group=group, shared=shared,
+                                 leaf_map=pp.global_leaf_map(st),
+                                 start=start)
 
     def _make_batches(n):
         # This rank's data row at the current grid (skip d·5000): a

@@ -122,8 +122,37 @@ def test_the_scan_sees_every_port_module():
                  "ddl25spring_tpu_torch/telemetry/memory.py",
                  "ddl25spring_tpu_torch/telemetry/registry.py",
                  "ddl25spring_tpu_torch/telemetry/trace.py",
+                 "ddl25spring_tpu_torch/data/native.py",
+                 "ddl25spring_tpu_torch/models/generate.py",
+                 "ddl25spring_tpu_torch/bench_utils.py",
                  "chip_smoke.py"):
         assert want in names
+
+
+def _cdll_loads(path: Path) -> int:
+    return sum(1 for node in ast.walk(ast.parse(path.read_text()))
+               if isinstance(node, ast.Call)
+               and getattr(node.func, "attr", None) == "CDLL")
+
+
+def test_ctypes_loads_only_libraries_built_from_the_checkout():
+    """A ``ctypes`` load in the port is of a library it builds itself:
+    the CUDA kernels from ``ops/csrc`` (``ops/_ext.py`` and the two A/B
+    tools) and the token pipeline from the root's ``native/`` C++ source
+    (``data/native.py``), each into the git-ignored ``build/``. The scan
+    above forbids any import of the JAX package in the same files."""
+    from ddl25spring_tpu_torch.data import native
+    loads = {p.relative_to(ROOT).as_posix() for p in PORT_FILES
+             if _cdll_loads(p)}
+    assert loads == {"ddl25spring_tpu_torch/ops/_ext.py",
+                     "ddl25spring_tpu_torch/flash_ab.py",
+                     "ddl25spring_tpu_torch/adam_ab.py",
+                     "ddl25spring_tpu_torch/data/native.py"}
+    assert native.SOURCE == ROOT / "native" / "tokenstream.cpp"
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    assert "ddl25spring_tpu" not in {
+        r for r in _imported_roots(ROOT / "ddl25spring_tpu_torch" / "data"
+                                   / "native.py")}
 
 
 def _model():
@@ -182,6 +211,13 @@ ENTRY_POINTS = {
     "train_llm_pp stage=3": lambda: llm.train_llm_pp(
         CFG.replace(n_layers=3), TrainConfig(iters=1, stage=3),
         tokenizer=ByteTokenizer()),
+    "train_llm_pp mesh model=2": lambda: llm.train_llm_pp(
+        CFG, TrainConfig(iters=1), tokenizer=ByteTokenizer(),
+        mesh={"data": 1, "stage": 1, "model": 2}),
+    "speculative_stream": lambda: generate.speculative_stream(
+        _model(), _model(), [1, 2], CFG, 2, k=1),
+    "time_decode": lambda: bench_utils.time_decode(CFG, 1, prompt_len=2,
+                                                   new_tokens=2, reps=1),
     "make_pipeline_step": lambda: pp.make_pipeline_step(
         CFG, fused_adam(1e-3), distributed.pipeline_mesh(1, 1)),
     "pp.init_state": lambda: pp.init_state(

@@ -14,7 +14,8 @@ loss within 1e-5, every merged leaf
 within JAX's bars (atol 2e-5, rtol 2e-4), the replicated leaves bitwise
 across the ranks, and the comm profile by label JAX's to the byte (one
 ``ep_replicated_grads`` psum per replicated leaf; the combine's in-model
-sum unrecorded)."""
+sum unrecorded); the expert-4 step under ``remat=True`` bitwise the plain
+step (losses, parameters, comm by label; one thread)."""
 
 import functools
 
@@ -76,6 +77,9 @@ def _cases():
         cases[("step", name)] = dict(_base(name), run="step",
                                      optimizer="sgd", lr=LR,
                                      batches=_tokens(MESHES[name][0]))
+    cases[("step-remat", "e4")] = dict(
+        cases[("step", "e4")], cfg=dict(BASE, attention_impl="xla",
+                                        remat=True))
     return cases
 
 
@@ -159,3 +163,15 @@ def test_ep_step_matches_jax(name):
     assert "ep_replicated_grads" in comm
     for a, b in zip(_merged(ranks), leaves):
         np.testing.assert_allclose(a, b, atol=2e-5, rtol=2e-4)
+
+
+def test_ep_step_under_remat_is_bitwise_the_plain_step():
+    """The expert-4 step under ``remat=True``: losses, parameters and comm
+    by label bitwise the plain step's (one thread)."""
+    plain = _results()[("step", "e4")]
+    remat = _results()[("step-remat", "e4")]
+    for p, r in zip(plain, remat):
+        assert r["losses"] == p["losses"]
+        assert _by_label(r["comm"]) == _by_label(p["comm"])
+        for a, b in zip(tree_leaves(r["params"]), tree_leaves(p["params"])):
+            np.testing.assert_array_equal(a, b)

@@ -118,3 +118,59 @@ def test_generate_validates_its_arguments(pair):
                           device="cpu")
     with pytest.raises(ValueError, match="max_new_tokens"):
         generate.generate(model, prompt, cfg, 0, device="cpu")
+
+
+# -------------------------------------------- speculative decoding, decode rate
+
+SPEC_PROMPT = [3, 5, 7, 2]
+
+
+@pytest.fixture(scope="module")
+def drafts(pair):
+    """(JAX draft, port draft): a second init, JAX's
+    ``tests/test_generate.py`` disagreeing draft."""
+    jcfg, _, cfg, _ = pair
+    jd = jllama.init_llama(jax.random.PRNGKey(9), jcfg)
+    return jd, params_from_jax(jax.tree.map(np.asarray, jd), cfg,
+                               device="cpu")
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("draft", ["same", "other"])
+def test_speculative_stream_is_greedy_generate_and_jax(pair, drafts, k,
+                                                       draft):
+    """Tokens bitwise the port's greedy ``generate`` for a same-weights and
+    a disagreeing draft; tokens and stats equal JAX's
+    ``speculative_stream``."""
+    jcfg, jp, cfg, model = pair
+    jd, pd = drafts if draft == "other" else (jp, model)
+    want = generate.generate(model, np.asarray([SPEC_PROMPT]), cfg, 7,
+                             device="cpu")[0].tolist()
+    got, stats = generate.speculative_stream(model, pd, SPEC_PROMPT, cfg, 7,
+                                             k=k, device="cpu")
+    assert got == want
+    assert 0 <= stats["accepted"] <= stats["proposed"] and stats["rounds"]
+    jgot, jstats = jgen.speculative_stream(jp, jd, SPEC_PROMPT, jcfg, 7, k=k)
+    assert got == jgot
+    assert stats == jstats
+    if draft == "same":
+        assert stats["accepted"] == stats["proposed"] > 0
+
+
+@pytest.mark.parametrize("max_new", [7, 6])
+def test_speculative_horizon_never_reads_as_rejection(pair, max_new):
+    _, _, cfg, model = pair
+    _, stats = generate.speculative_stream(model, model, SPEC_PROMPT, cfg,
+                                           max_new, k=3, device="cpu")
+    assert stats["accepted"] == stats["proposed"] > 0
+
+
+def test_time_decode_gives_a_finite_rate_on_the_cpu():
+    from ddl25spring_tpu_torch.bench_utils import time_decode
+    cfg = LlamaConfig(vocab_size=64, dmodel=32, num_heads=2, n_layers=1,
+                      ctx_size=32)
+    for bf16, kv in ((False, None), (True, "bfloat16")):
+        rate = time_decode(cfg, 2, prompt_len=4, new_tokens=4,
+                           bf16_params=bf16, kv_dtype=kv, reps=1,
+                           device="cpu")
+        assert np.isfinite(rate) and rate > 0

@@ -16,7 +16,9 @@ order fails instead of hanging. Held:
 - one ``make_sp_train_step`` step (Adam, lr 1e-3) at seq 4 and at data 2 ×
   seq 2 against JAX's: loss within 1e-5, every leaf within 1e-4 of its
   largest entry, every rank's parameters bitwise the same, and the comm
-  profile by label JAX's to the byte."""
+  profile by label JAX's to the byte;
+- the seq-4 step under ``remat=True``: losses, parameters and comm by
+  label bitwise the plain step's (one thread)."""
 
 import functools
 
@@ -87,6 +89,8 @@ def _cases():
         cases[("step", name)] = dict(_mesh_case(name), run="step",
                                      cfg=CFG, params=_params(), lr=ADAM,
                                      batches=_tokens(d))
+    cases[("step-remat", "s4")] = dict(cases[("step", "s4")],
+                                       cfg=dict(CFG, remat=True))
     return cases
 
 
@@ -193,3 +197,13 @@ def test_sp_step_matches_jax(name):
             np.testing.assert_array_equal(a, b)
     got = tree_leaves(ranks[0]["params"])
     assert max(_rel(a, b) for a, b in zip(got, leaves)) <= 1e-4
+
+
+def test_sp_step_under_remat_is_bitwise_the_plain_step():
+    plain = _results()[("step", "s4")]
+    remat = _results()[("step-remat", "s4")]
+    for p, r in zip(plain, remat):
+        assert r["losses"] == p["losses"]
+        assert _by_label(r["comm"]) == _by_label(p["comm"])
+        for a, b in zip(tree_leaves(r["params"]), tree_leaves(p["params"])):
+            np.testing.assert_array_equal(a, b)
