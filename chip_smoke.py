@@ -371,8 +371,12 @@ import torch
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12,        # fp32 outside the tensor cores
+# fp32 attention runs on the tensor cores in 3xTF32 (three TF32 products per
+# fp32-accurate one), so its least time is at a third of the TF32 rate; the
+# rate of fp32 FMAs outside the tensor cores is printed beside it.
+PEAK_FLOPS = {torch.float32: 495e12 / 3,   # 3xTF32 on the tensor cores
               torch.bfloat16: 989e12}      # bf16 tensor cores
+FP32_FMA_FLOPS = 67e12
 
 TOL_OUT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TOL_LSE = 1e-4
@@ -459,16 +463,26 @@ DESIGN = {
                     "in separate copy groups, 4 warps x 16 query rows, Q and "
                     "dO fragments and dQ in registers, dS rounded to bf16 in "
                     "registers (csrc/mma_bf16.cuh)",
-        "float32": "register-tiled fp32 FMA, 256 threads, dS through shared "
-                   "memory"},
+        "float32": "tensor cores in 3xTF32: mma.sync m16n8k8 tf32 -> fp32, "
+                   "hi.hi + hi.lo + lo.hi per product in three passes, "
+                   "cp.async double-buffered K/V tiles in padded fp32 "
+                   "layouts, 16 query rows per warp, Q and dO fragments in "
+                   "registers, dS in fp32 registers as the A operand "
+                   "through permuted score columns, per-step sums added in "
+                   "fp32 in shared memory, ex2.approx (csrc/mma_tf32.cuh)"},
     "flash_bwd_dkv": {
         "bfloat16": "tensor cores: mma.sync m16n8k16 bf16 -> fp32, ldmatrix "
                     "(.trans by layout), cp.async double-buffered Q/dO tiles, "
                     "4 warps x 16 keys, K and V fragments and dK, dV in "
                     "registers, P and dS rounded to bf16 in registers "
                     "(csrc/mma_bf16.cuh)",
-        "float32": "register-tiled fp32 FMA, 256 threads, P and dS through "
-                   "shared memory"},
+        "float32": "tensor cores in 3xTF32: mma.sync m16n8k8 tf32 -> fp32, "
+                   "hi.hi + hi.lo + lo.hi per product in three passes, "
+                   "cp.async double-buffered Q/dO tiles in padded fp32 "
+                   "layouts, 16 keys per warp, K and V fragments in "
+                   "registers, P and dS in fp32 registers as A operands "
+                   "through permuted score columns, per-step sums added in "
+                   "fp32 in shared memory, ex2.approx (csrc/mma_tf32.cuh)"},
     "adam": "one launch over a __grid_constant__ table of up to 48 leaves, "
             "a persistent grid (occupancy x SMs) striding over 1024-element "
             "chunks; a producer thread moves p, m, v, g with cp.async.bulk "
@@ -498,23 +512,26 @@ def wall_us(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def attention_bound_us(b, t, h, dh, dtype, causal=True) -> tuple:
+def attention_bound_us(b, t, h, dh, dtype, causal=True, peak=None) -> tuple:
     """Least time for attention forward over [B, T, H, Dh]: q, k, v read
     once, out written once (input dtype), lse written once (fp32); 4·Dh
-    operations per visible (query, key) pair (two multiply-adds)."""
+    operations per visible (query, key) pair (two multiply-adds), at
+    ``peak`` FLOP/s (default PEAK_FLOPS of the type)."""
     item = torch.empty((), dtype=dtype).element_size()
     nbytes = 4 * b * t * h * dh * item + b * h * t * 4
     flops = 4 * dh * b * h * (t * (t + 1) // 2 if causal else t * t)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e6
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e6
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_bwd_bound_us(b, t, h, dh, dtype, causal, which) -> tuple:
+def attention_bwd_bound_us(b, t, h, dh, dtype, causal, which,
+                           peak=None) -> tuple:
     """Least time for the backward kernel ``which`` ("dq" or "dkv"): q, k,
     v, dO read once, lse and delta read once (fp32), the gradients written
     once (input dtype); 6·Dh (dQ) or 8·Dh (dK/dV) operations per visible
-    (query, key) pair."""
+    (query, key) pair, at ``peak`` FLOP/s (default PEAK_FLOPS of the
+    type)."""
     item = torch.empty((), dtype=dtype).element_size()
     n = b * t * h * dh
     pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
@@ -522,8 +539,28 @@ def attention_bwd_bound_us(b, t, h, dh, dtype, causal, which) -> tuple:
     nbytes = (4 + n_out) * n * item + 2 * b * h * t * 4
     flops = (6 if which == "dq" else 8) * dh * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e6
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e6
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tf32_hmma_counts(ext) -> dict:
+    """TF32 HMMA instructions per fp32 backward kernel ``kernel<head dim,
+    layout>`` in the built flash_bwd library, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    proc = subprocess.Popen([tool, "-sass", str(ext.library_path("flash_bwd"))],
+                            stdout=subprocess.PIPE, text=True)
+    counts, fn = {}, None
+    for line in proc.stdout:
+        if "Function :" in line:
+            m = re.search(r"((?:[a-z_]|tf32)+_tf32_kernel)ILi(\d+)ELi(\d+)E",
+                          line)
+            fn = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HMMA" in line and "TF32" in line:
+            counts[fn] += 1
+    check(proc.wait() == 0, "cuobjdump -sass of the flash_bwd library failed")
+    return counts
 
 
 def fl_phase(dev: torch.device, card: str) -> tuple:
@@ -4055,22 +4092,22 @@ def pp_tp_phase(dev: torch.device, card: str) -> dict:
     return out
 
 
-def _build_in_background(ext):
-    """Start ``ext.build()`` on a thread (each ``nvcc`` is a child process)
-    and return a function that waits for it: its seconds, or what it
-    raised."""
+def _in_background(fn, *args):
+    """Start ``fn(*args)`` on a thread (the kernel build, whose ``nvcc``
+    runs are child processes; ``cuobjdump``) and return a function that
+    waits for it: its result, or what it raised."""
     out = {}
 
     def run():
         try:
-            out["s"] = ext.build()
+            out["s"] = fn(*args)
         except BaseException as e:          # re-raised by the waiter
             out["e"] = e
 
     t = threading.Thread(target=run, daemon=True)
     t.start()
 
-    def wait() -> float:
+    def wait():
         t.join()
         if "e" in out:
             raise out["e"]
@@ -4139,7 +4176,7 @@ def main() -> int:
     # 2. build ------------------------------------------------------------
     # The kernels compile (nvcc child processes) while phases 8 and 9, which
     # launch no port kernel, run: their host times share the CPU with nvcc.
-    wait_build = _build_in_background(_ext)
+    wait_build = _in_background(_ext.build)
     try:
         # 8. horizontal FL (no port kernel on this path) -----------------
         zero_counts()
@@ -4169,6 +4206,9 @@ def main() -> int:
         build_s = wait_build()
     print(f"build: {build_s:.1f} s, phases 8 and 9 beside it {card}")
     stamp("2 (the build's wait after phases 8 and 9)")
+    # The TF32 HMMA count (cuobjdump of the whole library, host work) runs
+    # beside phase 3's device timings; phase 3b prints it.
+    wait_hmma = _in_background(tf32_hmma_counts, _ext)
     ptxas = {}
     for name in _ext.KERNELS:
         log = _ext.library_path(name).with_suffix(".so.log")
@@ -4178,8 +4218,8 @@ def main() -> int:
                 if "Compiling entry function" in line:
                     # kernel<type, head dim> out of the mangled name
                     # (the mma kernels' second parameter is the layout)
-                    m = re.search(r"([a-z_]+_kernel)(?:I(\w*?)Li(\d+)E"
-                                  r"(?:Li(\d+)E)?)?", line)
+                    m = re.search(r"((?:[a-z_]|tf32)+_kernel)(?:I(\w*?)Li"
+                                  r"(\d+)E(?:Li(\d+)E)?)?", line)
                     args = [a for a in (PTXAS_TYPES.get(m.group(2),
                                                         m.group(2)),
                                         m.group(3), m.group(4)) if a]
@@ -4188,6 +4228,10 @@ def main() -> int:
                 elif "registers" in line or "spill" in line:
                     print(f"  ptxas {fn}: {line.strip()}")
                     ptxas.setdefault(fn, []).append(line.strip())
+    spilled = [f"{fn}: {line}" for fn, lines in ptxas.items()
+               if "_tf32_kernel" in fn for line in lines
+               if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
+    check(not spilled, f"the fp32 backward kernels spill: {spilled}")
 
     # 3. kernels vs plain -------------------------------------------------
     gen = torch.Generator(device=dev)
@@ -4233,6 +4277,9 @@ def main() -> int:
                           scaled_dot_product_attention(qs, ks, vs,
                                                        is_causal=causal))
         bound_us, bound_by = attention_bound_us(b, t, h, dh, dtype, causal)
+        fma = (attention_bound_us(b, t, h, dh, dtype, causal,
+                                  peak=FP32_FMA_FLOPS)
+               if dtype == torch.float32 else None)
         layouts.append({
             "shape": [b, t, h, dh], "dtype": str(dtype)[6:],
             "dh_major": dh_major, "causal": causal,
@@ -4242,20 +4289,33 @@ def main() -> int:
             "max_abs_err": err, "lse_max_abs_err": lse_err,
             "kernel_us": kernel_us, "wrapper_us": wrapper_us,
             "plain_us": plain_us, "sdpa_us": sdpa_us,
-            "bound_us": bound_us, "bound_by": bound_by})
+            "bound_us": bound_us, "bound_by": bound_by,
+            **({"fma_bound_us": fma[0], "fma_bound_by": fma[1]} if fma
+               else {})})
+        fma_note = (f"; at the fp32 FMA rate {fma[0]:.2f} us ({fma[1]})"
+                    if fma else "")
         print(f"flash_fwd {tag}: max|d| out {err:.3g} lse {lse_err:.3g}; "
               f"kernel {kernel_us:.1f} us, wrapper {wrapper_us:.1f} us, "
               f"plain {plain_us:.1f} us, sdpa {sdpa_us:.1f} us, "
-              f"bound {bound_us:.2f} us ({bound_by}) {card}")
+              f"bound {bound_us:.2f} us ({bound_by}{fma_note}) {card}")
 
 
     stamp("3")
     # 3b. backward kernels vs plain --------------------------------------
+    hmma = wait_hmma()
+    print(f"flash_bwd fp32 kernels' TF32 HMMA instructions (cuobjdump -sass, "
+          f"Dh 48): {hmma}")
+    check(all(hmma.get(f"{kern}<48, {lay}>", 0) > 0
+              for kern in ("flash_bwd_dq_tf32_kernel",
+                           "flash_bwd_dkv_tf32_kernel")
+              for lay in range(4)),
+          f"an fp32 backward kernel without TF32 HMMA instructions: {hmma}")
     bwd = []
     for b, t, h, dh, dtype, dh_major, causal in [
             (64, 256, 6, 48, torch.bfloat16, True, True),   # training step
             (8, 256, 6, 48, torch.float32, False, True),
             (8, 256, 6, 48, torch.float32, True, True),
+            (3, 256, 6, 48, torch.float32, True, True),     # the trainer's
             (8, 256, 6, 48, torch.bfloat16, False, True),
             (8, 256, 6, 48, torch.bfloat16, True, True),
             (2, 200, 6, 48, torch.float32, False, True),
@@ -4304,6 +4364,9 @@ def main() -> int:
             lib_out, (qs, ks, vs), do_s, retain_graph=True))
         dq_bound = attention_bwd_bound_us(b, t, h, dh, dtype, causal, "dq")
         dkv_bound = attention_bwd_bound_us(b, t, h, dh, dtype, causal, "dkv")
+        fma = ({w: attention_bwd_bound_us(b, t, h, dh, dtype, causal, w,
+                                          peak=FP32_FMA_FLOPS)
+                for w in ("dq", "dkv")} if dtype == torch.float32 else None)
         bwd.append({
             "shape": [b, t, h, dh], "dtype": str(dtype)[6:],
             "dh_major": dh_major, "causal": causal,
@@ -4312,14 +4375,19 @@ def main() -> int:
             "dq_us": dq_us, "dkv_us": dkv_us, "plain_us": plain_us,
             "sdpa_bwd_us": sdpa_bwd_us, "dq_bound_us": dq_bound[0],
             "dq_bound_by": dq_bound[1], "dkv_bound_us": dkv_bound[0],
-            "dkv_bound_by": dkv_bound[1]})
+            "dkv_bound_by": dkv_bound[1],
+            **({"dq_fma_bound_us": fma["dq"][0],
+                "dkv_fma_bound_us": fma["dkv"][0]} if fma else {})})
+        fma_note = (f"; at the fp32 FMA rate dq {fma['dq'][0]:.2f} us "
+                    f"({fma['dq'][1]}), dkv {fma['dkv'][0]:.2f} us "
+                    f"({fma['dkv'][1]})" if fma else "")
         print(f"flash_bwd {tag}: max|d| dq {errs[0]:.3g} dk {errs[1]:.3g} "
               f"dv {errs[2]:.3g} (largest reference gradient "
               f"{bwd[-1]['max_abs_ref']:.3g}); dq kernel {dq_us:.1f} us (bound "
               f"{dq_bound[0]:.2f} us, {dq_bound[1]}), dkv kernel "
               f"{dkv_us:.1f} us (bound {dkv_bound[0]:.2f} us, "
-              f"{dkv_bound[1]}), plain dq+dk+dv {plain_us:.1f} us, sdpa "
-              f"backward {sdpa_bwd_us:.1f} us {card}")
+              f"{dkv_bound[1]}){fma_note}, plain dq+dk+dv {plain_us:.1f} us, "
+              f"sdpa backward {sdpa_bwd_us:.1f} us {card}")
         del q, k, v, do, q4, k4, v4, out, lse, got, ref, lib_out
 
     stamp("3b")
@@ -4835,6 +4903,8 @@ def main() -> int:
             "design": DESIGN[name],
             "ptxas": {k: v for k, v in ptxas.items()
                       if f"{name}_" in k and re.search(r"\b48\b", k)},
+            "tf32_hmma_sass": {k: v for k, v in hmma.items()
+                               if k.startswith(f"{name}_tf32")},
             "cases": bwd})
     kernels.append({
         "name": "adam", "route": "cuda",

@@ -1,23 +1,32 @@
-"""What holds the bf16 flash kernels back, on one CUDA card: variants of
-the forward, dQ and dK/dV kernels timed against the kernels as they are.
+"""What holds the flash kernels back, on one CUDA card: variants of the
+forward, dQ and dK/dV kernels timed against the kernels as they are.
 
-    python -m ddl25spring_tpu_torch.flash_ab [--variants a,b,...] [--dh 48]
+    python -m ddl25spring_tpu_torch.flash_ab [--dtype bf16|fp32]
+        [--variants a,b,...] [--dh 48] [--baseline DIR]
 
 Each variant is a copy of ``ops/csrc`` with a few lines patched, built with
 the same nvcc flags as the real libraries (only the ``--dh`` instantiation,
 so a build takes seconds) into the git-ignored ``build/flash_ab/``, and
-swapped in under the real wrappers. Every variant is timed on the same
-inputs (the training shape, B=64 T=256 H=6 Dh=48 bf16 dh-major, causal,
-and the same at B=8) with ``bench_utils.kernel_time_us``, in two rounds in
-opposite orders, on one card. Variants that keep the arithmetic are held
-bitwise against the kernels as they are; the diagnostics, which skip work,
-are not. Prints one line per variant and shape, then one JSON line.
+swapped in under the real wrappers. ``--baseline DIR`` adds DIR (another
+checkout's ``ops/csrc``, e.g. a parent commit unpacked with ``git
+archive``) as the variant "baseline", built the same way. Every variant is timed on the
+same inputs with ``bench_utils.kernel_time_us``, in two rounds in opposite
+orders, on one card: bf16 at the training shape (B=64 T=256 H=6 Dh=48
+dh-major, causal) and at B=8; fp32 (the 3xTF32 backward) at B=8 and at the
+trainer's B=3, dh-major, and at B=8 row-major. Variants that keep the
+arithmetic are held bitwise against the kernels as they are; the
+diagnostics, which skip work, are not; every fp32 variant is held within
+1e-4 of the plain version. Prints one line per variant and shape, then one
+JSON line.
 
-The variants (``VARIANTS``): each design choice undone (each kernel's
+The bf16 variants (``VARIANTS``): each design choice undone (each kernel's
 layout read at run time, the forward's and dQ's K and V in one copy group,
-the libm ``exp2f``, no register cap), two diagnostics that time part of the work
-(no tile loads after the first, one tile per CTA), and changes that were
-tried and measured slower.
+the libm ``exp2f``, no register cap), two diagnostics that time part of the
+work (no tile loads after the first, one tile per CTA), and changes that
+were tried and measured slower. The fp32 variants (``VARIANTS_FP32``): the
+3xTF32 kernels' tile height, where the held fragments' lo parts come from,
+the step of streamed positions, the libm exponential, and TF32 hi parts
+rounded to nearest instead of truncated.
 """
 
 from __future__ import annotations
@@ -132,16 +141,36 @@ VARIANTS = {
     "dQ: 16-key steps": [(BWD, "constexpr int kKSub = 32;", "constexpr int kKSub = 16;")],
     "dQ: 64-key steps": [(BWD, "constexpr int kKSub = 32;", "constexpr int kKSub = 64;")],
 }
+# The 3xTF32 backward kernels (fp32): each choice against its alternative.
+VARIANTS_FP32 = {
+    "as built": [],
+    "32-row tiles (2 warps)": [
+        (BWD, "constexpr int kTf32Warps = 4;", "constexpr int kTf32Warps = 2;")],
+    "lo parts held": [
+        (BWD, "constexpr bool kTf32HoldLo = false;", "constexpr bool kTf32HoldLo = true;")],
+    "16-position steps": [
+        (BWD, "constexpr int kTf32Sub = 32;", "constexpr int kTf32Sub = 16;")],
+    "64-position steps": [
+        (BWD, "constexpr int kTf32Sub = 32;", "constexpr int kTf32Sub = 64;")],
+    "libm exp2f": [(BWD, "fast_exp2(fmaf(", "exp2f(fmaf(")],
+    "hi rounded to nearest": [
+        ("mma_tf32.cuh", "hi = __float_as_uint(x) & 0xffffe000u;",
+         "hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;")],
+}
 DIAGNOSTICS = ("no later loads", "first tile only")
-SHAPES = ((64, 256, 6, 48), (8, 256, 6, 48))
+BASELINE = "baseline"
+# (B, T, H, Dh, dh-major) per type.
+SHAPES = {"bf16": ((64, 256, 6, 48, True), (8, 256, 6, 48, True)),
+          "fp32": ((8, 256, 6, 48, True), (3, 256, 6, 48, True), (8, 256, 6, 48, False))}
 
 
-def _sources(patches, dh: int) -> dict:
-    """The csrc files with `patches` applied and only the instantiation of
-    head dim `dh` (rounded to 16) left in each flash dispatch."""
+def _sources(patches, dh: int, csrc: Path = _ext._CSRC) -> dict:
+    """The csrc files (of `csrc`) with `patches` applied and only the
+    instantiation of head dim `dh` (rounded to 16) left in each flash
+    dispatch."""
     n = (dh + 15) // 16
     out = {}
-    for path in _ext._CSRC.glob("*.cu*"):
+    for path in csrc.glob("*.cu*"):
         text = path.read_text()
         for name, old, new in patches:
             if name == path.name:
@@ -160,14 +189,17 @@ def _sources(patches, dh: int) -> dict:
     return out
 
 
-def build(names, dh: int):
-    """{variant: {library: ctypes.CDLL}} and {variant: ptxas lines}."""
+def build(names, dh: int, variants: dict, baseline=None):
+    """{variant: {library: ctypes.CDLL}} and {variant: ptxas lines};
+    `baseline` is the csrc directory of the variant BASELINE."""
     procs, ptxas, libs = [], {}, {}
     for v in names:
         d = BUILD / re.sub(r"\W+", "_", v)
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        for fname, text in _sources(VARIANTS[v], dh).items():
+        sources = (_sources([], dh, Path(baseline)) if v == BASELINE
+                   else _sources(variants[v], dh))
+        for fname, text in sources.items():
             (d / fname).write_text(text)
         for lib in ("flash_fwd", "flash_bwd"):
             out = d / f"lib{lib}.so"
@@ -180,7 +212,7 @@ def build(names, dh: int):
             raise RuntimeError(f"{v}: {lib} failed to build\n{log}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            m = re.search(r"([a-z_]+_mma_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
+            m = re.search(r"([a-z_0-9]+_kernel)I\w*?Li(\d+)E(?:Li(\d+)E)?", line)
             if "Compiling entry" in line and m:
                 kern = f"{m.group(1)}<{m.group(2)}" + (
                     f", layout {m.group(3)}>" if m.group(3) else ">")
@@ -197,20 +229,30 @@ def build(names, dh: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", default=",".join(VARIANTS),
-                    help="comma-separated names from VARIANTS")
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated names from VARIANTS (bf16) or "
+                         "VARIANTS_FP32 (fp32); default: all of them")
     ap.add_argument("--dh", type=int, default=48)
+    ap.add_argument("--baseline", default=None,
+                    help="another ops/csrc directory, timed as the variant "
+                         f"{BASELINE!r}")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_ab: needs a CUDA card")
-    names = ["as built"] + [v for v in args.variants.split(",")
+    variants = VARIANTS if args.dtype == "bf16" else VARIANTS_FP32
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    tol = 2e-2 if args.dtype == "bf16" else 1e-4
+    names = ["as built"] + [v for v in (args.variants or ",".join(variants)).split(",")
                             if v and v != "as built"]
+    if args.baseline:
+        names.append(BASELINE)
     card = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
     print(card)
     t0 = time.perf_counter()
-    libs, ptxas = build(names, args.dh)
+    libs, ptxas = build(names, args.dh, variants, args.baseline)
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for v in names:
         print(f"ptxas {v}: {ptxas.get(v)}")
@@ -218,25 +260,28 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    cases = {}
-    for b, t, h, dh in SHAPES:
+    cases, plain = {}, {}
+    for b, t, h, _, dh_major in SHAPES[args.dtype]:
         dh = args.dh
-        q, k, v, do = (torch.randn(b, t, h, dh, generator=gen, device=dev).bfloat16()
+        q, k, v, do = (torch.randn(b, t, h, dh, generator=gen, device=dev).to(dtype)
                        for _ in range(4))
-        q4, k4, v4, out, lse = fa._fwd(q, k, v, causal=True, dh_major=True)
+        q4, k4, v4, out, lse = fa._fwd(q, k, v, causal=True, dh_major=dh_major)
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, t)
         ref_out, _ = fa.flash_attention_reference(q, k, v)
         err = (out.float() - ref_out.float()).abs().max().item()
-        if not err <= 2e-2:
+        if not err <= tol:
             raise RuntimeError(f"the kernel as built is off its plain version: {err}")
         o4 = torch.empty_like(q4)
-        grads = [torch.empty(b, t, h, dh, device=dev, dtype=torch.bfloat16
-                             ).permute(0, 2, 1, 3) for _ in range(3)]
-        cases[(b, t, h, dh)] = ((q4, k4, v4, o4), torch.empty_like(lse),
-                                (q4, k4, v4, do.permute(0, 2, 1, 3)), grads, lse, delta)
+        grads = [torch.empty(b, t, h, dh, device=dev, dtype=dtype).permute(0, 2, 1, 3)
+                 for _ in range(3)]
+        key = (b, t, h, dh, "dh-major" if dh_major else "row-major")
+        cases[key] = ((q4, k4, v4, o4), torch.empty_like(lse),
+                      (q4, k4, v4, do.permute(0, 2, 1, 3)), grads, lse, delta)
+        plain[key] = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
 
     real = _ext.library
     results = {v: {} for v in names}
+    errors = {}
 
     def run(v, check):
         _ext.library = lambda name: libs[v][name]
@@ -251,9 +296,16 @@ def main() -> int:
                     fwd(), dq(), dkv()
                     torch.cuda.synchronize()
                     got = [x.clone() for x in (fops[3], flse, *grads)]
+                    if args.dtype == "fp32":
+                        err = max((g.permute(0, 2, 1, 3) - r).abs().max().item()
+                                  for g, r in zip(got[2:], plain[shape]))
+                        errors.setdefault(v, {})[str(shape)] = err
+                        if not err <= tol:
+                            raise RuntimeError(f"{v} at {shape}: max|d| {err:.3g} from "
+                                               f"the plain version, over {tol}")
                     if v == "as built":
                         ref[shape] = got
-                    elif v not in DIAGNOSTICS:
+                    elif v not in DIAGNOSTICS and v != BASELINE:
                         same = all(torch.equal(a, r) for a, r in zip(got, ref[shape]))
                         bitwise.setdefault(v, True)
                         bitwise[v] &= same
@@ -274,8 +326,8 @@ def main() -> int:
         for v in order:
             run(v, False)
     sdpa, sdpa_bwd = {}, {}
-    for b, t, h, dh in cases:
-        qs, ks, vs = (torch.randn(b, h, t, dh, generator=gen, device=dev).bfloat16()
+    for b, t, h, dh, _ in cases:
+        qs, ks, vs = (torch.randn(b, h, t, dh, generator=gen, device=dev).to(dtype)
                       .requires_grad_() for _ in range(3))
         sdpa[str((b, t, h, dh))] = kernel_time_us(
             lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
@@ -285,16 +337,17 @@ def main() -> int:
         sdpa_bwd[str((b, t, h, dh))] = kernel_time_us(
             lambda: torch.autograd.grad(out, (qs, ks, vs), do_s, retain_graph=True))
     for shape in cases:
-        print(f"{shape}: SDPA forward {sdpa[str(shape)]:.1f} us, backward (dq, dk, dv) "
-              f"{sdpa_bwd[str(shape)]:.1f} us [{card}]")
+        sd = str(shape[:4])
+        print(f"{shape}: SDPA forward {sdpa[sd]:.1f} us, backward (dq, dk, dv) "
+              f"{sdpa_bwd[sd]:.1f} us [{card}]")
         for v in names:
             r = results[v][str(shape)]
             print(f"{shape} {v:>24}: forward {r['fwd_us'][0]:.1f} / {r['fwd_us'][1]:.1f} us, "
                   f"dQ {r['dq_us'][0]:.1f} / {r['dq_us'][1]:.1f} us, "
                   f"dK/dV {r['dkv_us'][0]:.1f} / {r['dkv_us'][1]:.1f} us [{card}]")
-    print(json.dumps({"card": card, "dh": args.dh, "variants": results,
-                      "bitwise_as_built": bitwise, "ptxas": ptxas,
-                      "sdpa_fwd_us": sdpa, "sdpa_bwd_us": sdpa_bwd}))
+    print(json.dumps({"card": card, "dtype": args.dtype, "dh": args.dh, "variants": results,
+                      "bitwise_as_built": bitwise, "max_abs_err_plain": errors,
+                      "ptxas": ptxas, "sdpa_fwd_us": sdpa, "sdpa_bwd_us": sdpa_bwd}))
     return 0
 
 

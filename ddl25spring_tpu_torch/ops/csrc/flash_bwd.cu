@@ -53,325 +53,67 @@
 //    dP^T = V.dO^T; P^T and dS^T as above; dV += P^T.dO and dK += dS^T.Q.
 //    Registers capped for 3 CTAs per SM at Dh <= 64.
 //
-// fp32: register-tiled FMA code, no tensor cores (no TF32: the fp32 limits
-// are 1e-4). CTAs of 256 threads on 64 x 64 tiles, the heaviest first (dQ:
-// the last query tiles; dK/dV: the first key tiles). Every product is
-// register-tiled: a 16 x 16 thread grid where each thread owns 4 rows x 4
-// columns of S, dP and dS (then 4 rows x Dh/16 dims of the accumulated
-// gradient), so each shared-memory load feeds 4 FMAs. Tiles are staged
-// transposed (dim-major) in shared memory as fp32; an operand read 4 rows at
-// a time as a float4 gets a row stride of 68 floats, one read one column per
-// lane a stride of 65, so both reads and the transposed stores are free of
-// bank conflicts. P and dS go through shared memory into the gradient
-// products.
+// fp32: both kernels on the tensor cores too, in 3xTF32 (mma_tf32.cuh): each
+// product of two fp32 operands is a_lo.b_hi + a_hi.b_lo + a_hi.b_hi on
+// mma.sync m16n8k8 TF32, hi the operand cut to TF32 and lo the remainder. One
+// TF32 product keeps ~3 digits and puts the gradients ~1e-2 off fp32 at T=256,
+// Dh=48; three keep them within ~1e-5, inside the fp32 limit of 1e-4. The
+// tensor cores' fp32 sums truncate, so a long sum drifts (2.5e-4 at T=4096
+// when every product went into one accumulator): each step's gradient products
+// go into fresh accumulators, NC head-dim n-tiles at a time, which are added
+// to running sums in shared memory (each thread's own words) in rounded fp32.
+// CTAs of kTf32Warps warps, 16 rows each; the rows' operands are A fragments
+// read once from device memory into registers (DP <= 48; a wider head reads
+// them from L1 at each use), and the other side's 64-position tiles stream
+// through a shared-memory double buffer filled with cp.async (16-byte copies
+// where rows are aligned, else one element each) in mma_tf32.cuh's padded
+// layouts, read at a per-lane base plus compile-time offsets. B fragments are
+// split into hi and lo as they are read. Score columns hold permuted
+// positions, so the accumulators of P and dS are, as they are, the A fragments
+// of the gradient products. Each 3xTF32 step is three passes over independent
+// accumulators. The exponentials run on the SFU (fast_exp2: the same results
+// as libm's exp2f here, 5-7% faster, PERF.md). The streamed operands' layouts
+// are a template parameter (four pairs); the fp32 kernels exist for DP = 48,
+// 64 and 128. The gradients are written from registers through their
+// strides. A warp skips a step of kTf32Sub positions that the causal mask
+// hides from all of its rows.
+//  - dQ, flash_bwd_dq_tf32_kernel: one CTA per (batch*head, kTf32Rows-query
+//    tile), the last (heaviest) first; K and V tiles in one copy group per
+//    tile; S = Q.K^T and dP = dO.V^T interleaved, then P, dS and dQ += dS.K.
+//  - dK/dV, flash_bwd_dkv_tf32_kernel: one CTA per (batch*head,
+//    kTf32Rows-key tile), key tile 0 first; Q and dO tiles from the diagonal
+//    with their lse and delta; S^T = K.Q^T and dP^T = V.dO^T, then dV +=
+//    P^T.dO and dK += dS^T.Q.
 //
 // What bounds them on this card: at the training shape (B=64, H=6, T=256,
 // Dh=48, bf16) the dQ kernel does 6*Dh and the dK/dV kernel 8*Dh operations
 // per visible pair (12.6 M pairs) against ~48 / ~57 MB of operand traffic:
-// the bytes bound both functions (14.3 / 17.1 us, PERF.md). The tensor-core
-// kernels are held back by latency instead: a CTA walks 1-4 tiles, so its
-// first loads (four tiles before its first product) and its epilogue are a
-// large share of its time, and registers decide how many CTAs per SM hide
-// one another's waits. The designs answer with the heaviest CTAs first,
-// later tiles loaded during the current tile's products, operands that stay
-// in registers, and the register caps above. The fp32 FMA kernels are held
-// back by the fp32 FMA rate.
+// the bytes bound both functions (14.3 / 17.1 us, PERF.md). In fp32 the
+// least time for fp32-accurate products is at 3xTF32, a third of the TF32
+// rate (495 / 3 = 165 TFLOP/s): at B=8 the bytes bound them too (3.55 / 4.25
+// us; 6.79 / 9.05 us at the 67 TFLOP/s of fp32 FMAs). The kernels are held
+// back by latency instead: a CTA walks 1-4 tiles, so its first loads and its
+// epilogue are a large share of its time, and registers decide how many CTAs
+// per SM hide one another's waits. The designs answer with the heaviest CTAs
+// first, later tiles loaded during the current tile's products, operands
+// that stay in registers, and (bf16) the register caps above. In fp32 a
+// warp issues three mma per 8-wide step where bf16 issues one per 16, and
+// each B element costs a shared load and a split, so one warp's instruction
+// stream sets the pace of its CTA: a CTA's time hardly moves from B=8 to
+// B=3 (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <type_traits>
+
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;                   // queries and keys per tile
-constexpr int kTX = 16;                      // threads along columns / dims
-constexpr int kTY = kBlock / 4;              // threads along rows (4 rows each)
-constexpr int kThreads = kTX * kTY;
-constexpr int kPer = kBlock / kTX;           // columns per thread
-constexpr int kVecPad = kBlock + 4;          // row stride of float4-read tiles
-constexpr int kOddPad = kBlock + 1;          // row stride of column-read tiles
+constexpr int kBlock = 64;                   // positions per streamed tile (bf16: per CTA too)
 constexpr float kLog2e = 1.4426950408889634f;
-
-// Element (t, d) of rows [t0, t0 + kBlock) of one head, read in the operand's
-// own contiguous order and stored transposed: dst[d * pad + t] (zero past seq
-// and dh).
-template <int DP>
-__device__ __forceinline__ void load_t(const float* __restrict__ src, const Strides& s, int t0,
-                                       int seq, int dh, float* dst, int pad) {
-  const bool dim_fastest = (s.d == 1);
-  for (int idx = threadIdx.x; idx < kBlock * DP; idx += kThreads) {
-    int t, d;
-    if (dim_fastest) {
-      t = idx / DP;
-      d = idx % DP;
-    } else {
-      d = idx / kBlock;
-      t = idx % kBlock;
-    }
-    const int pos = t0 + t;
-    float x = 0.f;
-    if (pos < seq && d < dh) x = src[pos * s.t + d * s.d];
-    dst[d * pad + t] = x;
-  }
-}
-
-// Rows r0..r0+3 of a [4 x DP] register accumulator to rows t0 + r0 + i of a
-// [seq, dh] gradient through strides (dims tx + 16 c).
-template <int NC>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, const Strides& s, int t0,
-                                           int r0, int tx, int seq, int dh,
-                                           const float (&acc)[4][NC]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int pos = t0 + r0 + i;
-    if (pos >= seq) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < dh) dst[pos * s.t + d * s.d] = acc[i][c];
-    }
-  }
-}
-
-template <int DP>
-constexpr int dq_smem_floats() {
-  return 2 * DP * kVecPad + 2 * DP * kOddPad + kBlock * kVecPad;
-}
-
-template <int DP>
-constexpr int dkv_smem_floats() {
-  return 2 * DP * kVecPad + 2 * DP * kOddPad + 2 * kBlock * kVecPad + 2 * kBlock;
-}
-
-// dQ, fp32: one CTA per (batch*head, 64-query tile); walks the key tiles up
-// to the diagonal (causal) or to T.
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int heads, int seq, int dh, Strides sq, Strides sk,
-                    Strides sv, Strides sdo, Strides sdq, float scale, int causal) {
-  constexpr int NC = DP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                         // [DP][kVecPad]  Q transposed
-  float* dot = qt + DP * kVecPad;           // [DP][kVecPad]  dO transposed
-  float* kt = dot + DP * kVecPad;           // [DP][kOddPad]  K transposed
-  float* vt = kt + DP * kOddPad;            // [DP][kOddPad]  V transposed
-  float* dst = vt + DP * kOddPad;           // [kBlock][kVecPad]  dS transposed (key, query)
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int h = bh % heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;
-  const int tx = threadIdx.x % kTX;
-  const int ty = threadIdx.x / kTX;
-  const int r0 = ty * 4;
-  const float sl2 = scale * kLog2e;
-
-  load_t<DP>(q + b * sq.b + h * sq.h, sq, q0, seq, dh, qt, kVecPad);
-  load_t<DP>(dout + b * sdo.b + h * sdo.h, sdo, q0, seq, dh, dot, kVecPad);
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-
-  float lse2[4], dlt[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + r0 + i;
-    const long long row = static_cast<long long>(bh) * seq + qpos;
-    lse2[i] = qpos < seq ? lse[row] * kLog2e : 0.f;
-    dlt[i] = qpos < seq ? delta[row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int q_last = min(q0 + kBlock, seq) - 1;
-  const int k_end = causal ? q_last + 1 : seq;
-  for (int k0 = 0; k0 < k_end; k0 += kBlock) {
-    __syncthreads();
-    load_t<DP>(kb, sk, k0, seq, dh, kt, kOddPad);
-    load_t<DP>(vb, sv, k0, seq, dh, vt, kOddPad);
-    __syncthreads();
-
-    // S and dP micro-tiles: rows r0..r0+3, keys tx + 16 j.
-    float s[4][kPer], dp[4][kPer];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qt[d * kVecPad + r0]);
-      const float4 g = *reinterpret_cast<const float4*>(&dot[d * kVecPad + r0]);
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const float bk = kt[d * kOddPad + tx + kTX * j];
-        const float bv = vt[d * kOddPad + tx + kTX * j];
-        s[0][j] = fmaf(a.x, bk, s[0][j]);
-        s[1][j] = fmaf(a.y, bk, s[1][j]);
-        s[2][j] = fmaf(a.z, bk, s[2][j]);
-        s[3][j] = fmaf(a.w, bk, s[3][j]);
-        dp[0][j] = fmaf(g.x, bv, dp[0][j]);
-        dp[1][j] = fmaf(g.y, bv, dp[1][j]);
-        dp[2][j] = fmaf(g.z, bv, dp[2][j]);
-        dp[3][j] = fmaf(g.w, bv, dp[3][j]);
-      }
-    }
-    // dS = P (dP - delta) scale, P recomputed from the saved lse.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + r0 + i;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int kp = k0 + tx + kTX * j;
-        const bool visible = qpos < seq && (causal ? kp <= qpos : kp < seq);
-        const float p = visible ? exp2f(s[i][j] * sl2 - lse2[i]) : 0.f;
-        s[i][j] = p * (dp[i][j] - dlt[i]) * scale;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      *reinterpret_cast<float4*>(&dst[(tx + kTX * j) * kVecPad + r0]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
-
-    // dQ micro-tile: rows r0..r0+3, dims tx + 16 c.
-#pragma unroll 4
-    for (int kk = 0; kk < kBlock; ++kk) {
-      const float4 ds = *reinterpret_cast<const float4*>(&dst[kk * kVecPad + r0]);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float kv = kt[(tx + 16 * c) * kOddPad + kk];
-        acc[0][c] = fmaf(ds.x, kv, acc[0][c]);
-        acc[1][c] = fmaf(ds.y, kv, acc[1][c]);
-        acc[2][c] = fmaf(ds.z, kv, acc[2][c]);
-        acc[3][c] = fmaf(ds.w, kv, acc[3][c]);
-      }
-    }
-  }
-  store_rows<NC>(dq + b * sdq.b + h * sdq.h, sdq, q0, r0, tx, seq, dh, acc);
-}
-
-// dK/dV, fp32: one CTA per (batch*head, 64-key tile); walks the query tiles
-// from the diagonal (causal) or from 0 to T.
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv,
-                     int heads, int seq, int dh, Strides sq, Strides sk, Strides sv, Strides sdo,
-                     Strides sdk, Strides sdv, float scale, int causal) {
-  constexpr int NC = DP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                         // [DP][kVecPad]  K transposed
-  float* vt = kt + DP * kVecPad;            // [DP][kVecPad]  V transposed
-  float* qt = vt + DP * kVecPad;            // [DP][kOddPad]  Q transposed
-  float* dot = qt + DP * kOddPad;           // [DP][kOddPad]  dO transposed
-  float* ps = dot + DP * kOddPad;           // [kBlock][kVecPad]  P (query, key)
-  float* dss = ps + kBlock * kVecPad;       // [kBlock][kVecPad]  dS (query, key)
-  float* lse2 = dss + kBlock * kVecPad;     // [kBlock]  lse * log2(e) of the query tile
-  float* dlt = lse2 + kBlock;               // [kBlock]  delta of the query tile
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int h = bh % heads;
-  const int k0 = blockIdx.y * kBlock;
-  const int tx = threadIdx.x % kTX;
-  const int ty = threadIdx.x / kTX;
-  const int r0 = ty * 4;
-  const float sl2 = scale * kLog2e;
-
-  load_t<DP>(k + b * sk.b + h * sk.h, sk, k0, seq, dh, kt, kVecPad);
-  load_t<DP>(v + b * sv.b + h * sv.h, sv, k0, seq, dh, vt, kVecPad);
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* dob = dout + b * sdo.b + h * sdo.h;
-
-  float acc_k[4][NC], acc_v[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  for (int q0 = causal ? k0 : 0; q0 < seq; q0 += kBlock) {
-    __syncthreads();
-    load_t<DP>(qb, sq, q0, seq, dh, qt, kOddPad);
-    load_t<DP>(dob, sdo, q0, seq, dh, dot, kOddPad);
-    if (threadIdx.x < kBlock) {
-      const int qpos = q0 + threadIdx.x;
-      const long long row = static_cast<long long>(bh) * seq + qpos;
-      lse2[threadIdx.x] = qpos < seq ? lse[row] * kLog2e : 0.f;
-      dlt[threadIdx.x] = qpos < seq ? delta[row] : 0.f;
-    }
-    __syncthreads();
-
-    // S and dP transposed: rows = keys r0..r0+3, columns = queries tx + 16 j.
-    float s[4][kPer], dp[4][kPer];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&kt[d * kVecPad + r0]);
-      const float4 w = *reinterpret_cast<const float4*>(&vt[d * kVecPad + r0]);
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const float bq = qt[d * kOddPad + tx + kTX * j];
-        const float bo = dot[d * kOddPad + tx + kTX * j];
-        s[0][j] = fmaf(a.x, bq, s[0][j]);
-        s[1][j] = fmaf(a.y, bq, s[1][j]);
-        s[2][j] = fmaf(a.z, bq, s[2][j]);
-        s[3][j] = fmaf(a.w, bq, s[3][j]);
-        dp[0][j] = fmaf(w.x, bo, dp[0][j]);
-        dp[1][j] = fmaf(w.y, bo, dp[1][j]);
-        dp[2][j] = fmaf(w.z, bo, dp[2][j]);
-        dp[3][j] = fmaf(w.w, bo, dp[3][j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int qc = tx + kTX * j;
-      const int qpos = q0 + qc;
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kp = k0 + r0 + i;
-        const bool visible = qpos < seq && (causal ? kp <= qpos : kp < seq);
-        p[i] = visible ? exp2f(s[i][j] * sl2 - lse2[qc]) : 0.f;
-        ds[i] = p[i] * (dp[i][j] - dlt[qc]) * scale;
-      }
-      *reinterpret_cast<float4*>(&ps[qc * kVecPad + r0]) = make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(&dss[qc * kVecPad + r0]) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();
-
-    // dV and dK micro-tiles: rows = keys r0..r0+3, dims tx + 16 c.
-#pragma unroll 4
-    for (int qq = 0; qq < kBlock; ++qq) {
-      const float4 p = *reinterpret_cast<const float4*>(&ps[qq * kVecPad + r0]);
-      const float4 ds = *reinterpret_cast<const float4*>(&dss[qq * kVecPad + r0]);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float o = dot[(tx + 16 * c) * kOddPad + qq];
-        const float x = qt[(tx + 16 * c) * kOddPad + qq];
-        acc_v[0][c] = fmaf(p.x, o, acc_v[0][c]);
-        acc_v[1][c] = fmaf(p.y, o, acc_v[1][c]);
-        acc_v[2][c] = fmaf(p.z, o, acc_v[2][c]);
-        acc_v[3][c] = fmaf(p.w, o, acc_v[3][c]);
-        acc_k[0][c] = fmaf(ds.x, x, acc_k[0][c]);
-        acc_k[1][c] = fmaf(ds.y, x, acc_k[1][c]);
-        acc_k[2][c] = fmaf(ds.z, x, acc_k[2][c]);
-        acc_k[3][c] = fmaf(ds.w, x, acc_k[3][c]);
-      }
-    }
-  }
-  store_rows<NC>(dk + b * sdk.b + h * sdk.h, sdk, k0, r0, tx, seq, dh, acc_k);
-  store_rows<NC>(dv + b * sdv.b + h * sdv.h, sdv, k0, r0, tx, seq, dh, acc_v);
-}
 
 // ------------------------------------------------------ bf16 tensor cores
 
@@ -711,6 +453,364 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_tile<DP, kMmaThreads>(dv + b * sdv.b + h * sdv.h, sdv, md.g1, vs, k0, seq, dh);
 }
 
+// ------------------------------------------------------ fp32 tensor cores
+
+constexpr int kTf32Warps = 4;                  // warps per CTA, 16 rows each
+constexpr int kTf32Rows = 16 * kTf32Warps;     // queries (dQ) or keys (dK/dV) per CTA
+constexpr int kTf32Threads = 32 * kTf32Warps;
+constexpr int kTf32Sub = 32;                   // streamed positions per step of the products
+constexpr bool kTf32HoldLo = false;            // held A fragments split once (else at each use)
+
+// n-tiles of the head dim per pass of a gradient product: 3 or 4, as many
+// independent accumulators as its B fragments' registers allow.
+template <int NK>
+__host__ __device__ constexpr int grad_chunk() {
+  return NK % 3 == 0 ? 3 : 4;
+}
+
+// A warp's held A fragments over the head dim (NK k-steps of 8), rows r0 + g
+// and r0 + g + 8 of one head: in registers up to DP = 48, split into hi and
+// lo once (kTf32HoldLo) or held as fp32 and split at each use; a wider head
+// reads them again from device memory (L1) at each use, so that no kernel
+// spills.
+template <int NK>
+struct HeldA {
+  static constexpr bool kRegs = NK <= 6;
+  Tf32Frag<4> f[kRegs ? NK : 1];
+  float x[kRegs ? NK : 1][4];
+  const float* src;
+  Strides s;
+  int r0, seq, dh;
+
+  __device__ __forceinline__ void load(const float* __restrict__ src_, const Strides& s_, int r0_,
+                                       int seq_, int dh_) {
+    src = src_, s = s_, r0 = r0_, seq = seq_, dh = dh_;
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        load_a_f32(x[kk], src, s, r0, seq, dh, kk);
+        if (kTf32HoldLo) f[kk] = split_frag(x[kk]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ Tf32Frag<4> get(int kk) const {
+    if constexpr (kRegs) {
+      return kTf32HoldLo ? f[kk] : split_frag(x[kk]);
+    } else {
+      float v[4];
+      load_a_f32(v, src, s, r0, seq, dh, kk);
+      return split_frag(v);
+    }
+  }
+};
+
+// Double-buffered K and V tiles, then each thread's running dQ sums.
+template <int DP>
+constexpr int dq_tf32_smem_bytes() {
+  return 4 * 4 * f32_tile_floats<DP>() + kTf32Threads * DP / 2 * 4;
+}
+
+// Double-buffered Q and dO tiles, the query tiles' lse and delta ([2
+// buffers][lse, delta][kBlock] floats), then each thread's running dK and
+// dV sums.
+template <int DP>
+constexpr int dkv_tf32_smem_bytes() {
+  return 4 * 4 * f32_tile_floats<DP>() + 2 * 2 * kBlock * 4 + 2 * kTf32Threads * DP / 2 * 4;
+}
+
+// L: bit 0 set where K is dh-major, bit 1 where V is (the tiles' layouts);
+// mode_k and mode_v (mma_tf32.cuh) say whether their rows take 16-byte copies.
+template <int DP, int L>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq, int heads, int seq, int dh, Strides sq,
+                         Strides sk, Strides sv, Strides sdo, Strides sdq, int mode_k,
+                         int mode_v, float scale, int causal) {
+  constexpr int NK = DP / 8;          // 8-wide k-steps (and n-tiles) over the head dim
+  constexpr int NS = kTf32Sub / 8;    // 8-wide n-tiles over a step's keys
+  constexpr int TF = f32_tile_floats<DP>();
+  constexpr bool kdh = L & 1, vdh = L & 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);   // [2] K tiles
+  float* vs = ks + 2 * TF;                          // [2] V tiles
+  float* sums = vs + 2 * TF;                        // dQ over the finished key tiles
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTf32Rows;
+  const int lane = threadIdx.x & 31;
+  const int wrow = q0 + 16 * (threadIdx.x >> 5);   // this warp's first query
+  const int row0 = wrow + (lane >> 2);             // this thread's queries: row0, row0 + 8
+  const int t4 = lane & 3;                         // and keys t4, t4 + 4 of each 8
+  const float c = scale * kLog2e;
+
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int q_last = min(q0 + kTf32Rows, seq) - 1;
+  const int n_k = ((causal ? q_last + 1 : seq) + kBlock - 1) / kBlock;
+
+  stage_tile_f32<DP, kTf32Threads>(ks, kb, sk, mode_k, 0, seq, dh);
+  stage_tile_f32<DP, kTf32Threads>(vs, vb, sv, mode_v, 0, seq, dh);
+  cp_async_commit();
+
+  const F32Reads<DP> kr(kdh), vr(vdh);
+  HeldA<NK> qa, doa;
+  qa.load(q + b * sq.b + h * sq.h, sq, wrow, seq, dh);
+  doa.load(dout + b * sdo.b + h * sdo.h, sdo, wrow, seq, dh);
+  // The two rows' lse (log2 domain) and delta; a row past seq reads neither.
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const long long at = static_cast<long long>(bh) * seq + row;
+    lse2[i] = row < seq ? lse[at] * kLog2e : 0.f;
+    dlt[i] = row < seq ? delta[at] : 0.f;
+  }
+  constexpr int NC = grad_chunk<NK>();
+  zero_sums<NK, kTf32Threads>(sums);
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_k) {
+      stage_tile_f32<DP, kTf32Threads>(ks + (buf ^ 1) * TF, kb, sk, mode_k, (kt + 1) * kBlock,
+                                       seq, dh);
+      stage_tile_f32<DP, kTf32Threads>(vs + (buf ^ 1) * TF, vb, sv, mode_v, (kt + 1) * kBlock,
+                                       seq, dh);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile's K and V (the next tile's in flight)
+    __syncthreads();
+    const float* kt_s = ks + buf * TF;
+    const float* vt_s = vs + buf * TF;
+
+#pragma unroll 1
+    for (int sub = 0; sub < kBlock; sub += kTf32Sub) {
+      const int key_base = kt * kBlock + sub;
+      if (causal && key_base > wrow + 15) continue;   // every key after this warp's queries
+      const float* k_sub = kt_s + f32_at<DP>(kdh, sub, 0);
+      const float* v_sub = vt_s + f32_at<DP>(vdh, sub, 0);
+      // S = Q K^T and dP = dO V^T: this warp's 16 queries x kTf32Sub keys.
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+#pragma unroll(NK <= 6 ? NK : 2)
+      for (int kk = 0; kk < NK; ++kk) {
+        const Tf32Frag<4> qf = qa.get(kk), df = doa.get(kk);
+        Tf32Frag<2> bk[NS], bv[NS];
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          bk[j] = f32_b_scores<DP>(k_sub, kdh, kr.scores, 8 * j, 8 * kk);
+          bv[j] = f32_b_scores<DP>(v_sub, vdh, vr.scores, 8 * j, 8 * kk);
+        }
+        mma_3xtf32<NS, true>(s, qf, bk, dp, df, bv);
+      }
+
+      // P from the saved lse, masked only where the step meets the causal
+      // diagonal or the ragged edge; dS = P (dP - delta) scale.
+      const bool edge = wrow + 16 > seq ||
+                        (causal ? key_base + kTf32Sub - 1 > wrow : key_base + kTf32Sub > seq);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key_base + 8 * j + t4 + 4 * (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          const bool visible = !edge || (row < seq && (causal ? key <= row : key < seq));
+          const float p = visible ? fast_exp2(fmaf(s[j][e], c, -lse2[e >> 1])) : 0.f;
+          dp[j][e] = p * (dp[j][e] - dlt[e >> 1]) * scale;
+        }
+      }
+
+      // dQ += dS K, dS's accumulators as A fragments: NC n-tiles of dims at
+      // a time, summed over the step in fresh accumulators, then added to
+      // the running sums.
+      Tf32Frag<4> af[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        float a[4];
+        acc_a(a, dp[j]);
+        af[j] = split_frag(a);
+      }
+#pragma unroll
+      for (int n0 = 0; n0 < NK; n0 += NC) {
+        float part[NC][4] = {};
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          Tf32Frag<2> bg[NC];
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            bg[i] = f32_b_grads<DP>(k_sub, kdh, kr.grads, 8 * j, 8 * (n0 + i));
+          }
+          mma_3xtf32<NC, false>(part, af[j], bg, nullptr, af[j], bg);
+        }
+        add_sums<NC, kTf32Threads>(sums + 4 * n0 * kTf32Threads, part);
+      }
+    }
+    __syncthreads();   // buffer `buf` is refilled at the next iteration
+  }
+  float acc[NK][4];
+  load_sums<NK, kTf32Threads>(acc, sums);
+  store_acc_f32<NK>(dq + b * sdq.b + h * sdq.h, sdq, wrow, seq, dh, acc);
+}
+
+// L: bit 0 set where Q is dh-major, bit 1 where dO is (the tiles' layouts);
+// mode_q and mode_do say whether their rows take 16-byte copies.
+template <int DP, int L>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv, int heads, int seq,
+                          int dh, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+                          Strides sdv, int mode_q, int mode_do, float scale, int causal) {
+  constexpr int NK = DP / 8;          // 8-wide k-steps (and n-tiles) over the head dim
+  constexpr int NQ = kTf32Sub / 8;    // 8-wide n-tiles over a step's queries
+  constexpr int TF = f32_tile_floats<DP>();
+  constexpr bool qdh = L & 1, odh = L & 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);   // [2] Q tiles
+  float* dos = qs + 2 * TF;                         // [2] dO tiles
+  float* rows = dos + 2 * TF;                       // [2][lse, delta][kBlock]
+  float* sums_k = rows + 2 * 2 * kBlock;            // dK and dV over the finished query tiles
+  float* sums_v = sums_k + kTf32Threads * NK * 4;
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int k0 = blockIdx.y * kTf32Rows;
+  const int lane = threadIdx.x & 31;
+  const int wkey = k0 + 16 * (threadIdx.x >> 5);   // this warp's first key
+  const int key0 = wkey + (lane >> 2);             // this thread's keys: key0, key0 + 8
+  const int t4 = lane & 3;                         // and queries t4, t4 + 4 of each 8
+  const float c = scale * kLog2e;
+
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
+  const long long row_base = static_cast<long long>(bh) * seq;
+  const int n_q = (seq + kBlock - 1) / kBlock;
+  const int first = causal ? k0 / kBlock : 0;
+
+  // Query tile qt's Q, dO, lse and delta into buffer `buf`.
+  auto stage_queries = [&](int qt, int buf) {
+    const int q0 = qt * kBlock;
+    stage_tile_f32<DP, kTf32Threads>(qs + buf * TF, qb, sq, mode_q, q0, seq, dh);
+    stage_tile_f32<DP, kTf32Threads>(dos + buf * TF, dob, sdo, mode_do, q0, seq, dh);
+    for (int i = threadIdx.x; i < 2 * kBlock; i += kTf32Threads) {
+      const int pos = q0 + i % kBlock;
+      const float* src = (i < kBlock ? lse : delta) + row_base + pos;
+      cp_async_4(smem_u32(rows + buf * 2 * kBlock + i), pos < seq ? src : lse,
+                 pos < seq ? 4 : 0);
+    }
+  };
+  stage_queries(first, 0);
+  cp_async_commit();
+
+  const F32Reads<DP> qr(qdh), dr(odh);
+  HeldA<NK> ka, va;
+  ka.load(k + b * sk.b + h * sk.h, sk, wkey, seq, dh);
+  va.load(v + b * sv.b + h * sv.h, sv, wkey, seq, dh);
+  constexpr int NC = grad_chunk<NK>();
+  zero_sums<NK, kTf32Threads>(sums_k);
+  zero_sums<NK, kTf32Threads>(sums_v);
+
+  for (int qt = first; qt < n_q; ++qt) {
+    const int buf = (qt - first) & 1;
+    if (qt + 1 < n_q) stage_queries(qt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // everything but the tile just requested
+    __syncthreads();
+    const int q0 = qt * kBlock;
+    const float* qt_s = qs + buf * TF;
+    const float* dt_s = dos + buf * TF;
+    const float* lse_t = rows + buf * 2 * kBlock;
+    const float* delta_t = lse_t + kBlock;
+
+#pragma unroll 1
+    for (int sub = 0; sub < kBlock; sub += kTf32Sub) {
+      if (causal && wkey > q0 + sub + kTf32Sub - 1) continue;   // every query before these keys
+      const float* q_sub = qt_s + f32_at<DP>(qdh, sub, 0);
+      const float* d_sub = dt_s + f32_at<DP>(odh, sub, 0);
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x kTf32Sub queries.
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      }
+#pragma unroll(NK <= 6 ? NK : 2)
+      for (int kk = 0; kk < NK; ++kk) {
+        const Tf32Frag<4> kf = ka.get(kk), vf = va.get(kk);
+        Tf32Frag<2> bq[NQ], bo[NQ];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          bq[j] = f32_b_scores<DP>(q_sub, qdh, qr.scores, 8 * j, 8 * kk);
+          bo[j] = f32_b_scores<DP>(d_sub, odh, dr.scores, 8 * j, 8 * kk);
+        }
+        mma_3xtf32<NQ, true>(st, kf, bq, dpt, vf, bo);
+      }
+
+      // P^T from the saved lse, masked; dS^T = P^T (dP^T - delta) scale.
+      const bool edge = q0 + sub + kTf32Sub > seq ||
+                        (causal ? wkey + 15 > q0 + sub : wkey + 16 > seq);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = sub + 8 * j + t4 + 4 * (e & 1);
+          const int qpos = q0 + qc;
+          const int kpos = key0 + 8 * (e >> 1);
+          const bool visible = !edge || (qpos < seq && (causal ? kpos <= qpos : kpos < seq));
+          const float p = visible ? fast_exp2(fmaf(st[j][e], c, -lse_t[qc] * kLog2e)) : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - delta_t[qc]) * scale;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q, their accumulators as A fragments:
+      // NC n-tiles of dims at a time, summed over the step in fresh
+      // accumulators, then added to the running sums.
+      Tf32Frag<4> pf[NQ], df[NQ];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        float a[4];
+        acc_a(a, st[j]);
+        pf[j] = split_frag(a);
+        acc_a(a, dpt[j]);
+        df[j] = split_frag(a);
+      }
+#pragma unroll
+      for (int n0 = 0; n0 < NK; n0 += NC) {
+        float part_v[NC][4] = {}, part_k[NC][4] = {};
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          Tf32Frag<2> bo[NC], bq[NC];
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            bo[i] = f32_b_grads<DP>(d_sub, odh, dr.grads, 8 * j, 8 * (n0 + i));
+            bq[i] = f32_b_grads<DP>(q_sub, qdh, qr.grads, 8 * j, 8 * (n0 + i));
+          }
+          mma_3xtf32<NC, true>(part_v, pf[j], bo, part_k, df[j], bq);
+        }
+        add_sums<NC, kTf32Threads>(sums_v + 4 * n0 * kTf32Threads, part_v);
+        add_sums<NC, kTf32Threads>(sums_k + 4 * n0 * kTf32Threads, part_k);
+      }
+    }
+    __syncthreads();   // buffer `buf` is refilled at the next iteration
+  }
+  float acc[NK][4];
+  load_sums<NK, kTf32Threads>(acc, sums_k);
+  store_acc_f32<NK>(dk + b * sdk.b + h * sdk.h, sdk, wkey, seq, dh, acc);
+  load_sums<NK, kTf32Threads>(acc, sums_v);
+  store_acc_f32<NK>(dv + b * sdv.b + h * sdv.h, sdv, wkey, seq, dh, acc);
+}
+
 // ---------------------------------------------------------------- launch
 
 struct Args {
@@ -721,36 +821,6 @@ struct Args {
   float scale;
   Strides s[6];                  // q, k, v, dO, then the gradients
 };
-
-template <int DP>
-cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  constexpr int smem = 4 * dq_smem_floats<DP>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.batch * a.heads, (a.seq + kBlock - 1) / kBlock);
-  flash_bwd_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-      static_cast<float*>(a.g0), a.heads, a.seq, a.dh, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4],
-      a.scale, a.causal);
-  return cudaGetLastError();
-}
-
-template <int DP>
-cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
-  constexpr int smem = 4 * dkv_smem_floats<DP>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.batch * a.heads, (a.seq + kBlock - 1) / kBlock);
-  flash_bwd_dkv_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-      static_cast<float*>(a.g0), static_cast<float*>(a.g1), a.heads, a.seq, a.dh, a.s[0],
-      a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.scale, a.causal);
-  return cudaGetLastError();
-}
 
 // The operands' modes for the bf16 kernels; false where one has neither its
 // positions nor its dims at stride 1.
@@ -823,19 +893,77 @@ cudaError_t launch_dkv_mma(const Args& a, cudaStream_t stream) {
   }
 }
 
-// bf16: the tensor-core kernels; fp32: the FMA kernels.
+template <int DP, int L>
+cudaError_t launch_dq_tf32_l(const Args& a, int m0, int m1, cudaStream_t stream) {
+  constexpr int smem = dq_tf32_smem_bytes<DP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tf32_kernel<DP, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.batch * a.heads, (a.seq + kTf32Rows - 1) / kTf32Rows);
+  flash_bwd_dq_tf32_kernel<DP, L><<<grid, kTf32Threads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.g0), a.heads, a.seq, a.dh, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], m0,
+      m1, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int DP, int L>
+cudaError_t launch_dkv_tf32_l(const Args& a, int m0, int m1, cudaStream_t stream) {
+  constexpr int smem = dkv_tf32_smem_bytes<DP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tf32_kernel<DP, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.batch * a.heads, (a.seq + kTf32Rows - 1) / kTf32Rows);
+  flash_bwd_dkv_tf32_kernel<DP, L><<<grid, kTf32Threads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.g0), static_cast<float*>(a.g1), a.heads, a.seq, a.dh, a.s[0], a.s[1],
+      a.s[2], a.s[3], a.s[4], a.s[5], m0, m1, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// The fp32 kernels' layout parameter from the modes of their two streamed
+// operands (dQ: k and v; dK/dV: q and dO).
+template <int DP, bool DQ>
+cudaError_t launch_tf32(const Args& a, cudaStream_t st) {
+  const int i0 = DQ ? 1 : 0, i1 = DQ ? 2 : 3;
+  const void* p[4] = {a.q, a.k, a.v, a.dout};
+  const int m0 = operand_mode_f32(p[i0], a.s[i0], a.seq, a.dh);
+  const int m1 = operand_mode_f32(p[i1], a.s[i1], a.seq, a.dh);
+  auto go = [&](auto l) {
+    constexpr int L = decltype(l)::value;
+    if constexpr (DQ) {
+      return launch_dq_tf32_l<DP, L>(a, m0, m1, st);
+    } else {
+      return launch_dkv_tf32_l<DP, L>(a, m0, m1, st);
+    }
+  };
+  switch ((m0 & kDhMajor) | ((m1 & kDhMajor) << 1)) {
+    case 0: return go(std::integral_constant<int, 0>{});
+    case 1: return go(std::integral_constant<int, 1>{});
+    case 2: return go(std::integral_constant<int, 2>{});
+    default: return go(std::integral_constant<int, 3>{});
+  }
+}
+
+// bf16: the bf16 tensor-core kernels; fp32: the 3xTF32 ones.
+// The fp32 kernels exist for DP = 48, 64 and 128 (a head is padded to the
+// next): each takes seconds to compile, four layouts of each, and the build
+// shares the host with chip_smoke.py's phases 8 and 9.
 template <int DP>
 cudaError_t launch(const Args& a, bool bf, bool is_dq, cudaStream_t st) {
-  if (is_dq) return bf ? launch_dq_mma<DP>(a, st) : launch_dq<DP>(a, st);
-  return bf ? launch_dkv_mma<DP>(a, st) : launch_dkv<DP>(a, st);
+  constexpr int F = DP <= 48 ? 48 : (DP <= 64 ? 64 : 128);
+  if (is_dq) return bf ? launch_dq_mma<DP>(a, st) : launch_tf32<F, true>(a, st);
+  return bf ? launch_dkv_mma<DP>(a, st) : launch_tf32<F, false>(a, st);
 }
 
 int run(const void* q, const void* k, const void* v, const void* dout, const float* lse,
         const float* delta, void* g0, void* g1, int is_bf16, int batch, int heads, int seq,
         int dh, const long long* strides, int n_ops, float scale, int causal, void* stream,
         bool is_dq) {
-  if (batch < 1 || heads < 1 || seq < 1 || dh < 1 || dh > 128 ||
-      (seq + kBlock - 1) / kBlock > 65535) {
+  const int rows = is_bf16 ? kBlock : kTf32Rows;   // per CTA
+  if (batch < 1 || heads < 1 || seq < 1 || dh < 1 || dh > 128 || (seq + rows - 1) / rows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{q, k, v, dout, lse, delta, g0, g1, batch, heads, seq, dh, causal, scale, {}};

@@ -8,9 +8,11 @@ and ``_fwd_kernel_t``), and the backward ``csrc/flash_bwd.cu``, one dQ
 kernel (``_dq_kernel``, ``_dq_kernel_t``) and one dK/dV kernel
 (``_dkv_kernel``, ``_dkv_kernel_t``). In bf16 all three run on the tensor
 cores (``mma.sync`` through ``csrc/mma_bf16.cuh``, P and dS rounded to bf16
-before their products, fp32 accumulation); in fp32 they are FMA code in
-full fp32. The public function keeps the JAX API: ``[B, T, H, Dh]`` in and
-out, differentiable.
+before their products, fp32 accumulation). In fp32 the forward is FMA code
+in full fp32, and the two backward kernels run on the tensor cores in
+3xTF32 (``csrc/mma_tf32.cuh``: three TF32 products per fp32 one, within a
+few 1e-6 of fp32). The public function keeps the JAX API: ``[B, T, H, Dh]``
+in and out, differentiable.
 
 - ``flash_attention`` runs the kernels for CUDA tensors (forward, and on
   the backward pass dQ and dK/dV) and the plain version,

@@ -1,9 +1,9 @@
 // A CPU emulation of the CUDA features the port's kernels use, so that
 // their sources (ddl25spring_tpu_torch/ops/csrc) compile with a host C++
 // compiler and run here: every CTA runs its threads as std::threads, and
-// the warp-wide operations (ldmatrix, mma.sync m16n8k16, shuffles) meet at
-// per-warp barriers and compute their results from the PTX ISA's fragment
-// layouts. cp.async copies at once (the kernels' waits and barriers then
+// the warp-wide operations (ldmatrix, mma.sync m16n8k16 bf16 and m16n8k8
+// tf32, shuffles) meet at per-warp barriers and compute their results from
+// the PTX ISA's fragment layouts. cp.async copies at once (the kernels' waits and barriers then
 // order nothing extra). Bulk copies and mbarriers (bulk_copy.cuh): a bulk
 // load lands at once and counts its bytes in on its barrier; a bulk store
 // waits in its group and is copied when a wait_group lets its source be
@@ -67,6 +67,8 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
+inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
 struct __nv_bfloat16 { unsigned short x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 inline __nv_bfloat16 __float2bfloat16(float f) {
@@ -89,15 +91,21 @@ alignas(16) unsigned char smem_raw[232448 + 64];
 alignas(16) float smem[232448 / 4];
 }
 int g_smem_bytes = 0;                   // dynamic smem of the current launch
-thread_local int t_lane, t_warp;
+thread_local int t_lane, t_warp, t_phase;
+// A warp operation's exchange: each lane writes its operands, meets the
+// others at one barrier, and reads theirs. Successive operations alternate
+// between two exchanges, so a lane writing operation n + 2's operands has
+// passed operation n + 1's barrier, which every lane reaches only after it
+// has read operation n's: one barrier per operation suffices.
 struct WarpX { uint32_t addr[32]; uint32_t a[32][4]; uint32_t b[32][2]; float c[32][4]; float sh[32]; };
-WarpX g_wx[8];
+WarpX g_wx[2][8];
+inline WarpX& warp_exchange() { WarpX& w = g_wx[t_phase][t_warp]; t_phase ^= 1; return w; }
 std::vector<std::barrier<>*> g_wbar;
 std::barrier<>* g_bbar;
 inline void wsync() { g_wbar[t_warp]->arrive_and_wait(); }
 inline void __syncthreads() { g_bbar->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int off) {
-  auto& W = g_wx[t_warp]; W.sh[t_lane] = v; wsync(); float r = W.sh[t_lane ^ off]; wsync(); return r;
+  auto& W = warp_exchange(); W.sh[t_lane] = v; wsync(); return W.sh[t_lane ^ off];
 }
 inline size_t __cvta_generic_to_shared(const void* p) {
   const unsigned char* c = (const unsigned char*)p;
@@ -110,7 +118,7 @@ inline void check_smem(uint32_t addr, int n) {
 inline void ldsm_impl(uint32_t (&r)[4], uint32_t addr, bool trans) {
   if (addr % 16) { fprintf(stderr, "ldmatrix misaligned %u\n", addr); abort(); }
   check_smem(addr, 16);
-  auto& W = g_wx[t_warp]; W.addr[t_lane] = addr; wsync();
+  auto& W = warp_exchange(); W.addr[t_lane] = addr; wsync();
   const int g = t_lane >> 2, t = t_lane & 3;
   for (int i = 0; i < 4; ++i) {
     if (!trans) {
@@ -129,7 +137,7 @@ inline void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) { ldsm_impl(r, addr, 
 inline float bf_lo(uint32_t u) { uint32_t x = u << 16; float f; memcpy(&f, &x, 4); return f; }
 inline float bf_hi(uint32_t u) { uint32_t x = u & 0xffff0000u; float f; memcpy(&f, &x, 4); return f; }
 inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  auto& W = g_wx[t_warp];
+  auto& W = warp_exchange();
   for (int i = 0; i < 4; ++i) { W.a[t_lane][i] = a[i]; W.c[t_lane][i] = d[i]; }
   W.b[t_lane][0] = b0; W.b[t_lane][1] = b1; wsync();
   float A[16][16], B[16][8];
@@ -150,7 +158,37 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
     for (int k = 0; k < 16; ++k) acc += A[row][k] * B[k][col];
     out[e] = acc;
   }
-  wsync();
+  for (int e = 0; e < 4; ++e) d[e] = out[e];
+}
+// mma.sync m16n8k8 .tf32 (mma_tf32.cuh): each operand's low 13 bits are
+// ignored, as on the card; the accumulator and the 8 products (exact) are
+// summed and the sum truncated toward zero to fp32, as the card's tensor
+// cores truncate theirs.
+inline float tf32_of(uint32_t u) { u &= 0xffffe000u; float f; memcpy(&f, &u, 4); return f; }
+inline float round_to_zero(double s) {
+  float f = static_cast<float>(s);
+  if (std::fabs(static_cast<double>(f)) > std::fabs(s)) f = std::nextafter(f, 0.f);
+  return f;
+}
+inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  auto& W = warp_exchange();
+  for (int i = 0; i < 4; ++i) { W.a[t_lane][i] = a[i]; W.c[t_lane][i] = d[i]; }
+  W.b[t_lane][0] = b0; W.b[t_lane][1] = b1; wsync();
+  float A[16][8], B[8][8];
+  for (int L = 0; L < 32; ++L) {
+    const int g = L >> 2, t = L & 3;
+    A[g][t] = tf32_of(W.a[L][0]); A[g + 8][t] = tf32_of(W.a[L][1]);
+    A[g][t + 4] = tf32_of(W.a[L][2]); A[g + 8][t + 4] = tf32_of(W.a[L][3]);
+    B[t][g] = tf32_of(W.b[L][0]); B[t + 4][g] = tf32_of(W.b[L][1]);
+  }
+  const int g = t_lane >> 2, t = t_lane & 3;
+  float out[4];
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    double acc = W.c[t_lane][e];
+    for (int k = 0; k < 8; ++k) acc += static_cast<double>(A[row][k]) * B[k][col];
+    out[e] = round_to_zero(acc);
+  }
   for (int e = 0; e < 4; ++e) d[e] = out[e];
 }
 inline float fast_exp2(float x) {   // ex2.approx.ftz.f32

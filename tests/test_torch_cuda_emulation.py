@@ -22,6 +22,7 @@ PTX_HELPERS = {
     "mma_bf16.cuh": ("ldsm_x4", "ldsm_x4_trans", "mma_bf16", "fast_exp2",
                      "cp_async_16", "cp_async_4", "cp_async_commit",
                      "cp_async_wait"),
+    "mma_tf32.cuh": ("mma_tf32",),
     "bulk_copy.cuh": ("evict_first_policy", "mbar_init", "mbar_init_fence",
                       "mbar_arrive", "mbar_arrive_expect_tx", "mbar_wait",
                       "bulk_load", "bulk_store", "bulk_commit",
@@ -59,15 +60,22 @@ def binaries(tmp_path_factory):
         pytest.skip("no g++ to build the CPU emulation of the CUDA kernels")
     work = tmp_path_factory.mktemp("cuda_emu")
     _prepare(_ext._CSRC, work)
-    built = {}
-    for name, flags in (("fwd", ["-DEMU_FWD"]), ("bwd", [])):
+    # bwd_hi_only: the fp32 kernels with one TF32 product (hi * hi) per
+    # 3xTF32 step, which the emulated tensor cores must show off fp32.
+    procs = {}
+    for name, flags in (("fwd", ["-DEMU_FWD"]), ("bwd", []),
+                        ("bwd_hi_only", ["-DDDL_TF32_HI_ONLY"])):
         out = work / f"emu_{name}"
-        proc = subprocess.run(
+        procs[name] = (out, subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-fsanitize=address",
              "-Wno-unknown-pragmas", *flags, "-I", str(work), "-include",
              str(EMU / "emu.h"), "-o", str(out), str(EMU / "emu_main.cpp"),
-             "-lpthread"], capture_output=True, text=True, timeout=300)
-        assert proc.returncode == 0, proc.stderr[-4000:]
+             "-lpthread"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    built = {}
+    for name, (out, proc) in procs.items():
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err[-4000:]
         built[name] = out
     return built
 
@@ -117,9 +125,39 @@ BWD_CASES = [
     (100, 48, 1, 0, 0, 0, 0, 0, 1, 0, 0, 1),
     (100, 16, 1, 0, 0, 0, 0, 0, 0, 0, 1, 0),
     (200, 48, 1, 1, 0, 1, 0, 1, 1, 1, 1, 1),
+    # fp32 (3xTF32 on the emulated tensor cores), the same coverage.
+    (100, 48, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0),
+    (100, 48, 0, 1, 1, 1, 0, 0, 1, 0, 0, 0),
+    (200, 48, 0, 1, 1, 1, 1, 0, 0, 0, 0, 0),
+    (200, 48, 0, 0, 1, 0, 1, 0, 1, 1, 0, 0),
+    (64, 48, 0, 1, 0, 1, 0, 1, 1, 0, 0, 0),
+    (100, 40, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+    (100, 44, 0, 1, 1, 1, 0, 0, 1, 1, 0, 0),
+    (130, 128, 0, 1, 1, 1, 1, 0, 1, 0, 0, 0),
+    (64, 100, 0, 1, 1, 1, 1, 0, 1, 0, 0, 0),
+    (100, 64, 0, 0, 1, 0, 1, 0, 1, 0, 0, 0),
+    (128, 48, 0, 1, 1, 1, 0, 0, 1, 0, 1, 0),
+    (100, 48, 0, 0, 0, 0, 0, 0, 1, 0, 0, 1),
+    (100, 16, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0),
+    (200, 48, 0, 1, 0, 1, 0, 1, 1, 1, 1, 1),
 ]
 
 
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_bwd_kernels_under_emulation(binaries, case):
     _run(binaries["bwd"], *case)
+
+
+def test_flash_bwd_fp32_needs_the_lo_products(binaries):
+    """With one TF32 product per step (no lo parts) every fp32 gradient
+    misses the 1e-4 limit that 3xTF32 holds: the emulation models the
+    tensor cores' TF32 operands."""
+    proc = subprocess.run(
+        [str(binaries["bwd_hi_only"]),
+         *map(str, (100, 48, 0, 1, 1, 1, 0, 0, 1, 0, 0, 0))],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1, proc.stdout + proc.stderr[-4000:]
+    for name in ("dq", "dk", "dv"):
+        line = next(x for x in proc.stdout.splitlines()
+                    if x.startswith(name + " "))
+        assert line.endswith("MISS"), proc.stdout
