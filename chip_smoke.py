@@ -17,7 +17,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
              the card could take (bytes over HBM rate vs operations over
              peak). bf16 runs the tensor-core kernel: the training shape,
              B=8 in both layouts, ragged T=200 (causal and not) and
-             dh-major T=100 (rows of 200 bytes: element staging).
+             dh-major T=100 (rows of 200 bytes: element staging). fp32
+             runs the 3xTF32 tensor-core kernel: B=8 in both layouts,
+             the trainer's B=3, non-causal, Dh 64 and 128, ragged T=200,
+             and B=1 at T=4096 (64 key tiles a row: the tensor cores'
+             truncating sums would drift there), each beside the time of
+             the fp32 FMA kernel it replaced where that was measured.
 3b. backward — the flash dQ and dK/dV kernels against their plain version
              (``flash_attention_bwd_reference``) at the training shape
              (B=64, T=256, H=6, Dh=48, bf16, dh-major), at B=8 in both
@@ -37,7 +42,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
 4. forward — the canonical tiny-Llama (vocab 32000, dmodel 288, 6 heads of
              48, 6 layers, ctx 256) at B=8, T=256, seeded random weights:
              logits through the kernel ("auto") vs the plain path ("xla"),
-             and the kernel launch count per forward (one per layer).
+             and the kernel launch count per forward (one per layer). Then
+             a model with heads of 144, wider than the kernels take
+             (``flash_attention.MAX_HEAD_DIM``): "auto" runs it on the
+             plain path, no kernel launched, equal to "xla", and "pallas"
+             raises naming the limit.
 5. serving — ``run_serving`` at full width, 32 Poisson requests on 8 slots:
              every request completes with max_new tokens, and every greedy
              stream equals the port's ``generate()`` for it alone, or
@@ -282,7 +291,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
              step: launches 6/6/6/1 per rank per step, one combine sum and
              the replicated-gradient sum (20,440,224 fp32) timed apart;
              e. the ``longctx_bench`` twin at T=4096 (B=4), flash and
-             plain, each point in its own process: tok/s and ms per step; K2, K5 and K6 at B=2, T=4096 against their
+             plain, each point in this process (``longctx_bench.measure``):
+             tok/s and ms per step; K2, K5 and K6 at B=2, T=4096 against their
              plain versions (phase 3's limits), timed beside SDPA and
              their bounds.
 18. elastic — elastic data parallelism on a pool of four ranks on the
@@ -379,6 +389,14 @@ PEAK_FLOPS = {torch.float32: 495e12 / 3,   # 3xTF32 on the tensor cores
 FP32_FMA_FLOPS = 67e12
 
 TOL_OUT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The fp32 FMA forward kernel that the 3xTF32 one replaced (last built at
+# commit d11b9b5), in us per call, by (B, T, H, Dh, dh-major, causal), as
+# PERF.md records it (an NVIDIA H100 80GB HBM3 at 700 W). Printed beside the
+# kernel's time as that figure, and kept out of the kernels line: no run can
+# measure a kernel that is no longer built (flash_ab --baseline times both).
+FMA_FWD_US = {(8, 256, 6, 48, False, True): 37.1,
+              (8, 256, 6, 48, True, True): 39.5,
+              (3, 256, 6, 48, True, True): 34.0}
 TOL_LSE = 1e-4
 TOL_LOGITS = 1e-3
 NEAR_TIE = 1e-4
@@ -455,8 +473,15 @@ DESIGN = {
                     "(.trans by layout), cp.async double-buffered K/V tiles, "
                     "4 warps x 16 query rows, P rounded to bf16 in registers "
                     "(csrc/mma_bf16.cuh)",
-        "float32": "register-tiled fp32 FMA, 256 threads, 4 x 4 micro-tiles, "
-                   "P through shared memory"},
+        "float32": "tensor cores in 3xTF32: mma.sync m16n8k8 tf32 -> fp32, "
+                   "hi.hi + hi.lo + lo.hi per product in three passes, "
+                   "cp.async double-buffered K/V tiles in padded fp32 "
+                   "layouts, 4 warps x 16 query rows, Q fragments split and "
+                   "held in registers, P in fp32 registers as the A operand "
+                   "through permuted score columns, online softmax per 32 "
+                   "keys, each step's P.V in fresh accumulators, O rescaled "
+                   "and the step's P.V added in rounded fp32, ex2.approx, "
+                   "one CTA per SM as the launch bound (csrc/mma_tf32.cuh)"},
     "flash_bwd_dq": {
         "bfloat16": "tensor cores: mma.sync m16n8k16 bf16 -> fp32, ldmatrix "
                     "(.trans by layout), cp.async double-buffered K/V tiles "
@@ -544,22 +569,34 @@ def attention_bwd_bound_us(b, t, h, dh, dtype, causal, which,
 
 
 def tf32_hmma_counts(ext) -> dict:
-    """TF32 HMMA instructions per fp32 backward kernel ``kernel<head dim,
-    layout>`` in the built flash_bwd library, from ``cuobjdump -sass``."""
+    """TF32 HMMA instructions per fp32 kernel ``kernel<head dim, layout>``
+    in the built flash_fwd and flash_bwd libraries, from ``cuobjdump
+    -sass``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    proc = subprocess.Popen([tool, "-sass", str(ext.library_path("flash_bwd"))],
-                            stdout=subprocess.PIPE, text=True)
-    counts, fn = {}, None
-    for line in proc.stdout:
-        if "Function :" in line:
-            m = re.search(r"((?:[a-z_]|tf32)+_tf32_kernel)ILi(\d+)ELi(\d+)E",
-                          line)
-            fn = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m else None
-            if fn:
-                counts[fn] = 0
-        elif fn and "HMMA" in line and "TF32" in line:
-            counts[fn] += 1
-    check(proc.wait() == 0, "cuobjdump -sass of the flash_bwd library failed")
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []   # both disassemblies at once, each into its own file
+        for lib in ("flash_fwd", "flash_bwd"):
+            out = open(os.path.join(tmp, lib), "w+")
+            procs.append((lib, out, subprocess.Popen(
+                [tool, "-sass", str(ext.library_path(lib))], stdout=out,
+                text=True)))
+        failed = [lib for lib, _, proc in procs if proc.wait() != 0]
+        check(not failed, f"cuobjdump -sass failed on {failed}")
+        for lib, out, proc in procs:
+            out.seek(0)
+            fn = None
+            for line in out:
+                if "Function :" in line:
+                    m = re.search(r"((?:[a-z_]|tf32)+_tf32_kernel)ILi(\d+)"
+                                  r"ELi(\d+)E", line)
+                    fn = (f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m
+                          else None)
+                    if fn:
+                        counts[fn] = 0
+                elif fn and "HMMA" in line and "TF32" in line:
+                    counts[fn] += 1
+            out.close()
     return counts
 
 
@@ -3124,9 +3161,8 @@ def tp_phase(dev: torch.device, card: str) -> dict:
     toks = torch.randint(0, 32000, (8, 256), generator=g16)
     refs = {2: _world_of_one(dev, toks[:4]), 4: _world_of_one(dev, toks)}
     # f's reference: the world of one on data row 0's stream.
-    one_losses = train_llm_dp(None, TrainConfig(
-        iters=20, batch_size=4, optimizer="pallas"), log_every=0,
-        device=dev).losses
+    one_losses = train_llm_dp(None, TrainConfig(**programs.TRAIN_16F),
+                              log_every=0, device=dev).losses
     kernels = _attention_kernels(dev, card, TP_SHAPE, 16, "16b")
     with tempfile.TemporaryDirectory() as tmp:
         two = distributed.run_ranks(programs.phase16_two, 2,
@@ -3431,13 +3467,17 @@ def sp_ep_phase(dev: torch.device, card: str) -> dict:
           f"{r0['ep_time']['replicated_sum_ms']:.2f} ms (medians) {card}")
     out["ep_time"] = {k: v for k, v in r0["ep_time"].items()}
 
-    # e. long context ----------------------------------------------------------
-    torch.cuda.empty_cache()
+    # e. long context, each point in this process (a process per point
+    # spent its start-up on every point) --------------------------------------
     t1 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        lc = longctx_bench.run(os.path.join(tmp, "longctx.json"),
-                               LONGCTX_GRID, list(longctx_bench.VARIANTS),
-                               steps=5)
+    lc = {"rows": []}
+    for seq, batch in LONGCTX_GRID:
+        for variant in longctx_bench.VARIANTS:
+            torch.cuda.empty_cache()
+            lc["rows"].append({"seq": seq, "batch": batch, "variant": variant,
+                               "platform": "cuda", **longctx_bench.measure(
+                                   variant, seq, batch, steps=5)})
+    torch.cuda.empty_cache()
     for row in lc["rows"]:
         check(row["tokens_per_sec"] > 0 and math.isfinite(row["step_ms"]),
               f"17e longctx {row}")
@@ -4117,6 +4157,7 @@ def _in_background(fn, *args):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -4231,7 +4272,13 @@ def main() -> int:
     spilled = [f"{fn}: {line}" for fn, lines in ptxas.items()
                if "_tf32_kernel" in fn for line in lines
                if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
-    check(not spilled, f"the fp32 backward kernels spill: {spilled}")
+    check(not spilled, f"the fp32 kernels spill: {spilled}")
+    fwd48 = {fn: lines for fn, lines in ptxas.items()
+             if fn.startswith("flash_fwd_tf32_kernel<48")}
+    check(len(fwd48) == 3, f"ptxas reported {sorted(fwd48)} for the fp32 "
+          f"forward at Dh 48, expected its three layouts")
+    print(f"flash_fwd_tf32_kernel at Dh 48, ptxas per layout (0 row-major, 1 "
+          f"dh-major, 2 each read at run time): {fwd48} {card}")
 
     # 3. kernels vs plain -------------------------------------------------
     gen = torch.Generator(device=dev)
@@ -4245,7 +4292,12 @@ def main() -> int:
              (2, 200, 6, 48, torch.float32, True, True),
              (2, 200, 6, 48, torch.bfloat16, False, True),
              (2, 200, 6, 48, torch.bfloat16, True, False),
-             (2, 100, 6, 48, torch.bfloat16, True, True)]
+             (2, 100, 6, 48, torch.bfloat16, True, True),
+             (3, 256, 6, 48, torch.float32, True, True),    # the trainer's
+             (8, 256, 6, 48, torch.float32, True, False),
+             (8, 256, 6, 64, torch.float32, True, True),
+             (8, 256, 6, 128, torch.float32, True, True),
+             (1, 4096, 6, 48, torch.float32, True, True)]   # 64 key tiles
     layouts = []
     for b, t, h, dh, dtype, dh_major, causal in cases:
         q, k, v = (torch.randn(b, t, h, dh, generator=gen, device=dev
@@ -4280,6 +4332,7 @@ def main() -> int:
         fma = (attention_bound_us(b, t, h, dh, dtype, causal,
                                   peak=FP32_FMA_FLOPS)
                if dtype == torch.float32 else None)
+        fma_kernel_us = FMA_FWD_US.get((b, t, h, dh, dh_major, causal))
         layouts.append({
             "shape": [b, t, h, dh], "dtype": str(dtype)[6:],
             "dh_major": dh_major, "causal": causal,
@@ -4290,26 +4343,31 @@ def main() -> int:
             "kernel_us": kernel_us, "wrapper_us": wrapper_us,
             "plain_us": plain_us, "sdpa_us": sdpa_us,
             "bound_us": bound_us, "bound_by": bound_by,
-            **({"fma_bound_us": fma[0], "fma_bound_by": fma[1]} if fma
-               else {})})
-        fma_note = (f"; at the fp32 FMA rate {fma[0]:.2f} us ({fma[1]})"
+            **({"fma_bound_us": fma[0], "fma_bound_by": fma[1]}
+               if fma else {})})
+        fma_note = (f"; at the fp32 FMA rate {fma[0]:.2f} us ({fma[1]}); "
+                    f"the FMA kernel it replaced "
+                    + (f"{fma_kernel_us:.1f} us (PERF.md's figure, not "
+                       f"this run's)" if fma_kernel_us else "not measured")
                     if fma else "")
         print(f"flash_fwd {tag}: max|d| out {err:.3g} lse {lse_err:.3g}; "
               f"kernel {kernel_us:.1f} us, wrapper {wrapper_us:.1f} us, "
               f"plain {plain_us:.1f} us, sdpa {sdpa_us:.1f} us, "
               f"bound {bound_us:.2f} us ({bound_by}{fma_note}) {card}")
+        del q, k, v, out, lse, ref_out, ref_lse, ops
 
 
     stamp("3")
     # 3b. backward kernels vs plain --------------------------------------
     hmma = wait_hmma()
-    print(f"flash_bwd fp32 kernels' TF32 HMMA instructions (cuobjdump -sass, "
+    print(f"fp32 flash kernels' TF32 HMMA instructions (cuobjdump -sass, "
           f"Dh 48): {hmma}")
     check(all(hmma.get(f"{kern}<48, {lay}>", 0) > 0
-              for kern in ("flash_bwd_dq_tf32_kernel",
-                           "flash_bwd_dkv_tf32_kernel")
-              for lay in range(4)),
-          f"an fp32 backward kernel without TF32 HMMA instructions: {hmma}")
+              for kern, layouts in (("flash_fwd_tf32_kernel", 3),
+                                    ("flash_bwd_dq_tf32_kernel", 4),
+                                    ("flash_bwd_dkv_tf32_kernel", 4))
+              for lay in range(layouts)),
+          f"an fp32 flash kernel without TF32 HMMA instructions: {hmma}")
     bwd = []
     for b, t, h, dh, dtype, dh_major, causal in [
             (64, 256, 6, 48, torch.bfloat16, True, True),   # training step
@@ -4538,6 +4596,37 @@ def main() -> int:
         print(f"forward ({name} attention): {n_tok / wall * 1e6:.0f} tok/s "
               f"wall ({wall / 1e3:.3f} ms per forward), device "
               f"{device / 1e3:.3f} ms per forward {card}")
+
+    # Heads wider than the kernels take (2 heads of 144 at dmodel 288, 2
+    # layers): "auto" runs the plain attention, "pallas" raises.
+    wcfg = LlamaConfig(num_heads=2, n_layers=2)
+    check(not fa.kernel_takes(wcfg.head_dim), f"head dim {wcfg.head_dim}")
+    wide = llama.init_llama(wcfg, torch.Generator().manual_seed(0), device=dev)
+    with torch.inference_mode():
+        fa.launches = 0
+        wide_auto = llama.forward(wide, tokens, wcfg)
+        wide_plain = llama.forward(wide, tokens,
+                                   wcfg.replace(attention_impl="xla"))
+        torch.cuda.synchronize()
+        wide_launches = fa.launches
+        try:
+            llama.forward(wide, tokens, wcfg.replace(attention_impl="pallas"))
+            wide_refusal = None
+        except ValueError as e:
+            wide_refusal = str(e)
+    wide_err = (wide_auto - wide_plain).abs().max().item()
+    check(wide_launches == 0, f"Dh={wcfg.head_dim} 'auto' launched the "
+          f"forward kernel {wide_launches} times")
+    check(bool(torch.isfinite(wide_auto).all()) and wide_err <= TOL_LOGITS,
+          f"Dh={wcfg.head_dim} forward 'auto' vs 'xla' max|d|={wide_err:.3g}")
+    check(wide_refusal is not None and str(fa.MAX_HEAD_DIM) in wide_refusal,
+          f"Dh={wcfg.head_dim} 'pallas': {wide_refusal!r}, expected a "
+          f"refusal naming {fa.MAX_HEAD_DIM}")
+    print(f"forward B=8 T={cfg.ctx_size} Dh={wcfg.head_dim} (2 heads, 2 "
+          f"layers): 'auto' vs 'xla' max|d| {wide_err:.3g} (bitwise "
+          f"{bool(torch.equal(wide_auto, wide_plain))}), flash_fwd launches "
+          f"{wide_launches}; 'pallas' raises: {wide_refusal} {card}")
+    del wide, wide_auto, wide_plain
 
     stamp("4")
     # 5. serving at full width -------------------------------------------
@@ -4786,6 +4875,8 @@ def main() -> int:
     # 20. DP×PP×TP on 1 x 2 x 2 and 2 x 2 x 2 ranks; decode -----------
     pptp_report = pp_tp_phase(dev, card)
     stamp("20")
+    total_s = time.perf_counter() - t_start
+    print(f"chip_smoke: every phase passed in {total_s:.1f} s {card}")
 
     fwd_main = next(x for x in layouts if x["shape"] == [64, 256, 6, 48])
     bwd_main = bwd[0]
@@ -4883,6 +4974,8 @@ def main() -> int:
         "design": DESIGN["flash_fwd"],
         "ptxas": {k: v for k, v in ptxas.items()
                   if "flash_fwd" in k and re.search(r"\b48\b", k)},
+        "tf32_hmma_sass": {k: v for k, v in hmma.items()
+                           if k.startswith("flash_fwd_tf32")},
         "layouts": layouts}]
     for name, key, src_line in (("flash_bwd_dq", "dq", 450),
                                 ("flash_bwd_dkv", "dkv", 480)):
@@ -4962,7 +5055,8 @@ def main() -> int:
                       "elastic": elastic_report,
                       "pp_elastic": pp19_report, "pp_tp": pptp_report,
                       "adam_paired": adam_pairs,
-                      "phase_seconds": phase_seconds, "card": smi,
+                      "phase_seconds": phase_seconds,
+                      "total_seconds": total_s, "card": smi,
                       "ok": True}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -59,8 +59,11 @@ class LlamaConfig:
     param_dtype: str = "float32"
     # Attention backend: "xla" is the plain PyTorch attention; "pallas" is
     # the hand-written CUDA flash kernel (ops/flash_attention.py) and raises
-    # on CPU tensors; "auto" takes the kernel iff the tensors are on CUDA
-    # and the sequence is at least ``flash_min_seq`` long.
+    # on CPU tensors and for heads wider than the kernels take
+    # (``flash_attention.MAX_HEAD_DIM``, 128); "auto" takes the kernel iff
+    # the tensors are on CUDA, the sequence is at least ``flash_min_seq``
+    # long and the kernels take the head dim (models/llama.py use_flash: a
+    # choice by shape, never a fallback from a failed kernel).
     attention_impl: str = "auto"
     flash_min_seq: int = 256
     # Kernel operand layout: [B·H, Dh, T] when True, else [B, T, H, Dh] as

@@ -10,8 +10,9 @@ PyTorch attention, which materializes the ``[B·H, T, T]`` scores).
 
 Each (T, variant) point runs in a subprocess with a timeout
 (``bench_utils.time_train_step``), which keeps one point's memory from
-the next. Unlike the JAX bench, a failed point raises: its error is the
-result, not a skipped row. ``--grid`` takes other points, ``--config
+the next; ``measure`` times one point in the caller's process. Unlike
+the JAX bench, a failed point raises: its error is the result, not a
+skipped row. ``--grid`` takes other points, ``--config
 tiny`` a narrow model for the CPU (where only "xla" runs: the flash
 kernels are CUDA's).
 
@@ -41,9 +42,10 @@ TIMEOUT_S = 900
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def _child(variant: str, seq: int, batch: int, config: str, steps: int,
-           device) -> None:
-    """Time one (variant, seq) point; print ``tok/s step_ms``."""
+def measure(variant: str, seq: int, batch: int, *, config: str = "canonical",
+            steps: int = 10, device=None) -> dict:
+    """Time one (variant, seq) point in this process: ``{"tokens_per_sec",
+    "step_ms"}``."""
     from ..bench_utils import time_train_step
     from ..config import LlamaConfig
 
@@ -51,7 +53,15 @@ def _child(variant: str, seq: int, batch: int, config: str, steps: int,
                       **VARIANTS[variant])
     tps = time_train_step(cfg, batch, seq=seq, warmup=2, timed_steps=steps,
                           device=device)
-    print(tps, batch * seq / tps * 1e3)
+    return {"tokens_per_sec": tps, "step_ms": batch * seq / tps * 1e3}
+
+
+def _child(variant: str, seq: int, batch: int, config: str, steps: int,
+           device) -> None:
+    """Time one (variant, seq) point; print ``tok/s step_ms``."""
+    res = measure(variant, seq, batch, config=config, steps=steps,
+                  device=device)
+    print(res["tokens_per_sec"], res["step_ms"])
 
 
 def point(variant: str, seq: int, batch: int, *, config: str = "canonical",

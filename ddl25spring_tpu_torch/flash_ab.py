@@ -2,7 +2,7 @@
 forward, dQ and dK/dV kernels timed against the kernels as they are.
 
     python -m ddl25spring_tpu_torch.flash_ab [--dtype bf16|fp32]
-        [--variants a,b,...] [--dh 48] [--baseline DIR]
+        [--variants a,b,...] [--dh 48] [--baseline DIR] [--trainer]
 
 Each variant is a copy of ``ops/csrc`` with a few lines patched, built with
 the same nvcc flags as the real libraries (only the ``--dh`` instantiation,
@@ -12,21 +12,33 @@ checkout's ``ops/csrc``, e.g. a parent commit unpacked with ``git
 archive``) as the variant "baseline", built the same way. Every variant is timed on the
 same inputs with ``bench_utils.kernel_time_us``, in two rounds in opposite
 orders, on one card: bf16 at the training shape (B=64 T=256 H=6 Dh=48
-dh-major, causal) and at B=8; fp32 (the 3xTF32 backward) at B=8 and at the
-trainer's B=3, dh-major, and at B=8 row-major. Variants that keep the
-arithmetic are held bitwise against the kernels as they are; the
+dh-major, causal) and at B=8; fp32 (the 3xTF32 forward, dQ and dK/dV) at
+B=8 and at the trainer's B=3, dh-major, and at B=8 row-major. Variants that
+keep the arithmetic are held bitwise against the kernels as they are; the
 diagnostics, which skip work, are not; every fp32 variant is held within
-1e-4 of the plain version. Prints one line per variant and shape, then one
-JSON line.
+1e-4 of the plain version (out, lse and the gradients). Prints one line per
+variant and shape, then one JSON line.
 
 The bf16 variants (``VARIANTS``): each design choice undone (each kernel's
 layout read at run time, the forward's and dQ's K and V in one copy group,
 the libm ``exp2f``, no register cap), two diagnostics that time part of the
 work (no tile loads after the first, one tile per CTA), and changes that
 were tried and measured slower. The fp32 variants (``VARIANTS_FP32``): the
-3xTF32 kernels' tile height, where the held fragments' lo parts come from,
-the step of streamed positions, the libm exponential, and TF32 hi parts
-rounded to nearest instead of truncated.
+forward's registers left to ptxas (no launch bound), and its numerics:
+64-key steps instead of 32,
+the O update as one fmaf instead of two roundings, the softmax exponent as
+the backward forms it, alone and together; the backward's tile height, where its held
+fragments' lo parts come from, and its step of streamed positions; the
+libm exponential; and TF32 hi parts rounded to nearest instead of
+truncated. ``--baseline`` with a parent's ``ops/csrc`` times the kernels
+that this tree replaced (the fp32 FMA forward before the 3xTF32 one).
+
+``--trainer`` (fp32) then runs ``chip_smoke.py`` phase 16f's trainers
+(``parallel.programs``: ``TRAIN_16F`` at a world of one, ``trainer_pair``
+on two ranks) with each variant whose results are not bitwise the kernels
+as built (and the baseline), and prints 16f's two comparisons. Their
+step-9 loss spike moves with the last bits of the attention, so this shows
+where each build lands against 16f's limits.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import json
 import re
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -141,9 +154,40 @@ VARIANTS = {
     "dQ: 16-key steps": [(BWD, "constexpr int kKSub = 32;", "constexpr int kKSub = 16;")],
     "dQ: 64-key steps": [(BWD, "constexpr int kKSub = 32;", "constexpr int kKSub = 64;")],
 }
-# The 3xTF32 backward kernels (fp32): each choice against its alternative.
+# The fp32 forward's numerics, each against the kernel as built: 64-key
+# steps (one online-softmax step per tile), the O update as one fmaf
+# (O alpha + P.V rounded once), the softmax exponent as the backward forms
+# it (exp2(fmaf(s, c, -m)) on the raw scores, one rounding where s * c, then
+# s - m, takes two; the lines of the 3xTF32 kernel, by their indentation),
+# and TF32 hi parts rounded to nearest (every 3xTF32 kernel). With
+# --trainer each shows where phase 16f's loss spike lands.
+K64 = [(FWD, "constexpr int kTf32Sub = 32;", "constexpr int kTf32Sub = 64;")]
+O_FMAF = [
+    (FWD, "acc[n0 + i][e] = __fadd_rn(__fmul_rn(acc[n0 + i][e], alpha[e >> 1]), part[i][e]);",
+     "acc[n0 + i][e] = fmaf(acc[n0 + i][e], alpha[e >> 1], part[i][e]);")]
+EXP_FMAF = [
+    (FWD, "          s[j][e] = visible ? s[j][e] * c : kNegInf;",
+     "          s[j][e] = visible ? s[j][e] : kNegInf;"),
+    (FWD, "        const float m_new = fmaxf(m[i], mx);",
+     "        const float m_new = fmaxf(m[i], mx * c);"),
+    (FWD, "            const float p = s[j][e] == kNegInf ? 0.f : fast_exp2(s[j][e] - m_new);",
+     "            const float p = s[j][e] == kNegInf ? 0.f : fast_exp2(fmaf(s[j][e], c, -m_new));")]
+HI_RN = ("mma_tf32.cuh", "hi = __float_as_uint(x) & 0xffffe000u;",
+         "hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;")
+# The 3xTF32 kernels (fp32): each choice against its alternative.
 VARIANTS_FP32 = {
     "as built": [],
+    "forward: registers left to ptxas": [
+        (FWD, "__launch_bounds__(kTf32Threads, 1)", "__launch_bounds__(kTf32Threads)")],
+    "forward: 64-key steps": K64,
+    "forward: O by one fmaf": O_FMAF,
+    "forward: 64-key steps and O by one fmaf": K64 + O_FMAF,
+    "forward: exponent and O by one fmaf": EXP_FMAF + O_FMAF,
+    "forward: 64-key steps and exponent and O by one fmaf": K64 + EXP_FMAF + O_FMAF,
+    "hi rounded to nearest and O by one fmaf": [HI_RN] + O_FMAF,
+    "hi rounded to nearest and 64-key steps and O by one fmaf": [HI_RN] + K64 + O_FMAF,
+    "hi rounded to nearest and 64-key steps and exponent and O by one fmaf": (
+        [HI_RN] + K64 + EXP_FMAF + O_FMAF),
     "32-row tiles (2 warps)": [
         (BWD, "constexpr int kTf32Warps = 4;", "constexpr int kTf32Warps = 2;")],
     "lo parts held": [
@@ -153,9 +197,7 @@ VARIANTS_FP32 = {
     "64-position steps": [
         (BWD, "constexpr int kTf32Sub = 32;", "constexpr int kTf32Sub = 64;")],
     "libm exp2f": [(BWD, "fast_exp2(fmaf(", "exp2f(fmaf(")],
-    "hi rounded to nearest": [
-        ("mma_tf32.cuh", "hi = __float_as_uint(x) & 0xffffe000u;",
-         "hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;")],
+    "hi rounded to nearest": [HI_RN],
 }
 DIAGNOSTICS = ("no later loads", "first tile only")
 BASELINE = "baseline"
@@ -194,7 +236,7 @@ def build(names, dh: int, variants: dict, baseline=None):
     `baseline` is the csrc directory of the variant BASELINE."""
     procs, ptxas, libs = [], {}, {}
     for v in names:
-        d = BUILD / re.sub(r"\W+", "_", v)
+        d = _variant_dir(v)
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
         sources = (_sources([], dh, Path(baseline)) if v == BASELINE
@@ -227,6 +269,38 @@ def build(names, dh: int, variants: dict, baseline=None):
     return libs, ptxas
 
 
+def _variant_dir(v: str) -> Path:
+    return BUILD / re.sub(r"\W+", "_", v)
+
+
+def trainer_losses(v: str, libs: dict, card: str) -> dict:
+    """Phase 16f's trainers with variant ``v``'s kernels and 16f's two
+    comparisons: ``psa=""`` against the world of one (max|d|) and
+    ``psa="int8_ef"`` against ``psa=""`` (max|d|/|loss|, each step), which
+    ``chip_smoke.py`` holds to ``TOL_TP_VS_DP`` and ``TOL_TP_INT8_REL``."""
+    from .config import TrainConfig
+    from .parallel import distributed, programs
+    from .train.llm import train_llm_dp
+    real = _ext.library
+    _ext.library = lambda name: libs[name] if name in libs else real(name)
+    try:
+        one = train_llm_dp(None, TrainConfig(**programs.TRAIN_16F), log_every=0,
+                           device=torch.device("cuda")).losses
+    finally:
+        _ext.library = real
+    with tempfile.TemporaryDirectory() as tmp:
+        pair = distributed.run_ranks(programs.trainer_pair, 2, tmp, str(_variant_dir(v)),
+                                     timeout=600)[0]
+    plain, int8 = pair["trainer_plain"]["losses"], pair["trainer"]["losses"]
+    out = {"vs_one": max(abs(a - b) for a, b in zip(plain, one)),
+           "int8_rel": max(abs(a - b) / abs(b) for a, b in zip(int8, plain)),
+           "one": one, "plain": plain, "int8_ef": int8}
+    print(f"16f {v:>24}: psa='' vs world of one max|d| {out['vs_one']:.3g}, "
+          f"int8_ef vs psa='' max|d|/|loss| {out['int8_rel']:.4f}; step 9: "
+          f"one {one[9]:.4f}, psa='' {plain[9]:.4f}, int8_ef {int8[9]:.4f} [{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
@@ -237,6 +311,9 @@ def main() -> int:
     ap.add_argument("--baseline", default=None,
                     help="another ops/csrc directory, timed as the variant "
                          f"{BASELINE!r}")
+    ap.add_argument("--trainer", action="store_true",
+                    help="fp32: also run phase 16f's trainers with each variant's kernels "
+                         "(two ranks on the card)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_ab: needs a CUDA card")
@@ -267,7 +344,7 @@ def main() -> int:
                        for _ in range(4))
         q4, k4, v4, out, lse = fa._fwd(q, k, v, causal=True, dh_major=dh_major)
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, t)
-        ref_out, _ = fa.flash_attention_reference(q, k, v)
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
         err = (out.float() - ref_out.float()).abs().max().item()
         if not err <= tol:
             raise RuntimeError(f"the kernel as built is off its plain version: {err}")
@@ -277,7 +354,9 @@ def main() -> int:
         key = (b, t, h, dh, "dh-major" if dh_major else "row-major")
         cases[key] = ((q4, k4, v4, o4), torch.empty_like(lse),
                       (q4, k4, v4, do.permute(0, 2, 1, 3)), grads, lse, delta)
-        plain[key] = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+        plain[key] = (ref_out.permute(0, 2, 1, 3), ref_lse,
+                      *(g.permute(0, 2, 1, 3) for g in
+                        fa.flash_attention_bwd_reference(q, k, v, out, lse, do)))
 
     real = _ext.library
     results = {v: {} for v in names}
@@ -297,8 +376,8 @@ def main() -> int:
                     torch.cuda.synchronize()
                     got = [x.clone() for x in (fops[3], flse, *grads)]
                     if args.dtype == "fp32":
-                        err = max((g.permute(0, 2, 1, 3) - r).abs().max().item()
-                                  for g, r in zip(got[2:], plain[shape]))
+                        err = max((g - r).abs().max().item()
+                                  for g, r in zip(got, plain[shape]))
                         errors.setdefault(v, {})[str(shape)] = err
                         if not err <= tol:
                             raise RuntimeError(f"{v} at {shape}: max|d| {err:.3g} from "
@@ -345,9 +424,14 @@ def main() -> int:
             print(f"{shape} {v:>24}: forward {r['fwd_us'][0]:.1f} / {r['fwd_us'][1]:.1f} us, "
                   f"dQ {r['dq_us'][0]:.1f} / {r['dq_us'][1]:.1f} us, "
                   f"dK/dV {r['dkv_us'][0]:.1f} / {r['dkv_us'][1]:.1f} us [{card}]")
+    # A variant bitwise the kernels as built trains as they do.
+    trainer = ({v: trainer_losses(v, libs[v], card) for v in names
+                if v not in DIAGNOSTICS and not bitwise.get(v)}
+               if args.trainer and args.dtype == "fp32" else None)
     print(json.dumps({"card": card, "dtype": args.dtype, "dh": args.dh, "variants": results,
                       "bitwise_as_built": bitwise, "max_abs_err_plain": errors,
-                      "ptxas": ptxas, "sdpa_fwd_us": sdpa, "sdpa_bwd_us": sdpa_bwd}))
+                      "ptxas": ptxas, "sdpa_fwd_us": sdpa, "sdpa_bwd_us": sdpa_bwd,
+                      "trainer_16f": trainer}))
     return 0
 
 

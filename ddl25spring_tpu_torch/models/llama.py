@@ -10,9 +10,10 @@ with the JAX names kept, so each function's counterpart is easy to find.
 
 Pre-norm RMSNorm, RoPE over the two halves of each head (not interleaved
 pairs; fp32 angles), fused QKV (wq|wk|wv), causal attention, SwiGLU MLP
-(gate|up). Attention dispatch: the CUDA flash kernel for CUDA tensors at
-``T >= flash_min_seq`` under ``attention_impl="auto"``, else the plain
-PyTorch attention (``_xla_attention``, named after its JAX twin).
+(gate|up). Attention dispatch (``use_flash``): the CUDA flash kernel for
+CUDA tensors at ``T >= flash_min_seq`` and heads the kernels take
+(``flash_attention.MAX_HEAD_DIM``) under ``attention_impl="auto"``, else
+the plain PyTorch attention (``_xla_attention``, named after its JAX twin).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from torch import nn as tnn
 from .. import nn
 from ..config import LlamaConfig, torch_dtype
 from ..device import check_on_device, resolve_device
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import MAX_HEAD_DIM, flash_attention, kernel_takes
 from ..ops.losses import fused_linear_cross_entropy
 from ..tree import tree_leaves, tree_map
 
@@ -195,6 +196,24 @@ def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, tq, dh).permute(0, 2, 1, 3)
 
 
+def use_flash(cfg: LlamaConfig, on_cuda: bool, seq: int) -> bool:
+    """Whether attention over ``seq`` positions runs the CUDA flash kernels:
+    always under ``"pallas"``, which raises for a head the kernels do not
+    take (``flash_attention.MAX_HEAD_DIM``); under ``"auto"`` on CUDA
+    tensors, at ``seq >= flash_min_seq``, for a head the kernels take. The
+    rest takes the plain attention. A choice by shape alone: a kernel that
+    fails to build or launch raises."""
+    impl = cfg.attention_impl
+    takes = kernel_takes(cfg.head_dim)
+    if impl == "pallas" and not takes:
+        raise ValueError(
+            f"attention_impl='pallas' runs the CUDA flash kernels, which take "
+            f"head dims 1..{MAX_HEAD_DIM}; this model's is {cfg.head_dim}: "
+            f"use 'auto' or 'xla'")
+    return impl == "pallas" or (impl == "auto" and on_cuda
+                                and seq >= cfg.flash_min_seq and takes)
+
+
 def attention(block: dict, x: torch.Tensor, cfg: LlamaConfig,
               cos: torch.Tensor, sin: torch.Tensor,
               tp_sum: Optional[Callable] = None,
@@ -211,14 +230,12 @@ def attention(block: dict, x: torch.Tensor, cfg: LlamaConfig,
     q, k, v = qkv_proj(block, x, dh)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    impl = cfg.attention_impl
-    if impl not in ("xla", "pallas", "auto"):
+    if cfg.attention_impl not in ("xla", "pallas", "auto"):
         raise ValueError(f"attention_impl must be 'xla', 'pallas' or 'auto', "
-                         f"got {impl!r}")
+                         f"got {cfg.attention_impl!r}")
     if attn_fn is not None:
         out = attn_fn(q, k, v)
-    elif impl == "pallas" or (impl == "auto" and q.is_cuda
-                              and t >= cfg.flash_min_seq):
+    elif use_flash(cfg, q.is_cuda, t):
         if not q.is_cuda:
             raise RuntimeError(
                 "attention_impl='pallas' runs the CUDA flash kernel, but the "

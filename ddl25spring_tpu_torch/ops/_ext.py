@@ -135,16 +135,30 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     return time.perf_counter() - t0
 
 
+def load(path, name: str) -> ctypes.CDLL:
+    """The library at ``path``, opened as kernel ``name``'s: its C
+    functions typed as ``KERNELS`` says."""
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in KERNELS[name][1].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built first if needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn, (argtypes, restype) in KERNELS[name][1].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-            _loaded[name] = lib
+            lib = _loaded[name] = load(library_path(name), name)
         return lib
+
+
+def use(name: str, path) -> None:
+    """Run kernel ``name`` from the library at ``path`` (built from other
+    sources, as ``flash_ab`` builds its variants) for the rest of this
+    process."""
+    with _lock:
+        _loaded[name] = load(path, name)
 

@@ -461,50 +461,6 @@ constexpr int kTf32Threads = 32 * kTf32Warps;
 constexpr int kTf32Sub = 32;                   // streamed positions per step of the products
 constexpr bool kTf32HoldLo = false;            // held A fragments split once (else at each use)
 
-// n-tiles of the head dim per pass of a gradient product: 3 or 4, as many
-// independent accumulators as its B fragments' registers allow.
-template <int NK>
-__host__ __device__ constexpr int grad_chunk() {
-  return NK % 3 == 0 ? 3 : 4;
-}
-
-// A warp's held A fragments over the head dim (NK k-steps of 8), rows r0 + g
-// and r0 + g + 8 of one head: in registers up to DP = 48, split into hi and
-// lo once (kTf32HoldLo) or held as fp32 and split at each use; a wider head
-// reads them again from device memory (L1) at each use, so that no kernel
-// spills.
-template <int NK>
-struct HeldA {
-  static constexpr bool kRegs = NK <= 6;
-  Tf32Frag<4> f[kRegs ? NK : 1];
-  float x[kRegs ? NK : 1][4];
-  const float* src;
-  Strides s;
-  int r0, seq, dh;
-
-  __device__ __forceinline__ void load(const float* __restrict__ src_, const Strides& s_, int r0_,
-                                       int seq_, int dh_) {
-    src = src_, s = s_, r0 = r0_, seq = seq_, dh = dh_;
-    if constexpr (kRegs) {
-#pragma unroll
-      for (int kk = 0; kk < NK; ++kk) {
-        load_a_f32(x[kk], src, s, r0, seq, dh, kk);
-        if (kTf32HoldLo) f[kk] = split_frag(x[kk]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ Tf32Frag<4> get(int kk) const {
-    if constexpr (kRegs) {
-      return kTf32HoldLo ? f[kk] : split_frag(x[kk]);
-    } else {
-      float v[4];
-      load_a_f32(v, src, s, r0, seq, dh, kk);
-      return split_frag(v);
-    }
-  }
-};
-
 // Double-buffered K and V tiles, then each thread's running dQ sums.
 template <int DP>
 constexpr int dq_tf32_smem_bytes() {
@@ -558,7 +514,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
   cp_async_commit();
 
   const F32Reads<DP> kr(kdh), vr(vdh);
-  HeldA<NK> qa, doa;
+  HeldA<NK, kTf32HoldLo> qa, doa;
   qa.load(q + b * sq.b + h * sq.h, sq, wrow, seq, dh);
   doa.load(dout + b * sdo.b + h * sdo.h, sdo, wrow, seq, dh);
   // The two rows' lse (log2 domain) and delta; a row past seq reads neither.
@@ -713,7 +669,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   cp_async_commit();
 
   const F32Reads<DP> qr(qdh), dr(odh);
-  HeldA<NK> ka, va;
+  HeldA<NK, kTf32HoldLo> ka, va;
   ka.load(k + b * sk.b + h * sk.h, sk, wkey, seq, dh);
   va.load(v + b * sv.b + h * sv.h, sv, wkey, seq, dh);
   constexpr int NC = grad_chunk<NK>();

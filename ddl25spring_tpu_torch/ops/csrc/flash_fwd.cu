@@ -37,25 +37,48 @@
 // the registers are capped for 4 CTAs per SM at Dh <= 64: each of these
 // bought time on the card (PERF.md, flash_ab).
 //
-// fp32: flash_fwd_kernel, register-tiled FMA code (no TF32: the fp32 limits
-// are 1e-4). One CTA of 256 threads per (batch*head, 64-query tile); Q
-// (pre-scaled by log2(e)/sqrt(Dh)), K and V staged in shared memory as
-// fp32, Q and K transposed; a 16 x 16 thread grid where each thread owns 4
-// query rows x 4 keys of S (then 4 rows x Dh/16 dims of O); P goes through
-// shared memory into the P.V product.
+// fp32: flash_fwd_tf32_kernel, on the tensor cores in 3xTF32 (mma_tf32.cuh):
+// each product of two fp32 operands is a_lo.b_hi + a_hi.b_lo + a_hi.b_hi on
+// mma.sync m16n8k8 TF32, hi the operand with its low 13 bits cleared and lo
+// the remainder (one TF32 product puts out ~2e-3 off fp32; three keep it
+// within a few 1e-6, inside the fp32 limit of 1e-4). The CTA is the bf16
+// kernel's: 4 warps of 16 query rows per (batch*head, 64-query tile), the
+// heaviest first. Q's A fragments are read once from device memory through
+// its strides and held in registers, split into hi and lo (DP <= 48; a wider
+// head reads them from L1 at each use). K and V tiles of 64 keys are
+// double-buffered with cp.async in mma_tf32.cuh's padded fp32 layouts (one
+// copy group per tile) and their B fragments split as they are read (hi and
+// lo tiles split once per CTA ran slower on the card: PERF.md).
+// Per step of 32 keys (two to a tile): S = Q.K^T (score columns hold
+// permuted keys, so S's accumulators are, as they are, the A fragments of
+// P.V), the scale log2(e)/sqrt(Dh) on the fp32 scores, masks only on edge
+// steps, the online softmax on the accumulator rows (fast_exp2), then P.V
+// into fresh accumulators, a few n-tiles of O at a time: the tensor cores'
+// sums truncate, so no accumulator lives across steps. The running O is
+// rescaled by alpha and the step's P.V added to it, each in rounded fp32.
+// (A build of 64-key steps with one fmaf per update ran faster: PERF.md,
+// ROADMAP.md.) Each 3xTF32 product is three passes over independent
+// accumulators. The epilogue writes out and lse from registers through
+// their strides. The layout of K and V is a template parameter (both
+// row-major, both dh-major, or each read at run time); the kernel exists for
+// DP = 48, 64 and 128 (a narrower head is padded up to the next).
 //
 // What bounds them on this card: at the training shape (B=64, H=6, T=256,
 // Dh=48, bf16) the function moves ~38 MB (q, k, v, out, lse) against
 // 2.4 GFLOP of tensor-core work, so bytes bound it (11.4 us at 3.35 TB/s).
 // The kernel is held back by latency instead: each CTA walks at most 4 key
 // tiles, so its first loads and its epilogue are a large share of its time,
-// and the double buffer hides later loads only in part. The fp32 FMA kernel
-// is bound by the fp32 FMA rate at B=8 (PERF.md).
+// and the double buffer hides later loads only in part. In fp32 the bytes
+// bound it too at B=8 (2.83 us; 1.84 us of operations at 3xTF32's third of
+// the TF32 rate), and the heaviest CTA's walk holds it back more: a warp
+// issues three mma per 8-wide step, and a shared load and a split per B
+// element (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -65,177 +88,196 @@ constexpr float kNegInf = -1e30f;            // finite, as in the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// ---------------------------------------------------------------- fp32 FMA
+// ------------------------------------------------------ fp32 tensor cores
 
-constexpr int kTX = 16;                      // threads along keys / dims
-constexpr int kTY = kBlockQ / 4;             // threads along rows (4 rows each)
-constexpr int kThreads = kTX * kTY;
-constexpr int kKPT = kBlockK / kTX;          // keys per thread in S
-constexpr int kQPad = kBlockQ + 4;           // Qt / Ps row stride (float4-aligned)
-constexpr int kKPad = kBlockK + 1;           // Kt row stride (odd: conflict-free stores)
+constexpr int kTf32Threads = 128;    // 4 warps x 16 query rows
+constexpr int kTf32Sub = 32;         // keys per step of the products: half a tile
 
-// Dynamic shared memory per CTA, in floats: Qt, Kt, V and Pt tiles (55.5 KB
-// at DP = 48, so the launch raises the 48 KB default where needed).
+// The fp32 kernel's head dims: a head is padded up to the next.
+__host__ __device__ constexpr int tf32_dp(int dp) { return dp <= 48 ? 48 : (dp <= 64 ? 64 : 128); }
+
+// Double-buffered K and V tiles.
 template <int DP>
-constexpr int smem_floats() {
-  return DP * kQPad + DP * kKPad + kBlockK * (DP + 1) + kBlockK * kQPad;
+constexpr int fwd_tf32_smem_bytes() {
+  return 4 * 4 * f32_tile_floats<DP>();
 }
 
-// Element (t, d) of rows [t0, t0 + n) of one head, read in the operand's own
-// contiguous order; f(t, d, x) stores it (zero past seq and dh).
-template <int DP, typename F>
-__device__ __forceinline__ void for_tile(const float* __restrict__ src, const Strides& s, int t0,
-                                         int n, int seq, int dh, F f) {
-  const bool dim_fastest = (s.d == 1);
-  for (int idx = threadIdx.x; idx < n * DP; idx += kThreads) {
-    int t, d;
-    if (dim_fastest) {
-      t = idx / DP;
-      d = idx % DP;
-    } else {
-      d = idx / n;
-      t = idx % n;
-    }
-    const int pos = t0 + t;
-    float x = 0.f;
-    if (pos < seq && d < dh) x = src[pos * s.t + d * s.d];
-    f(t, d, x);
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                 int heads, int seq, int dh, Strides sq, Strides sk, Strides sv, Strides so,
-                 float scale, int causal) {
-  constexpr int NC = DP / 16;   // dims per thread in O
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                         // [DP][kQPad]   Q transposed
-  float* kt = qt + DP * kQPad;              // [DP][kKPad]   K transposed
-  float* vs = kt + DP * kKPad;              // [kBlockK][DP + 1]
-  float* ps = vs + kBlockK * (DP + 1);      // [kBlockK][kQPad]  P transposed
+// L: the layout of K and V (mma_bf16.cuh's layout parameter: both
+// row-major, both dh-major, or each read from mode_k / mode_v at run time);
+// mode_k and mode_v also say whether their rows take 16-byte copies. Q is
+// read, and out written, through their strides. One CTA per SM is all the
+// launch bound asks: without it ptxas fits DP = 48 into 168 registers (3
+// CTAs per SM) with a spill, and takes 217 with it (PERF.md).
+template <int DP, int L>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                      int heads, int seq, int dh, Strides sq, Strides sk, Strides sv, Strides so,
+                      int mode_k, int mode_v, float scale, int causal) {
+  constexpr int NK = DP / 8;          // 8-wide k-steps over the head dim (and n-tiles of O)
+  constexpr int NS = kTf32Sub / 8;    // 8-wide n-tiles over a step's keys
+  constexpr int NC = NK <= 6 ? NK : grad_chunk<NK>();   // n-tiles of O per pass of P.V
+  constexpr int TF = f32_tile_floats<DP>();
+  const bool kdh = view_mode<L>(mode_k) & kDhMajor;
+  const bool vdh = view_mode<L>(mode_v) & kDhMajor;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);   // [2] K tiles
+  float* vs = ks + 2 * TF;                          // [2] V tiles
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int h = bh % heads;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
-  const int tx = threadIdx.x % kTX;
-  const int ty = threadIdx.x / kTX;
-  const int r0 = ty * 4;
+  const int lane = threadIdx.x & 31;
+  const int wrow = q0 + 16 * (threadIdx.x >> 5);   // this warp's first query
+  const int row0 = wrow + (lane >> 2);             // this thread's queries: row0, row0 + 8
+  const int t4 = lane & 3;                         // and keys t4, t4 + 4 of each 8
+  const float c = scale * kLog2e;
 
-  const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
-
-  for_tile<DP>(qb, sq, q0, kBlockQ, seq, dh,
-               [&](int t, int d, float x) { qt[d * kQPad + t] = x * (scale * kLog2e); });
-
-  float m[4], l[4], acc[4][NC];   // m in the log2 domain
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
   const int q_last = min(q0 + kBlockQ, seq) - 1;
-  const int k_end = causal ? q_last + 1 : seq;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();
-    for_tile<DP>(kb, sk, k0, kBlockK, seq, dh,
-                 [&](int t, int d, float x) { kt[d * kKPad + t] = x; });
-    for_tile<DP>(vb, sv, k0, kBlockK, seq, dh,
-                 [&](int t, int d, float x) { vs[t * (DP + 1) + d] = x; });
-    __syncthreads();
+  const int n_k = ((causal ? q_last + 1 : seq) + kBlockK - 1) / kBlockK;
 
-    // S micro-tile: rows r0..r0+3, keys tx + 16 j.
-    float s[4][kKPT];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kKPT; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qt[d * kQPad + r0]);
-      float bk[kKPT];
-#pragma unroll
-      for (int j = 0; j < kKPT; ++j) bk[j] = kt[d * kKPad + tx + kTX * j];
-#pragma unroll
-      for (int j = 0; j < kKPT; ++j) {
-        s[0][j] = fmaf(a.x, bk[j], s[0][j]);
-        s[1][j] = fmaf(a.y, bk[j], s[1][j]);
-        s[2][j] = fmaf(a.z, bk[j], s[2][j]);
-        s[3][j] = fmaf(a.w, bk[j], s[3][j]);
-      }
-    }
+  stage_tile_f32<DP, kTf32Threads>(ks, kb, sk, mode_k, 0, seq, dh);
+  stage_tile_f32<DP, kTf32Threads>(vs, vb, sv, mode_v, 0, seq, dh);
+  cp_async_commit();
 
-    // Online softmax per row; a row's 64 scores sit on 16 lanes (tx).
+  const F32Reads<DP> kr(kdh), vr(vdh);
+  HeldA<NK, true> qa;   // Q split once (DP <= 48)
+  qa.load(q + b * sq.b + h * sq.h, sq, wrow, seq, dh);
+  float m[2] = {kNegInf, kNegInf};   // running max, log2 domain, quad-uniform
+  float l[2] = {0.f, 0.f};           // this thread's share of the running sum
+  float acc[NK][4];                  // O, rescaled and summed in rounded fp32
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + r0 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kKPT; ++j) {
-        const int kp = k0 + tx + kTX * j;
-        const bool visible = kp < seq && (!causal || kp <= qpos);
-        s[i][j] = visible ? s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < kTX; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = exp2f(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKPT; ++j) {
-        const float p = s[i][j] == kNegInf ? 0.f : exp2f(s[i][j] - m_new);
-        s[i][j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 1; off < kTX; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+  for (int n = 0; n < NK; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < n_k) {
+      stage_tile_f32<DP, kTf32Threads>(ks + (buf ^ 1) * TF, kb, sk, mode_k, (kt + 1) * kBlockK,
+                                       seq, dh);
+      stage_tile_f32<DP, kTf32Threads>(vs + (buf ^ 1) * TF, vb, sv, mode_v, (kt + 1) * kBlockK,
+                                       seq, dh);
     }
-#pragma unroll
-    for (int j = 0; j < kKPT; ++j) {
-      *reinterpret_cast<float4*>(&ps[(tx + kTX * j) * kQPad + r0]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile's K and V (the next tile's in flight)
     __syncthreads();
+    const float* kt_s = ks + buf * TF;
+    const float* vt_s = vs + buf * TF;
 
-    // O micro-tile: rows r0..r0+3, dims tx + 16 c.
-#pragma unroll 8
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(&ps[kk * kQPad + r0]);
+#pragma unroll 1
+    for (int sub = 0; sub < kBlockK; sub += kTf32Sub) {
+      const int key_base = kt * kBlockK + sub;
+      // Rows past seq, and keys after every one of this warp's rows, are skipped.
+      if (wrow >= seq || (causal && key_base > wrow + 15)) continue;
+      const int k_at = f32_at<DP>(kdh, sub, 0), v_at = f32_at<DP>(vdh, sub, 0);
+      // S = Q K^T: this warp's 16 queries x kTf32Sub keys.
+      float s[NS][4];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = vs[kk * (DP + 1) + tx + 16 * c];
-        acc[0][c] = fmaf(p.x, vv, acc[0][c]);
-        acc[1][c] = fmaf(p.y, vv, acc[1][c]);
-        acc[2][c] = fmaf(p.z, vv, acc[2][c]);
-        acc[3][c] = fmaf(p.w, vv, acc[3][c]);
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll(NK <= 6 ? NK : 2)
+      for (int kk = 0; kk < NK; ++kk) {
+        const Tf32Frag<4> qf = qa.get(kk);
+        Tf32Frag<2> bk[NS];
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          bk[j] = f32_b_scores<DP>(kt_s + k_at, kdh, kr.scores, 8 * j, 8 * kk);
+        }
+        mma_3xtf32<NS, false>(s, qf, bk, nullptr, qf, bk);
+      }
+
+      // Scale to the log2 domain; mask only where the step meets the causal
+      // diagonal or the ragged edge.
+      const bool edge = wrow + 16 > seq ||
+                        (causal ? key_base + kTf32Sub - 1 > wrow : key_base + kTf32Sub > seq);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key_base + 8 * j + t4 + 4 * (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          const bool visible = !edge || (row < seq && (causal ? key <= row : key < seq));
+          s[j][e] = visible ? s[j][e] * c : kNegInf;
+        }
+      }
+
+      // Online softmax on the two rows this thread holds.
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        alpha[i] = fast_exp2(m[i] - m_new);
+        m[i] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+          for (int e = 2 * i; e < 2 * i + 2; ++e) {
+            const float p = s[j][e] == kNegInf ? 0.f : fast_exp2(s[j][e] - m_new);
+            s[j][e] = p;
+            sum += p;
+          }
+        }
+        l[i] = l[i] * alpha[i] + sum;
+      }
+
+      // O = O alpha + P V, P's accumulators as A fragments: NC n-tiles of
+      // dims at a time, summed over the step in fresh accumulators.
+      Tf32Frag<4> pf[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        float a[4];
+        acc_a(a, s[j]);
+        pf[j] = split_frag(a);
+      }
+#pragma unroll
+      for (int n0 = 0; n0 < NK; n0 += NC) {
+        float part[NC][4] = {};
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          Tf32Frag<2> bv[NC];
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            bv[i] = f32_b_grads<DP>(vt_s + v_at, vdh, vr.grads, 8 * j, 8 * (n0 + i));
+          }
+          mma_3xtf32<NC, false>(part, pf[j], bv, nullptr, pf[j], bv);
+        }
+#pragma unroll
+        for (int i = 0; i < NC; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[n0 + i][e] = __fadd_rn(__fmul_rn(acc[n0 + i][e], alpha[e >> 1]), part[i][e]);
+          }
+        }
       }
     }
+    __syncthreads();   // buffer `buf` is refilled at the next iteration
   }
 
+  // Epilogue: the row sums over the quad, O / l and lse through strides.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + r0 + i;
-    if (qpos >= seq) continue;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const float safe = (l[i] == 0.f) ? 1.f : l[i];
-    float* ob = o + b * so.b + h * so.h + qpos * so.t;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < dh) ob[d * so.d] = acc[i][c] / safe;
+    const int row = row0 + 8 * i;
+    if (t4 == 0 && row < seq) {
+      lse[static_cast<long long>(bh) * seq + row] = m[i] * kLn2 + logf(safe);
     }
-    if (tx == 0) lse[static_cast<long long>(bh) * seq + qpos] = m[i] * kLn2 + logf(safe);
+    const float inv = 1.f / safe;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      acc[n][2 * i] *= inv;
+      acc[n][2 * i + 1] *= inv;
+    }
   }
+  store_acc_f32<NK>(o + b * so.b + h * so.h, so, wrow, seq, dh, acc);
 }
 
 // ------------------------------------------------------ bf16 tensor cores
@@ -415,21 +457,34 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_tile<DP, kMmaThreads>(o + b * so.b + h * so.h, so, md.o, qs, q0, seq, dh);
 }
 
-template <int DP>
-cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, float* lse,
-                       int batch, int heads, int seq, int dh, const Strides* s, float scale,
-                       int causal, cudaStream_t stream) {
-  constexpr int smem = 4 * smem_floats<DP>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
+template <int DP, int L>
+cudaError_t launch_tf32_l(const void* q, const void* k, const void* v, void* o, float* lse,
+                          int batch, int heads, int seq, int dh, const Strides* s, int mode_k,
+                          int mode_v, float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = fwd_tf32_smem_bytes<DP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32_kernel<DP, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(batch * heads, (seq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_tf32_kernel<DP, L><<<grid, kTf32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, heads, seq, dh, s[0], s[1], s[2], s[3], scale, causal);
+      static_cast<float*>(o), lse, heads, seq, dh, s[0], s[1], s[2], s[3], mode_k, mode_v, scale,
+      causal);
   return cudaGetLastError();
+}
+
+// The fp32 kernel for head dim DP (48, 64 or 128), its layout parameter from
+// the modes of K and V.
+template <int DP>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int batch, int heads, int seq, int dh, const Strides* s, float scale,
+                        int causal, cudaStream_t stream) {
+  const int mk = operand_mode_f32(k, s[1], seq, dh), mv = operand_mode_f32(v, s[2], seq, dh);
+  const int lk = mk & kDhMajor;
+  auto run = (mv & kDhMajor) != lk ? launch_tf32_l<DP, kAnyLayout>
+             : lk                  ? launch_tf32_l<DP, kDhMajor>
+                                   : launch_tf32_l<DP, 0>;
+  return run(q, k, v, o, lse, batch, heads, seq, dh, s, mk, mv, scale, causal, stream);
 }
 
 template <int DP, int L>
@@ -469,8 +524,8 @@ cudaError_t dispatch(bool bf, const void* q, const void* k, const void* v, void*
   case n:                                                                              \
     return bf ? launch_mma<16 * n>(q, k, v, o, lse, batch, heads, seq, dh, s, scale,   \
                                    causal, st)                                         \
-              : launch_fma<16 * n>(q, k, v, o, lse, batch, heads, seq, dh, s, scale,   \
-                                   causal, st);
+              : launch_tf32<tf32_dp(16 * n)>(q, k, v, o, lse, batch, heads, seq, dh, s,  \
+                                             scale, causal, st);
   switch ((dh + 15) / 16) {
     DDL_CASE(1)
     DDL_CASE(2)

@@ -1,5 +1,5 @@
-// Tensor-core building blocks for the port's fp32 attention-gradient kernels
-// on Hopper (sm_90a): mma.sync m16n8k8 on TF32 operands with fp32
+// Tensor-core building blocks for the port's fp32 attention kernels (the
+// forward, dQ and dK/dV) on Hopper (sm_90a): mma.sync m16n8k8 on TF32 operands with fp32
 // accumulators, the split of an fp32 value into TF32 hi and lo parts for
 // 3xTF32 products (a.b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi, within a few
 // units of fp32's last place, where one TF32 product keeps ~3 digits), and
@@ -220,6 +220,7 @@ __device__ __forceinline__ Tf32Frag<2> f32_b_scores(const float* tile, bool dhm,
 
 // A gradient product's B fragment from a tile: positions p0 + t and
 // p0 + t + 4, dims d0 + g (p0, d0 multiples of 8; base: F32Reads::grads).
+// The forward's O += P.V reads V this way too.
 template <int DP>
 __device__ __forceinline__ Tf32Frag<2> f32_b_grads(const float* tile, bool dhm, int base, int p0,
                                                    int d0) {
@@ -241,6 +242,50 @@ __device__ __forceinline__ void load_a_f32(float (&x)[4], const float* __restric
     x[e] = (row < seq && d < dh) ? src[row * s.t + d * s.d] : 0.f;
   }
 }
+
+// n-tiles of the head dim per pass of a product into the head dim: 3 or 4,
+// as many independent accumulators as its B fragments' registers allow.
+template <int NK>
+__host__ __device__ constexpr int grad_chunk() {
+  return NK % 3 == 0 ? 3 : 4;
+}
+
+// A warp's held A fragments over the head dim (NK k-steps of 8), rows r0 + g
+// and r0 + g + 8 of one head: in registers up to DP = 48, split into hi and
+// lo once (kHoldLo) or held as fp32 and split at each use; a wider head
+// reads them again from device memory (L1) at each use, so that no kernel
+// spills.
+template <int NK, bool kHoldLo>
+struct HeldA {
+  static constexpr bool kRegs = NK <= 6;
+  Tf32Frag<4> f[kRegs ? NK : 1];
+  float x[kRegs ? NK : 1][4];
+  const float* src;
+  Strides s;
+  int r0, seq, dh;
+
+  __device__ __forceinline__ void load(const float* __restrict__ src_, const Strides& s_, int r0_,
+                                       int seq_, int dh_) {
+    src = src_, s = s_, r0 = r0_, seq = seq_, dh = dh_;
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        load_a_f32(x[kk], src, s, r0, seq, dh, kk);
+        if (kHoldLo) f[kk] = split_frag(x[kk]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ Tf32Frag<4> get(int kk) const {
+    if constexpr (kRegs) {
+      return kHoldLo ? f[kk] : split_frag(x[kk]);
+    } else {
+      float v[4];
+      load_a_f32(v, src, s, r0, seq, dh, kk);
+      return split_frag(v);
+    }
+  }
+};
 
 // A thread's running sums of ND accumulator fragments, kept in shared memory
 // (element (n, e) at sums[(4 n + e) NT + threadIdx.x]: a warp's lanes on

@@ -8,10 +8,10 @@ and ``_fwd_kernel_t``), and the backward ``csrc/flash_bwd.cu``, one dQ
 kernel (``_dq_kernel``, ``_dq_kernel_t``) and one dK/dV kernel
 (``_dkv_kernel``, ``_dkv_kernel_t``). In bf16 all three run on the tensor
 cores (``mma.sync`` through ``csrc/mma_bf16.cuh``, P and dS rounded to bf16
-before their products, fp32 accumulation). In fp32 the forward is FMA code
-in full fp32, and the two backward kernels run on the tensor cores in
-3xTF32 (``csrc/mma_tf32.cuh``: three TF32 products per fp32 one, within a
-few 1e-6 of fp32). The public function keeps the JAX API: ``[B, T, H, Dh]``
+before their products, fp32 accumulation). In fp32 all three run on the
+tensor cores in 3xTF32 (``csrc/mma_tf32.cuh``: three TF32 products per fp32
+one, within a few 1e-6 of fp32). The kernels take head dims 1 to
+``MAX_HEAD_DIM``. The public function keeps the JAX API: ``[B, T, H, Dh]``
 in and out, differentiable.
 
 - ``flash_attention`` runs the kernels for CUDA tensors (forward, and on
@@ -38,6 +38,9 @@ import torch
 from . import _ext
 
 _NEG_INF = -1e30
+# The head dims the CUDA kernels take (csrc/flash_fwd.cu, csrc/flash_bwd.cu):
+# the wrappers refuse others, and models/llama.py routes "auto" by it.
+MAX_HEAD_DIM = 128
 
 launches = 0        # forward kernel
 dq_launches = 0     # backward dQ kernel
@@ -67,6 +70,18 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype).permute(0, 2, 1, 3), lse
 
 
+def kernel_takes(head_dim: int) -> bool:
+    """Whether the CUDA kernels take heads of ``head_dim``:
+    ``1 <= head_dim <= MAX_HEAD_DIM``."""
+    return 1 <= head_dim <= MAX_HEAD_DIM
+
+
+def _check_head_dim(dh: int, what: str) -> None:
+    if not kernel_takes(dh):
+        raise ValueError(f"{what} takes head dims 1..{MAX_HEAD_DIM} "
+                         f"(MAX_HEAD_DIM), got {dh}")
+
+
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, T, H, Dh] shape, got "
@@ -89,8 +104,7 @@ def _launch(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
     if q4.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernel takes float32 or bfloat16, got "
                         f"{q4.dtype}")
-    if not 1 <= dh <= 128:
-        raise ValueError(f"flash kernel takes head dims 1..128, got {dh}")
+    _check_head_dim(dh, "flash kernel")
     for x in (k4, v4, o4):
         if (x.shape, x.dtype, x.device) != (q4.shape, q4.dtype, q4.device):
             raise ValueError("flash kernel operands must share shape, dtype "
@@ -192,8 +206,7 @@ def _launch_bwd(fn_name: str, ops, grads, lse: torch.Tensor,
     if q4.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash backward takes float32 or bfloat16, got "
                         f"{q4.dtype}")
-    if not 1 <= dh <= 128:
-        raise ValueError(f"flash backward takes head dims 1..128, got {dh}")
+    _check_head_dim(dh, "flash backward")
     for x in (*ops, *grads):
         if (x.shape, x.dtype, x.device) != (q4.shape, q4.dtype, q4.device):
             raise ValueError("flash backward operands must share shape, "

@@ -31,7 +31,7 @@ from ..checkpoint import Checkpointer
 from ..config import LlamaConfig, ResilienceConfig, TrainConfig
 from ..device import fp32_products, synchronize
 from ..models import llama
-from ..ops import flash_attention as fa
+from ..ops import _ext, flash_attention as fa
 from ..telemetry import introspect
 from ..telemetry.comm import CommProfile, collecting, measure_comm
 from ..ops import pallas_adam as padam
@@ -1618,6 +1618,27 @@ def _trainer_run(tcfg: TrainConfig, directory: str, device,
     return out
 
 
+# Phase 16f's trainers at vocab 259: ``train_llm_dp`` at a world of one
+# (``TRAIN_16F``) and ``train_llm_tp`` on two ranks (``TP_16F``).
+TRAIN_16F = dict(iters=20, batch_size=4, optimizer="pallas")
+TP_16F = dict(TRAIN_16F, model=2, steps_per_dispatch=2)
+
+
+def trainer_pair(directory: str, libraries=None, *, device) -> dict:
+    """Phase 16f's ``train_llm_tp`` pair (``TP_16F``) on this rank of two:
+    ``"trainer"`` with ``psa="int8_ef"`` and ``"trainer_plain"`` with
+    ``psa=""``, each ``_trainer_run``'s report, telemetry under
+    ``directory``. ``libraries``: a directory of ``libflash_fwd.so`` and
+    ``libflash_bwd.so`` built from other sources (``flash_ab``'s
+    variants), which this process then runs in place of the checkout's."""
+    if libraries is not None:
+        for name in ("flash_fwd", "flash_bwd"):
+            _ext.use(name, os.path.join(libraries, f"lib{name}.so"))
+    return {key: _trainer_run(TrainConfig(psa=psa, **TP_16F),
+                              os.path.join(directory, f"tel16f{psa}"), device)
+            for key, psa in (("trainer", "int8_ef"), ("trainer_plain", ""))}
+
+
 def phase16_two(tokens_check, directory: str, *, device) -> dict:
     """``chip_smoke.py`` phase 16 on each of two ranks, ``model=2`` on the
     one card: a. the fp32 check on ``tokens_check`` ``[4, 256]``
@@ -1698,11 +1719,7 @@ def phase16_two(tokens_check, directory: str, *, device) -> dict:
             tp._sharded_mask(params))) if not s)
     del states, cells, params, grads, whole
 
-    for key, psa in (("trainer", "int8_ef"), ("trainer_plain", "")):
-        out[key] = _trainer_run(TrainConfig(
-            iters=20, model=2, batch_size=4, psa=psa, steps_per_dispatch=2,
-            optimizer="pallas"), os.path.join(directory, f"tel16f{psa}"),
-            device)
+    out.update(trainer_pair(directory, device=device))
     return out
 
 

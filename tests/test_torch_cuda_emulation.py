@@ -60,10 +60,11 @@ def binaries(tmp_path_factory):
         pytest.skip("no g++ to build the CPU emulation of the CUDA kernels")
     work = tmp_path_factory.mktemp("cuda_emu")
     _prepare(_ext._CSRC, work)
-    # bwd_hi_only: the fp32 kernels with one TF32 product (hi * hi) per
+    # *_hi_only: the fp32 kernels with one TF32 product (hi * hi) per
     # 3xTF32 step, which the emulated tensor cores must show off fp32.
     procs = {}
     for name, flags in (("fwd", ["-DEMU_FWD"]), ("bwd", []),
+                        ("fwd_hi_only", ["-DEMU_FWD", "-DDDL_TF32_HI_ONLY"]),
                         ("bwd_hi_only", ["-DDDL_TF32_HI_ONLY"])):
         out = work / f"emu_{name}"
         procs[name] = (out, subprocess.Popen(
@@ -98,7 +99,20 @@ FWD_CASES = [
     (100, 40, 1, 0, 0, 0, 0, 0, 0),
     (100, 44, 1, 1, 1, 1, 0, 0, 1),
     (130, 128, 1, 1, 1, 1, 1, 0, 1),
+    # fp32 (3xTF32 on the emulated tensor cores), the same coverage, Dh 16
+    # and 64, and one long row: the last rows of T=512 sum 512 keys over 8
+    # tiles of the truncating tensor-core sums.
     (100, 48, 0, 1, 1, 1, 1, 0, 1),
+    (100, 48, 0, 0, 0, 0, 0, 0, 1),
+    (200, 48, 0, 1, 1, 1, 1, 0, 0),
+    (200, 48, 0, 0, 1, 0, 1, 0, 1),
+    (64, 48, 0, 1, 0, 1, 0, 1, 1),
+    (100, 40, 0, 0, 0, 0, 0, 0, 0),
+    (100, 44, 0, 1, 1, 1, 0, 0, 1),
+    (130, 128, 0, 1, 1, 1, 1, 0, 1),
+    (100, 16, 0, 0, 0, 0, 0, 0, 1),
+    (100, 64, 0, 0, 1, 0, 1, 0, 1),
+    (512, 48, 0, 1, 1, 1, 1, 0, 1),
 ]
 
 
@@ -146,6 +160,18 @@ BWD_CASES = [
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_bwd_kernels_under_emulation(binaries, case):
     _run(binaries["bwd"], *case)
+
+
+def test_flash_fwd_fp32_needs_the_lo_products(binaries):
+    """With one TF32 product per step (no lo parts) the fp32 forward's
+    output misses the 1e-4 limit that 3xTF32 holds."""
+    proc = subprocess.run(
+        [str(binaries["fwd_hi_only"]),
+         *map(str, (100, 48, 0, 1, 1, 1, 1, 0, 1))],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1, proc.stdout + proc.stderr[-4000:]
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("out "))
+    assert line.endswith("MISS"), proc.stdout
 
 
 def test_flash_bwd_fp32_needs_the_lo_products(binaries):
